@@ -1,0 +1,25 @@
+"""Configuration: the port's own copy of the dataclasses and YAML loading."""
+
+from dtc_tpu_torch.config.loader import (
+    load_serve_config,
+    load_yaml_dataclass,
+    parse_yaml,
+)
+from dtc_tpu_torch.config.schema import (
+    DTYPE_BYTES,
+    AdapterConfig,
+    ChaosConfig,
+    ModelConfig,
+    ServeConfig,
+    SloConfig,
+    SpecConfig,
+    StreamRetryConfig,
+    WatchdogConfig,
+)
+
+__all__ = [
+    "DTYPE_BYTES", "AdapterConfig", "ChaosConfig", "ModelConfig",
+    "ServeConfig", "SloConfig", "SpecConfig", "StreamRetryConfig",
+    "WatchdogConfig", "load_serve_config", "load_yaml_dataclass",
+    "parse_yaml",
+]

@@ -1,0 +1,334 @@
+"""GPT model in PyTorch: decoder-only pre-LN GPT-2-style transformer with
+learned absolute positions, separate q/k/v projections and a GELU MLP.
+
+Module tree mirrors the JAX package's ``{embed, stage, head}`` split:
+``GPT.embed`` (:class:`GPTEmbed`), ``GPT.stage.blocks[i]``
+(:class:`Block`), ``GPT.head`` (:class:`GPTHead`);
+``dtc_tpu_torch.parity.from_flax`` maps a flax parameter tree onto it.
+
+Numerics copy the reference, not PyTorch's defaults: LayerNorm in fp32
+with eps 1e-6 and variance ``E[x²] - E[x]²``, cast to the compute dtype
+after; GELU is the tanh approximation; Dense layers run in the compute
+dtype with parameters cast from the parameter dtype; the residual stream
+stays in the compute dtype; the embedding sum is cast after the add; head
+logits are in the compute dtype with pad columns at -1e9.
+
+Decode: :meth:`GPT.forward` with a ``cache`` dict (see
+``dtc_tpu_torch.generate.init_cache``) writes each layer's new k/v into
+the packed ``(L, B, S, H·D)`` cache at the write frontier
+``cache["index"]`` (``()`` or ``(B,)``) and attends over it. The K/V
+buffers are written in place (a functional update would copy the whole
+cache every token); the frontier is returned as a new tensor, so a caller
+holding the old cache dict can re-run the same step bit-exactly.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from dtc_tpu_torch.config.schema import ModelConfig
+from dtc_tpu_torch.ops import decode_attention as fused
+from dtc_tpu_torch.ops.attention import decode_attention, dense_causal_attention
+from dtc_tpu_torch.ops.fused_ce import head_logits
+
+DTYPES = {
+    "float32": torch.float32, "bfloat16": torch.bfloat16,
+    "float16": torch.float16, "int8": torch.int8,
+}
+
+LN_EPS = 1e-6
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another. Raises when CUDA is asked for (explicitly or by default) and
+    there is no card — the port never drifts to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """flax's ``lecun_normal``: truncated normal at ±2σ, σ rescaled so the
+    truncated distribution has variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=float32)``: fp32 statistics with the
+    fast variance ``max(E[x²] - E[x]², 0)``, eps 1e-6, fp32 output."""
+
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(d, device=device))
+        self.bias = nn.Parameter(torch.zeros(d, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp_min((x * x).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + LN_EPS) * self.weight
+        return (x - mean) * mul + self.bias
+
+
+class Dense(nn.Module):
+    """``nn.Dense(dtype=compute, param_dtype=param)``: weight ``(out, in)``
+    and bias in the parameter dtype, both cast to the compute dtype."""
+
+    def __init__(self, d_in: int, d_out: int, cfg: ModelConfig, device=None):
+        super().__init__()
+        pdt = DTYPES[cfg.param_dtype]
+        self.cdtype = DTYPES[cfg.compute_dtype]
+        self.weight = nn.Parameter(torch.empty(d_out, d_in, dtype=pdt, device=device))
+        self.bias = nn.Parameter(torch.zeros(d_out, dtype=pdt, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.cdtype
+        return F.linear(x.to(cd), self.weight.to(cd), self.bias.to(cd))
+
+
+def _cache_write(buf: torch.Tensor, update: torch.Tensor, idx: torch.Tensor) -> None:
+    """Write ``update`` (B, t, X) into ``buf`` (B, S, X) at the frontier, in
+    place. The start clamps to ``[0, S - t]`` as the reference's
+    ``dynamic_update_slice`` does, so an idle serving slot whose frontier
+    ran past the cache writes harmless garbage at the end of its own row
+    instead of faulting."""
+    b, s = buf.shape[0], buf.shape[1]
+    t = update.shape[1]
+    ar = torch.arange(t, device=buf.device)
+    start = idx.clamp(0, s - t)
+    if idx.ndim == 1:
+        pos = start[:, None].long() + ar[None]
+        buf[torch.arange(b, device=buf.device)[:, None], pos] = update
+    else:
+        buf.index_copy_(1, start.long() + ar, update)
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        self.q_proj = Dense(d, d, cfg, device)
+        self.k_proj = Dense(d, d, cfg, device)
+        self.v_proj = Dense(d, d, cfg, device)
+        self.out_proj = Dense(d, d, cfg, device)
+
+    def forward(self, x: torch.Tensor, cache: dict | None = None,
+                layer: int = 0, idx: torch.Tensor | None = None) -> torch.Tensor:
+        cfg = self.cfg
+        b, t, _ = x.shape
+        h, dh = cfg.n_heads, cfg.head_dim
+        hd = h * dh
+        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        if cache is None:
+            out = dense_causal_attention(
+                q.view(b, t, h, dh), k.view(b, t, h, dh), v.view(b, t, h, dh)
+            )
+        else:
+            ck, cv = cache["k"][layer], cache["v"][layer]
+            quant = cfg.kv_quantized
+            if quant:
+                cks, cvs = cache["k_scale"][layer], cache["v_scale"][layer]
+                kq, ksc = fused.quantize_kv(k, h)
+                vq, vsc = fused.quantize_kv(v, h)
+                _cache_write(ck, kq, idx)
+                _cache_write(cv, vq, idx)
+                _cache_write(cks, ksc, idx)
+                _cache_write(cvs, vsc, idx)
+            else:
+                _cache_write(ck, k.to(ck.dtype), idx)
+                _cache_write(cv, v.to(cv.dtype), idx)
+            s = ck.shape[1]
+            if cfg.decode_attention in ("fused", "fused_layers") and t == 1:
+                out = fused.fused_decode_attention(
+                    q.reshape(b, 1, hd), ck, cv, idx, h=h, d=dh,
+                    k_scale=cks if quant else None,
+                    v_scale=cvs if quant else None,
+                )
+            else:
+                cdt = DTYPES[cfg.compute_dtype]
+                if quant:
+                    k_full = fused.dequantize_kv(ck, cks, h, cdt)
+                    v_full = fused.dequantize_kv(cv, cvs, h, cdt)
+                else:
+                    k_full, v_full = ck, cv
+                out = decode_attention(
+                    q.view(b, t, h, dh), k_full.view(b, s, h, dh),
+                    v_full.view(b, s, h, dh), idx,
+                )
+        return self.out_proj(out.reshape(b, t, cfg.d_model))
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.fc1 = Dense(cfg.d_model, cfg.d_ff, cfg, device)
+        self.fc2 = Dense(cfg.d_ff, cfg.d_model, cfg, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+
+class Block(nn.Module):
+    """x + Attn(LN(x)); x + MLP(LN(x)), the residual in the compute dtype."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln_1 = LayerNorm(cfg.d_model, device)
+        self.attn = CausalSelfAttention(cfg, device)
+        self.ln_2 = LayerNorm(cfg.d_model, device)
+        self.mlp = MLP(cfg, device)
+
+    def forward(self, x, *, train: bool = False, cache=None, layer: int = 0, idx=None):
+        cd, p = DTYPES[self.cfg.compute_dtype], self.cfg.dropout
+        a = self.attn(self.ln_1(x).to(cd), cache, layer, idx)
+        x = x + F.dropout(a, p, training=train)
+        m = self.mlp(self.ln_2(x).to(cd))
+        return x + F.dropout(m, p, training=train)
+
+
+class GPTEmbed(nn.Module):
+    """Token + learned-position embedding (flax ``nn.Embed`` init: normal
+    with std 1/sqrt(d_model))."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        pdt = DTYPES[cfg.param_dtype]
+        self.wte = nn.Embedding(cfg.padded_vocab_size, cfg.d_model, dtype=pdt, device=device)
+        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.d_model, dtype=pdt, device=device)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                pos_offset: int | torch.Tensor = 0) -> torch.Tensor:
+        cfg = self.cfg
+        t = x.shape[1]
+        s = cfg.max_seq_len
+        tok = self.wte(x)
+        ar = torch.arange(t, device=x.device)
+        if isinstance(pos_offset, int) and pos_offset == 0:
+            pos = self.wpe.weight[:t][None]
+        elif pos_offset.ndim == 1:
+            # Per-slot positions. Rows past the table (an idle slot whose
+            # frontier ran on) clamp to the last row; their outputs are
+            # discarded by the caller.
+            rows = (pos_offset[:, None].long() + ar[None]).clamp(0, s - 1)
+            pos = self.wpe.weight[rows]
+        else:
+            start = pos_offset.clamp(0, s - t).long()
+            pos = self.wpe.weight[start + ar][None]
+        h = (tok + pos).to(DTYPES[cfg.compute_dtype])
+        return F.dropout(h, cfg.dropout, training=train)
+
+
+class GPTStage(nn.Module):
+    def __init__(self, cfg: ModelConfig, n_layers: int, device=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(n_layers))
+
+    def forward(self, h, *, train: bool = False, cache=None, idx=None):
+        for i, blk in enumerate(self.blocks):
+            h = blk(h, train=train, cache=cache, layer=i, idx=idx)
+        return h
+
+
+class GPTHead(nn.Module):
+    """Final LayerNorm + LM head; weight ``(V_padded, d)``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        pdt = DTYPES[cfg.param_dtype]
+        self.ln_f = LayerNorm(cfg.d_model, device)
+        self.lm_head = nn.Module()
+        self.lm_head.weight = nn.Parameter(
+            torch.empty(cfg.padded_vocab_size, cfg.d_model, dtype=pdt, device=device)
+        )
+        self.lm_head.bias = nn.Parameter(
+            torch.zeros(cfg.padded_vocab_size, dtype=pdt, device=device)
+        )
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        hc = self.ln_f(h).to(DTYPES[self.cfg.compute_dtype])
+        return head_logits(hc, self.lm_head.weight, self.lm_head.bias, self.cfg.vocab_size)
+
+
+class GPT(nn.Module):
+    """Full decoder-only GPT on ``device`` (``cuda`` unless named), its
+    parameters drawn from flax's initializer distributions with a
+    generator seeded by ``seed``. Mixture-of-experts and LoRA adapters are
+    not ported yet and raise ``NotImplementedError``."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
+        super().__init__()
+        if cfg.moe_experts > 0:
+            raise NotImplementedError("mixture-of-experts is not ported yet")
+        if cfg.adapter.rank > 0:
+            raise NotImplementedError("LoRA adapters are not ported yet")
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.embed = GPTEmbed(cfg, dev)
+        self.stage = GPTStage(cfg, cfg.n_layers, dev)
+        self.head = GPTHead(cfg, dev)
+        self.reset_parameters(seed)
+
+    @property
+    def device(self) -> torch.device:
+        return self.head.lm_head.weight.device
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0) -> None:
+        """flax's initializers: Dense kernels ``lecun_normal``, biases and
+        LayerNorm biases zero, LayerNorm scales one, embeddings normal
+        with std 1/sqrt(d_model)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        std = 1.0 / math.sqrt(self.cfg.d_model)
+        for emb in (self.embed.wte, self.embed.wpe):
+            emb.weight.normal_(0.0, std, generator=gen)
+        for mod in self.modules():
+            if isinstance(mod, Dense):
+                _lecun_normal_(mod.weight, mod.weight.shape[1], gen)
+                mod.bias.zero_()
+            elif isinstance(mod, LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        _lecun_normal_(self.head.lm_head.weight, self.cfg.d_model, gen)
+        self.head.lm_head.bias.zero_()
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                cache: dict | None = None):
+        """Logits ``(B, T, V_padded)`` for tokens ``x`` (B, T). With
+        ``cache`` (decode), returns ``(logits, new_index)``: the tokens are
+        appended at the cache's write frontier, whose advanced value is
+        ``new_index``. The caller keeps the cumulative length within
+        ``max_seq_len``."""
+        if cache is None:
+            h = self.embed(x, train=train)
+            return self.head(self.stage(h, train=train))
+        idx = cache["index"]
+        h = self.embed(x, train=False, pos_offset=idx)
+        h = self.stage(h, cache=cache, idx=idx)
+        return self.head(h), idx + x.shape[1]
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Exact base parameter count from the config."""
+    d, v, L, f, s = cfg.d_model, cfg.padded_vocab_size, cfg.n_layers, cfg.d_ff, cfg.max_seq_len
+    embed = v * d + s * d
+    if cfg.moe_experts > 0:
+        e = cfg.moe_experts
+        ffn = d * e + e * (d * f + f + f * d + d)
+    else:
+        ffn = (d * f + f) + (f * d + d)
+    per_block = 4 * (d * d + d) + ffn + 4 * d
+    head = 2 * d + (d * v + v)
+    return embed + L * per_block + head

@@ -1,0 +1,143 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``. The
+library goes to ``build/dtc_tpu_torch/`` at the repository root, named
+with a hash of the sources and flags, so a changed source rebuilds and an
+unchanged one loads. :func:`build_all` starts one ``nvcc`` per source at
+once. Nothing builds at import: the first launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dtc_tpu_torch"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+#: The C signature of each library's entry point: (function, argtypes).
+_SIGNATURES = {
+    "decode_attention": (
+        "dtc_decode_attention",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    ),
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, else ``PATH``, else
+    ``/usr/local/cuda/bin``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(home) / "bin" / "nvcc"] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources(name: str) -> list[Path]:
+    main = CSRC / f"{name}.cu"
+    if not main.is_file():
+        raise FileNotFoundError(main)
+    return [main] + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(name):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def log_path(name: str) -> Path:
+    """The compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills) of the last build of ``name``."""
+    return library_path(name).with_suffix(".log")
+
+
+def _start(name: str):
+    """Start ``nvcc`` for ``name`` unless its library exists; returns
+    (process or None, temporary output path)."""
+    lib = library_path(name)
+    if lib.is_file():
+        return None, None
+    cmd = [nvcc(), *NVCC_FLAGS]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    log = open(log_path(name), "w")
+    try:
+        proc = subprocess.Popen(
+            cmd + ["-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=log, stderr=subprocess.STDOUT,
+        )
+    except OSError:
+        log.close()
+        raise
+    proc.log = log  # closed when the build is reaped
+    return proc, tmp
+
+
+def _finish(name: str, proc, tmp) -> None:
+    if proc is None:
+        return
+    rc = proc.wait()
+    proc.log.close()
+    if rc != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed for {name} (rc {rc}):\n{log_path(name).read_text()}"
+        )
+    os.replace(tmp, library_path(name))
+
+
+def build_all(names=None) -> dict[str, float]:
+    """Build every kernel library that is missing, one ``nvcc`` per source
+    started together. Returns the wall seconds until each finished."""
+    names = list(names or _SIGNATURES)
+    t0 = time.perf_counter()
+    started = {n: _start(n) for n in names}
+    took = {}
+    for n, (proc, tmp) in started.items():
+        _finish(n, proc, tmp)
+        took[n] = time.perf_counter() - t0
+    return took
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel ``name``, built first if missing."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
+    lib = ctypes.CDLL(str(library_path(name)))
+    fn_name, argtypes = _SIGNATURES[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    lib.dtc_error_string.argtypes = [ctypes.c_int]
+    lib.dtc_error_string.restype = ctypes.c_char_p
+    _loaded[name] = lib
+    return lib
+
+
+def error_string(lib: ctypes.CDLL, code: int) -> str:
+    return f"{code} ({lib.dtc_error_string(code).decode()})"

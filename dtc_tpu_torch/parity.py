@@ -1,0 +1,76 @@
+"""Carry a flax GPT parameter tree into the port's ``GPT``.
+
+The flax tree is ``{embed, stage, head}`` with every block parameter
+scan-stacked under ``stage/blocks/Block_0`` with a leading ``(L,)`` axis,
+and Dense kernels laid out ``(in, out)``. :func:`from_flax` unstacks the
+layers and transposes the kernels to ``nn.Linear``'s ``(out, in)``.
+Takes numpy arrays (``jax.tree.map(np.asarray, params)``), so this module
+needs neither jax nor flax.
+
+:func:`attention_tolerance` is the limit decode-attention outputs are held
+to when two implementations are compared (kernel vs plain version, port vs
+JAX package).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+#: float32 outputs differ by summation order only.
+FP32_ATOL = 1e-5
+#: bfloat16 outputs may differ by this many ulps of each head's largest
+#: |output|: rounding flips in p and in the output cast, not more (the
+#: JAX package's blocked kernel, which rounds p against a running max,
+#: sits 2.5 ulps from the one-pass plain version at S 4608).
+BF16_ULPS = 4
+
+
+def attention_tolerance(want: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Per-element limit on ``|got - want|`` for packed ``(..., H·D)``
+    attention outputs of ``want``'s dtype: :data:`FP32_ATOL` for float32;
+    for bfloat16, :data:`BF16_ULPS` ulps of the largest ``|want|`` among the
+    same head's D outputs (the ulp of x in [2^e, 2^(e+1)) is 2^(e-7)), so
+    the limit scales with the values it compares."""
+    if want.dtype == torch.float32:
+        return torch.full(want.shape, FP32_ATOL)
+    if want.dtype != torch.bfloat16:
+        raise ValueError(f"no tolerance for {want.dtype}")
+    *lead, hd = want.shape
+    heads = want.detach().float().cpu().reshape(*lead, n_heads, hd // n_heads)
+    _, e = torch.frexp(heads.abs().amax(dim=-1, keepdim=True))  # amax = m·2^e, m in [0.5, 1)
+    ulp = torch.exp2((e - 8).float())
+    return (BF16_ULPS * ulp).expand(heads.shape).reshape(want.shape)
+
+_DENSE = {
+    "attn.q_proj": ("attn", "q_proj"), "attn.k_proj": ("attn", "k_proj"),
+    "attn.v_proj": ("attn", "v_proj"), "attn.out_proj": ("attn", "out_proj"),
+    "mlp.fc1": ("mlp", "fc1"), "mlp.fc2": ("mlp", "fc2"),
+}
+
+
+def from_flax(params, cfg) -> dict[str, torch.Tensor]:
+    """A ``state_dict`` for :class:`dtc_tpu_torch.models.gpt.GPT` built
+    from a flax parameter tree of numpy arrays (CPU tensors; load with
+    ``model.load_state_dict``, which copies to the model's device)."""
+    def t(x):
+        return torch.from_numpy(np.array(x))
+
+    sd = {
+        "embed.wte.weight": t(params["embed"]["wte"]["embedding"]),
+        "embed.wpe.weight": t(params["embed"]["wpe"]["embedding"]),
+        "head.ln_f.weight": t(params["head"]["ln_f"]["scale"]),
+        "head.ln_f.bias": t(params["head"]["ln_f"]["bias"]),
+        "head.lm_head.weight": t(params["head"]["lm_head"]["kernel"]).T.contiguous(),
+        "head.lm_head.bias": t(params["head"]["lm_head"]["bias"]),
+    }
+    blk = params["stage"]["blocks"]["Block_0"]
+    for i in range(cfg.n_layers):
+        pre = f"stage.blocks.{i}."
+        for ln in ("ln_1", "ln_2"):
+            sd[pre + ln + ".weight"] = t(blk[ln]["scale"][i])
+            sd[pre + ln + ".bias"] = t(blk[ln]["bias"][i])
+        for name, (grp, layer) in _DENSE.items():
+            sd[pre + name + ".weight"] = t(blk[grp][layer]["kernel"][i]).T.contiguous()
+            sd[pre + name + ".bias"] = t(blk[grp][layer]["bias"][i])
+    return sd

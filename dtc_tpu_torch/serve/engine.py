@@ -1,0 +1,705 @@
+"""Continuous-batching serving engine over the paged KV cache.
+
+Orca-style iteration-level scheduling over a vLLM-style paged budget, on
+the model-native packed cache:
+
+- ONE decode step over ``cfg.slots`` fixed batch slots (the shared
+  :func:`dtc_tpu_torch.generate.decode_step`, driven with a per-slot
+  ``(slots,)`` frontier vector). Requests enter and leave slots at
+  iteration boundaries by copying a cache row.
+- Admission = a batch-1 prefill on a side cache, the prompt right-padded
+  to ``prefill_bucket``, then one device-side copy into the slot row with
+  the frontier pinned to the VALID length. A shared system prompt
+  (``Request.shared_prefix_len``) is prefilled once into the prefix store
+  and reused by every admission that matches it.
+- The paged allocator accounts every resident token in ``page_size``
+  blocks against one pool; exhaustion triggers eviction-and-re-prefill
+  (the victim re-queues with its generated tokens and greedy decode over
+  prompt + generated resumes it token for token).
+- Robustness: bounded queue with typed rejection, shedding past a
+  watermark, per-request deadlines (queued and mid-decode), a
+  max_new_tokens cap past the degrade watermark, transient-fault retry
+  of a step whose logits read non-finite (from the pre-step cache),
+  completed-page checksums verified on a cadence, and a hung-step
+  watchdog.
+
+Counters live in the plain dict ``counters`` under the JAX package's
+names (``serve_submitted``, ``serve_admissions``, ``serve_decode_steps``,
+...). Not ported yet, and refused at construction with
+``NotImplementedError``: speculative decoding, chaos injection, online
+SLO objectives, LoRA adapters and the ``fused_layers`` megakernel.
+
+Memory note: the K/V buffers are updated in place (see
+``models/gpt.py``); a retried step re-writes the same positions with the
+same values, so retries stay bit-exact.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import defaultdict, deque
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from dtc_tpu_torch.generate import decode_step, init_cache
+from dtc_tpu_torch.resilience.retry import retry_call
+from dtc_tpu_torch.resilience.watchdog import StepWatchdog
+from dtc_tpu_torch.serve.paged_cache import PageAllocator, kv_token_bytes, pages_for
+from dtc_tpu_torch.serve.request import (
+    TERMINAL_STATES,
+    DeadlineExceededError,
+    QueueFullError,
+    Request,
+    RequestFailedError,
+    RequestState,
+    RequestTooLargeError,
+    ServeResult,
+    ShedError,
+    TransientStepError,
+)
+
+
+def init_slot_cache(model, slots: int) -> dict:
+    """Decode cache for ``slots`` independent slots: the standard cache
+    with the scalar frontier replaced by a ``(slots,)`` vector."""
+    cache = init_cache(model, slots)
+    cache["index"] = torch.zeros((slots,), dtype=torch.int32, device=model.device)
+    return cache
+
+
+def _pad_to_bucket(tokens: list[int], bucket: int, limit: int) -> list[int]:
+    """Right-pad to the next bucket multiple, clamped to ``limit`` (the
+    remaining cache room)."""
+    n = len(tokens)
+    padded = min(((n + bucket - 1) // bucket) * bucket, limit)
+    return tokens + [0] * (padded - n)
+
+
+class _Slot:
+    """Host-side per-slot record: occupant, write frontier (tokens resident
+    in the cache row) and checksums of completed pages."""
+
+    __slots__ = ("rid", "frontier", "page_fp")
+
+    def __init__(self) -> None:
+        self.rid: str | None = None
+        self.frontier = 0
+        self.page_fp: dict[int, float] = {}
+
+
+class ServingEngine:
+    """Construct once per (model, config); ``submit()`` requests, then
+    drive ``step()`` (or ``run()``). Runs on the model's device."""
+
+    def __init__(
+        self,
+        model,
+        cfg,
+        *,
+        clock: Callable[[], float] = time.monotonic,
+        sleep: Callable[[float], None] = time.sleep,
+    ):
+        self.model = model
+        self.cfg = cfg
+        self.mcfg = model.cfg
+        self.device = model.device
+        self._refuse_unported()
+        self.clock = clock
+        self.sleep = sleep
+        self.counters: dict[str, int] = defaultdict(int)
+        self.hung_steps: deque[dict] = deque(maxlen=64)  # newest watchdog flags
+        self.watchdog = (
+            StepWatchdog(cfg.watchdog) if cfg.watchdog.enabled else None
+        )
+        self._track_pages = cfg.verify_pages_every > 0
+
+        if cfg.pool_hbm_bytes > 0:
+            pool = max(
+                1,
+                cfg.pool_hbm_bytes
+                // (cfg.page_size * kv_token_bytes(self.mcfg)),
+            )
+        else:
+            pool = cfg.total_pages or cfg.slots * pages_for(
+                self.mcfg.max_seq_len, cfg.page_size
+            )
+        self.alloc = PageAllocator(pool, cfg.page_size)
+
+        self.cache = init_slot_cache(model, cfg.slots)
+        self.slots = [_Slot() for _ in range(cfg.slots)]
+        self.last_tok = np.zeros((cfg.slots,), np.int32)
+
+        self.queue: list[Request] = []
+        self.requests: dict[str, Request] = {}
+        self.results: dict[str, ServeResult] = {}
+        self._eff_max_new: dict[str, int] = {}
+        self._deadline: dict[str, float] = {}
+        self._prefix_store: dict[tuple, tuple[dict, int]] = {}
+        self._retry_scope: list[str] = []
+        self._it = 0
+        self._worked = False
+        self._fps_memo: np.ndarray | None = None
+
+    def _refuse_unported(self) -> None:
+        cfg, mcfg = self.cfg, self.mcfg
+        if getattr(mcfg, "debug_checks", False):
+            raise ValueError(
+                "ServingEngine does not support model debug_checks=True"
+            )
+        unported = []
+        if cfg.spec.enabled:
+            unported.append("speculative decoding (serve spec)")
+        if cfg.chaos.enabled:
+            unported.append("chaos injection (serve chaos)")
+        if cfg.slo.any_objective:
+            unported.append("online SLO objectives (serve slo)")
+        if mcfg.adapter.rank > 0:
+            unported.append("LoRA adapters (model adapter.rank > 0)")
+        if mcfg.decode_attention == "fused_layers":
+            unported.append("decode_attention 'fused_layers'")
+        if unported:
+            raise NotImplementedError(
+                "not ported yet: " + ", ".join(unported)
+            )
+
+    # ------------------------------------------------------------------
+    # submission (admission control)
+    # ------------------------------------------------------------------
+    def _pages_needed(self, n_tokens: int) -> int:
+        return pages_for(n_tokens, self.cfg.page_size)
+
+    def submit(self, req: Request) -> str:
+        """Enqueue one request. Typed backpressure: raises
+        :class:`QueueFullError` past ``queue_depth`` and
+        :class:`RequestTooLargeError` for requests that could never run. A
+        ``rid`` may be reused only once its previous submission is
+        terminal."""
+        if req.rid in self.requests:
+            raise ValueError(
+                f"request {req.rid}: rid already in flight "
+                f"(state {self.results[req.rid].state.value})"
+            )
+        if req.adapter is not None:
+            raise NotImplementedError("LoRA adapters are not ported yet")
+        now = self.clock()
+        total = len(req.prompt) + req.max_new_tokens
+        if total > self.mcfg.max_seq_len:
+            self.counters["serve_rejected"] += 1
+            raise RequestTooLargeError(
+                f"request {req.rid}: prompt ({len(req.prompt)}) + "
+                f"max_new_tokens ({req.max_new_tokens}) exceeds max_seq_len "
+                f"({self.mcfg.max_seq_len})"
+            )
+        if self._pages_needed(total) > self.alloc.total_pages:
+            self.counters["serve_rejected"] += 1
+            raise RequestTooLargeError(
+                f"request {req.rid}: footprint {self._pages_needed(total)} "
+                f"pages exceeds the pool ({self.alloc.total_pages})"
+            )
+        if len(self.queue) >= self.cfg.queue_depth:
+            self.counters["serve_rejected"] += 1
+            raise QueueFullError(
+                f"request {req.rid}: queue at depth {self.cfg.queue_depth}"
+            )
+        self.requests[req.rid] = req
+        res = ServeResult(
+            rid=req.rid, state=RequestState.QUEUED, tokens=[], submitted_t=now,
+        )
+        self.results[req.rid] = res
+        ttl = self.cfg.deadline_s if req.deadline_s is None else req.deadline_s
+        self._deadline[req.rid] = now + ttl if ttl and ttl > 0 else float("inf")
+        self.queue.append(req)
+        self.counters["serve_submitted"] += 1
+        return req.rid
+
+    def drain_results(self) -> dict[str, ServeResult]:
+        """Remove and return every terminal result."""
+        done = {
+            rid: r for rid, r in self.results.items()
+            if r.state in TERMINAL_STATES
+        }
+        for rid in done:
+            del self.results[rid]
+        return done
+
+    # ------------------------------------------------------------------
+    # the scheduler iteration
+    # ------------------------------------------------------------------
+    def step(self) -> bool:
+        """One iteration: expiry, shedding and admission at the boundary,
+        page verification on its cadence, then one decode step over the
+        in-flight batch. Returns True while any request is queued or in
+        flight."""
+        self._it += 1
+        self._worked = False
+        t0 = self.clock()
+        self._expire()
+        self._shed()
+        self._admit()
+        if (
+            self.cfg.verify_pages_every > 0
+            and self._it % self.cfg.verify_pages_every == 0
+        ):
+            self._verify_pages()
+        self._ensure_pages()
+        self._decode()
+        if self.watchdog is not None and self._worked:
+            flag = self.watchdog.observe(self._it, self.clock() - t0)
+            if flag is not None:
+                self.counters["serve_hung_steps"] += 1
+                self.hung_steps.append(flag)
+        return bool(self.queue) or any(s.rid is not None for s in self.slots)
+
+    def run(self, *, max_steps: int = 100_000) -> dict[str, ServeResult]:
+        """Drive ``step()`` until idle or ``max_steps`` iterations this
+        call."""
+        for _ in range(max_steps):
+            if not self.step():
+                break
+        return self.results
+
+    # ------------------------------------------------------------------
+    # boundary phases
+    # ------------------------------------------------------------------
+    def _expire(self) -> None:
+        now = self.clock()
+        for req in list(self.queue):
+            if now > self._deadline[req.rid]:
+                self.queue.remove(req)
+                self._finish(
+                    req.rid, RequestState.EXPIRED,
+                    DeadlineExceededError(
+                        f"request {req.rid} expired after "
+                        f"{now - self.results[req.rid].submitted_t:.3f}s in queue"
+                    ),
+                )
+        for slot in self.slots:
+            if slot.rid is not None and now > self._deadline[slot.rid]:
+                rid = slot.rid
+                self._release_slot(rid)
+                self._finish(
+                    rid, RequestState.EXPIRED,
+                    DeadlineExceededError(
+                        f"request {rid} expired mid-decode (cancelled)"
+                    ),
+                )
+
+    def _shed(self) -> None:
+        wm = self.cfg.shed_watermark
+        if wm <= 0 or not self.queue:
+            return
+        target = int(wm * self.cfg.queue_depth)
+        while len(self.queue) > target:
+            if self.cfg.shed_policy == "longest_queued":
+                victim = min(
+                    self.queue, key=lambda r: self.results[r.rid].submitted_t
+                )
+            else:  # priority: lowest first, longest-queued within
+                victim = min(
+                    self.queue,
+                    key=lambda r: (r.priority, self.results[r.rid].submitted_t),
+                )
+            self.queue.remove(victim)
+            self._finish(
+                victim.rid, RequestState.SHED,
+                ShedError(
+                    f"request {victim.rid} shed under overload (queue "
+                    f"{len(self.queue) + 1} > watermark {target} of "
+                    f"{self.cfg.queue_depth})"
+                ),
+            )
+
+    def _admit(self) -> None:
+        while self.queue:
+            free = [i for i, s in enumerate(self.slots) if s.rid is None]
+            if not free:
+                return
+            # Highest priority first, FIFO within a priority.
+            cand = max(
+                self.queue,
+                key=lambda r: (r.priority, -self.results[r.rid].submitted_t),
+            )
+            seq = list(cand.prompt) + self.results[cand.rid].tokens
+            # Reserve through the first decode write.
+            need = self._pages_needed(len(seq) + 1)
+            if not self._make_room(need, cand.priority):
+                return
+            self.alloc.alloc(cand.rid, need)
+            self.queue.remove(cand)
+            self._do_admit(cand, free[0], seq)
+
+    def _make_room(self, need: int, priority: int) -> bool:
+        """Free pages for an admission: LRU prefix-store entries first, then
+        strictly-lower-priority active requests."""
+        while not self.alloc.can_fit(need):
+            key = self.alloc.evict_prefix_lru()
+            if key is None:
+                break
+            self._prefix_store.pop(key, None)
+            self.counters["serve_prefix_evictions"] += 1
+        while not self.alloc.can_fit(need):
+            victims = [
+                s.rid for s in self.slots
+                if s.rid is not None and self.requests[s.rid].priority < priority
+            ]
+            if not victims:
+                return False
+            victim = min(
+                victims,
+                key=lambda r: (
+                    self.requests[r].priority,
+                    -(self.results[r].admitted_t or 0.0),
+                ),
+            )
+            self._evict(victim, reason="admission_pressure")
+        return True
+
+    @staticmethod
+    def prefix_key(req: Request) -> tuple | None:
+        """The shared-prefix store key of this request (None when it
+        declares no usable prefix)."""
+        plen = min(req.shared_prefix_len, len(req.prompt) - 1)
+        if plen <= 0:
+            return None
+        return (req.adapter,) + tuple(int(t) for t in req.prompt[:plen])
+
+    def _prefix_base(self, req: Request) -> tuple[dict, int]:
+        """(base cache, base length) for this request's prefill: a copy of
+        the matching prefix-store entry (prefilled once), else a fresh
+        batch-1 cache."""
+        key = self.prefix_key(req)
+        if key is None:
+            return init_cache(self.model, 1), 0
+        plen = len(key) - 1
+        if key in self._prefix_store:
+            self.alloc.touch_prefix(key)
+            self.counters["serve_prefix_hits"] += 1
+            return self._copy_prefix(key)
+        n_pages = pages_for(plen, self.cfg.page_size)
+        fits = self.alloc.pin_prefix(key, n_pages)
+        while not fits:
+            lru = self.alloc.evict_prefix_lru()
+            if lru is None:
+                break
+            self._prefix_store.pop(lru, None)
+            fits = self.alloc.pin_prefix(key, n_pages)
+        if not fits:
+            return init_cache(self.model, 1), 0
+        padded = _pad_to_bucket(
+            [int(t) for t in req.prompt[:plen]], self.cfg.prefill_bucket,
+            self.mcfg.max_seq_len,
+        )
+        try:
+            cache, _tok = self._checked_prefill(init_cache(self.model, 1), padded, plen)
+        except TransientStepError:
+            self.alloc.drop_prefix(key)
+            raise
+        # The stored frontier is the VALID prefix length, not the padded
+        # one the prefill advanced it by.
+        cache["index"] = torch.tensor(plen, dtype=torch.int32, device=self.device)
+        self._prefix_store[key] = (cache, plen)
+        self.counters["serve_prefix_builds"] += 1
+        return self._copy_prefix(key)
+
+    def _copy_prefix(self, key: tuple) -> tuple[dict, int]:
+        # The suffix prefill writes its cache in place: give it a copy so
+        # the stored entry stays exactly the prefix.
+        cache, plen = self._prefix_store[key]
+        return {k: v.clone() for k, v in cache.items()}, plen
+
+    def _checked_prefill(self, base: dict, padded: list[int], n_valid: int):
+        """Prefill + finite check under the transient-fault retry. Returns
+        (cache, next token) — the token sampled from the last VALID row."""
+        prompt = torch.tensor([padded], dtype=torch.int32, device=self.device)
+
+        def attempt():
+            cache, logits = decode_step(self.model, base, prompt)
+            row = logits[0, n_valid - 1]
+            tok = torch.argmax(row, dim=-1).to(torch.int32)
+            fin = torch.isfinite(row.float()).all()
+            tok, fin = torch.stack([tok, fin.to(torch.int32)]).tolist()
+            if not fin:
+                raise TransientStepError("prefill produced non-finite logits")
+            self.counters["serve_prefills"] += 1
+            return cache, tok
+
+        r = self.cfg.retry
+        try:
+            return retry_call(
+                attempt, transient=(TransientStepError,),
+                max_attempts=r.max_attempts, backoff_s=r.backoff_s,
+                backoff_max_s=r.backoff_max_s, jitter=r.jitter,
+                max_elapsed_s=r.max_elapsed_s, on_event=self._on_retry_event,
+                sleep=self.sleep, clock=self.clock,
+            )
+        finally:
+            self._retry_scope = []
+
+    def _insert(self, row: dict, slot_i: int, n_tokens: int) -> None:
+        """Admission surgery: copy a prefilled batch-1 cache into slot row
+        ``slot_i`` and pin its frontier to ``n_tokens`` (the valid
+        length)."""
+        for key, buf in self.cache.items():
+            if key == "index":
+                buf[slot_i] = n_tokens
+            else:
+                buf[:, slot_i].copy_(row[key][:, 0])
+        self._fps_memo = None
+
+    def _do_admit(self, req: Request, slot_i: int, seq: list[int]) -> None:
+        self._worked = True
+        res = self.results[req.rid]
+        res.state = RequestState.PREFILL
+        if req.rid not in self._eff_max_new:
+            eff = req.max_new_tokens
+            over_queue = (
+                self.cfg.degrade_watermark > 0
+                and (len(self.queue) + 1) / self.cfg.queue_depth
+                > self.cfg.degrade_watermark
+            )
+            if self.cfg.degrade_max_new_tokens > 0 and (
+                over_queue or res.degraded
+            ):
+                eff = min(eff, self.cfg.degrade_max_new_tokens)
+                if eff < req.max_new_tokens:
+                    res.degraded = True
+                    self.counters["serve_degraded"] += 1
+            self._eff_max_new[req.rid] = eff
+
+        try:
+            self._retry_scope = [req.rid]
+            base, base_len = self._prefix_base(req)
+            suffix = seq[base_len:]
+            padded = _pad_to_bucket(
+                suffix, self.cfg.prefill_bucket, self.mcfg.max_seq_len - base_len
+            )
+            self._retry_scope = [req.rid]
+            cache1, tok = self._checked_prefill(base, padded, len(suffix))
+        except TransientStepError as e:
+            self._release_slot(req.rid)
+            err = RequestFailedError(
+                f"request {req.rid}: prefill retries exhausted"
+            )
+            err.__cause__ = e
+            self._finish(req.rid, RequestState.FAILED, err)
+            return
+        self._insert(cache1, slot_i, len(seq))
+        slot = self.slots[slot_i]
+        slot.rid = req.rid
+        slot.frontier = len(seq)
+        slot.page_fp = {}
+        if self._track_pages and len(seq) >= self.cfg.page_size:
+            fps = self._page_fps()
+            for p in range(len(seq) // self.cfg.page_size):
+                slot.page_fp[p] = float(fps[slot_i, p])
+        now = self.clock()
+        res.admitted_t = now
+        res.state = RequestState.DECODE
+        res.tokens.append(tok)
+        if res.first_token_t is None:
+            res.first_token_t = now
+        self.last_tok[slot_i] = tok
+        self.counters["serve_admissions"] += 1
+        self._maybe_complete(slot_i)
+
+    def _ensure_pages(self) -> None:
+        """Every active slot needs pages covering its next write;
+        exhaustion evicts the lowest-priority, most-recently-admitted
+        request (possibly the grower itself)."""
+        for slot in self.slots:
+            if slot.rid is None:
+                continue
+            need = self._pages_needed(slot.frontier + 1)
+            while not self.alloc.ensure(slot.rid, need):
+                key = self.alloc.evict_prefix_lru()
+                if key is not None:
+                    self._prefix_store.pop(key, None)
+                    self.counters["serve_prefix_evictions"] += 1
+                    continue
+                active = [s.rid for s in self.slots if s.rid is not None]
+                victim = min(
+                    active,
+                    key=lambda r: (
+                        self.requests[r].priority,
+                        -(self.results[r].admitted_t or 0.0),
+                    ),
+                )
+                self._evict(victim, reason="cache_pressure")
+                if victim == slot.rid:
+                    break
+
+    def _decode(self) -> None:
+        active = [
+            (i, s.rid) for i, s in enumerate(self.slots) if s.rid is not None
+        ]
+        if not active:
+            return
+        self._worked = True
+        prev_cache = self.cache  # a retry re-runs from here bit-exactly
+        toks = torch.as_tensor(self.last_tok, device=self.device)[:, None]
+        last_fin = np.ones((self.cfg.slots,), bool)
+
+        def attempt():
+            nonlocal last_fin
+            cache, logits = decode_step(self.model, prev_cache, toks)
+            last = logits[:, -1]
+            nxt = torch.argmax(last, dim=-1).to(torch.int32)
+            fin = torch.isfinite(last.float()).all(dim=-1).to(torch.int32)
+            nxt, fin = torch.stack([nxt, fin]).cpu().numpy()
+            last_fin = fin.astype(bool)
+            if not all(bool(last_fin[i]) for i, _ in active):
+                raise TransientStepError(
+                    f"non-finite logits in decode step (iteration {self._it})"
+                )
+            return cache, nxt
+
+        r = self.cfg.retry
+        self._retry_scope = [rid for _, rid in active]
+        try:
+            cache, nxt = retry_call(
+                attempt, transient=(TransientStepError,),
+                max_attempts=r.max_attempts, backoff_s=r.backoff_s,
+                backoff_max_s=r.backoff_max_s, jitter=r.jitter,
+                max_elapsed_s=r.max_elapsed_s, on_event=self._on_retry_event,
+                sleep=self.sleep, clock=self.clock,
+            )
+        except TransientStepError as e:
+            # Only the slots whose logits read non-finite on the last
+            # attempt fail; the others keep their slots and retry next
+            # iteration (nothing advanced: the frontier is the old one).
+            for i, rid in active:
+                if bool(last_fin[i]):
+                    continue
+                self._release_slot(rid)
+                err = RequestFailedError(
+                    f"request {rid}: decode step retries exhausted"
+                )
+                err.__cause__ = e
+                self._finish(rid, RequestState.FAILED, err)
+            return
+        finally:
+            self._retry_scope = []
+        self.cache = cache
+        self._fps_memo = None
+        now = self.clock()
+        completed_pages = []
+        for i, rid in active:
+            slot = self.slots[i]
+            tok = int(nxt[i])
+            self.results[rid].tokens.append(tok)
+            self.last_tok[i] = tok
+            slot.frontier += 1  # the step's input token is now resident
+            if self._track_pages and slot.frontier % self.cfg.page_size == 0:
+                completed_pages.append((i, slot.frontier // self.cfg.page_size - 1))
+        if completed_pages:
+            fps = self._page_fps()
+            for i, p in completed_pages:
+                self.slots[i].page_fp[p] = float(fps[i, p])
+        for i, _rid in active:
+            self._maybe_complete(i, now=now)
+        self.counters["serve_decode_steps"] += 1
+
+    # ------------------------------------------------------------------
+    # recovery paths
+    # ------------------------------------------------------------------
+    def _evict(self, rid: str, *, reason: str) -> None:
+        """Free one active request's pages and slot and requeue it at the
+        head with its generated tokens; re-admission re-prefills prompt +
+        generated and resumes."""
+        self._release_slot(rid)
+        res = self.results[rid]
+        res.state = RequestState.EVICTED
+        res.n_evictions += 1
+        res.requeued_t = self.clock()
+        self.queue.insert(0, self.requests[rid])
+        self.counters["serve_evictions"] += 1
+        self.counters[f"serve_evictions.{reason}"] += 1
+
+    def _verify_pages(self) -> None:
+        """Recompute completed-page checksums; a mismatch is cache-block
+        corruption and evicts the request for bit-exact re-prefill."""
+        if not any(s.rid is not None and s.page_fp for s in self.slots):
+            return
+        fps = self._page_fps()
+        for i, slot in enumerate(self.slots):
+            if slot.rid is None:
+                continue
+            for p, fp in slot.page_fp.items():
+                if float(fps[i, p]) != fp:
+                    self.counters["serve_corruptions"] += 1
+                    self._evict(slot.rid, reason="corruption")
+                    break
+
+    # ------------------------------------------------------------------
+    # bookkeeping
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _fingerprints(self) -> torch.Tensor:
+        """Integrity checksums of every page of every slot in one pass: a
+        ``(slots, n_pages)`` fp32 table of position-weighted SIGNED sums
+        over layers, positions and features (sign flips and permutations
+        within a page change it). Deterministic for identical bytes."""
+        psize = self.cfg.page_size
+        total = None
+        for key in ("k", "k_scale", "v", "v_scale"):
+            leaf = self.cache.get(key)
+            if leaf is None:
+                continue
+            l, b, s, x = leaf.shape
+            n_pages = s // psize
+            blk = leaf[:, :, : n_pages * psize].reshape(l, b, n_pages, psize, x).float()
+            dev = leaf.device
+            w_l = 1.0 + 0.127 * torch.arange(l, dtype=torch.float32, device=dev)
+            w_p = 1.0 + 0.3183 * torch.arange(psize, dtype=torch.float32, device=dev)
+            w_f = 1.0 + 0.0721 * torch.arange(x, dtype=torch.float32, device=dev)
+            w = w_l[:, None, None, None, None] * w_p[:, None] * w_f
+            fp = (blk * w).sum(dim=(0, 3, 4))
+            total = fp if total is None else total + fp
+        return total
+
+    def _page_fps(self) -> np.ndarray:
+        """The checksum table, one transfer, memoized per cache version."""
+        if self._fps_memo is None:
+            self._fps_memo = self._fingerprints().cpu().numpy()
+        return self._fps_memo
+
+    def _maybe_complete(self, slot_i: int, now: float | None = None) -> None:
+        slot = self.slots[slot_i]
+        rid = slot.rid
+        if rid is None:
+            return
+        req = self.requests[rid]
+        res = self.results[rid]
+        done = len(res.tokens) >= self._eff_max_new[rid] or (
+            req.eos_id is not None and res.tokens and res.tokens[-1] == req.eos_id
+        )
+        if done:
+            self._release_slot(rid)
+            self._finish(rid, RequestState.DONE, None, now=now)
+
+    def _release_slot(self, rid: str) -> None:
+        for slot in self.slots:
+            if slot.rid == rid:
+                slot.rid = None
+                slot.frontier = 0
+                slot.page_fp = {}
+        self.alloc.free(rid)
+
+    def _finish(
+        self, rid: str, state: RequestState, error, now: float | None = None
+    ) -> None:
+        res = self.results[rid]
+        res.state = state
+        res.error = error
+        res.finished_t = self.clock() if now is None else now
+        self._deadline.pop(rid, None)
+        self._eff_max_new.pop(rid, None)
+        self.requests.pop(rid, None)
+        self.counters[f"serve_{state.value}"] += 1
+
+    def _on_retry_event(self, etype: str, **fields: Any) -> None:
+        self.counters["serve_retries"] += 1
+        for rid in self._retry_scope:
+            self.results[rid].n_retries += 1
