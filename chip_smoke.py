@@ -1,22 +1,23 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: proves on one NVIDIA GPU that the port
 builds its kernels from this checkout, that each kernel agrees with its
-plain PyTorch version, and that the serving main path runs through them.
+plain PyTorch version, and that the serving and training main paths run
+through them.
 
-    python3 chip_smoke.py [--out results.json] [--seed 0]
+    python3 chip_smoke.py [--out results.json] [--seed 0] [--profile]
 
 Phases (each prints its own lines; any failure exits non-zero):
 
 1. Device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device.
 2. Build: every kernel library with ``nvcc`` (one process per source, all
    started together), with the compiler's register / shared-memory report.
-3. Kernels vs plain, at the flagship decode shape (B 4, S 512, H 16,
+3. Decode kernel vs plain, at the flagship decode shape (B 4, S 512, H 16,
    D 32) plus an S = 8192 case: the error against the plain version
    within its limit (float32 1e-5; bfloat16 a few ulps of each head's
    largest output, ``dtc_tpu_torch.parity.attention_tolerance``), planted
    faults in the plain version landing over that limit, and device times
    of the kernel, the plain version and the library yardstick (each from
-   200 calls replayed as one CUDA graph between CUDA events) beside the
+   many calls replayed as one CUDA graph between CUDA events) beside the
    byte/operation bound; the wrapper's time per Python call besides.
 4. Serve the flagship as configured (``configs/serve_config.yaml`` +
    ``configs/model_config.yaml``, random weights from ``--seed``): six
@@ -24,7 +25,26 @@ Phases (each prints its own lines; any failure exits non-zero):
    request must finish with 64 tokens, and the decode-attention kernel
    must have launched exactly n_layers times per decode iteration.
 5. Serve the flagship in float32 compute: every request's tokens equal the
-   port's ``generate()`` on the same prompt.
+   port's ``generate()`` on the same prompt. TF32 stays off from here on.
+6. Flash-attention kernels vs plain, at the flagship training shape (B 8,
+   T 512, H 16, D 32) in bfloat16 and float32 and at a ragged T (B 2,
+   T 1000): out, lse, dq, dk, dv within limits that scale with the values
+   (``attention_tolerance`` / ``grad_tolerance``), planted faults (a causal
+   mask one column off; delta dropped from the backward) over them, and
+   device times of the kernels, the plain versions and the yardstick
+   ``scaled_dot_product_attention(is_causal=True)`` (forward, backward
+   alone, forward + backward) beside the bound.
+7. Train the flagship as ``python -m dtc_tpu_torch.main`` would
+   (``configs/train_config_dp.yaml`` + ``model_config.yaml`` +
+   ``optim_config.yaml``, ``--dataset synthetic --no-obs``): 5 warmup and
+   30 timed steps; finite losses that fall, ``log.csv`` with one row per
+   timed step, and the flash kernels launched 12 x steps (forward) and
+   12 x steps x 2 (backward) times. Step time, tokens/s, MFU, peak memory.
+   ``--profile`` adds a torch.profiler window over steady training steps
+   (device busy share, time by kernel).
+8. Path agreement: a small float32 config trained a few steps once with
+   ``attention: flash`` (the kernels) and once with ``attention: dense``
+   from the same weights and batches; the losses agree within 1e-4.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -127,14 +147,19 @@ def graph_ms(fn, iters: int) -> float:
 
 def ptxas_report(text: str):
     """(instance, "N registers, smem, spills") per compiled kernel from
-    ``nvcc -Xptxas -v`` output; template instances read as their
-    ``<int, int, int>`` arguments."""
+    ``nvcc -Xptxas -v`` output; a template instance reads as its kernel's
+    name and ``<type, int, ...>`` arguments."""
     out, inst, spill = [], None, ""
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            args = re.findall(r"Li(\d+)E", m.group(1))
-            inst = f"<{', '.join(args)}>" if args else m.group(1)
+            mangled = m.group(1)
+            found = re.search(r"\d+([a-z_]+_kernel)I", mangled)
+            kname = found.group(1) if found else mangled
+            args = (["bf16" if "nv_bfloat16" in mangled else "f32"]
+                    if kname.startswith("flash") else [])
+            args += re.findall(r"Li(\d+)E", mangled)
+            inst = f"{kname}<{', '.join(args)}>"
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and inst:
@@ -327,6 +352,12 @@ def profile_decode(model, serve_cfg, reqs, iterations: int = 16):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return dict(iterations=iterations, **device_time_by_kernel(prof, wall))
+
+
+def device_time_by_kernel(prof, wall: float) -> dict:
+    """The device's busy time, busy share of ``wall`` and kernel count in a
+    torch.profiler window, and its 15 largest kernels by device time."""
     from torch.autograd import DeviceType
 
     rows = []  # kernels only: CPU-op rows repeat their kernels' time
@@ -341,8 +372,8 @@ def profile_decode(model, serve_cfg, reqs, iterations: int = 16):
     rows.sort(key=lambda r: -r[1])
     busy_s = sum(r[1] for r in rows) / 1e6
     return dict(
-        iterations=iterations, wall_s=wall, device_busy_s=busy_s,
-        busy_share=busy_s / wall, kernel_launches=sum(r[2] for r in rows),
+        wall_s=wall, device_busy_s=busy_s, busy_share=busy_s / wall,
+        kernel_launches=sum(r[2] for r in rows),
         top=[dict(name=k[:120], device_ms=us / 1e3, count=c) for k, us, c in rows[:15]],
     )
 
@@ -353,12 +384,244 @@ def percentile(xs, q):
     return xs[max(0, math.ceil(q * len(xs)) - 1)]
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def flash_bounds(b, t, h, d, dtype):
+    """Least time of the forward and of the backward on these inputs: the
+    bytes each must move (forward q, k, v in, out and lse out; backward q,
+    k, v, out, dO and lse in, dq, dk, dv out) over HBM bandwidth, against
+    the causal products it must do (key <= query pairs only: 2 products in
+    the forward, 5 in the backward, 2 operations per multiply-add) over the
+    peak rate of the dtype. Returns {"fwd"|"bwd": (ms, bound_by, bytes)}."""
+    el = {"float32": 4, "bfloat16": 2}[dtype]
+    tensor = b * t * h * d * el
+    stats = b * h * t * 4
+    pairs = b * h * t * (t + 1) // 2
+    out = {}
+    for kind, nbytes, products in (("fwd", 4 * tensor + stats, 2),
+                                   ("bwd", 8 * tensor + stats, 5)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * products * pairs * d / PEAK_OPS[dtype] * 1e3
+        out[kind] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes)
+    return out
+
+
+def _flash_faulty_forward(q, k, v, h):
+    """The plain forward with the causal mask one column off (each query
+    also sees the next key): what the limit must catch."""
+    import torch
+
+    b, t, hd = q.shape
+    d = hd // h
+    qs = q.view(b, t, h, d) * float(torch.tensor(d ** -0.5, dtype=q.dtype))
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.view(b, t, h, d).float())
+    ar = torch.arange(t, device=q.device)
+    s = torch.where(ar[None, :] <= ar[:, None] + 1, s, -1e9)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.view(b, t, h, d).float())
+    return o.to(q.dtype).reshape(b, t, hd)
+
+
+def _flash_backward_without_delta(q, k, v, out, lse, do, h):
+    """The plain backward with delta = rowsum(dO ⊙ O) dropped (a zero
+    output passed in its place makes delta 0)."""
+    import torch
+
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    return fa.flash_attention_backward_reference(q, k, v, torch.zeros_like(out), lse, do, h)
+
+
+def flash_case(name, b, t, h, d, dtype, seed, iters):
+    import torch
+    import torch.nn.functional as F
+
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.parity import FP32_ATOL, attention_tolerance, grad_tolerance
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(b, t, h * d, device=dev, generator=g).to(dt) for _ in range(4))
+
+    def ratio(got, want, limit):
+        diff = (got.float() - want.float()).abs()
+        return diff.max().item(), (diff / limit.to(dev)).max().item()
+
+    out, lse = fa.flash_attention_forward(q, k, v, h)
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, h)
+    grads = fa.flash_attention_backward(q, k, v, want_out, want_lse, do, h)
+    want_grads = fa.flash_attention_backward_reference(q, k, v, want_out, want_lse, do, h)
+    torch.cuda.synchronize()
+    limits = {"out": attention_tolerance(want_out, h),
+              "lse": torch.full(want_lse.shape, FP32_ATOL)}
+    limits.update({n: grad_tolerance(w, h) for n, w in zip(("dq", "dk", "dv"), want_grads)})
+    pairs = {"out": (out, want_out), "lse": (lse, want_lse)}
+    pairs.update({n: (gg, w) for n, gg, w in zip(("dq", "dk", "dv"), grads, want_grads)})
+    errs = {}
+    for n, (got, want) in pairs.items():
+        check(bool(torch.isfinite(got.float()).all()), f"flash {name}: non-finite {n}")
+        errs[n] = ratio(got, want, limits[n])
+        log(f"flash {name}: {n} max_abs_err {errs[n][0]:.3e}, {errs[n][1]:.3f} of its limit")
+        check(errs[n][1] <= 1.0, f"flash {name}: {n} error {errs[n][0]} over its limit")
+
+    faults = {
+        "causal mask one column off (out)": (
+            _flash_faulty_forward(q, k, v, h), want_out, limits["out"]),
+    }
+    bad = _flash_backward_without_delta(q, k, v, want_out, want_lse, do, h)
+    for n, gb, w in zip(("dq", "dk"), bad, want_grads):
+        faults[f"delta dropped ({n})"] = (gb, w, limits[n])
+    fault_ratio = {}
+    for fname, (got, want, limit) in faults.items():
+        fault_ratio[fname] = ratio(got, want, limit)[1]
+        log(f"flash {name}: planted fault '{fname}': {fault_ratio[fname]:.3f} of the limit")
+        check(fault_ratio[fname] > 1.0, f"flash {name}: the limit misses '{fname}'")
+
+    # Device times, each from ``iters`` calls replayed as one CUDA graph.
+    fwd_ms = graph_ms(lambda: fa.flash_attention_forward(q, k, v, h), iters)
+    bwd_ms = graph_ms(
+        lambda: fa.flash_attention_backward(q, k, v, want_out, want_lse, do, h), iters)
+    plain_fwd_ms = graph_ms(lambda: fa.flash_attention_reference(q, k, v, h), iters)
+    plain_bwd_ms = graph_ms(
+        lambda: fa.flash_attention_backward_reference(q, k, v, want_out, want_lse, do, h), iters)
+    # Yardstick only, never called by the port: SDPA's forward, and its
+    # backward alone (the forward's graph is kept and differentiated again).
+    q4, k4, v4 = (x.view(b, t, h, d).transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    do4 = do.view(b, t, h, d).transpose(1, 2)
+    lib_fwd_ms = graph_ms(
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), iters)
+    # The forward runs on the capture stream, where autograd then runs its
+    # backward.
+    side = _capture_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    torch.cuda.current_stream().wait_stream(side)
+    lib_bwd_ms = graph_ms(
+        lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True), iters)
+    lib_fwd_bwd_ms = graph_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), (q4, k4, v4), do4), iters)
+    bounds = flash_bounds(b, t, h, d, dtype)
+    for kind, ms, plain, lib in (("fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms),
+                                 ("bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms)):
+        bms, by, nbytes = bounds[kind]
+        log(f"flash {name} {kind}: kernel_ms {ms:.6f} plain_ms {plain:.6f} library_ms "
+            f"{lib:.6f} bound_ms {bms:.6f} ({by}, {nbytes} B)")
+    log(f"flash {name}: kernels fwd + bwd {fwd_ms + bwd_ms:.6f} ms, SDPA fwd + bwd "
+        f"{lib_fwd_bwd_ms:.6f} ms")
+    return dict(
+        case=name, b=b, t=t, h=h, d=d, dtype=dtype, errors=errs, fault_over_limit=fault_ratio,
+        fwd_max_abs_err=max(errs["out"][0], errs["lse"][0]),
+        bwd_max_abs_err=max(errs[n][0] for n in ("dq", "dk", "dv")),
+        fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+        library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms, library_fwd_bwd_ms=lib_fwd_bwd_ms,
+        fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
+        bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1],
+    )
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: the training main path
+# ---------------------------------------------------------------------------
+
+def train_flagship(steps: int, warmup: int, out_dir: str):
+    """``python -m dtc_tpu_torch.main --train_config_path
+    configs/train_config_dp.yaml --dataset synthetic --no-obs``, with
+    ``steps`` timed steps after ``warmup`` warmup steps and ``log.csv`` in
+    ``out_dir``. Returns (result, configs, launches (fwd, bwd), peak bytes)."""
+    import dataclasses
+
+    import torch
+
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.train.trainer import train
+
+    tcfg, mcfg, ocfg = load_config(ROOT / "configs" / "train_config_dp.yaml")
+    tcfg = dataclasses.replace(
+        tcfg, dataset="synthetic", obs=dataclasses.replace(tcfg.obs, enabled=False),
+        steps=steps, warmup_steps=warmup, log_every=10, output_dir=out_dir,
+        overwrite=True,
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fa.fwd_launches = fa.bwd_launches = 0        # the main path starts here
+    res = train(tcfg, mcfg, ocfg)
+    launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+    peak = torch.cuda.max_memory_allocated() - base
+    return res, (tcfg, mcfg, ocfg), launches, peak
+
+
+def profile_train(model_cfg, train_cfg, opt_cfg, steps: int = 5):
+    """Device time by kernel over ``steps`` steady training steps of the
+    flagship (torch.profiler, CUDA activity) against the host wall time of
+    the same window: the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dtc_tpu_torch.data.prefetch import split_to_device
+    from dtc_tpu_torch.data.synthetic import synthetic_batch_iterator
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.train.optimizer import create_optimizer
+    from dtc_tpu_torch.train.train_step import train_step
+
+    dev = torch.device("cuda")
+    model = GPT(model_cfg, seed=train_cfg.seed)
+    opt = create_optimizer(model.parameters(), opt_cfg, total_steps=train_cfg.steps)
+    gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
+    batches = synthetic_batch_iterator(train_cfg.batch, model_cfg.max_seq_len + 1,
+                                       model_cfg.vocab_size, seed=train_cfg.seed * 1000)
+    for _ in range(3):
+        train_step(model, opt, *split_to_device(next(batches), dev), gen)
+    data = [split_to_device(next(batches), dev) for _ in range(steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x, y in data:
+            train_step(model, opt, x, y, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return dict(steps=steps, **device_time_by_kernel(prof, wall))
+
+
+def path_agreement(seed: int, steps: int = 4):
+    """A small float32 model trained ``steps`` steps once with the flash
+    kernels and once with dense attention, same weights and batches:
+    returns the two loss lists."""
+    import dataclasses
+
+    from dtc_tpu_torch.config.schema import ModelConfig, ObsConfig, OptimConfig, TrainConfig
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.train.trainer import train
+
+    tcfg = TrainConfig(seed=seed, parallel="dp", batch=4, steps=steps, log_every=steps,
+                       output_dir="", dataset="synthetic", warmup_steps=0, prefetch=0,
+                       obs=ObsConfig(enabled=False))
+    ocfg = OptimConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0)
+    base = ModelConfig(vocab_size=1000, d_model=256, n_layers=2, n_heads=8, d_ff=1024,
+                       max_seq_len=256, dropout=0.0, compute_dtype="float32")
+    losses = {}
+    for impl in ("flash", "dense"):
+        f0 = fa.fwd_launches
+        losses[impl] = train(tcfg, dataclasses.replace(base, attention=impl), ocfg).losses
+        launched = fa.fwd_launches - f0
+        check(launched == (base.n_layers * steps if impl == "flash" else 0),
+              f"path agreement: attention {impl} launched the flash forward {launched} times")
+    return losses
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default="", help="write every measured number to this JSON file")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true",
-                   help="also profile steady bf16 decode iterations (device busy share)")
+                   help="also profile steady bf16 decode iterations and flagship "
+                        "training steps (device busy share)")
     args = p.parse_args()
 
     try:
@@ -391,7 +654,7 @@ def main() -> int:
         for name, sec in took.items():
             log(f"build {name}: {sec:.1f} s -> {_build.library_path(name).name}")
             for inst, rep in ptxas_report(_build.log_path(name).read_text()):
-                log(f"  ptxas <q dtype, kv dtype, head_dim> = {inst}: {rep}")
+                log(f"  ptxas {inst}: {rep}")
         record["build_s"] = took
 
         # 3. kernels vs plain
@@ -480,6 +743,81 @@ def main() -> int:
         record["serve_fp32"] = dict(matching=same, requests=len(reqs32), wall_s=wall,
                                     tokens_per_s=sum(len(res[r.rid].tokens) for r in reqs32) / wall)
         check(same == len(reqs32), f"fp32 serve: {same}/{len(reqs32)} requests match generate")
+        del model, eng
+        torch.cuda.empty_cache()
+
+        # 6. flash-attention kernels vs plain (TF32 off since phase 5)
+        from dtc_tpu_torch.ops import flash_attention as fa
+
+        flash_cases = [
+            ("bf16_flagship", 8, 512, 16, 32, "bfloat16"),
+            ("fp32_flagship", 8, 512, 16, 32, "float32"),
+            ("bf16_t1000", 2, 1000, 16, 32, "bfloat16"),
+        ]
+        flash = [
+            flash_case(name, b, t, h, d, dt, seed=args.seed + 100 + i, iters=50)
+            for i, (name, b, t, h, d, dt) in enumerate(flash_cases)
+        ]
+        record["flash_cases"] = flash
+        torch.cuda.empty_cache()
+
+        # 7. train the flagship as the command line would
+        steps, warmup = 30, 5
+        out_dir = ROOT / "build" / "chip_smoke_train"
+        res, (tcfg, tmcfg, ocfg), (fwd_n, bwd_n), peak = train_flagship(steps, warmup, str(out_dir))
+        losses = res.losses
+        check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+              f"flagship training: {len(losses)} losses, not all finite: {losses}")
+        first, last5 = losses[0], sum(losses[-5:]) / 5
+        check(last5 < first, f"flagship loss did not fall: first {first}, last-5 mean {last5}")
+        rows = (out_dir / "log.csv").read_text().splitlines()
+        check(rows[0] == "step,elapsed_time,loss" and len(rows) == steps + 1,
+              f"log.csv: header {rows[:1]}, {len(rows) - 1} rows for {steps} steps")
+        n_steps = steps + warmup
+        check(fwd_n == tmcfg.n_layers * n_steps
+              and bwd_n == tmcfg.n_layers * n_steps * fa.BWD_KERNELS,
+              f"flash launches fwd {fwd_n} / bwd {bwd_n} for {n_steps} steps of "
+              f"{tmcfg.n_layers} layers (want {tmcfg.n_layers} and "
+              f"{tmcfg.n_layers * fa.BWD_KERNELS} per step)")
+        from dtc_tpu_torch.utils.metrics import H100_BF16_PEAK_FLOPS, gpt_step_flops
+
+        el = res.elapsed_times
+        step_s = sorted(b - a for a, b in zip([0.0] + el[:-1], el))[len(el) // 2]
+        tok = tcfg.batch * tmcfg.max_seq_len
+        train_rec = dict(
+            steps=steps, warmup_steps=warmup, losses=losses, step_ms_median=step_s * 1e3,
+            tokens_per_s=tok / step_s,
+            mfu=gpt_step_flops(tmcfg, tcfg.batch, tmcfg.max_seq_len) / (step_s * H100_BF16_PEAK_FLOPS),
+            peak_allocated=peak, flash_fwd_launches=fwd_n, flash_bwd_launches=bwd_n,
+            total_time_s=res.total_time_s, card=smi,
+        )
+        record["train_flagship"] = train_rec
+        log(f"train flagship: {steps} steps after {warmup} warmup, loss {first:.4f} -> "
+            f"{losses[-1]:.4f} (last-5 mean {last5:.4f}), log.csv {steps} rows, flash "
+            f"launches fwd {fwd_n} = {tmcfg.n_layers} x {n_steps}, bwd {bwd_n} = "
+            f"{tmcfg.n_layers} x {n_steps} x {fa.BWD_KERNELS} [{smi}]")
+        log(f"train flagship: step_ms median {train_rec['step_ms_median']:.6f}, tokens/s "
+            f"{train_rec['tokens_per_s']:.3f}, MFU {train_rec['mfu']:.6f} (of 989 TFLOP/s "
+            f"bf16 dense), peak allocated {peak} B [{smi}]")
+        del res
+        torch.cuda.empty_cache()
+        if args.profile:
+            prof = profile_train(tmcfg, tcfg, ocfg)
+            record["profile_train"] = prof
+            log(f"profile train: {prof['steps']} steps, wall {prof['wall_s']:.6f} s, device "
+                f"busy {prof['device_busy_s']:.6f} s (share {prof['busy_share']:.4f}), "
+                f"{prof['kernel_launches']} kernels [{smi}]")
+            for row in prof["top"]:
+                log(f"  {row['device_ms']:.4f} ms x{row['count']} {row['name']}")
+            torch.cuda.empty_cache()
+
+        # 8. path agreement: flash kernels vs dense attention, float32
+        agree = path_agreement(args.seed)
+        gap = max(abs(a - b) for a, b in zip(agree["flash"], agree["dense"]))
+        record["path_agreement"] = dict(agree, max_abs_diff=gap)
+        log(f"path agreement: flash {agree['flash']} vs dense {agree['dense']}: max abs "
+            f"diff {gap:.3e} (limit 1e-4)")
+        check(gap <= 1e-4, f"flash and dense training disagree by {gap}")
 
         main = results[0]
         kernels = [dict(
@@ -491,6 +829,18 @@ def main() -> int:
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
         )]
+        fl = flash[0]
+        for part, launched, row, multi in (("fwd", fwd_n, 506, 558), ("bwd", bwd_n, 527, 605)):
+            kernels.append(dict(
+                name=f"flash_attention_{part}", route="cuda",
+                source="dtc_tpu_torch/csrc/flash_attention.cu",
+                replaces=f"dtc_tpu/ops/flash_attention.py:{row}",
+                also_replaces=f"dtc_tpu/ops/flash_attention.py:{multi}",
+                launches=launched, max_abs_err=max(c[f"{part}_max_abs_err"] for c in flash),
+                ms=fl[f"{part}_ms"], plain_ms=fl[f"plain_{part}_ms"],
+                bound_ms=fl[f"{part}_bound_ms"], bound_by=fl[f"{part}_bound_by"],
+                library_ms=fl[f"library_{part}_ms"],
+            ))
         record["kernels"] = kernels
     except Exception:
         traceback.print_exc()
@@ -506,7 +856,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
     }}))
     return 0
 

@@ -1,6 +1,7 @@
 """Configuration: the port's own copy of the dataclasses and YAML loading."""
 
 from dtc_tpu_torch.config.loader import (
+    load_config,
     load_serve_config,
     load_yaml_dataclass,
     parse_yaml,
@@ -10,16 +11,18 @@ from dtc_tpu_torch.config.schema import (
     AdapterConfig,
     ChaosConfig,
     ModelConfig,
+    OptimConfig,
     ServeConfig,
     SloConfig,
     SpecConfig,
     StreamRetryConfig,
+    TrainConfig,
     WatchdogConfig,
 )
 
 __all__ = [
     "DTYPE_BYTES", "AdapterConfig", "ChaosConfig", "ModelConfig",
-    "ServeConfig", "SloConfig", "SpecConfig", "StreamRetryConfig",
-    "WatchdogConfig", "load_serve_config", "load_yaml_dataclass",
-    "parse_yaml",
+    "OptimConfig", "ServeConfig", "SloConfig", "SpecConfig",
+    "StreamRetryConfig", "TrainConfig", "WatchdogConfig", "load_config",
+    "load_serve_config", "load_yaml_dataclass", "parse_yaml",
 ]

@@ -224,3 +224,25 @@ def load_serve_config(
         model_config_path, ModelConfig, overrides=model_overrides
     )
     return serve_cfg, model_cfg
+
+
+def load_config(
+    train_config_path: str | Path,
+    model_config_path: str | Path | None = None,
+    optim_config_path: str | Path | None = None,
+    model_overrides: dict[str, Any] | None = None,
+):
+    """Load the (train, model, optim) config triple; the model and optim
+    configs default to the siblings ``model_config.yaml`` and
+    ``optim_config.yaml`` of the train config."""
+    from dtc_tpu_torch.config.schema import ModelConfig, OptimConfig, TrainConfig
+
+    train_config_path = Path(train_config_path)
+    cfg_dir = train_config_path.parent
+    model_config_path = Path(model_config_path or cfg_dir / "model_config.yaml")
+    optim_config_path = Path(optim_config_path or cfg_dir / "optim_config.yaml")
+
+    train_cfg = load_yaml_dataclass(train_config_path, TrainConfig)
+    model_cfg = load_yaml_dataclass(model_config_path, ModelConfig, overrides=model_overrides)
+    optim_cfg = load_yaml_dataclass(optim_config_path, OptimConfig)
+    return train_cfg, model_cfg, optim_cfg

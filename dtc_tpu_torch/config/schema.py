@@ -1,12 +1,13 @@
 """Typed configuration schema for the PyTorch port.
 
-The port keeps its own copy of the dataclasses the serving path reads
-(``ModelConfig``, ``AdapterConfig``, ``ServeConfig`` and its sub-configs):
-every field, default and validator is the same as in the JAX package, so
-one set of YAML files under ``configs/`` loads unchanged into either.
-Fields that only the JAX package acts on (Pallas block sizes, remat,
-collectives, debug checks) are kept so the YAMLs stay valid; the port
-ignores them.
+The port keeps its own copy of the dataclasses the serving and training
+paths read (``ModelConfig``, ``AdapterConfig``, ``ServeConfig``,
+``OptimConfig``, ``TrainConfig`` and their sub-configs): every field,
+default and validator is the same as in the JAX package, so one set of
+YAML files under ``configs/`` loads unchanged into either. Fields that only
+the JAX package acts on (Pallas block sizes, collectives, PRNG impl) are
+kept so the YAMLs stay valid; the port ignores them, and refuses with
+``NotImplementedError`` the ones that name a feature it has not ported.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ from dataclasses import dataclass, field
 
 #: Bytes per element of every dtype a config knob can name.
 DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "int8": 1}
+
+#: Parallel strategies a TrainConfig can name.
+VALID_PARALLEL = ("none", "dp", "tp", "pp", "3d", "fsdp")
 
 #: Dense layers a LoRA adapter can target.
 ADAPTER_TARGETS = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
@@ -444,4 +448,264 @@ class ServeConfig:
         if self.spec.enabled and self.spec.acceptance != "greedy":
             raise ValueError(
                 "serving speculation supports acceptance='greedy' only"
+            )
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """Optimizer: global-norm clip, then AdamW, with a constant or
+    linear-warmup + cosine-decay learning rate. ``precision`` is ``fp32``
+    or ``bf16_mixed`` (bf16 model, fp32 master weights and moments)."""
+
+    lr: float
+    weight_decay: float
+    grad_clip: float
+    b1: float = 0.9
+    b2: float = 0.999
+    schedule: str = "constant"  # constant | warmup_cosine
+    warmup_steps: int = 0
+    min_lr_ratio: float = 0.1
+    precision: str = "fp32"
+
+    def __post_init__(self) -> None:
+        if self.schedule not in ("constant", "warmup_cosine"):
+            raise ValueError(f"unknown schedule {self.schedule!r}")
+        if self.precision not in ("fp32", "bf16_mixed"):
+            raise ValueError(
+                f"unknown precision {self.precision!r}; expected 'fp32' "
+                "(all-float32 state) or 'bf16_mixed' (bf16 params/compute "
+                "+ fp32 master weights and moments)"
+            )
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh axis sizes (0 = auto) plus inter-slice factors."""
+
+    pipe: int = 0
+    data: int = 0
+    model: int = 0
+    dcn_pipe: int = 1
+    dcn_data: int = 1
+    dcn_model: int = 1
+
+
+@dataclass(frozen=True)
+class ObsConfig:
+    """Telemetry knobs (JSONL events, spans, flight recorder, device
+    profiles, goodput). The port has no telemetry yet: its trainer refuses
+    ``enabled: true`` (``--no-obs`` on the command line)."""
+
+    enabled: bool = True
+    jsonl: bool = True
+    dir: str = ""
+    memory_sample_every: int = 50
+    straggler_threshold: float = 1.5
+    profile_start: int = 0
+    profile_stop: int = 0
+    trace: bool = True
+    flight_recorder: int = 256
+    rotate_mb: float = 0.0
+    devprof_every: int = 0
+    devprof_steps: int = 2
+    devprof_on_trigger: bool = True
+    goodput: bool = True
+    goodput_counter_every: int = 8
+
+    def __post_init__(self) -> None:
+        if self.memory_sample_every < 0:
+            raise ValueError("memory_sample_every must be >= 0")
+        if self.straggler_threshold < 1.0:
+            raise ValueError(
+                f"straggler_threshold must be >= 1.0, got {self.straggler_threshold}"
+            )
+        if self.flight_recorder < 0:
+            raise ValueError("flight_recorder must be >= 0 (0 = off)")
+        if self.rotate_mb < 0:
+            raise ValueError("rotate_mb must be >= 0 (0 = no rotation)")
+        if self.devprof_every < 0:
+            raise ValueError("devprof_every must be >= 0 (0 = no cadence)")
+        if self.devprof_steps < 1:
+            raise ValueError("devprof_steps must be >= 1")
+        if self.goodput_counter_every < 0:
+            raise ValueError(
+                "goodput_counter_every must be >= 0 (0 = no counter track)"
+            )
+
+
+@dataclass(frozen=True)
+class GuardConfig:
+    """Anomaly guard: loss-health checks at log boundaries. With no
+    checkpoint to roll back to it only reports."""
+
+    enabled: bool = True
+    spike_factor: float = 0.0
+    spike_window: int = 32
+    max_rollbacks: int = 3
+    clean_steps_to_forgive: int = 0
+    skip_nonfinite_updates: bool = False
+    max_consecutive_skips: int = 10
+
+    def __post_init__(self) -> None:
+        if self.spike_factor < 0:
+            raise ValueError("spike_factor must be >= 0 (0 = disabled)")
+        if self.max_rollbacks < 0:
+            raise ValueError("max_rollbacks must be >= 0")
+        if self.clean_steps_to_forgive < 0:
+            raise ValueError(
+                "clean_steps_to_forgive must be >= 0 (0 = lifetime budget)"
+            )
+
+
+@dataclass(frozen=True)
+class ElasticConfig:
+    """Elastic training (in-memory snapshots, host-loss detection,
+    shrink-and-continue). Not ported: the trainer refuses ``enabled``."""
+
+    enabled: bool = False
+    snapshot_every: int = 1
+    keep: int = 4
+    n_virtual_hosts: int = 2
+    heartbeat_miss_limit: int = 2
+    cold_every: int = 0
+    spill_on_resize: bool = True
+    dead_hosts: tuple = ()
+
+    def __post_init__(self) -> None:
+        if not isinstance(self.dead_hosts, tuple):  # YAML list coercion
+            object.__setattr__(self, "dead_hosts", tuple(self.dead_hosts))
+        if self.snapshot_every < 1:
+            raise ValueError("elastic.snapshot_every must be >= 1")
+        if self.keep < 2:
+            raise ValueError("elastic.keep must be >= 2 (double buffer)")
+        if self.n_virtual_hosts < 2:
+            raise ValueError("elastic.n_virtual_hosts must be >= 2")
+        if self.heartbeat_miss_limit < 1:
+            raise ValueError("elastic.heartbeat_miss_limit must be >= 1")
+        if self.cold_every < 0:
+            raise ValueError("elastic.cold_every must be >= 0 (0 = keep)")
+        if any(h < 0 for h in self.dead_hosts):
+            raise ValueError("elastic.dead_hosts entries must be >= 0")
+        if any(h >= self.n_virtual_hosts for h in self.dead_hosts):
+            raise ValueError(
+                f"elastic.dead_hosts {self.dead_hosts} outside "
+                f"n_virtual_hosts={self.n_virtual_hosts}"
+            )
+        if len(self.dead_hosts) >= self.n_virtual_hosts:
+            raise ValueError("elastic.dead_hosts names every host dead")
+
+
+@dataclass(frozen=True)
+class ResilienceConfig:
+    """Fault-tolerance knobs: anomaly guard, watchdog, stream retry, chaos,
+    elastic training and checkpoint verification/retention."""
+
+    guard: GuardConfig = field(default_factory=GuardConfig)
+    watchdog: WatchdogConfig = field(default_factory=WatchdogConfig)
+    stream_retry: StreamRetryConfig = field(default_factory=StreamRetryConfig)
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
+    elastic: ElasticConfig = field(default_factory=ElasticConfig)
+    verify_checkpoints: bool = True
+    checkpoint_keep_n: int = 3
+
+    def __post_init__(self) -> None:
+        if self.checkpoint_keep_n < 1:
+            raise ValueError("checkpoint_keep_n must be >= 1")
+        if (
+            self.chaos.enabled
+            and not self.elastic.enabled
+            and (
+                self.chaos.kill_host_at_step
+                or self.chaos.slow_host_at_step
+                or self.chaos.lose_snapshot_at_step
+            )
+        ):
+            raise ValueError(
+                "chaos elastic faults (kill_host_at_step / slow_host_at_step"
+                " / lose_snapshot_at_step) require resilience.elastic.enabled"
+                " — without the elastic layer they would silently never fire"
+            )
+        if (
+            self.elastic.enabled
+            and self.chaos.enabled
+            and self.chaos.elastic_target_host >= self.elastic.n_virtual_hosts
+        ):
+            raise ValueError(
+                f"chaos.elastic_target_host {self.chaos.elastic_target_host} "
+                f"outside n_virtual_hosts={self.elastic.n_virtual_hosts}"
+            )
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-run configuration (``configs/train_config_*.yaml``).
+    ``sync_every_step: None`` means a device sync every step whenever a
+    ``log.csv`` is written (``output_dir`` set), so each logged
+    ``elapsed_time`` is a completed step."""
+
+    seed: int
+    parallel: str
+    batch: int
+    steps: int
+    log_every: int
+    output_dir: str
+    pp_microbatches: int = 1
+    pp_schedule: str = "gpipe"
+    pp_virtual_stages: int = 1
+    collectives: str = "xla"
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    dataset: str = "fineweb"     # fineweb | synthetic
+    warmup_steps: int = 5        # untimed warmup steps (real updates)
+    prefetch: int = 2            # host->device prefetch depth; 0 = synchronous
+    sync_every_step: bool | None = None
+    checkpoint_every: int = 0
+    checkpoint_dir: str = ""
+    eval_every: int = 0
+    eval_batches: int = 8
+    eval_holdout_every: int = 10
+    resume: bool = True
+    # Refuse to truncate an existing <output_dir>/log.csv unless set.
+    overwrite: bool = False
+    profile_start: int = 0
+    profile_stop: int = 0
+    obs: ObsConfig = field(default_factory=ObsConfig)
+    slo: SloConfig = field(default_factory=SloConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    multihost: bool = False
+    coordinator_timeout_s: int = 0
+    prng_impl: str = "threefry2x32"
+    debug_nans: bool = False
+
+    def __post_init__(self) -> None:
+        if self.parallel not in VALID_PARALLEL:
+            raise ValueError(
+                f"unknown parallel strategy {self.parallel!r}; expected one of {VALID_PARALLEL}"
+            )
+        if self.dataset not in ("fineweb", "synthetic"):
+            raise ValueError(f"unknown dataset {self.dataset!r}")
+        if self.pp_microbatches < 1:
+            raise ValueError("pp_microbatches must be >= 1")
+        if self.pp_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"unknown pp_schedule {self.pp_schedule!r}")
+        if self.pp_virtual_stages < 1:
+            raise ValueError("pp_virtual_stages must be >= 1")
+        if self.pp_virtual_stages > 1 and self.pp_schedule != "1f1b":
+            raise ValueError(
+                "pp_virtual_stages > 1 (interleaved scheduling) requires "
+                "pp_schedule: 1f1b"
+            )
+        if self.collectives not in ("xla", "overlapped"):
+            raise ValueError(
+                f"unknown collectives {self.collectives!r}; expected "
+                "'xla' or 'overlapped'"
+            )
+        if self.eval_holdout_every < 1:
+            raise ValueError("eval_holdout_every must be >= 1")
+        if self.prng_impl not in ("threefry2x32", "rbg", "unsafe_rbg"):
+            raise ValueError(f"unknown prng_impl {self.prng_impl!r}")
+        if self.coordinator_timeout_s < 0:
+            raise ValueError("coordinator_timeout_s must be >= 0 (0 = default)")
+        if self.batch % self.pp_microbatches != 0:
+            raise ValueError(
+                f"batch={self.batch} not divisible by pp_microbatches={self.pp_microbatches}"
             )

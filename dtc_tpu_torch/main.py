@@ -1,0 +1,54 @@
+"""Command-line entry point of the port's trainer, flag-compatible with the
+JAX package's ``main.py``:
+
+    python -m dtc_tpu_torch.main --train_config_path configs/train_config_dp.yaml \\
+        --dataset synthetic --no-obs [--steps N] [--output_dir DIR] [--device cpu]
+
+The model and optim configs default to the train config's siblings. Runs on
+``cuda`` unless ``--device`` names another device. ``--output_dir``
+overrides the config's: the trainer refuses to overwrite an existing
+``log.csv`` (such as the JAX runs' committed ``outputs/dp/log.csv``).
+"""
+
+from __future__ import annotations
+
+import argparse
+from dataclasses import replace
+
+from dtc_tpu_torch.config.loader import load_config
+from dtc_tpu_torch.train.trainer import train
+
+
+def main(argv: list[str] | None = None) -> None:
+    p = argparse.ArgumentParser(description="Train a GPT with the PyTorch port.")
+    p.add_argument("--train_config_path", default="configs/train_config_dp.yaml")
+    p.add_argument("--model_config_path", default=None)
+    p.add_argument("--optim_config_path", default=None)
+    p.add_argument("--steps", type=int, default=None, help="override train steps (smoke runs)")
+    p.add_argument("--dataset", default=None, choices=["fineweb", "synthetic"],
+                   help="override dataset")
+    p.add_argument("--obs", dest="obs", action="store_true", default=None,
+                   help="force the telemetry subsystem on (not ported: refused)")
+    p.add_argument("--no-obs", dest="obs", action="store_false",
+                   help="force the telemetry subsystem off")
+    p.add_argument("--output_dir", default=None, help="override output_dir (log.csv)")
+    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    args = p.parse_args(argv)
+
+    train_cfg, model_cfg, opt_cfg = load_config(
+        args.train_config_path, args.model_config_path, args.optim_config_path
+    )
+    if args.steps is not None:
+        train_cfg = replace(train_cfg, steps=args.steps)
+    if args.output_dir is not None:
+        train_cfg = replace(train_cfg, output_dir=args.output_dir)
+    if args.dataset is not None:
+        train_cfg = replace(train_cfg, dataset=args.dataset)
+    if args.obs is not None:
+        train_cfg = replace(train_cfg, obs=replace(train_cfg.obs, enabled=args.obs))
+    print(f"Running `{train_cfg.parallel}` on {args.device or 'cuda'}.")
+    train(train_cfg, model_cfg, opt_cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -13,6 +13,13 @@ dtype with parameters cast from the parameter dtype; the residual stream
 stays in the compute dtype; the embedding sum is cast after the add; head
 logits are in the compute dtype with pad columns at -1e9.
 
+Training: ``GPT.forward(x, train=True, targets=y, generator=g)`` returns
+the mean next-token loss through the fused head + cross-entropy. Attention
+goes through ``causal_attention(impl=cfg.attention)`` (the Hopper flash
+kernels on the card under ``auto``). Dropout draws its keep masks from the
+caller's ``torch.Generator`` (flax's semantics: keep with probability
+1 - p, scale kept values by 1 / (1 - p)); nothing else in the model draws.
+
 Decode: :meth:`GPT.forward` with a ``cache`` dict (see
 ``dtc_tpu_torch.generate.init_cache``) writes each layer's new k/v into
 the packed ``(L, B, S, H·D)`` cache at the write frontier
@@ -32,8 +39,8 @@ import torch.nn.functional as F
 
 from dtc_tpu_torch.config.schema import ModelConfig
 from dtc_tpu_torch.ops import decode_attention as fused
-from dtc_tpu_torch.ops.attention import decode_attention, dense_causal_attention
-from dtc_tpu_torch.ops.fused_ce import head_logits
+from dtc_tpu_torch.ops.attention import causal_attention, decode_attention
+from dtc_tpu_torch.ops.fused_ce import fused_head_ce, head_logits
 
 DTYPES = {
     "float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -53,6 +60,18 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def _dropout(x: torch.Tensor, p: float, gen: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: keep each element with probability
+    ``1 - p`` (a uniform draw from ``gen`` below it) and divide the kept
+    ones by ``1 - p`` in x's dtype."""
+    if p <= 0.0:
+        return x
+    if gen is None:
+        raise ValueError("dropout in training needs the caller's torch.Generator")
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -130,8 +149,9 @@ class CausalSelfAttention(nn.Module):
         hd = h * dh
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         if cache is None:
-            out = dense_causal_attention(
-                q.view(b, t, h, dh), k.view(b, t, h, dh), v.view(b, t, h, dh)
+            out = causal_attention(
+                q.view(b, t, h, dh), k.view(b, t, h, dh), v.view(b, t, h, dh),
+                impl=cfg.attention,
             )
         else:
             ck, cv = cache["k"][layer], cache["v"][layer]
@@ -189,12 +209,13 @@ class Block(nn.Module):
         self.ln_2 = LayerNorm(cfg.d_model, device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, *, train: bool = False, cache=None, layer: int = 0, idx=None):
-        cd, p = DTYPES[self.cfg.compute_dtype], self.cfg.dropout
+    def forward(self, x, *, train: bool = False, gen=None, cache=None, layer: int = 0,
+                idx=None):
+        cd, p = DTYPES[self.cfg.compute_dtype], self.cfg.dropout if train else 0.0
         a = self.attn(self.ln_1(x).to(cd), cache, layer, idx)
-        x = x + F.dropout(a, p, training=train)
+        x = x + _dropout(a, p, gen)
         m = self.mlp(self.ln_2(x).to(cd))
-        return x + F.dropout(m, p, training=train)
+        return x + _dropout(m, p, gen)
 
 
 class GPTEmbed(nn.Module):
@@ -208,7 +229,7 @@ class GPTEmbed(nn.Module):
         self.wte = nn.Embedding(cfg.padded_vocab_size, cfg.d_model, dtype=pdt, device=device)
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.d_model, dtype=pdt, device=device)
 
-    def forward(self, x: torch.Tensor, *, train: bool = False,
+    def forward(self, x: torch.Tensor, *, train: bool = False, gen=None,
                 pos_offset: int | torch.Tensor = 0) -> torch.Tensor:
         cfg = self.cfg
         t = x.shape[1]
@@ -227,7 +248,7 @@ class GPTEmbed(nn.Module):
             start = pos_offset.clamp(0, s - t).long()
             pos = self.wpe.weight[start + ar][None]
         h = (tok + pos).to(DTYPES[cfg.compute_dtype])
-        return F.dropout(h, cfg.dropout, training=train)
+        return _dropout(h, cfg.dropout if train else 0.0, gen)
 
 
 class GPTStage(nn.Module):
@@ -235,14 +256,15 @@ class GPTStage(nn.Module):
         super().__init__()
         self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(n_layers))
 
-    def forward(self, h, *, train: bool = False, cache=None, idx=None):
+    def forward(self, h, *, train: bool = False, gen=None, cache=None, idx=None):
         for i, blk in enumerate(self.blocks):
-            h = blk(h, train=train, cache=cache, layer=i, idx=idx)
+            h = blk(h, train=train, gen=gen, cache=cache, layer=i, idx=idx)
         return h
 
 
 class GPTHead(nn.Module):
-    """Final LayerNorm + LM head; weight ``(V_padded, d)``."""
+    """Final LayerNorm + LM head; weight ``(V_padded, d)``. With targets it
+    returns the mean cross entropy through :func:`fused_head_ce`."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -257,16 +279,20 @@ class GPTHead(nn.Module):
             torch.zeros(cfg.padded_vocab_size, dtype=pdt, device=device)
         )
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, targets: torch.Tensor | None = None) -> torch.Tensor:
         hc = self.ln_f(h).to(DTYPES[self.cfg.compute_dtype])
-        return head_logits(hc, self.lm_head.weight, self.lm_head.bias, self.cfg.vocab_size)
+        w, b, v = self.lm_head.weight, self.lm_head.bias, self.cfg.vocab_size
+        if targets is not None:
+            return fused_head_ce(hc, w, b, targets, v)
+        return head_logits(hc, w, b, v)
 
 
 class GPT(nn.Module):
     """Full decoder-only GPT on ``device`` (``cuda`` unless named), its
     parameters drawn from flax's initializer distributions with a
-    generator seeded by ``seed``. Mixture-of-experts and LoRA adapters are
-    not ported yet and raise ``NotImplementedError``."""
+    generator seeded by ``seed``. Mixture-of-experts, LoRA adapters and
+    rematerialization are not ported yet and raise
+    ``NotImplementedError``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
@@ -274,6 +300,11 @@ class GPT(nn.Module):
             raise NotImplementedError("mixture-of-experts is not ported yet")
         if cfg.adapter.rank > 0:
             raise NotImplementedError("LoRA adapters are not ported yet")
+        if cfg.remat_mode != "none":
+            raise NotImplementedError(
+                f"remat {cfg.remat!r} is not ported yet (queued after the "
+                "training slice); use remat: false"
+            )
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = GPTEmbed(cfg, dev)
@@ -305,15 +336,18 @@ class GPT(nn.Module):
         self.head.lm_head.bias.zero_()
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
-                cache: dict | None = None):
-        """Logits ``(B, T, V_padded)`` for tokens ``x`` (B, T). With
-        ``cache`` (decode), returns ``(logits, new_index)``: the tokens are
-        appended at the cache's write frontier, whose advanced value is
-        ``new_index``. The caller keeps the cumulative length within
-        ``max_seq_len``."""
+                cache: dict | None = None, targets: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+        """Logits ``(B, T, V_padded)`` for tokens ``x`` (B, T), or with
+        ``targets`` (B, T) the mean next-token cross entropy (float32
+        scalar). ``train=True`` applies dropout with keep masks drawn from
+        ``generator``. With ``cache`` (decode), returns ``(logits,
+        new_index)``: the tokens are appended at the cache's write
+        frontier, whose advanced value is ``new_index``. The caller keeps
+        the cumulative length within ``max_seq_len``."""
         if cache is None:
-            h = self.embed(x, train=train)
-            return self.head(self.stage(h, train=train))
+            h = self.embed(x, train=train, gen=generator)
+            return self.head(self.stage(h, train=train, gen=generator), targets)
         idx = cache["index"]
         h = self.embed(x, train=False, pos_offset=idx)
         h = self.stage(h, cache=cache, idx=idx)

@@ -26,13 +26,18 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-#: The C signature of each library's entry point: (function, argtypes).
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+#: The C signatures of each library's entry points: {function: argtypes}.
 _SIGNATURES = {
-    "decode_attention": (
-        "dtc_decode_attention",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float]
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-    ),
+    "decode_attention": {
+        "dtc_decode_attention": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
+    },
+    "flash_attention": {
+        "dtc_flash_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+        "dtc_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P],
+        "dtc_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -129,10 +134,10 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     build_all([name])
     lib = ctypes.CDLL(str(library_path(name)))
-    fn_name, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.dtc_error_string.argtypes = [ctypes.c_int]
     lib.dtc_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib

@@ -1,11 +1,12 @@
-"""Plain masked-softmax attention: the causal forward and the multi-token
-(prefill) decode path.
+"""Attention ops: the plain masked softmax (causal forward and the
+multi-token decode path) and the ``impl`` dispatcher of the training
+forward.
 
-One masked-softmax core serves both: causal attention is
+One masked-softmax core serves both plain paths: causal attention is
 :func:`decode_attention` with a zero offset and full-length keys. Scores
 and softmax run in float32 whatever the input dtype; masked columns get
 -1e9 (the reference's additive mask value), so a softmax over them is
-exactly zero.
+exactly zero. :func:`causal_attention` picks an implementation by name.
 """
 
 from __future__ import annotations
@@ -49,3 +50,26 @@ def decode_attention(
     # dtype before the cast to q's, as the reference's einsum does.
     out = torch.einsum("bhts,bshd->bthd", weights.to(v.dtype).float(), v.float())
     return out.to(v.dtype).to(q.dtype)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     impl: str = "auto") -> torch.Tensor:
+    """Causal self-attention over ``(B, T, H, D)`` tensors. ``flash`` is the
+    flash-attention wrapper (the Hopper kernels on a CUDA tensor, their
+    plain versions on a CPU tensor); ``dense`` the plain masked softmax;
+    ``auto`` takes flash for a CUDA tensor, at any T, and dense otherwise.
+    ``ring`` and ``ulysses`` (sequence parallelism) are not ported."""
+    if impl == "auto":
+        impl = "flash" if q.is_cuda else "dense"
+    if impl == "dense":
+        return dense_causal_attention(q, k, v)
+    if impl == "flash":
+        from dtc_tpu_torch.ops.flash_attention import flash_causal_attention
+
+        return flash_causal_attention(q, k, v)
+    if impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention {impl!r} (sequence parallelism) is not ported yet; "
+            "it comes with the multi-card slices"
+        )
+    raise ValueError(f"unknown attention impl {impl!r}")

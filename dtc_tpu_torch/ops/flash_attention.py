@@ -1,0 +1,237 @@
+"""Causal flash attention for training: forward and backward kernels.
+
+The public function is :func:`flash_causal_attention` over ``(B, T, H, D)``
+tensors, the JAX package's layout; inside, q, k, v are the packed
+``(B, T, H·D)`` bytes the projections write (a reshape, no copy), and the
+log-sum-exp travels as ``(B, H, T)`` float32.
+
+Arithmetic (the TPU kernels' rounding points, ``dtc_tpu/ops/
+flash_attention.py`` ``_packed_scores`` / ``_packed_tile_bwd``): q is
+scaled by ``D**-0.5`` in q's dtype with the scale rounded to that dtype;
+scores are float32, masked to key <= query; one-pass softmax per row; p is
+cast to v's dtype before the float32-accumulated P·V product;
+``out = acc / l`` in q's dtype and ``lse = m + log l``. The backward
+recomputes ``p = exp(s - lse)``, ``delta = rowsum(dO ⊙ O)`` in float32,
+``ds = p·(dO·Vᵀ - delta)``, ``dq = (ds in k's dtype)·K·scale``,
+``dk = (ds in q's dtype)ᵀ·(q scaled)``, ``dv = (p in dO's dtype)ᵀ·dO``.
+
+:func:`flash_attention_forward` and :func:`flash_attention_backward` are
+the wrappers: on a CUDA tensor they launch the hand-written Hopper kernels
+in ``csrc/flash_attention.cu`` (or raise), on a CPU tensor they run
+:func:`flash_attention_reference` / :func:`flash_attention_backward_reference`,
+the plain PyTorch versions of the same arithmetic. There is no fallback
+from the one to the other. ``fwd_launches`` and ``bwd_launches`` count
+kernel launches (the backward launches two kernels per call: dq, then
+dk/dv).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG_INF = -1e9
+
+#: Head dims the kernels are instantiated for.
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+
+#: Kernels one backward call launches (dq + delta, then dk/dv).
+BWD_KERNELS = 2
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: Kernel launches since the last reset (the wrappers add one per launch,
+#: nowhere else).
+fwd_launches = 0
+bwd_launches = 0
+
+
+def _scale_q(d: int, dtype: torch.dtype) -> float:
+    """``D**-0.5`` rounded to q's dtype, as the reference's weakly typed
+    Python scalar is when it multiplies a q tile. Multiplying a q tensor by
+    it rounds once, to q's dtype, as the reference's product does."""
+    return float(torch.tensor(d ** -0.5, dtype=dtype))
+
+
+def _scale(d: int) -> float:
+    """``D**-0.5`` in float32: the factor the backward applies to dq."""
+    return float(torch.tensor(d ** -0.5, dtype=torch.float32))
+
+
+def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
+    b, t, hd = x.shape
+    return x.reshape(b, t, h, hd // h)
+
+
+def _causal(t: int, device) -> torch.Tensor:
+    ar = torch.arange(t, device=device)
+    return ar[None, :] <= ar[:, None]                     # (query, key)
+
+
+def flash_attention_reference(q, k, v, h: int):
+    """Plain version of the forward kernel on packed ``(B, T, H·D)``
+    tensors. Returns ``(out (B, T, H·D) in q's dtype, lse (B, H, T)
+    float32)``."""
+    b, t, hd = q.shape
+    d = hd // h
+    qs = _heads(q, h) * _scale_q(d, q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), _heads(k, h).float())
+    s = torch.where(_causal(t, q.device), s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), _heads(v, h).float())
+    out = (acc / l).to(q.dtype).permute(0, 2, 1, 3).reshape(b, t, hd)
+    return out, (m + torch.log(l)).squeeze(-1)
+
+
+def flash_attention_backward_reference(q, k, v, out, lse, do, h: int):
+    """Plain version of the backward kernels. Returns ``(dq, dk, dv)``,
+    each packed ``(B, T, H·D)`` in its input's dtype."""
+    b, t, hd = q.shape
+    d = hd // h
+    qs = _heads(q, h) * _scale_q(d, q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), _heads(k, h).float())
+    p = torch.where(_causal(t, q.device), torch.exp(s - lse[..., None]), 0.0)
+    do4 = _heads(do, h)
+    delta = (do4.float() * _heads(out, h).float()).sum(-1).permute(0, 2, 1)  # (B, H, T)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do4.float(), _heads(v, h).float())
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), _heads(k, h).float())
+    dq = dq * _scale(d)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qs.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do4.float())
+    return tuple(
+        g.to(x.dtype).reshape(b, t, hd) for g, x in ((dq, q), (dk, k), (dv, v))
+    )
+
+
+def _check(h: int, *xs: torch.Tensor) -> None:
+    q = xs[0]
+    if q.ndim != 3:
+        raise ValueError(f"expected packed (B, T, H·D) tensors, got {tuple(q.shape)}")
+    if q.shape[2] % h:
+        raise ValueError(f"packed width {q.shape[2]} not divisible by {h} heads")
+    for x in xs[1:]:
+        if x.shape != q.shape:
+            raise ValueError(f"shape {tuple(x.shape)} != {tuple(q.shape)}")
+
+
+def _check_cuda(h: int, *xs: torch.Tensor) -> None:
+    """What the kernels take: CUDA tensors on one device, contiguous,
+    float32 or bfloat16 alike, a compiled head dim."""
+    q = xs[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if any(x.device != q.device for x in xs):
+        raise ValueError("all inputs must be on one device")
+    if any(not x.is_contiguous() for x in xs):
+        raise ValueError("all inputs must be contiguous")
+    if q.dtype not in _DTYPE_CODES or any(x.dtype != q.dtype for x in xs):
+        raise ValueError(
+            f"inputs must all be float32 or all bfloat16, got {[x.dtype for x in xs]}"
+        )
+    d = q.shape[2] // h
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in the kernels' {KERNEL_HEAD_DIMS}")
+
+
+def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        from dtc_tpu_torch.ops import _build
+
+        raise RuntimeError(f"flash attention {what} launch failed: {_build.error_string(lib, rc)}")
+
+
+def flash_attention_forward(q, k, v, h: int):
+    """``(out, lse)`` of causal attention on packed tensors: the plain
+    version for CPU tensors, the forward kernel for CUDA tensors."""
+    global fwd_launches
+    _check(h, q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, h)
+    _check_cuda(h, q, k, v)
+    from dtc_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attention")
+    b, t, hd = q.shape
+    d = hd // h
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
+    rc = lib.dtc_flash_fwd(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), b, t, h, d,
+        _scale_q(d, q.dtype), _DTYPE_CODES[q.dtype],
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+    )
+    _raise_on(lib, rc, "forward")
+    fwd_launches += 1
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, out, lse, do, h: int):
+    """``(dq, dk, dv)``: the plain version for CPU tensors, the dq and
+    dk/dv kernels for CUDA tensors."""
+    global bwd_launches
+    _check(h, q, k, v, out, do)
+    if tuple(lse.shape) != (q.shape[0], h, q.shape[1]):
+        raise ValueError(f"lse must be (B, H, T), got {tuple(lse.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, out, lse, do, h)
+    _check_cuda(h, q, k, v, out, do)
+    if lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError("lse must be a contiguous float32 tensor on q's device")
+    from dtc_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attention")
+    b, t, hd = q.shape
+    d = hd // h
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    code, scale_q = _DTYPE_CODES[q.dtype], _scale_q(d, q.dtype)
+    delta = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rc = lib.dtc_flash_bwd_dq(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(do), _ptr(lse), _ptr(delta),
+        _ptr(dq), b, t, h, d, scale_q, _scale(d), code, stream,
+    )
+    _raise_on(lib, rc, "backward (dq)")
+    bwd_launches += 1
+    rc = lib.dtc_flash_bwd_dkv(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
+        _ptr(dv), b, t, h, d, scale_q, code, stream,
+    )
+    _raise_on(lib, rc, "backward (dk/dv)")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward saves ``q, k, v, out, lse`` (the JAX package's custom-VJP
+    residuals, ``_packed_flash_fwd``); backward runs the backward wrapper."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, h):
+        out, lse = flash_attention_forward(q, k, v, h)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.h = h
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do.contiguous(), ctx.h)
+        return dq, dk, dv, None
+
+
+def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal attention over ``(B, T, H, D)`` tensors, differentiable, at
+    any T. Replaces the JAX package's ``flash_causal_attention``."""
+    b, t, h, d = q.shape
+    out = _FlashAttention.apply(
+        q.reshape(b, t, h * d), k.reshape(b, t, h * d), v.reshape(b, t, h * d), h
+    )
+    return out.reshape(b, t, h, d)

@@ -7,9 +7,9 @@ layers and transposes the kernels to ``nn.Linear``'s ``(out, in)``.
 Takes numpy arrays (``jax.tree.map(np.asarray, params)``), so this module
 needs neither jax nor flax.
 
-:func:`attention_tolerance` is the limit decode-attention outputs are held
-to when two implementations are compared (kernel vs plain version, port vs
-JAX package).
+:func:`attention_tolerance` is the limit attention outputs are held to
+when two implementations are compared (kernel vs plain version, port vs
+JAX package); :func:`grad_tolerance` the limit on attention gradients.
 """
 
 from __future__ import annotations
@@ -41,6 +41,27 @@ def attention_tolerance(want: torch.Tensor, n_heads: int) -> torch.Tensor:
     _, e = torch.frexp(heads.abs().amax(dim=-1, keepdim=True))  # amax = m·2^e, m in [0.5, 1)
     ulp = torch.exp2((e - 8).float())
     return (BF16_ULPS * ulp).expand(heads.shape).reshape(want.shape)
+
+
+def grad_tolerance(want: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Per-element limit on ``|got - want|`` for packed ``(B, T, H·D)``
+    attention gradients. A gradient row is a sum over many rows of the
+    other operand, so its error follows the size of the terms, not of the
+    row: float32 :data:`FP32_ATOL` times the tensor's largest ``|want|``;
+    bfloat16 :data:`BF16_ULPS` ulps of each head's largest ``|want|`` over
+    the whole tensor (the rounding of ds or p to bfloat16 can flip by one
+    ulp where two sum orders differ)."""
+    w = want.detach().float().cpu()
+    if want.dtype == torch.float32:
+        return torch.full(want.shape, FP32_ATOL * float(w.abs().max()))
+    if want.dtype != torch.bfloat16:
+        raise ValueError(f"no tolerance for {want.dtype}")
+    b, t, hd = want.shape
+    heads = w.reshape(b * t, n_heads, hd // n_heads)
+    _, e = torch.frexp(heads.abs().amax(dim=(0, 2), keepdim=True))
+    ulp = torch.exp2((e - 8).float())
+    return (BF16_ULPS * ulp).expand(heads.shape).reshape(want.shape)
+
 
 _DENSE = {
     "attn.q_proj": ("attn", "q_proj"), "attn.k_proj": ("attn", "k_proj"),

@@ -1,0 +1,207 @@
+"""The training loop on one device: the port's counterpart of the JAX
+package's ``train/trainer.py`` for a data-parallel run on one card.
+
+Measurement protocol as in the JAX package (and its reference):
+``warmup_steps`` untimed steps that are real updates on the first batches,
+then the timed loop, whose step 1 consumes the next batch. Losses are
+fetched at log boundaries only (one stacked transfer per window), where the
+anomaly guard judges them, ``log.csv`` gets the window's rows
+(``step, elapsed_time, loss``, ``elapsed_time`` cumulative from the start
+of the timed loop) and tokens/s and MFU are printed. ``sync_every_step:
+None`` syncs the device after every step whenever a ``log.csv`` is written,
+so each row's time is a completed step.
+
+What the port has not ported raises ``NotImplementedError`` naming the
+slice it waits for (:func:`refuse_unported`).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+from dtc_tpu_torch.config.schema import ModelConfig, OptimConfig, TrainConfig
+from dtc_tpu_torch.data.prefetch import PrefetchIterator
+from dtc_tpu_torch.data.synthetic import synthetic_batch_iterator
+from dtc_tpu_torch.models.gpt import GPT, resolve_device
+from dtc_tpu_torch.resilience.guard import AnomalyGuard
+from dtc_tpu_torch.resilience.watchdog import StepWatchdog
+from dtc_tpu_torch.train.optimizer import create_optimizer
+from dtc_tpu_torch.train.train_step import train_step
+from dtc_tpu_torch.utils.logging import CSVLogger
+from dtc_tpu_torch.utils.metrics import mfu, peak_flops
+
+
+@dataclass
+class TrainResult:
+    model: GPT
+    optimizer: object
+    losses: list[float] = field(default_factory=list)
+    elapsed_times: list[float] = field(default_factory=list)
+    total_time_s: float = 0.0
+
+
+def refuse_unported(train_cfg: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` for every setting that asks for a part
+    of the JAX trainer the port does not have yet, naming where it waits."""
+    multi = "DP over several cards with torch.distributed, then TP/PP/FSDP"
+    m = train_cfg.mesh
+    refusals = [
+        (train_cfg.parallel != "dp",
+         f"parallel: {train_cfg.parallel} ({multi})"),
+        (any(a not in (0, 1) for a in (m.pipe, m.data, m.model))
+         or (m.dcn_pipe, m.dcn_data, m.dcn_model) != (1, 1, 1),
+         f"a mesh of more than one device ({multi})"),
+        (train_cfg.pp_microbatches > 1, "pp_microbatches > 1 (pipeline parallelism)"),
+        (train_cfg.collectives == "overlapped",
+         "collectives: overlapped (TPU kernel rows 17-18, with FSDP)"),
+        (train_cfg.dataset == "fineweb",
+         "dataset: fineweb (waits for a dataset in the repository; use "
+         "--dataset synthetic)"),
+        (train_cfg.checkpoint_every > 0, "checkpoint_every > 0 (checkpoints)"),
+        (train_cfg.eval_every > 0, "eval_every > 0 (held-out eval, with checkpoints)"),
+        (train_cfg.obs.enabled,
+         "obs.enabled (telemetry, obs/); pass --no-obs or obs: {enabled: false}"),
+        (train_cfg.profile_start or train_cfg.profile_stop,
+         "profile_start/profile_stop (profiler windows, with obs/)"),
+        (train_cfg.slo.any_objective, "SLO objectives (with obs/)"),
+        (train_cfg.resilience.chaos.enabled, "resilience.chaos (fault injection)"),
+        (train_cfg.resilience.elastic.enabled,
+         f"resilience.elastic (elastic training, after {multi})"),
+        (train_cfg.resilience.guard.skip_nonfinite_updates,
+         "resilience.guard.skip_nonfinite_updates (with checkpoints)"),
+        (train_cfg.multihost, f"multihost ({multi})"),
+        (train_cfg.debug_nans, "debug_nans"),
+    ]
+    for refused, what in refusals:
+        if refused:
+            raise NotImplementedError(f"the PyTorch port does not train with {what} yet")
+
+
+def train(
+    train_cfg: TrainConfig,
+    model_cfg: ModelConfig,
+    opt_cfg: OptimConfig,
+    *,
+    device=None,
+    params=None,
+) -> TrainResult:
+    """Train ``model_cfg`` on ``device`` (``cuda`` unless named; raises
+    without a card). The weights come from ``GPT(model_cfg,
+    seed=train_cfg.seed)``, or from ``params``, a flax parameter tree of
+    numpy arrays carried across by :func:`dtc_tpu_torch.parity.from_flax`.
+    Dropout masks come from a generator seeded with ``train_cfg.seed``; the
+    synthetic stream from seed ``seed·1000`` (the JAX trainer's seed for
+    process 0)."""
+    refuse_unported(train_cfg)
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    model = GPT(model_cfg, device=dev, seed=train_cfg.seed)
+    if params is not None:
+        from dtc_tpu_torch.parity import from_flax
+
+        model.load_state_dict(from_flax(params, model_cfg))
+    opt = create_optimizer(model.parameters(), opt_cfg, total_steps=train_cfg.steps)
+    gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
+
+    log_path = os.path.join(train_cfg.output_dir, "log.csv")
+    if train_cfg.output_dir and not train_cfg.overwrite and os.path.exists(log_path):
+        raise ValueError(
+            f"refusing to overwrite existing {log_path} on a fresh run; pass "
+            "overwrite: true or pick another output_dir"
+        )
+    seq = model_cfg.max_seq_len
+    host_it = synthetic_batch_iterator(
+        train_cfg.batch, seq + 1, model_cfg.vocab_size, seed=train_cfg.seed * 1000
+    )
+    data_it = PrefetchIterator(host_it, dev, depth=train_cfg.prefetch)
+    csv = CSVLogger(log_path) if train_cfg.output_dir else None
+    res_cfg = train_cfg.resilience
+    guard = AnomalyGuard(res_cfg.guard) if res_cfg.guard.enabled else None
+    wd = StepWatchdog(res_cfg.watchdog) if res_cfg.watchdog.enabled else None
+    sync_every_step = train_cfg.sync_every_step
+    if sync_every_step is None:
+        sync_every_step = bool(train_cfg.output_dir)
+    peak = peak_flops(dev)
+    tokens_per_step = train_cfg.batch * seq
+    result = TrainResult(model=model, optimizer=opt)
+
+    def sync() -> None:
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    print(f"[dtc_tpu_torch] strategy={train_cfg.parallel} device={dev}"
+          + (f" ({torch.cuda.get_device_name(dev)})" if cuda else ""))
+    try:
+        if train_cfg.warmup_steps:
+            print("Warmup")
+        for _ in range(train_cfg.warmup_steps):
+            x, y = next(data_it)
+            loss = train_step(model, opt, x, y, gen)
+        if train_cfg.warmup_steps:
+            float(loss)  # wait for the warmup updates
+
+        if wd is not None and threading.current_thread() is threading.main_thread():
+            wd.start()
+        print("Start measuring")
+        device_losses: list[torch.Tensor] = []
+        pending: list[tuple[int, float]] = []
+        start = window_start = prev = time.perf_counter()
+        window_steps = 0
+        for step in range(1, train_cfg.steps + 1):
+            if wd is not None:
+                wd.arm(step)
+            x, y = next(data_it)
+            device_losses.append(train_step(model, opt, x, y, gen))
+            if sync_every_step:
+                sync()
+            now = time.perf_counter()
+            result.elapsed_times.append(now - start)
+            pending.append((step, now - start))
+            if wd is not None:
+                flag = wd.observe(step, now - prev)
+                if flag is not None:
+                    print(f"[dtc_tpu_torch] hung step: {flag}")
+            prev = now
+            window_steps += 1
+            if step % train_cfg.log_every and step != train_cfg.steps:
+                continue
+            losses = torch.stack(device_losses).tolist()  # the window's one sync
+            now = time.perf_counter()
+            if not sync_every_step:
+                # Rows were stamped at dispatch: re-stamp the window's last
+                # one now that its work is done.
+                pending[-1] = (pending[-1][0], now - start)
+                result.elapsed_times[-1] = now - start
+            if guard is not None:
+                decision = guard.check_window(step, losses)
+                if decision.anomalous:
+                    print(f"[dtc_tpu_torch] ANOMALY: {decision.reason} -> {decision.action}")
+            result.losses.extend(losses)
+            if csv is not None:
+                for (s, el), lo in zip(pending, losses):
+                    csv.log(step=s, elapsed_time=el, loss=lo)
+                csv.flush()
+            avg = (now - window_start) / max(window_steps, 1)
+            msg = (f"Step: {step} | Avg loss: {sum(losses) / len(losses):.4f} | "
+                   f"Average step time: {avg:.4f} | tokens/s: {tokens_per_step / avg:,.0f}")
+            u = mfu(model_cfg, train_cfg.batch, seq, avg, peak)
+            if u is not None:
+                msg += f" | MFU: {u * 100:.1f}%"
+            print(msg)
+            device_losses, pending = [], []
+            window_start, window_steps = time.perf_counter(), 0
+    finally:
+        if wd is not None:
+            wd.stop()
+        data_it.close()
+        if csv is not None:
+            csv.close()
+    result.total_time_s = time.perf_counter() - start
+    print(f"Total time: {result.total_time_s}")
+    print("End")
+    return result

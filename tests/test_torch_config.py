@@ -56,6 +56,31 @@ def test_model_configs_load_equal(name):
         assert getattr(t, prop) == getattr(j, prop)
 
 
+@pytest.mark.parametrize("name", [n for n in CONFIGS if n.startswith("train_config")])
+def test_train_config_triples_load_equal(name):
+    """The (train, model, optim) triple with sibling defaults, as JAX's
+    ``load_config`` builds it."""
+    path = ROOT / "configs" / name
+    for j, t in zip(jloader.load_config(path), tloader.load_config(path)):
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+@pytest.mark.parametrize("cls,kw", [
+    ("OptimConfig", dict(lr=1e-3, weight_decay=0.0, grad_clip=1.0, schedule="linear")),
+    ("OptimConfig", dict(lr=1e-3, weight_decay=0.0, grad_clip=1.0, precision="fp16")),
+    ("TrainConfig", dict(seed=0, parallel="zero", batch=8, steps=1, log_every=1, output_dir="")),
+    ("TrainConfig", dict(seed=0, parallel="dp", batch=7, steps=1, log_every=1, output_dir="",
+                         pp_microbatches=2)),
+    ("ResilienceConfig", dict(checkpoint_keep_n=0)),
+    ("ElasticConfig", dict(dead_hosts=(0, 1))),
+])
+def test_train_config_validators_match(cls, kw):
+    with pytest.raises(ValueError):
+        getattr(jschema, cls)(**kw)
+    with pytest.raises(ValueError):
+        getattr(tschema, cls)(**kw)
+
+
 def test_serve_config_pair_loads_equal():
     path = ROOT / "configs" / "serve_config.yaml"
     js, jm = jloader.load_serve_config(path)
@@ -101,12 +126,12 @@ def _port_modules():
 
 def test_port_imports_no_jax_flax_or_dtc_tpu():
     """Importing every port module in a fresh interpreter loads no jax,
-    flax or dtc_tpu module."""
+    flax, optax, click, yaml or dtc_tpu module."""
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'dtc_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'click', 'yaml', 'dtc_tpu')]\n"
         "print(len(bad)); assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -117,7 +142,7 @@ def test_port_imports_no_jax_flax_or_dtc_tpu():
 
 
 def test_port_source_has_no_forbidden_imports():
-    forbidden = ("jax", "jaxlib", "flax", "optax", "dtc_tpu")
+    forbidden = ("jax", "jaxlib", "flax", "optax", "click", "yaml", "dtc_tpu")
     files = list((ROOT / "dtc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

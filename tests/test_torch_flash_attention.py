@@ -1,0 +1,142 @@
+"""The port's flash attention against the JAX package's, forward and all
+three gradients, on the same numpy inputs.
+
+JAX runs its Pallas kernels in interpret mode here (as
+``tests/test_flash_attention.py`` does): ``block_q = block_kv = T`` takes the
+single-tile kernels (TPU kernel rows 4 and 5), ``T/2`` the multi-tile ones
+(rows 6 and 7). The port runs its plain versions, which are what its CUDA
+kernels are held against on the card.
+
+Tolerances (``dtc_tpu_torch.parity``):
+- float32: ``out`` and ``lse`` 1e-5 absolute, gradients 1e-5 × the tensor's
+  largest |value| — the two packages sum in other orders, nothing more
+  (measured: ~5e-7 absolute, ~1e-6 relative).
+- bfloat16: ``out`` 4 bf16 ulps of each (row, head)'s largest |value|,
+  gradients 4 ulps of each head's largest |value| over the tensor (one
+  rounding of p or ds to bf16 may flip where the sum orders differ; the
+  multi-tile kernels also round p against a running max); ``lse`` stays
+  float32, 1e-5 absolute.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from dtc_tpu.ops import flash_attention as jfa
+from dtc_tpu_torch.ops import flash_attention as tfa
+from dtc_tpu_torch.parity import FP32_ATOL, attention_tolerance, grad_tolerance
+
+_JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _inputs(b, t, h, d, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(b, t, h, d).astype(np.float32) for _ in range(4)]
+
+
+def _jax(q, k, v, do, block, dtype):
+    """JAX's out, lse (as (B, H, T)) and (dq, dk, dv), packed (B, T, H·D)."""
+    b, t, h, d = q.shape
+    jq, jk, jv, jdo = (jnp.asarray(x, _JDT[dtype]) for x in (q, k, v, do))
+    out, vjp = jax.vjp(
+        lambda q, k, v: jfa.flash_causal_attention(q, k, v, block_q=block, block_kv=block),
+        jq, jk, jv,
+    )
+    grads = vjp(jdo)
+    g = jfa._packed_group(d, h)
+    _, lse = jfa._packed_fwd_call(
+        jq.reshape(b, t, h * d), jk.reshape(b, t, h * d), jv.reshape(b, t, h * d),
+        block, block, g, d, float(d ** -0.5),
+    )
+    lse = np.array(lse).transpose(0, 1, 3, 2).reshape(b, h, t)  # (B, H/g, T, g) -> (B, H, T)
+
+    def packed(x):
+        return torch.from_numpy(np.array(jnp.asarray(x, jnp.float32))).reshape(b, t, h * d)
+
+    return packed(out), torch.from_numpy(lse), [packed(x) for x in grads]
+
+
+def _port(q, k, v, do, dtype):
+    b, t, h, d = q.shape
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_(True) for x in (q, k, v))
+    out = tfa.flash_causal_attention(tq, tk, tv)
+    out.backward(torch.from_numpy(do).to(tdt))
+    _, lse = tfa.flash_attention_reference(
+        *(x.detach().reshape(b, t, h * d) for x in (tq, tk, tv)), h
+    )
+    return out.detach().reshape(b, t, h * d), lse, [x.grad.reshape(b, t, h * d) for x in (tq, tk, tv)]
+
+
+def _assert_within(name, got, want, limit):
+    err = (got.float() - want.float()).abs()
+    worst = (err / limit).max().item()
+    assert worst <= 1.0, f"{name}: max error {err.max().item():.3e} is {worst:.2f}x its limit"
+
+
+def _compare(b, t, h, d, dtype, block, seed):
+    q, k, v, do = _inputs(b, t, h, d, seed)
+    jout, jlse, jgrads = _jax(q, k, v, do, block, dtype)
+    tout, tlse, tgrads = _port(q, k, v, do, dtype)
+    want_dt = getattr(torch, dtype)
+    assert tout.dtype == want_dt and tlse.dtype == torch.float32
+    _assert_within("out", tout, jout.to(want_dt), attention_tolerance(jout.to(want_dt), h))
+    _assert_within("lse", tlse, jlse, torch.full(jlse.shape, FP32_ATOL))
+    for name, got, want in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        assert got.dtype == want_dt
+        _assert_within(name, got, want, grad_tolerance(want.to(want_dt), h))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,h,d", [(2, 128, 4, 32), (1, 256, 8, 16)])
+def test_matches_jax_single_tile_kernels(b, t, h, d, dtype):
+    """TPU kernel rows 4 (``_fwd_kernel_packed``) and 5
+    (``_bwd_kernel_packed``): the whole KV in one tile."""
+    _compare(b, t, h, d, dtype, block=t, seed=t + d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matches_jax_multi_tile_kernels(dtype):
+    """TPU kernel rows 6 (``_fwd_kernel_packed_multi``) and 7
+    (``_bwd_kernel_packed_multi``): T 256 in blocks of 128, the online
+    softmax and causal block skipping of the long-context path."""
+    _compare(2, 256, 8, 32, dtype, block=128, seed=7)
+
+
+def test_ragged_length_matches_dense_attention():
+    """T 100 (no tile divides it): the plain flash version against the
+    port's dense attention, forward and gradients, float32."""
+    from dtc_tpu_torch.ops.attention import dense_causal_attention
+
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(2, 100, 2, 32, seed=3))
+    grads = []
+    for fn in (tfa.flash_causal_attention, dense_causal_attention):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*xs)
+        out.backward(do)
+        grads.append([out.detach()] + [x.grad for x in xs])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=0)
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(1, 64, 2, 16, seed=1))
+    f0, b0 = tfa.fwd_launches, tfa.bwd_launches
+    xs = [x.requires_grad_(True) for x in (q, k, v)]
+    tfa.flash_causal_attention(*xs).backward(do)
+    assert (tfa.fwd_launches, tfa.bwd_launches) == (f0, b0)
+
+
+def test_wrappers_reject_bad_inputs():
+    x = torch.zeros(1, 8, 64)
+    with pytest.raises(ValueError):  # width not divisible by the heads
+        tfa.flash_attention_forward(x, x, x, 3)
+    with pytest.raises(ValueError):  # mismatched shapes
+        tfa.flash_attention_forward(x, x, torch.zeros(1, 9, 64), 2)
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        tfa.flash_attention_backward(x, x, x, x, torch.zeros(1, 8, 2), x, 2)
+    with pytest.raises(ValueError):  # not a CUDA tensor: no kernel for it
+        tfa._check_cuda(2, x, x, x)

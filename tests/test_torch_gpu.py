@@ -1,12 +1,15 @@
-"""The port on a CUDA card: the decode-attention kernel against its plain
-version, and the kernel on the model's decode path. Needs an NVIDIA GPU
-with ``nvcc``; elsewhere every test skips with the reason.
+"""The port on a CUDA card: the decode-attention and flash-attention
+kernels against their plain versions, and the kernels on the model's
+decode and training paths. Needs an NVIDIA GPU with ``nvcc``; elsewhere
+every test skips with the reason.
 
-    python -m pytest -m gpu tests/test_torch_gpu.py
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances as in chip_smoke.py (``parity.attention_tolerance``): float32
-1e-5 (summation order); bfloat16 and int8-dequantized-to-bfloat16 a few
-bf16 ulps of each head's largest output.
+Tolerances as in chip_smoke.py: outputs ``parity.attention_tolerance``
+(float32 1e-5, summation order; bfloat16 and int8-dequantized-to-bfloat16
+a few bf16 ulps of each head's largest output), gradients
+``parity.grad_tolerance`` (float32 1e-5 × the largest |value|; bfloat16 a
+few ulps of each head's largest value).
 """
 
 import pytest
@@ -97,3 +100,78 @@ def test_generate_on_cuda_matches_cpu_fp32(cuda, max_seq_len):
     out_gpu = generate(gpu, prompt, 12)
     assert da.launches - before == cfg.n_layers * 11
     assert out_gpu.cpu().tolist() == generate(cpu, prompt, 12).tolist()
+
+
+# --- flash attention (training) ------------------------------------------
+
+
+def _flash_case(dev, b, t, h, d, dt, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(b, t, h * d, device=dev, generator=g).to(dt) for _ in range(4)]
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [2, 64, 100, 512])
+def test_flash_kernels_match_plain(cuda, t, dt, d):
+    """Forward (out, lse) and backward (dq, dk, dv) kernels against their
+    plain versions, at tile-aligned and ragged T."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.parity import grad_tolerance
+
+    h = 2
+    q, k, v, do = _flash_case(cuda, 2, t, h, d, dt)
+    out, lse = fa.flash_attention_forward(q, k, v, h)
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, h)
+    torch.cuda.synchronize()
+    _assert_close(out, want_out, h)
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+    got = fa.flash_attention_backward(q, k, v, want_out, want_lse, do, h)
+    want = fa.flash_attention_backward_reference(q, k, v, want_out, want_lse, do, h)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == dt
+        assert ((g_.float() - w_.float()).abs() <= grad_tolerance(w_, h).to(cuda)).all()
+
+
+def test_flash_autograd_counts_launches_and_is_deterministic(cuda):
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_case(cuda, 2, 300, 4, 32, torch.bfloat16, seed=2)
+    grads = []
+    for _ in range(2):
+        f0, b0 = fa.fwd_launches, fa.bwd_launches
+        xs = [x.clone().view(2, 300, 4, 32).requires_grad_(True) for x in (q, k, v)]
+        fa.flash_causal_attention(*xs).backward(do.view(2, 300, 4, 32))
+        assert (fa.fwd_launches - f0, fa.bwd_launches - b0) == (1, fa.BWD_KERNELS)
+        grads.append([x.grad for x in xs])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    x = torch.zeros(2, 300, 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # a head_dim the kernels have no instance for
+        fa.flash_attention_forward(x, x, x, 1)
+
+
+def test_training_on_cuda_runs_the_flash_kernels_and_matches_dense(cuda):
+    """``attention: auto`` on the card trains through the flash kernels
+    (one forward and two backward launches per layer per step, warmup
+    included); float32 losses equal dense attention's within 1e-4 (TF32
+    off)."""
+    import dataclasses
+
+    from dtc_tpu_torch.config.schema import ObsConfig, OptimConfig, TrainConfig
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.train.trainer import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tcfg = TrainConfig(seed=0, parallel="dp", batch=2, steps=3, log_every=3, output_dir="",
+                       dataset="synthetic", warmup_steps=1, prefetch=2,
+                       obs=ObsConfig(enabled=False))
+    ocfg = OptimConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0)
+    mcfg = ModelConfig(vocab_size=97, d_model=64, n_layers=2, n_heads=2, d_ff=128,
+                       max_seq_len=96, compute_dtype="float32")
+    f0, b0 = fa.fwd_launches, fa.bwd_launches
+    auto = train(tcfg, mcfg, ocfg).losses
+    assert fa.fwd_launches - f0 == 2 * 4 and fa.bwd_launches - b0 == 2 * 4 * fa.BWD_KERNELS
+    dense = train(tcfg, dataclasses.replace(mcfg, attention="dense"), ocfg).losses
+    assert max(abs(a - b) for a, b in zip(auto, dense)) <= 1e-4
