@@ -45,6 +45,24 @@ Phases (each prints its own lines; any failure exits non-zero):
 8. Path agreement: a small float32 config trained a few steps once with
    ``attention: flash`` (the kernels) and once with ``attention: dense``
    from the same weights and batches; the losses agree within 1e-4.
+9. Decode megakernel vs plain (``csrc/decode_fused.cu``) at the flagship
+   widths and depth (B 4, S 512, per-row frontiers from 2 to past S;
+   bfloat16 and float32 compute; bfloat16, int8 and float32 KV; t 1 and a
+   t 4 verify window), random biases included: over one layer and over
+   all 12 within ``MK_*`` limits; at one layer two planted faults in the
+   plain version (the cache mask one column short; with bf16 compute over
+   a bf16 cache, the bias added before the product is rounded) land over
+   them. Device times of the kernel,
+   the plain version and the per-layer ``fused`` yardstick (CUDA graph
+   replay) beside the bound; launch geometry.
+10. Serve the flagship under ``decode_attention: fused_layers`` with phase
+    4's requests: one megakernel launch per decode iteration and no
+    decode-attention launch; TTFT, ms/token, tokens/s (``--profile``:
+    kernels per iteration, busy share); then float32 under
+    ``fused_layers``: every request's tokens equal ``generate()``'s.
+11. Speculative serving on the megakernel (``spec_k`` 4, ``draft_layers``
+    4, bfloat16): every request token-identical to phase 10; accept rate,
+    tokens per verify launch, ms/token.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -306,6 +324,8 @@ def serve(serve_cfg, model_cfg, seed: int, reqs, device: str = "cuda"):
     from dtc_tpu_torch.ops import decode_attention as da
     from dtc_tpu_torch.serve import Request, ServingEngine
 
+    from dtc_tpu_torch.ops import decode_fused
+
     cuda = device == "cuda"
     model = GPT(model_cfg, device=device, seed=seed)
     # Warm-up: one short request through a throwaway engine, so the timed
@@ -321,13 +341,14 @@ def serve(serve_cfg, model_cfg, seed: int, reqs, device: str = "cuda"):
     eng = ServingEngine(model, serve_cfg)
     for r in reqs:
         eng.submit(r)
-    da.launches = 0                      # the main path starts here
+    da.launches = decode_fused.launches = 0  # the main path starts here
     t0 = time.perf_counter()
     res = eng.run(max_steps=10_000)
     if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = da.launches               # ...and ends here
+    launches = dict(decode_attention=da.launches,  # ...and ends here
+                    fused_layers=decode_fused.launches)
     return model, eng, res, wall, launches
 
 
@@ -615,6 +636,209 @@ def path_agreement(seed: int, steps: int = 4):
     return losses
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the decode megakernel against its plain version
+# ---------------------------------------------------------------------------
+
+#: Phase 9's limits where a bf16 or int8 rounding lies on the path: at one
+#: layer at most MK_ULPS_ONE ulps of each row's largest |value| and, with
+#: bf16 compute over a bf16 cache, at most MK_SHARE of the outputs
+#: differing at all (the kernel's and cuBLAS's sum orders flip a bf16
+#: rounding only where an fp32 sum lies within its error of a rounding
+#: boundary: 0.2% at t 1 and 2.1% at t 4, while a misplaced rounding point
+#: flips about a third of every product: 61-63% of the outputs; an int8
+#: cache is left out of the share, since one flipped step there moves a
+#: whole head's scale: 8.3% at t 1); through the whole stack at most
+#: MK_ULPS_ALL ulps (a flip moves the next layer's inputs and spreads
+#: through its products). float32 throughout: 1e-5 of each row's largest
+#: |value| (at least 1e-5), summation order only.
+MK_ULPS_ONE, MK_SHARE, MK_ULPS_ALL = 2, 0.10, 16
+
+
+def megakernel_bound(cfg, b, t, starts, cdtype, kvdtype):
+    """Least time for one launch on these inputs: the bytes it must move
+    (every layer's float32 parameters, the cached K/V (and int8 scales)
+    below each row's frontier, the window's K/V written, the residual in
+    and out, the frontiers) over HBM bandwidth, against its operations (2
+    per multiply-add: the dense products, q·K and p·V over each position's
+    visible columns) over the peak rate of the compute dtype."""
+    el = {"float32": 4, "bfloat16": 2, "int8": 1}
+    n_l, dm, dff, h, d, s = (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_heads,
+                             cfg.head_dim, cfg.max_seq_len)
+    hd = h * d
+    params = 4 * dm * dm + 2 * dm * dff + 4 * dm + dff + dm + 4 * dm
+    per_pos = 2 * hd * el[kvdtype] + (2 * h * 4 if kvdtype == "int8" else 0)
+    cached = sum(min(max(st, 0), s) for st in starts)
+    nbytes = (n_l * (4 * params + (cached + b * t) * per_pos)
+              + 2 * b * t * dm * el[cdtype] + 4 * len(starts))
+    visible = sum(min(max(st, 0) + j, s) + 1 for st in starts for j in range(t))
+    ops = n_l * (2 * b * t * (4 * dm * dm + 2 * dm * dff) + 4 * hd * visible)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[cdtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def megakernel_model(base_cfg, compute: str, seed: int):
+    """The flagship's layer stack on the card with random weights from
+    ``seed``, its biases and LayerNorm parameters random too (the model's
+    own initialisation zeroes them, and a zero bias hides where it is
+    added)."""
+    import dataclasses
+
+    import torch
+
+    from dtc_tpu_torch.models.gpt import GPT
+
+    model = GPT(dataclasses.replace(base_cfg, compute_dtype=compute,
+                                    decode_attention="fused_layers"), seed=seed)
+    g = torch.Generator(device=model.device).manual_seed(seed + 1)
+    with torch.no_grad():
+        for prm in model.parameters():
+            if prm.ndim == 1:
+                prm.add_(0.2 * torch.randn(prm.shape, device=prm.device, generator=g))
+    return model
+
+
+def megakernel_inputs(model, b, t, kvdtype, seed):
+    """The residual (B, t, d_model) in the compute dtype and a decode cache
+    of random contents in ``kvdtype`` (int8: payloads and positive
+    scales)."""
+    import torch
+
+    from dtc_tpu_torch.models.gpt import DTYPES
+
+    cfg = model.cfg
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (cfg.n_layers, b, cfg.max_seq_len, cfg.d_model)
+    if kvdtype == "int8":
+        sshape = shape[:3] + (cfg.n_heads,)
+        cache = {n: torch.randint(-127, 128, shape, device=dev, generator=g).to(torch.int8)
+                 for n in ("k", "v")}
+        cache.update({n: 0.005 + 0.015 * torch.rand(sshape, device=dev, generator=g)
+                      for n in ("k_scale", "v_scale")})
+    else:
+        cache = {n: (0.5 * torch.randn(shape, device=dev, generator=g)).to(getattr(torch, kvdtype))
+                 for n in ("k", "v")}
+    # A residual of the embeddings' scale, so attention's share of each
+    # layer's output is not lost under it.
+    x = 0.1 * torch.randn(b, t, cfg.d_model, device=dev, generator=g)
+    return x.to(DTYPES[cfg.compute_dtype]), cache
+
+
+def megakernel_compare(got, want, compute, kvdtype, depth_one: bool):
+    """(max |error| over its limit, share of outputs that differ, within
+    the limit?) of ``got`` against ``want`` under phase 9's limits."""
+    import torch
+
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    rowmax = w.abs().amax(dim=-1, keepdim=True)
+    if compute == "float32" and kvdtype == "float32":
+        limit = 1e-5 * rowmax.clamp_min(1.0)
+    else:
+        _, e = torch.frexp(rowmax)
+        limit = (MK_ULPS_ONE if depth_one else MK_ULPS_ALL) * torch.exp2((e - 8).float())
+    ratio = (diff / limit).max().item()
+    share = (g != w).float().mean().item()
+    by_share = depth_one and compute == kvdtype == "bfloat16"
+    ok = ratio <= 1.0 and not (by_share and share > MK_SHARE)
+    return ratio, share, ok
+
+
+def megakernel_case(name, model, b, t, kvdtype, starts, seed):
+    """The megakernel against its plain version on the same inputs, over
+    one layer and over the whole stack; at one layer, the plain version
+    with each planted fault must land over the limit."""
+    import contextlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from dtc_tpu_torch.models import gpt
+    from dtc_tpu_torch.ops import decode_fused
+
+    compute = model.cfg.compute_dtype
+    dev = model.device
+    x, cache = megakernel_inputs(model, b, t, kvdtype, seed)
+    idx = torch.tensor(starts, dtype=torch.int32, device=dev)
+
+    def run(fn, depth, frontier=idx):
+        c = {k: v[:depth].clone() for k, v in cache.items()}
+        out = fn(x, model.stage.blocks[:depth], c, frontier)
+        torch.cuda.synchronize()
+        return out, c
+
+    @contextlib.contextmanager
+    def bias_before_rounding():
+        real = gpt.Dense.forward
+        gpt.Dense.forward = lambda self, z: F.linear(
+            z.to(self.cdtype), self.weight.to(self.cdtype), self.bias.to(self.cdtype))
+        try:
+            yield
+        finally:
+            gpt.Dense.forward = real
+
+    rec = dict(case=name, b=b, t=t, compute=compute, kv=kvdtype, starts=starts)
+    for depth, tag in ((1, "one_layer"), (model.cfg.n_layers, "all_layers")):
+        got, c_got = run(decode_fused.fused_layers, depth)
+        want, c_want = run(decode_fused.fused_layers_reference, depth)
+        check(got.shape == x.shape and got.dtype == x.dtype, f"megakernel {name}: bad output")
+        check(bool(torch.isfinite(got.float()).all()), f"megakernel {name}: non-finite output")
+        ratio, share, ok = megakernel_compare(got, want, compute, kvdtype, depth == 1)
+        err = (got.float() - want.float()).abs().max().item()
+        kv_err = max((c_got[n].float() - c_want[n].float()).abs().max().item() for n in c_got)
+        rec[tag] = dict(max_abs_err=err, err_over_limit=ratio, share_differing=share,
+                        cache_max_abs_err=kv_err)
+        log(f"megakernel {name} {tag}: max_abs_err {err:.3e}, {ratio:.3f} of its limit, "
+            f"{share:.4f} of outputs differ, cache max_abs_err {kv_err:.3e}")
+        check(ok, f"megakernel {name} {tag}: over its limit")
+    faults = {"cache mask one column short": lambda: run(
+        decode_fused.fused_layers_reference, 1, (idx - 1).clamp_min(0))[0]}
+    if compute == kvdtype == "bfloat16":
+        def bias_fault():
+            with bias_before_rounding():
+                return run(decode_fused.fused_layers_reference, 1)[0]
+        faults["bias added before rounding"] = bias_fault
+    want, _ = run(decode_fused.fused_layers_reference, 1)
+    rec["faults"] = {}
+    for fname, fn in faults.items():
+        ratio, share, ok = megakernel_compare(fn(), want, compute, kvdtype, True)
+        rec["faults"][fname] = dict(err_over_limit=ratio, share_differing=share)
+        log(f"megakernel {name}: planted fault '{fname}': {ratio:.3f} of the limit, "
+            f"{share:.4f} of outputs differ")
+        check(not ok, f"megakernel {name}: the limit misses the fault '{fname}'")
+    rec["max_abs_err"] = max(rec["one_layer"]["max_abs_err"], rec["all_layers"]["max_abs_err"])
+    return rec
+
+
+def megakernel_times(model, b, t, kvdtype, starts, seed, iters):
+    """Device times (CUDA graph replay) of the megakernel, its plain version
+    and the per-layer yardstick (the ``fused`` decode path over the same
+    blocks: per layer the dense products, the cache write and the
+    single-query decode kernel) at these inputs, plus the bound."""
+    import torch
+
+    from dtc_tpu_torch.ops import decode_fused
+
+    x, cache = megakernel_inputs(model, b, t, kvdtype, seed)
+    idx = torch.tensor(starts, dtype=torch.int32, device=model.device)
+    blocks = model.stage.blocks
+    out = dict(
+        ms=graph_ms(lambda: decode_fused.fused_layers(x, blocks, cache, idx), iters),
+        wrapper_ms=cuda_ms(lambda: decode_fused.fused_layers(x, blocks, cache, idx), iters),
+        plain_ms=graph_ms(lambda: decode_fused.fused_layers_reference(x, blocks, cache, idx),
+                          iters),
+    )
+    if t == 1:
+        out["per_layer_ms"] = graph_ms(lambda: model.stage(x, cache=cache, idx=idx), iters)
+        out["per_layer_wrapper_ms"] = cuda_ms(lambda: model.stage(x, cache=cache, idx=idx), iters)
+    out["bound_ms"], out["bound_by"], out["bytes"] = megakernel_bound(
+        model.cfg, b, t, starts, model.cfg.compute_dtype, kvdtype)
+    return out
+
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default="", help="write every measured number to this JSON file")
@@ -682,7 +906,8 @@ def main() -> int:
         reqs = flagship_requests(mcfg.vocab_size, args.seed, max_new)
         mem_base = torch.cuda.memory_allocated()  # what earlier phases still hold
         log(f"device memory still allocated before serving: {mem_base} B")
-        model, eng, res, wall, launches = serve(scfg, mcfg, args.seed, reqs)
+        model, eng, res, wall, launched = serve(scfg, mcfg, args.seed, reqs)
+        launches = launched["decode_attention"]
         steps = eng.counters["serve_decode_steps"]
         for r in reqs:
             rr = res[r.rid]
@@ -819,6 +1044,154 @@ def main() -> int:
             f"diff {gap:.3e} (limit 1e-4)")
         check(gap <= 1e-4, f"flash and dense training disagree by {gap}")
 
+        # 9. the decode megakernel vs plain at the flagship widths and depth
+        import dataclasses
+
+        from dtc_tpu_torch.ops import decode_fused
+
+        mk_cases, mk_models = [], {}
+        for i, (name, compute, t, kvd) in enumerate((
+            ("bf16_bf16kv_t1", "bfloat16", 1, "bfloat16"),
+            ("bf16_bf16kv_t4", "bfloat16", 4, "bfloat16"),
+            ("bf16_int8_t1", "bfloat16", 1, "int8"),
+            ("bf16_int8_t4", "bfloat16", 4, "int8"),
+            ("fp32_fp32kv_t1", "float32", 1, "float32"),
+            ("fp32_fp32kv_t4", "float32", 4, "float32"),
+            ("fp32_bf16kv_t1", "float32", 1, "bfloat16"),
+            ("fp32_int8_t4", "float32", 4, "int8"),
+        )):
+            if compute not in mk_models:
+                mk_models[compute] = megakernel_model(mcfg, compute, args.seed + 900)
+            starts = [2, 37, mcfg.max_seq_len - t, mcfg.max_seq_len + 88]
+            mk_cases.append(megakernel_case(name, mk_models[compute], 4, t, kvd, starts,
+                                            seed=args.seed + 910 + i))
+        mk_flag = megakernel_times(mk_models["bfloat16"], 4, 1, "bfloat16",
+                                   [2, 37, 300, 511], args.seed + 920, iters=100)
+        mk_verify = megakernel_times(mk_models["bfloat16"], 4, 4, "bfloat16",
+                                     [2, 37, 300, 508], args.seed + 921, iters=100)
+        mk_grid, mk_smem = decode_fused.kernel_config(mk_models["bfloat16"].cfg, torch.bfloat16)
+        mk_ptxas = [rep for name in _build._VARIANTS
+                    for rep in ptxas_report(_build.log_path(name).read_text())]
+        for tag, tm_ in (("t1", mk_flag), ("t4", mk_verify)):
+            log(f"megakernel flagship {tag} (B 4, 12 layers, bf16, bf16 KV): kernel_ms "
+                f"{tm_['ms']:.6f} wrapper_ms {tm_['wrapper_ms']:.6f} plain_ms {tm_['plain_ms']:.6f}"
+                + (f" per_layer_ms {tm_['per_layer_ms']:.6f} per_layer_wrapper_ms "
+                   f"{tm_['per_layer_wrapper_ms']:.6f}" if "per_layer_ms" in tm_ else "")
+                + f" bound_ms {tm_['bound_ms']:.6f} ({tm_['bound_by']}, {tm_['bytes']} B) [{smi}]")
+        log(f"megakernel launch: {mk_grid} blocks of 256 threads, {mk_smem} B dynamic shared "
+            f"memory per block; library_ms null (no single PyTorch call computes a layer stack)")
+        record["megakernel"] = dict(cases=mk_cases, flagship_t1=mk_flag, flagship_t4=mk_verify,
+                                    grid=mk_grid, smem=mk_smem, ptxas=mk_ptxas, card=smi)
+        del mk_models
+        torch.cuda.empty_cache()
+
+        # 10. serve the flagship under fused_layers: one megakernel launch per
+        # decode step, no per-layer decode kernel
+        mcfg_fl = dataclasses.replace(mcfg, decode_attention="fused_layers")
+        reqs_fl = flagship_requests(mcfg.vocab_size, args.seed, max_new)
+        model, eng, res, wall, launched = serve(scfg, mcfg_fl, args.seed, reqs_fl)
+        steps_fl = eng.counters["serve_decode_steps"]
+        for r in reqs_fl:
+            rr = res[r.rid]
+            check(rr.state.value == "done" and len(rr.tokens) == max_new,
+                  f"fused_layers {r.rid}: {rr.state.value}, {len(rr.tokens)} tokens ({rr.error})")
+        check(launched["fused_layers"] == steps_fl and steps_fl > 0
+              and launched["decode_attention"] == 0,
+              f"fused_layers serve: {launched} launches for {steps_fl} decode iterations "
+              f"(want one megakernel launch each and no decode-attention launch)")
+        tokens_fl = {r.rid: list(res[r.rid].tokens) for r in reqs_fl}
+        n_tok = sum(len(t) for t in tokens_fl.values())
+        ttft = [res[r.rid].ttft_s for r in reqs_fl]
+        mspt = [res[r.rid].ms_per_token for r in reqs_fl]
+        fl_rec = dict(
+            requests=len(reqs_fl), tokens=n_tok, decode_iterations=steps_fl,
+            megakernel_launches=launched["fused_layers"],
+            decode_attention_launches=launched["decode_attention"], wall_s=wall,
+            ttft_p50_s=percentile(ttft, 0.5), ms_per_token_mean=sum(mspt) / len(mspt),
+            tokens_per_s=n_tok / wall, counters=dict(eng.counters), card=smi,
+        )
+        log(f"serve fused_layers: 6/6 done, {n_tok} tokens, {steps_fl} decode iterations, "
+            f"{launched['fused_layers']} megakernel launches, {launched['decode_attention']} "
+            f"decode-attention launches [{smi}]")
+        log(f"serve fused_layers: ttft_p50 {fl_rec['ttft_p50_s']:.6f} s, ms/token "
+            f"{fl_rec['ms_per_token_mean']:.6f}, tokens/s {fl_rec['tokens_per_s']:.3f} "
+            f"(per-layer 'fused' run of phase 4: ms/token {serve_rec['ms_per_token_mean']:.6f}, "
+            f"tokens/s {serve_rec['tokens_per_s']:.3f}) [{smi}]")
+        if args.profile:
+            prof = profile_decode(model, scfg, flagship_requests(mcfg.vocab_size, args.seed, max_new))
+            fl_rec["profile"] = prof
+            log(f"profile fused_layers: {prof['iterations']} decode iterations, wall "
+                f"{prof['wall_s']:.6f} s, device busy {prof['device_busy_s']:.6f} s (share "
+                f"{prof['busy_share']:.4f}), {prof['kernel_launches']} kernels = "
+                f"{prof['kernel_launches'] / prof['iterations']:.1f} per iteration [{smi}]")
+            for row in prof["top"]:
+                log(f"  {row['device_ms']:.4f} ms x{row['count']} {row['name']}")
+        record["serve_fused_layers"] = fl_rec
+        del model, eng
+        torch.cuda.empty_cache()
+
+        # 10b. float32 under fused_layers: the engine's tokens equal generate()'s
+        _, mcfg32_fl = load_serve_config(
+            ROOT / "configs" / "serve_config.yaml",
+            model_overrides={"compute_dtype": "float32", "decode_attention": "fused_layers"},
+        )
+        reqs32 = flagship_requests(mcfg.vocab_size, args.seed, max_new)
+        model, eng, res, _, launched32 = serve(scfg, mcfg32_fl, args.seed, reqs32)
+        same = 0
+        for r in reqs32:
+            ref = generate(model, [list(r.prompt)], max_new)[0].tolist()
+            same += res[r.rid].state.value == "done" and res[r.rid].tokens == ref
+        record["serve_fused_layers_fp32"] = dict(matching=same, requests=len(reqs32),
+                                                 launches=launched32)
+        log(f"serve fused_layers fp32: {same}/{len(reqs32)} requests match generate(); "
+            f"launches {launched32}")
+        check(same == len(reqs32), f"fused_layers fp32 serve: {same}/{len(reqs32)} match generate")
+        del model, eng
+        torch.cuda.empty_cache()
+
+        # 11. speculative serving on the megakernel: token-identical to phase 10
+        from dtc_tpu_torch.config.schema import SpecConfig
+
+        spec_k, draft_layers = 4, 4
+        scfg_spec = dataclasses.replace(scfg, spec=SpecConfig(spec_k=spec_k,
+                                                              draft_layers=draft_layers))
+        reqs_sp = flagship_requests(mcfg.vocab_size, args.seed, max_new)
+        model, eng, res, wall, launched = serve(scfg_spec, mcfg_fl, args.seed, reqs_sp)
+        c = eng.counters
+        rounds = c["serve_spec_rounds"]
+        same = sum(res[r.rid].tokens == tokens_fl[r.rid] for r in reqs_sp)
+        for r in reqs_sp:
+            if res[r.rid].tokens != tokens_fl[r.rid]:
+                log(f"serve spec {r.rid}: MISMATCH vs phase 10 ({res[r.rid].state.value})")
+        n_tok = sum(len(res[r.rid].tokens) for r in reqs_sp)
+        decoded = n_tok - c["serve_admissions"]       # each admission's prefill emits one
+        mspt = [res[r.rid].ms_per_token for r in reqs_sp]
+        sp_rec = dict(
+            spec_k=spec_k, draft_layers=draft_layers, matching_phase10=same,
+            requests=len(reqs_sp), tokens=n_tok, verify_launches=rounds,
+            megakernel_launches=launched["fused_layers"],
+            decode_attention_launches=launched["decode_attention"],
+            proposed=c["serve_spec_proposed"], accepted=c["serve_spec_accepted"],
+            accept_rate=c["serve_spec_accepted"] / max(c["serve_spec_proposed"], 1),
+            tokens_per_verify_launch=decoded / max(rounds, 1),
+            ms_per_token_mean=sum(mspt) / len(mspt), tokens_per_s=n_tok / wall,
+            wall_s=wall, counters=dict(c), card=smi,
+        )
+        record["serve_spec"] = sp_rec
+        log(f"serve spec (k {spec_k}, draft {draft_layers} layers): {same}/{len(reqs_sp)} "
+            f"requests token-identical to phase 10; {rounds} verify launches, "
+            f"{launched['fused_layers']} megakernel launches, accept rate "
+            f"{sp_rec['accept_rate']:.4f}, tokens per verify launch "
+            f"{sp_rec['tokens_per_verify_launch']:.4f}, ms/token {sp_rec['ms_per_token_mean']:.6f}, "
+            f"tokens/s {sp_rec['tokens_per_s']:.3f} [{smi}]")
+        check(same == len(reqs_sp), f"spec serve: {same}/{len(reqs_sp)} requests match phase 10")
+        check(launched["decode_attention"] == 0
+              and launched["fused_layers"] == rounds * (spec_k + 1),
+              f"spec serve: {launched} launches for {rounds} rounds (want {spec_k} draft steps "
+              f"and one verify window per round, all on the megakernel)")
+        del model, eng
+        torch.cuda.empty_cache()
+
         main = results[0]
         kernels = [dict(
             name="decode_attention", route="cuda",
@@ -841,6 +1214,16 @@ def main() -> int:
                 bound_ms=fl[f"{part}_bound_ms"], bound_by=fl[f"{part}_bound_by"],
                 library_ms=fl[f"library_{part}_ms"],
             ))
+        kernels.append(dict(
+            name="decode_fused_layers", route="cuda",
+            source="dtc_tpu_torch/csrc/decode_fused.cu",
+            replaces="dtc_tpu/ops/decode_fused.py:151",
+            launches=fl_rec["megakernel_launches"],
+            max_abs_err=max(c["max_abs_err"] for c in mk_cases),
+            ms=mk_flag["ms"], plain_ms=mk_flag["plain_ms"], bound_ms=mk_flag["bound_ms"],
+            bound_by=mk_flag["bound_by"], library_ms=None,
+            yardstick_per_layer_ms=mk_flag["per_layer_ms"],
+        ))
         record["kernels"] = kernels
     except Exception:
         traceback.print_exc()

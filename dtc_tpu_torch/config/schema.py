@@ -337,8 +337,12 @@ class ChaosConfig:
 
 @dataclass(frozen=True)
 class SpecConfig:
-    """Speculative decoding (0 = off). Not ported yet: the serving engine
-    refuses ``spec_k >= 2``."""
+    """Speculative decoding (0 = off): ``spec_k >= 2`` serves through a
+    draft rung of the target's bottom ``draft_layers`` blocks and one
+    verify window of ``spec_k`` tokens per iteration
+    (:mod:`dtc_tpu_torch.spec`). The serving engine takes greedy
+    acceptance only and needs ``decode_attention`` ``fused_layers`` or
+    ``xla``."""
 
     spec_k: int = 0
     draft_layers: int = 0

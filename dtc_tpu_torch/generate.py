@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from dtc_tpu_torch.models.gpt import DTYPES
+from dtc_tpu_torch.ops import decode_fused
 
 
 def init_cache(model, batch_size: int) -> dict:
@@ -37,17 +38,20 @@ def init_cache(model, batch_size: int) -> dict:
 
 
 @torch.no_grad()
-def decode_step(model, cache: dict, tok: torch.Tensor):
+def decode_step(model, cache: dict, tok: torch.Tensor, spec_verify: bool = False):
     """ONE decode iteration: apply the model to ``tok`` (B, T_new) at the
     cache's frontier. Returns ``(new_cache, logits)`` with logits
     ``(B, T_new, V_padded)``. The K/V buffers of ``cache`` are written in
     place and shared by ``new_cache``; only its ``index`` is new, so
-    re-running from ``cache`` repeats the step exactly."""
-    if model.cfg.decode_attention == "fused_layers":
-        raise NotImplementedError(
-            "decode_attention 'fused_layers' (the layer-fused decode "
-            "megakernel) is not ported yet; use 'fused' or 'xla'"
-        )
+    re-running from ``cache`` repeats the step exactly.
+
+    Under ``decode_attention: fused_layers`` a single-token step, or with
+    ``spec_verify=True`` a speculative verify window of up to
+    ``SPEC_MAX_K`` tokens, runs the layer stack as one megakernel launch
+    (:func:`dtc_tpu_torch.ops.decode_fused.fused_decode_step`); prefill
+    keeps the per-layer path."""
+    if decode_fused.use_fused_layers(model.cfg, tok.shape[1], verify=spec_verify):
+        return decode_fused.fused_decode_step(model, cache, tok)
     logits, new_index = model(tok, cache=cache)
     new = dict(cache)
     new["index"] = new_index

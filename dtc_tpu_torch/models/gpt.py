@@ -9,7 +9,8 @@ Module tree mirrors the JAX package's ``{embed, stage, head}`` split:
 Numerics copy the reference, not PyTorch's defaults: LayerNorm in fp32
 with eps 1e-6 and variance ``E[x²] - E[x]²``, cast to the compute dtype
 after; GELU is the tanh approximation; Dense layers run in the compute
-dtype with parameters cast from the parameter dtype; the residual stream
+dtype with parameters cast from the parameter dtype, the product rounded
+before the bias is added; the residual stream
 stays in the compute dtype; the embedding sum is cast after the add; head
 logits are in the compute dtype with pad columns at -1e9.
 
@@ -100,7 +101,9 @@ class LayerNorm(nn.Module):
 
 class Dense(nn.Module):
     """``nn.Dense(dtype=compute, param_dtype=param)``: weight ``(out, in)``
-    and bias in the parameter dtype, both cast to the compute dtype."""
+    and bias in the parameter dtype, both cast to the compute dtype. As in
+    flax, the product is rounded to the compute dtype before the bias is
+    added in the compute dtype (two roundings, not ``F.linear``'s one)."""
 
     def __init__(self, d_in: int, d_out: int, cfg: ModelConfig, device=None):
         super().__init__()
@@ -111,7 +114,7 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.cdtype
-        return F.linear(x.to(cd), self.weight.to(cd), self.bias.to(cd))
+        return F.linear(x.to(cd), self.weight.to(cd)) + self.bias.to(cd)
 
 
 def _cache_write(buf: torch.Tensor, update: torch.Tensor, idx: torch.Tensor) -> None:

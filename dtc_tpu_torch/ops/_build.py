@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. The
 library goes to ``build/dtc_tpu_torch/`` at the repository root, named
 with a hash of the sources and flags, so a changed source rebuilds and an
-unchanged one loads. :func:`build_all` starts one ``nvcc`` per source at
-once. Nothing builds at import: the first launch builds.
+unchanged one loads. A source may build several libraries, each with its
+own preprocessor defines (:data:`_VARIANTS`). :func:`build_all` starts one
+``nvcc`` per library at once. Nothing builds at import: the first launch
+builds.
 """
 
 from __future__ import annotations
@@ -40,6 +42,21 @@ _SIGNATURES = {
     },
 }
 
+#: Libraries built from another name's source with preprocessor defines:
+#: {library: (source stem, defines)}. The decode megakernel builds one
+#: library per (compute, KV) dtype pair, so that its template instances
+#: compile in six processes at once.
+_VARIANTS = {
+    f"decode_fused_{c}_{k}": ("decode_fused", [f"-DDTC_CD={ci}", f"-DDTC_KV={ki}"])
+    for ci, c in enumerate(("f32", "bf16"))
+    for ki, k in enumerate(("f32", "bf16", "i8"))
+}
+for _name in _VARIANTS:
+    _SIGNATURES[_name] = {
+        "dtc_fused_layers": [_P] * 9 + [_I] * 9 + [_F] + [_I] * 2 + [_P],
+        "dtc_fused_layers_config": [_I] * 5 + [_P] * 2,
+    }
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -58,15 +75,19 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _stem_and_defines(name: str) -> tuple[str, list[str]]:
+    return _VARIANTS.get(name, (name, []))
+
+
 def _sources(name: str) -> list[Path]:
-    main = CSRC / f"{name}.cu"
+    main = CSRC / f"{_stem_and_defines(name)[0]}.cu"
     if not main.is_file():
         raise FileNotFoundError(main)
     return [main] + sorted(CSRC.glob("*.cuh"))
 
 
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + _stem_and_defines(name)[1]).encode())
     for src in _sources(name):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -85,13 +106,14 @@ def _start(name: str):
     lib = library_path(name)
     if lib.is_file():
         return None, None
-    cmd = [nvcc(), *NVCC_FLAGS]
+    stem, defines = _stem_and_defines(name)
+    cmd = [nvcc(), *NVCC_FLAGS, *defines]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     log = open(log_path(name), "w")
     try:
         proc = subprocess.Popen(
-            cmd + ["-o", str(tmp), str(CSRC / f"{name}.cu")],
+            cmd + ["-o", str(tmp), str(CSRC / f"{stem}.cu")],
             stdout=log, stderr=subprocess.STDOUT,
         )
     except OSError:
@@ -115,7 +137,7 @@ def _finish(name: str, proc, tmp) -> None:
 
 
 def build_all(names=None) -> dict[str, float]:
-    """Build every kernel library that is missing, one ``nvcc`` per source
+    """Build every kernel library that is missing, one ``nvcc`` per library
     started together. Returns the wall seconds until each finished."""
     names = list(names or _SIGNATURES)
     t0 = time.perf_counter()

@@ -20,12 +20,13 @@ NEG_INF = -1e9
 
 def head_logits(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                 vocab_size: int) -> torch.Tensor:
-    """Logits in h's (compute) dtype: ``h @ weight.T + bias`` with weight
-    ``(V_padded, d)``, then the pad columns ``>= vocab_size`` set to -1e9
-    (rounded to the compute dtype), so no softmax or argmax over the
-    padded vocab can pick them."""
+    """Logits in h's (compute) dtype: ``h @ weight.T`` rounded to the
+    compute dtype, then ``+ bias`` in the compute dtype (the reference's
+    ``jnp.dot(h, w) + b``) with weight ``(V_padded, d)``, then the pad
+    columns ``>= vocab_size`` set to -1e9 (rounded to the compute dtype),
+    so no softmax or argmax over the padded vocab can pick them."""
     cdtype = h.dtype
-    logits = F.linear(h, weight.to(cdtype), bias.to(cdtype))
+    logits = F.linear(h, weight.to(cdtype)) + bias.to(cdtype)
     v = weight.shape[0]
     if v != vocab_size:
         pad = torch.arange(v, device=h.device) >= vocab_size

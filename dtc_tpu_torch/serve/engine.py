@@ -22,12 +22,24 @@ the model-native packed cache:
   of a step whose logits read non-finite (from the pre-step cache),
   completed-page checksums verified on a cadence, and a hung-step
   watchdog.
+- Speculative decoding (``ServeConfig.spec``): a draft rung of the
+  target's bottom ``draft_layers`` blocks (zero-copy,
+  :func:`dtc_tpu_torch.spec.extract_draft`) with its own slot cache
+  proposes ``spec_k - 1`` tokens per slot, and one verify window per
+  iteration (:func:`dtc_tpu_torch.spec.spec_round`) emits 1..spec_k
+  tokens, token-identical to plain greedy decode. The draft's KV rides the
+  same page pool at a ``draft_layers / n_layers`` surcharge; submission
+  reserves ``spec_k - 1`` positions of verify headroom; every admission
+  prefills the draft over the full sequence.
+
+Under ``decode_attention: fused_layers`` each decode step (and each
+verify window) runs the layer stack as one megakernel launch.
 
 Counters live in the plain dict ``counters`` under the JAX package's
 names (``serve_submitted``, ``serve_admissions``, ``serve_decode_steps``,
-...). Not ported yet, and refused at construction with
-``NotImplementedError``: speculative decoding, chaos injection, online
-SLO objectives, LoRA adapters and the ``fused_layers`` megakernel.
+``serve_spec_proposed``, ...). Not ported yet, and refused at construction
+with ``NotImplementedError``: chaos injection, online SLO objectives and
+LoRA adapters.
 
 Memory note: the K/V buffers are updated in place (see
 ``models/gpt.py``); a retried step re-writes the same positions with the
@@ -59,6 +71,7 @@ from dtc_tpu_torch.serve.request import (
     ShedError,
     TransientStepError,
 )
+from dtc_tpu_torch.spec import check_spec_backend, extract_draft, spec_round
 
 
 def init_slot_cache(model, slots: int) -> dict:
@@ -105,7 +118,18 @@ class ServingEngine:
         self.cfg = cfg
         self.mcfg = model.cfg
         self.device = model.device
+        self.spec_on = cfg.spec.enabled
+        if self.spec_on and self.mcfg.adapter.rank > 0:
+            raise ValueError(
+                "speculative decoding (serve.spec) does not compose with "
+                "multi-tenant adapters (model adapter.rank > 0): the draft "
+                "rung proposes under base weights while each tenant's "
+                "verify would run adapted weights; serve an adapter-free "
+                "config"
+            )
         self._refuse_unported()
+        if self.spec_on:
+            check_spec_backend(self.mcfg)  # token identity needs one path
         self.clock = clock
         self.sleep = sleep
         self.counters: dict[str, int] = defaultdict(int)
@@ -128,6 +152,11 @@ class ServingEngine:
         self.alloc = PageAllocator(pool, cfg.page_size)
 
         self.cache = init_slot_cache(model, cfg.slots)
+        if self.spec_on:
+            self.draft = extract_draft(model, cfg.spec.draft_layers)
+            self.draft_cache = init_slot_cache(self.draft, cfg.slots)
+        else:
+            self.draft = self.draft_cache = None
         self.slots = [_Slot() for _ in range(cfg.slots)]
         self.last_tok = np.zeros((cfg.slots,), np.int32)
 
@@ -149,16 +178,12 @@ class ServingEngine:
                 "ServingEngine does not support model debug_checks=True"
             )
         unported = []
-        if cfg.spec.enabled:
-            unported.append("speculative decoding (serve spec)")
         if cfg.chaos.enabled:
             unported.append("chaos injection (serve chaos)")
         if cfg.slo.any_objective:
             unported.append("online SLO objectives (serve slo)")
         if mcfg.adapter.rank > 0:
             unported.append("LoRA adapters (model adapter.rank > 0)")
-        if mcfg.decode_attention == "fused_layers":
-            unported.append("decode_attention 'fused_layers'")
         if unported:
             raise NotImplementedError(
                 "not ported yet: " + ", ".join(unported)
@@ -168,7 +193,15 @@ class ServingEngine:
     # submission (admission control)
     # ------------------------------------------------------------------
     def _pages_needed(self, n_tokens: int) -> int:
-        return pages_for(n_tokens, self.cfg.page_size)
+        """Pool pages for ``n_tokens`` resident target tokens, plus the
+        draft rung's proportional KV surcharge under speculation (the
+        draft cache holds the same positions at ``draft_layers`` of
+        ``n_layers`` depth in the same pool)."""
+        pages = pages_for(n_tokens, self.cfg.page_size)
+        if self.spec_on:
+            dl, nl = self.cfg.spec.draft_layers, self.mcfg.n_layers
+            pages += (pages * dl + nl - 1) // nl
+        return pages
 
     def submit(self, req: Request) -> str:
         """Enqueue one request. Typed backpressure: raises
@@ -185,18 +218,25 @@ class ServingEngine:
             raise NotImplementedError("LoRA adapters are not ported yet")
         now = self.clock()
         total = len(req.prompt) + req.max_new_tokens
-        if total > self.mcfg.max_seq_len:
+        # Under speculation the verify window writes spec_k positions from
+        # the frontier before rolling back, so the last round needs
+        # spec_k - 1 positions past the final token.
+        spec_pad = self.cfg.spec.spec_k - 1 if self.spec_on else 0
+        if total + spec_pad > self.mcfg.max_seq_len:
             self.counters["serve_rejected"] += 1
             raise RequestTooLargeError(
                 f"request {req.rid}: prompt ({len(req.prompt)}) + "
-                f"max_new_tokens ({req.max_new_tokens}) exceeds max_seq_len "
-                f"({self.mcfg.max_seq_len})"
+                f"max_new_tokens ({req.max_new_tokens})"
+                + (f" + spec_k-1 verify headroom ({spec_pad})" if spec_pad else "")
+                + f" exceeds max_seq_len ({self.mcfg.max_seq_len})"
             )
-        if self._pages_needed(total) > self.alloc.total_pages:
+        if self._pages_needed(total + spec_pad) > self.alloc.total_pages:
             self.counters["serve_rejected"] += 1
             raise RequestTooLargeError(
-                f"request {req.rid}: footprint {self._pages_needed(total)} "
-                f"pages exceeds the pool ({self.alloc.total_pages})"
+                f"request {req.rid}: footprint "
+                f"{self._pages_needed(total + spec_pad)} pages"
+                + (" (incl. draft KV surcharge)" if self.spec_on else "")
+                + f" exceeds the pool ({self.alloc.total_pages})"
             )
         if len(self.queue) >= self.cfg.queue_depth:
             self.counters["serve_rejected"] += 1
@@ -322,8 +362,10 @@ class ServingEngine:
                 key=lambda r: (r.priority, -self.results[r.rid].submitted_t),
             )
             seq = list(cand.prompt) + self.results[cand.rid].tokens
-            # Reserve through the first decode write.
-            need = self._pages_needed(len(seq) + 1)
+            # Reserve through the first decode write: one token plain, the
+            # verify window under speculation.
+            first_write = self.cfg.spec.spec_k if self.spec_on else 1
+            need = self._pages_needed(len(seq) + first_write)
             if not self._make_room(need, cand.priority):
                 return
             self.alloc.alloc(cand.rid, need)
@@ -437,11 +479,11 @@ class ServingEngine:
         finally:
             self._retry_scope = []
 
-    def _insert(self, row: dict, slot_i: int, n_tokens: int) -> None:
+    def _insert(self, cache: dict, row: dict, slot_i: int, n_tokens: int) -> None:
         """Admission surgery: copy a prefilled batch-1 cache into slot row
-        ``slot_i`` and pin its frontier to ``n_tokens`` (the valid
-        length)."""
-        for key, buf in self.cache.items():
+        ``slot_i`` of ``cache`` and pin its frontier to ``n_tokens`` (the
+        valid length)."""
+        for key, buf in cache.items():
             if key == "index":
                 buf[slot_i] = n_tokens
             else:
@@ -485,7 +527,17 @@ class ServingEngine:
             err.__cause__ = e
             self._finish(req.rid, RequestState.FAILED, err)
             return
-        self._insert(cache1, slot_i, len(seq))
+        self._insert(self.cache, cache1, slot_i, len(seq))
+        if self.spec_on:
+            # The draft is prefilled over the FULL sequence at every
+            # admission and re-admission (no prefix store on the draft),
+            # its frontier pinned where the target's is.
+            dpad = _pad_to_bucket(seq, self.cfg.prefill_bucket, self.mcfg.max_seq_len)
+            dcache1, _ = decode_step(
+                self.draft, init_cache(self.draft, 1),
+                torch.tensor([dpad], dtype=torch.int32, device=self.device),
+            )
+            self._insert(self.draft_cache, dcache1, slot_i, len(seq))
         slot = self.slots[slot_i]
         slot.rid = req.rid
         slot.frontier = len(seq)
@@ -505,13 +557,15 @@ class ServingEngine:
         self._maybe_complete(slot_i)
 
     def _ensure_pages(self) -> None:
-        """Every active slot needs pages covering its next write;
-        exhaustion evicts the lowest-priority, most-recently-admitted
-        request (possibly the grower itself)."""
+        """Every active slot needs pages covering its next write (one token
+        plain, the verify window under speculation); exhaustion evicts the
+        lowest-priority, most-recently-admitted request (possibly the
+        grower itself)."""
+        step_write = self.cfg.spec.spec_k if self.spec_on else 1
         for slot in self.slots:
             if slot.rid is None:
                 continue
-            need = self._pages_needed(slot.frontier + 1)
+            need = self._pages_needed(slot.frontier + step_write)
             while not self.alloc.ensure(slot.rid, need):
                 key = self.alloc.evict_prefix_lru()
                 if key is not None:
@@ -527,10 +581,12 @@ class ServingEngine:
                     ),
                 )
                 self._evict(victim, reason="cache_pressure")
-                if victim == slot.rid:
+                if slot.rid is None:  # the grower itself was evicted
                     break
 
     def _decode(self) -> None:
+        if self.spec_on:
+            return self._decode_spec()
         active = [
             (i, s.rid) for i, s in enumerate(self.slots) if s.rid is not None
         ]
@@ -600,6 +656,104 @@ class ServingEngine:
         for i, _rid in active:
             self._maybe_complete(i, now=now)
         self.counters["serve_decode_steps"] += 1
+
+    def _decode_spec(self) -> None:
+        """One speculative iteration over the in-flight batch: ONE round
+        (draft propose, one verify window, greedy accept, rollback) emits
+        1..spec_k tokens per active slot. Same retry and poison-localization
+        contract as :meth:`_decode`: a retry re-runs the round from the
+        pre-round caches, whose frontiers no attempt moved."""
+        active = [
+            (i, s.rid) for i, s in enumerate(self.slots) if s.rid is not None
+        ]
+        if not active:
+            return
+        self._worked = True
+        spec_k = self.cfg.spec.spec_k
+        prev_cache, prev_draft = self.cache, self.draft_cache
+        toks = torch.as_tensor(self.last_tok, device=self.device)[:, None]
+        remaining = np.zeros((self.cfg.slots,), np.int32)
+        for i, rid in active:
+            remaining[i] = max(self._eff_max_new[rid] - len(self.results[rid].tokens), 0)
+        rem = torch.as_tensor(remaining, device=self.device)  # 0 freezes idle slots
+        last_fin = np.ones((self.cfg.slots,), bool)
+
+        def attempt():
+            nonlocal last_fin
+            tcache, dcache, _tok, emit, n_emit, fin = spec_round(
+                self.model, self.draft, spec_k, prev_cache, prev_draft, toks, rem,
+            )
+            emit = emit.cpu().numpy()
+            n_emit, fin = torch.stack([n_emit, fin.to(torch.int32)]).cpu().numpy()
+            last_fin = fin.astype(bool)
+            if not all(bool(last_fin[i]) for i, _ in active):
+                raise TransientStepError(
+                    f"non-finite logits in spec verify (iteration {self._it})"
+                )
+            return tcache, dcache, emit, n_emit
+
+        r = self.cfg.retry
+        self._retry_scope = [rid for _, rid in active]
+        try:
+            tcache, dcache, emit, n_emit = retry_call(
+                attempt, transient=(TransientStepError,),
+                max_attempts=r.max_attempts, backoff_s=r.backoff_s,
+                backoff_max_s=r.backoff_max_s, jitter=r.jitter,
+                max_elapsed_s=r.max_elapsed_s, on_event=self._on_retry_event,
+                sleep=self.sleep, clock=self.clock,
+            )
+        except TransientStepError as e:
+            for i, rid in active:
+                if bool(last_fin[i]):
+                    continue
+                self._release_slot(rid)
+                err = RequestFailedError(
+                    f"request {rid}: spec verify retries exhausted"
+                )
+                err.__cause__ = e
+                self._finish(rid, RequestState.FAILED, err)
+            return
+        finally:
+            self._retry_scope = []
+        self.cache, self.draft_cache = tcache, dcache
+        self._fps_memo = None
+        now = self.clock()
+        emitted = 0
+        completed_pages = []
+        psize = self.cfg.page_size
+        for i, rid in active:
+            slot = self.slots[i]
+            res = self.results[rid]
+            ne = int(n_emit[i])
+            emitted += ne
+            new_toks = [int(t) for t in emit[i, :ne]]
+            res.n_spec_proposed += spec_k - 1
+            res.n_spec_accepted += max(ne - 1, 0)
+            eos = self.requests[rid].eos_id
+            if eos is not None and eos in new_toks:
+                # Plain decode stops AT the eos: truncate the emission there.
+                new_toks = new_toks[: new_toks.index(eos) + 1]
+            res.tokens.extend(new_toks)
+            if new_toks:
+                self.last_tok[i] = new_toks[-1]
+            old_pages = slot.frontier // psize
+            slot.frontier += ne
+            if self._track_pages:
+                completed_pages.extend(
+                    (i, p) for p in range(old_pages, slot.frontier // psize)
+                )
+        if completed_pages:
+            fps = self._page_fps()
+            for i, p in completed_pages:
+                self.slots[i].page_fp[p] = float(fps[i, p])
+        for i, _rid in active:
+            self._maybe_complete(i, now=now)
+        n_active = len(active)
+        self.counters["serve_decode_steps"] += 1
+        self.counters["serve_spec_rounds"] += 1
+        self.counters["serve_spec_proposed"] += n_active * (spec_k - 1)
+        self.counters["serve_spec_accepted"] += emitted - n_active
+        self.counters["serve_spec_rejected"] += n_active * (spec_k - 1) - (emitted - n_active)
 
     # ------------------------------------------------------------------
     # recovery paths

@@ -175,3 +175,207 @@ def test_training_on_cuda_runs_the_flash_kernels_and_matches_dense(cuda):
     assert fa.fwd_launches - f0 == 2 * 4 and fa.bwd_launches - b0 == 2 * 4 * fa.BWD_KERNELS
     dense = train(tcfg, dataclasses.replace(mcfg, attention="dense"), ocfg).losses
     assert max(abs(a - b) for a, b in zip(auto, dense)) <= 1e-4
+
+
+# --- the layer-fused decode megakernel (serving, fused_layers) ------------
+
+_MK_MODELS = {}
+
+
+def _mk_model(dev, d, compute, kv, n_layers=2, s=64):
+    """A small fused_layers GPT on the card (4 heads of ``d``) whose biases
+    and LayerNorm parameters are random too, so every rounding point of
+    ``dense`` and LayerNorm is exercised."""
+    from dtc_tpu_torch.models.gpt import GPT
+
+    key = (d, compute, kv, n_layers, s)
+    if key not in _MK_MODELS:
+        cfg = ModelConfig(vocab_size=97, d_model=4 * d, n_layers=n_layers, n_heads=4,
+                          d_ff=8 * d, max_seq_len=s, compute_dtype=compute,
+                          kv_cache_dtype=kv, decode_attention="fused_layers")
+        model = GPT(cfg, device=dev, seed=d)
+        g = torch.Generator(device=dev).manual_seed(d + 1)
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.ndim == 1:
+                    p.add_(0.2 * torch.randn(p.shape, device=dev, generator=g))
+        _MK_MODELS[key] = model
+    return _MK_MODELS[key]
+
+
+def _mk_inputs(model, b, t, seed):
+    """Residual input (B, t, d_model) in the compute dtype and a cache of
+    random contents (int8 payloads with positive scales)."""
+    from dtc_tpu_torch.generate import init_cache
+    from dtc_tpu_torch.models.gpt import DTYPES
+
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cache = init_cache(model, b)
+    for name, buf in cache.items():
+        if name == "index":
+            continue
+        if buf.dtype == torch.int8:
+            buf.copy_(torch.randint(-127, 128, buf.shape, device=dev, generator=g))
+        elif name.endswith("scale"):
+            buf.copy_(0.005 + 0.015 * torch.rand(buf.shape, device=dev, generator=g))
+        else:
+            buf.copy_(0.5 * torch.randn(buf.shape, device=dev, generator=g))
+    x = torch.randn(b, t, model.cfg.d_model, device=dev, generator=g)
+    return x.to(DTYPES[model.cfg.compute_dtype]), cache
+
+
+def _mk_run(model, x, cache, idx, kernel):
+    from dtc_tpu_torch.ops import decode_fused
+
+    c = {k: v.clone() for k, v in cache.items()}
+    fn = decode_fused.fused_layers if kernel else decode_fused.fused_layers_reference
+    out = fn(x, model.stage.blocks, c, idx)
+    torch.cuda.synchronize()
+    return out, c
+
+
+def _mk_limit(want, compute, ulps=8):
+    """float32: 1e-5 of the largest |value| (at least 1e-5); bfloat16:
+    ``ulps`` ulps of each row's largest |value| (a flipped rounding in the
+    kernel's and cuBLAS's different sum orders moves a value by one ulp,
+    and the flips spread through the following products)."""
+    w = want.float()
+    if compute == "float32":
+        return 1e-5 * max(float(w.abs().max()), 1.0)
+    _, e = torch.frexp(w.abs().amax(dim=-1, keepdim=True))
+    return ulps * torch.exp2((e - 8).float())
+
+
+def _mk_assert_close(got, want, compute, what):
+    diff = (got.float() - want.float()).abs()
+    assert (diff <= _mk_limit(want, compute)).all(), f"{what}: {float(diff.max())}"
+
+
+def _mk_check_cache(c_got, c_want, compute, h):
+    """Every cache entry, per (position, head). An int8 cache is compared
+    dequantized, under the bfloat16 limit: a k or v that differs by a
+    flipped rounding moves its payload by a step (and its scale with the
+    head's largest value), an error of the size of a few bf16 ulps."""
+    for name in ("k", "v"):
+        got, want = c_got[name], c_want[name]
+        hd = got.shape[-1]
+        if got.dtype == torch.int8:
+            sc = f"{name}_scale"
+            got = got.float() * c_got[sc].repeat_interleave(hd // h, dim=-1)
+            want = want.float() * c_want[sc].repeat_interleave(hd // h, dim=-1)
+            _mk_assert_close(got.view(-1, h, hd // h), want.view(-1, h, hd // h), "bfloat16", name)
+        else:
+            _mk_assert_close(got.view(-1, h, hd // h), want.view(-1, h, hd // h), compute, name)
+
+
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("t", [1, 4, 8])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_megakernel_matches_plain(cuda, d, t, b, kv):
+    """The megakernel against its plain version at scalar and per-row
+    frontiers from 0 to S - t and past S: the returned residual and every
+    cache entry. float32 compute over a float32 cache, bfloat16 compute
+    over bfloat16 and int8 caches."""
+    from dtc_tpu_torch.ops import decode_fused
+
+    compute = "float32" if kv == "float32" else "bfloat16"
+    model = _mk_model(cuda, d, compute, "auto" if kv != "int8" else "int8")
+    s = model.cfg.max_seq_len
+    x, cache = _mk_inputs(model, b, t, seed=d * 100 + t * 10 + b)
+    starts = [0, s - t, s + 5, 17][:b] if b > 1 else [s - t]
+    for idx in (torch.tensor(starts, dtype=torch.int32, device=cuda),
+                torch.tensor(0, dtype=torch.int32, device=cuda),
+                torch.tensor(s - t, dtype=torch.int32, device=cuda),
+                torch.tensor(s + 3, dtype=torch.int32, device=cuda)):
+        before = decode_fused.launches
+        got, c_got = _mk_run(model, x, cache, idx, kernel=True)
+        assert decode_fused.launches == before + 1
+        want, c_want = _mk_run(model, x, cache, idx, kernel=False)
+        assert got.dtype == x.dtype and got.shape == x.shape
+        assert torch.isfinite(got.float()).all()
+        _mk_assert_close(got, want, compute, f"out at {idx.tolist()}")
+        _mk_check_cache(c_got, c_want, compute, 4)
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_megakernel_float32_compute_over_narrow_caches(cuda, kv):
+    model = _mk_model(cuda, 32, "float32", kv)
+    x, cache = _mk_inputs(model, 4, 4, seed=9)
+    idx = torch.tensor([0, 7, 60, 33], dtype=torch.int32, device=cuda)
+    got, c_got = _mk_run(model, x, cache, idx, kernel=True)
+    want, c_want = _mk_run(model, x, cache, idx, kernel=False)
+    # A k or v whose float32 value lies within the sums' error of a
+    # rounding boundary of the narrow cache dtype rounds the other way: a
+    # bf16 ulp or an int8 step in the cache, about 1e-3 of a score.
+    diff = (got - want).abs().max().item()
+    assert diff <= 1e-3 * max(want.abs().max().item(), 1.0), diff
+    _mk_check_cache(c_got, c_want, "bfloat16", 4)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_megakernel_is_deterministic_and_rows_are_independent(cuda, compute):
+    """Two runs give the same bits; row j of a t = 4 window equals a t = 1
+    step at frontier + j bit for bit, caches included (greedy speculation's
+    token identity rests on it); a row's output does not change with B."""
+    from dtc_tpu_torch.ops import decode_fused
+
+    model = _mk_model(cuda, 32, compute, "auto", n_layers=3)
+    x, cache = _mk_inputs(model, 4, 4, seed=5)
+    idx = torch.tensor([3, 20, 0, 41], dtype=torch.int32, device=cuda)
+    out1, c1 = _mk_run(model, x, cache, idx, kernel=True)
+    out2, c2 = _mk_run(model, x, cache, idx, kernel=True)
+    assert torch.equal(out1, out2)
+    assert all(torch.equal(c1[k], c2[k]) for k in c1)
+    # Window row j is a single-token step at frontier idx + j: run the four
+    # steps in order on one cache and compare outputs and caches bit for bit.
+    seq = {k: v.clone() for k, v in cache.items()}
+    for j in range(4):
+        one = decode_fused.fused_layers(x[:, j:j + 1].contiguous(), model.stage.blocks, seq,
+                                        idx + j)
+        assert torch.equal(one[:, 0], out1[:, j]), j
+    torch.cuda.synchronize()
+    assert all(torch.equal(seq[k], c1[k]) for k in c1 if k != "index")
+    for r in range(4):
+        row_cache = {k: v[:, r:r + 1].contiguous() if k != "index" else v
+                     for k, v in cache.items()}
+        alone, _ = _mk_run(model, x[r:r + 1].contiguous(), row_cache, idx[r:r + 1], kernel=True)
+        assert torch.equal(alone[0], out1[r])
+
+
+def test_fused_layers_decode_launches_the_megakernel_once_per_step(cuda):
+    """Under ``fused_layers`` on the card, each decode step launches the
+    megakernel once for the whole layer stack and the per-layer decode
+    kernel never; greedy tokens equal the CPU's (float32, TF32 off), and
+    spec_generate emits them too."""
+    from dtc_tpu_torch.generate import generate
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.ops import decode_fused
+    from dtc_tpu_torch.spec import extract_draft, spec_generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(vocab_size=97, d_model=64, n_layers=4, n_heads=2, d_ff=128,
+                      max_seq_len=64, compute_dtype="float32", decode_attention="fused_layers")
+    cpu = GPT(cfg, device="cpu", seed=3)
+    gpu = GPT(cfg, device=cuda, seed=3)
+    gpu.load_state_dict(cpu.state_dict())
+    prompt = [[5, 9, 1, 44, 2, 7]]
+    m0, d0 = decode_fused.launches, da.launches
+    out = generate(gpu, prompt, 12)
+    assert decode_fused.launches - m0 == 11 and da.launches == d0
+    assert out.cpu().tolist() == generate(cpu, prompt, 12).tolist()
+    spec = spec_generate(gpu, extract_draft(gpu, 2), prompt, 12, spec_k=4)
+    assert spec.cpu().tolist() == out.cpu().tolist()
+
+
+def test_megakernel_rejects_bad_input(cuda):
+    from dtc_tpu_torch.ops import decode_fused
+
+    model = _mk_model(cuda, 32, "bfloat16", "auto")
+    x, cache = _mk_inputs(model, 2, 1, seed=1)
+    idx = torch.tensor(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # not the compute dtype
+        decode_fused.fused_layers(x.float(), model.stage.blocks, cache, idx)
+    with pytest.raises(ValueError):  # a window wider than SPEC_MAX_K
+        decode_fused.fused_layers(x.repeat(1, 9, 1), model.stage.blocks, cache, idx)

@@ -27,7 +27,6 @@ from dtc_tpu_torch.config.schema import (
     ModelConfig,
     ServeConfig,
     SloConfig,
-    SpecConfig,
 )
 from dtc_tpu_torch.generate import generate
 from dtc_tpu_torch.models.gpt import GPT
@@ -318,31 +317,45 @@ def test_corrupted_page_is_caught_and_re_prefilled(models):
     assert res["x"].state is RequestState.DONE and res["x"].tokens == ref
 
 
-@pytest.mark.parametrize("what", ["spec", "chaos", "slo", "adapter", "fused_layers"])
+@pytest.mark.parametrize("what", ["chaos", "slo", "adapter"])
 def test_unported_features_raise(models, what):
     """Each is a later slice: construction refuses it."""
     _, _, tm = models
     scfg = {
-        "spec": ServeConfig(spec=SpecConfig(spec_k=4, draft_layers=2)),
         "chaos": ServeConfig(chaos=ChaosConfig(enabled=True, serve_stall_at_step=2)),
         "slo": ServeConfig(slo=SloConfig(ttft_p99_s=2.0)),
     }.get(what, ServeConfig(slots=1))
     model = tm
-    if what in ("adapter", "fused_layers"):
-        over = (
-            {"adapter": AdapterConfig(rank=4)} if what == "adapter"
-            else {"decode_attention": "fused_layers"}
-        )
+    if what == "adapter":
         # A stand-in carrying only what the engine reads: the GPT itself
         # refuses adapters, so no real model with them can be built.
         model = SimpleNamespace(
-            cfg=dataclasses.replace(tm.cfg, **over), device=torch.device("cpu")
+            cfg=dataclasses.replace(tm.cfg, adapter=AdapterConfig(rank=4)),
+            device=torch.device("cpu"),
         )
-        if what == "adapter":
-            with pytest.raises(NotImplementedError):
-                GPT(model.cfg, device="cpu")
+        with pytest.raises(NotImplementedError):
+            GPT(model.cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         ServingEngine(model, scfg)
+
+
+def test_grower_that_evicts_itself_returns_its_pages(models):
+    """Pool pressure while a slot grows can pick the grower itself as the
+    victim; its pages go back to the pool (none are charged to the empty
+    slot), and every request still finishes with generate()'s tokens."""
+    _, _, tm = models
+    prompts = _prompts(1, (6, 8, 5, 7))
+    refs = _refs(tm, prompts, 8)
+    eng = ServingEngine(tm, ServeConfig(slots=3, page_size=4, queue_depth=8,
+                                        max_new_tokens=8, prefill_bucket=8, total_pages=8))
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=f"r{i}", prompt=p, max_new_tokens=8))
+    res = eng.run(max_steps=500)
+    assert eng.counters["serve_evictions.cache_pressure"] > 0
+    for i in range(4):
+        assert res[f"r{i}"].state is RequestState.DONE
+        assert res[f"r{i}"].tokens == refs[i], f"r{i}"
+    assert eng.alloc.free_pages == eng.alloc.total_pages
 
 
 # -- host-side units of the port's copies ---------------------------------
