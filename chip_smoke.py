@@ -52,7 +52,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    all 12 within ``MK_*`` limits; at one layer two planted faults in the
    plain version (the cache mask one column short; with bf16 compute over
    a bf16 cache, the bias added before the product is rounded) land over
-   them. Device times of the kernel,
+   them. Then the LoRA sites: rank 8 on all six sites, slots [0, 1, 2, 1]
+   of a resident stack (slot 0 the base), scale 2 and 8/3 (which bf16
+   cannot hold), over one layer and all 12 within the same limits; three
+   planted faults in the plain version (the delta z·B added to the dense
+   output in float32 before it is rounded, the scale left unrounded, the
+   rows' slot ids permuted) land over them. Device times of the kernel (with and without adapters),
    the plain version and the per-layer ``fused`` yardstick (CUDA graph
    replay) beside the bound; launch geometry.
 10. Serve the flagship under ``decode_attention: fused_layers`` with phase
@@ -63,6 +68,16 @@ Phases (each prints its own lines; any failure exits non-zero):
 11. Speculative serving on the megakernel (``spec_k`` 4, ``draft_layers``
     4, bfloat16): every request token-identical to phase 10; accept rate,
     tokens per verify launch, ms/token.
+12. Multi-tenant adapter serving: the flagship with the adapter block of
+    ``configs/finetune_lora.yaml`` (rank 8, alpha 16, all six sites), three
+    tenants with random factors from ``--seed`` and phase 4's six requests
+    spread over base and the tenants (the two sharing a prefix under two
+    tenants), bfloat16 under ``fused_layers`` (one megakernel launch per
+    decode iteration; every request's tokens equal its solo run) and under
+    ``fused`` (n_layers decode-kernel launches per iteration); ms/token
+    and tokens/s beside phase 10's adapter-free run; then float32 under
+    both backends: every request's tokens equal ``generate()`` with its
+    tenant's factors.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -317,7 +332,11 @@ def flagship_requests(vocab: int, seed: int, max_new: int):
     return reqs
 
 
-def serve(serve_cfg, model_cfg, seed: int, reqs, device: str = "cuda"):
+def serve(serve_cfg, model_cfg, seed: int, reqs, device: str = "cuda", adapters=None):
+    """Serve ``reqs`` on a fresh model from ``seed`` after a warm-up
+    request; ``adapters`` ({name: factors}) are loaded into the engine
+    first. Returns (model, engine, results, wall s, kernel launches of the
+    timed run)."""
     import torch
 
     from dtc_tpu_torch.models.gpt import GPT
@@ -331,14 +350,20 @@ def serve(serve_cfg, model_cfg, seed: int, reqs, device: str = "cuda"):
     # Warm-up: one short request through a throwaway engine, so the timed
     # run below does not pay first-call costs (cuBLAS workspaces, lazy
     # module loading).
+    adapters = adapters or {}
     warm = ServingEngine(model, serve_cfg)
-    warm.submit(Request(rid="warm", prompt=list(reqs[0].prompt), max_new_tokens=4))
+    for name, fac in adapters.items():
+        warm.load_adapter(name, fac)
+    warm.submit(Request(rid="warm", prompt=list(reqs[0].prompt), max_new_tokens=4,
+                        adapter=next(iter(adapters), None)))
     warm.run()
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
     eng = ServingEngine(model, serve_cfg)
+    for name, fac in adapters.items():
+        eng.load_adapter(name, fac)
     for r in reqs:
         eng.submit(r)
     da.launches = decode_fused.launches = 0  # the main path starts here
@@ -655,13 +680,17 @@ def path_agreement(seed: int, steps: int = 4):
 MK_ULPS_ONE, MK_SHARE, MK_ULPS_ALL = 2, 0.10, 16
 
 
-def megakernel_bound(cfg, b, t, starts, cdtype, kvdtype):
+def megakernel_bound(cfg, b, t, starts, cdtype, kvdtype, lora_ids=None):
     """Least time for one launch on these inputs: the bytes it must move
     (every layer's float32 parameters, the cached K/V (and int8 scales)
     below each row's frontier, the window's K/V written, the residual in
-    and out, the frontiers) over HBM bandwidth, against its operations (2
-    per multiply-add: the dense products, q·K and p·V over each position's
-    visible columns) over the peak rate of the compute dtype."""
+    and out, the frontiers; with adapters, the float32 factors of each
+    distinct non-base slot in ``lora_ids`` and the ids) over HBM bandwidth,
+    against its operations (2 per multiply-add: the dense products, q·K and
+    p·V over each position's visible columns, with adapters each row's
+    x·A and z·B) over the peak rate of the compute dtype."""
+    from dtc_tpu_torch.models.gpt import adapter_param_count
+
     el = {"float32": 4, "bfloat16": 2, "int8": 1}
     n_l, dm, dff, h, d, s = (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_heads,
                              cfg.head_dim, cfg.max_seq_len)
@@ -673,6 +702,10 @@ def megakernel_bound(cfg, b, t, starts, cdtype, kvdtype):
               + 2 * b * t * dm * el[cdtype] + 4 * len(starts))
     visible = sum(min(max(st, 0) + j, s) + 1 for st in starts for j in range(t))
     ops = n_l * (2 * b * t * (4 * dm * dm + 2 * dm * dff) + 4 * hd * visible)
+    if lora_ids is not None:
+        tenants = len({i for i in lora_ids if i != 0})
+        nbytes += tenants * 4 * adapter_param_count(cfg) + 4 * len(lora_ids)
+        ops += 2 * b * t * adapter_param_count(cfg)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[cdtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
@@ -746,10 +779,44 @@ def megakernel_compare(got, want, compute, kvdtype, depth_one: bool):
     return ratio, share, ok
 
 
-def megakernel_case(name, model, b, t, kvdtype, starts, seed):
+def tenant_factors(cfg, device, seed: int, n: int):
+    """``n`` tenants' LoRA factors for ``cfg`` on ``device``, random and
+    nonzero from ``seed``: A and B normal with variance 1 / fan-in (the
+    factors' last axis), so a delta is the size of the dense output it
+    joins and a misplaced rounding in it shows."""
+    import torch
+
+    from dtc_tpu_torch.adapters.lora import lora_shapes
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        fac = {}
+        for k, shape in lora_shapes(cfg).items():
+            fan = shape[-1]
+            fac[k] = torch.randn(shape, device=device, generator=g) / fan ** 0.5
+        out.append(fac)
+    return out
+
+
+def lora_stack(model, tenants):
+    """A resident stack (``init_lora_stack``) with slot 0 the base and the
+    tenants in slots 1, 2, ..."""
+    from dtc_tpu_torch.adapters import init_lora_stack
+
+    stack = init_lora_stack(model, len(tenants) + 1)
+    for slot, fac in enumerate(tenants, start=1):
+        for k, v in stack.items():
+            v[slot].copy_(fac[k])
+    return stack
+
+
+def megakernel_case(name, model, b, t, kvdtype, starts, seed, lora=None, ids=None):
     """The megakernel against its plain version on the same inputs, over
     one layer and over the whole stack; at one layer, the plain version
-    with each planted fault must land over the limit."""
+    with each planted fault must land over the limit. With ``lora`` (a
+    stack) and ``ids`` (per-row slots) the LoRA sites are on, and the
+    faults are the LoRA sites' own."""
     import contextlib
 
     import torch
@@ -762,24 +829,47 @@ def megakernel_case(name, model, b, t, kvdtype, starts, seed):
     dev = model.device
     x, cache = megakernel_inputs(model, b, t, kvdtype, seed)
     idx = torch.tensor(starts, dtype=torch.int32, device=dev)
+    lids = None if ids is None else torch.tensor(ids, dtype=torch.int32, device=dev)
 
-    def run(fn, depth, frontier=idx):
+    def run(fn, depth, frontier=idx, slots=lids):
         c = {k: v[:depth].clone() for k, v in cache.items()}
-        out = fn(x, model.stage.blocks[:depth], c, frontier)
+        out = fn(x, model.stage.blocks[:depth], c, frontier, lora, slots)
         torch.cuda.synchronize()
         return out, c
+
+    real_lora = gpt.apply_lora
+
+    @contextlib.contextmanager
+    def patched_lora(fn):
+        gpt.apply_lora = fn
+        try:
+            yield
+        finally:
+            gpt.apply_lora = real_lora
+
+    def delta_unrounded(y, z, factors, scale):
+        # z = x A rounded as before; z B, scaled and added to y in float32,
+        # rounded once with the sum.
+        a, bb = factors[0].to(y.dtype), factors[1].to(y.dtype)
+        if a.ndim == 2:
+            delta = F.linear(F.linear(z.to(y.dtype), a).float(), bb.float())
+        else:
+            zz = torch.einsum("bti,bri->btr", z.to(y.dtype), a)
+            delta = torch.einsum("btr,bor->bto", zz.float(), bb.float())
+        return (y.float() + delta * scale).to(y.dtype)
 
     @contextlib.contextmanager
     def bias_before_rounding():
         real = gpt.Dense.forward
-        gpt.Dense.forward = lambda self, z: F.linear(
+        gpt.Dense.forward = lambda self, z, lora=None: F.linear(
             z.to(self.cdtype), self.weight.to(self.cdtype), self.bias.to(self.cdtype))
         try:
             yield
         finally:
             gpt.Dense.forward = real
 
-    rec = dict(case=name, b=b, t=t, compute=compute, kv=kvdtype, starts=starts)
+    rec = dict(case=name, b=b, t=t, compute=compute, kv=kvdtype, starts=starts,
+               lora_slots=ids, lora_scale=None if lora is None else model.cfg.adapter.scale)
     for depth, tag in ((1, "one_layer"), (model.cfg.n_layers, "all_layers")):
         got, c_got = run(decode_fused.fused_layers, depth)
         want, c_want = run(decode_fused.fused_layers_reference, depth)
@@ -793,13 +883,27 @@ def megakernel_case(name, model, b, t, kvdtype, starts, seed):
         log(f"megakernel {name} {tag}: max_abs_err {err:.3e}, {ratio:.3f} of its limit, "
             f"{share:.4f} of outputs differ, cache max_abs_err {kv_err:.3e}")
         check(ok, f"megakernel {name} {tag}: over its limit")
-    faults = {"cache mask one column short": lambda: run(
-        decode_fused.fused_layers_reference, 1, (idx - 1).clamp_min(0))[0]}
-    if compute == kvdtype == "bfloat16":
-        def bias_fault():
-            with bias_before_rounding():
-                return run(decode_fused.fused_layers_reference, 1)[0]
-        faults["bias added before rounding"] = bias_fault
+    ref = decode_fused.fused_layers_reference
+    if lora is None:
+        faults = {"cache mask one column short": lambda: run(ref, 1, (idx - 1).clamp_min(0))[0]}
+        if compute == kvdtype == "bfloat16":
+            def bias_fault():
+                with bias_before_rounding():
+                    return run(ref, 1)[0]
+            faults["bias added before rounding"] = bias_fault
+    else:
+        faults = {"rows' slot ids permuted": lambda: run(ref, 1, slots=lids.roll(1))[0]}
+        if compute == kvdtype == "bfloat16":
+            def unrounded_delta():
+                with patched_lora(delta_unrounded):
+                    return run(ref, 1)[0]
+            faults["delta added before it is rounded"] = unrounded_delta
+            exact = model.cfg.adapter.scale
+            if gpt.lora_scale(model.cfg) != exact:
+                def unrounded_scale():
+                    with patched_lora(lambda y, z, f, _s: real_lora(y, z, f, exact)):
+                        return run(ref, 1)[0]
+                faults["scale left unrounded"] = unrounded_scale
     want, _ = run(decode_fused.fused_layers_reference, 1)
     rec["faults"] = {}
     for fname, fn in faults.items():
@@ -812,31 +916,150 @@ def megakernel_case(name, model, b, t, kvdtype, starts, seed):
     return rec
 
 
-def megakernel_times(model, b, t, kvdtype, starts, seed, iters):
+def megakernel_times(model, b, t, kvdtype, starts, seed, iters, lora=None, ids=None):
     """Device times (CUDA graph replay) of the megakernel, its plain version
     and the per-layer yardstick (the ``fused`` decode path over the same
     blocks: per layer the dense products, the cache write and the
-    single-query decode kernel) at these inputs, plus the bound."""
+    single-query decode kernel) at these inputs, plus the bound. With
+    ``lora`` (a stack) and ``ids`` all of them run the LoRA sites, and
+    ``base_ms`` is the kernel without adapters on the same inputs."""
     import torch
 
     from dtc_tpu_torch.ops import decode_fused
 
     x, cache = megakernel_inputs(model, b, t, kvdtype, seed)
-    idx = torch.tensor(starts, dtype=torch.int32, device=model.device)
+    dev = model.device
+    idx = torch.tensor(starts, dtype=torch.int32, device=dev)
+    lids = None if ids is None else torch.tensor(ids, dtype=torch.int32, device=dev)
     blocks = model.stage.blocks
     out = dict(
-        ms=graph_ms(lambda: decode_fused.fused_layers(x, blocks, cache, idx), iters),
-        wrapper_ms=cuda_ms(lambda: decode_fused.fused_layers(x, blocks, cache, idx), iters),
-        plain_ms=graph_ms(lambda: decode_fused.fused_layers_reference(x, blocks, cache, idx),
-                          iters),
+        ms=graph_ms(lambda: decode_fused.fused_layers(x, blocks, cache, idx, lora, lids), iters),
+        wrapper_ms=cuda_ms(lambda: decode_fused.fused_layers(x, blocks, cache, idx, lora, lids),
+                           iters),
+        plain_ms=graph_ms(lambda: decode_fused.fused_layers_reference(
+            x, blocks, cache, idx, lora, lids), iters),
     )
+    if lora is not None:
+        out["base_ms"] = graph_ms(lambda: decode_fused.fused_layers(x, blocks, cache, idx), iters)
     if t == 1:
-        out["per_layer_ms"] = graph_ms(lambda: model.stage(x, cache=cache, idx=idx), iters)
-        out["per_layer_wrapper_ms"] = cuda_ms(lambda: model.stage(x, cache=cache, idx=idx), iters)
+        def stage():
+            return model.stage(x, cache=cache, idx=idx, lora=lora, lora_ids=lids)
+        out["per_layer_ms"] = graph_ms(stage, iters)
+        out["per_layer_wrapper_ms"] = cuda_ms(stage, iters)
     out["bound_ms"], out["bound_by"], out["bytes"] = megakernel_bound(
-        model.cfg, b, t, starts, model.cfg.compute_dtype, kvdtype)
+        model.cfg, b, t, starts, model.cfg.compute_dtype, kvdtype, ids)
     return out
 
+
+# ---------------------------------------------------------------------------
+# phase 12: multi-tenant adapter serving
+# ---------------------------------------------------------------------------
+
+#: Phase 4's requests r0..r5 by tenant: r1 and r2 share a prompt prefix
+#: under two tenants, r0 and r5 are base requests.
+ADAPTER_SPREAD = (None, "t1", "t2", "t3", "t1", None)
+
+
+def adapter_requests(vocab: int, seed: int, max_new: int):
+    import dataclasses
+
+    return [dataclasses.replace(r, adapter=a)
+            for r, a in zip(flagship_requests(vocab, seed, max_new), ADAPTER_SPREAD)]
+
+
+def serve_adapters(scfg, mcfg_ad, seed: int, max_new: int, tokens_fl, fl_rec, smi,
+                   device: str = "cuda"):
+    """Phase 12: three tenants on the flagship under ``fused_layers`` and
+    ``fused`` in bf16 (launch counts, ms/token; under ``fused_layers`` each
+    request equals its solo run, and the base requests equal phase 10's
+    tokens), then float32 under both: each request equals ``generate()``
+    with its tenant's factors. ``tokens_fl`` / ``fl_rec``: phase 10's
+    tokens and record."""
+    import dataclasses
+
+    import torch
+
+    from dtc_tpu_torch.generate import generate
+    from dtc_tpu_torch.serve import ServingEngine
+
+    tenants = dict(zip(("t1", "t2", "t3"),
+                       tenant_factors(mcfg_ad, torch.device(device), seed + 1200, 3)))
+    out = {}
+    for backend in ("fused_layers", "fused"):
+        mcfg_b = dataclasses.replace(mcfg_ad, decode_attention=backend)
+        reqs = adapter_requests(mcfg_ad.vocab_size, seed, max_new)
+        model, eng, res, wall, launched = serve(scfg, mcfg_b, seed, reqs, device, tenants)
+        steps = eng.counters["serve_decode_steps"]
+        for r in reqs:
+            rr = res[r.rid]
+            check(rr.state.value == "done" and len(rr.tokens) == max_new,
+                  f"adapters {backend} {r.rid}: {rr.state.value}, {len(rr.tokens)} tokens "
+                  f"({rr.error})")
+        check(eng.counters["serve_prefix_builds"] == 2 and eng.counters["serve_prefix_hits"] == 0,
+              f"adapters {backend}: the prefix store is not scoped per adapter: "
+              f"{dict(eng.counters)}")
+        if backend == "fused_layers":
+            ok_launch = launched["fused_layers"] == steps and launched["decode_attention"] == 0
+        else:
+            ok_launch = (launched["decode_attention"] == mcfg_ad.n_layers * steps
+                         and launched["fused_layers"] == 0)
+        check(ok_launch and steps > 0,
+              f"adapters {backend}: {launched} launches for {steps} decode iterations")
+        tokens = {r.rid: list(res[r.rid].tokens) for r in reqs}
+        n_tok = sum(len(t) for t in tokens.values())
+        ttft = [res[r.rid].ttft_s for r in reqs]
+        mspt = [res[r.rid].ms_per_token for r in reqs]
+        rec = dict(
+            requests=len(reqs), adapters=list(ADAPTER_SPREAD), tokens=n_tok,
+            decode_iterations=steps, megakernel_launches=launched["fused_layers"],
+            decode_attention_launches=launched["decode_attention"], wall_s=wall,
+            ttft_p50_s=percentile(ttft, 0.5), ms_per_token_mean=sum(mspt) / len(mspt),
+            tokens_per_s=n_tok / wall, counters=dict(eng.counters), card=smi,
+        )
+        log(f"serve adapters {backend}: 6/6 done ({', '.join(str(a) for a in ADAPTER_SPREAD)}), "
+            f"{n_tok} tokens, {steps} decode iterations, launches {launched}; ms/token "
+            f"{rec['ms_per_token_mean']:.6f}, tokens/s {rec['tokens_per_s']:.3f}, ttft_p50 "
+            f"{rec['ttft_p50_s']:.6f} s (phase 10 without adapters: ms/token "
+            f"{fl_rec['ms_per_token_mean']:.6f}, tokens/s {fl_rec['tokens_per_s']:.3f}) [{smi}]")
+        if backend == "fused_layers":
+            base_same = [tokens[r.rid] == tokens_fl[r.rid] for r in reqs if r.adapter is None]
+            moved = [tokens[r.rid] != tokens_fl[r.rid] for r in reqs if r.adapter is not None]
+            solo_same = 0
+            for r in reqs:
+                solo = ServingEngine(model, scfg)
+                for name, fac in tenants.items():
+                    solo.load_adapter(name, fac)
+                solo.submit(r)
+                solo_same += solo.run(max_steps=10_000)[r.rid].tokens == tokens[r.rid]
+            rec.update(solo_identical=solo_same, base_equal_phase10=sum(base_same),
+                       tenants_moved=sum(moved))
+            log(f"serve adapters fused_layers bf16: {solo_same}/{len(reqs)} requests equal "
+                f"their solo runs; base requests equal phase 10's tokens: {sum(base_same)}/"
+                f"{len(base_same)}; tenant requests whose tokens the adapter moved: "
+                f"{sum(moved)}/{len(moved)}")
+            check(solo_same == len(reqs),
+                  f"adapters: {solo_same}/{len(reqs)} equal their solo runs")
+            check(all(base_same), "adapters: a base request differs from phase 10")
+            check(any(moved), "adapters: no tenant's tokens moved")
+        del model, eng
+        torch.cuda.empty_cache()
+
+        mcfg32 = dataclasses.replace(mcfg_b, compute_dtype="float32")
+        reqs32 = adapter_requests(mcfg_ad.vocab_size, seed, max_new)
+        model, eng, res, _, launched32 = serve(scfg, mcfg32, seed, reqs32, device, tenants)
+        same = 0
+        for r in reqs32:
+            ref = generate(model, [list(r.prompt)], max_new, lora=tenants.get(r.adapter))
+            same += res[r.rid].state.value == "done" and res[r.rid].tokens == ref[0].tolist()
+        rec["fp32_matching_generate"] = same
+        rec["fp32_launches"] = launched32
+        log(f"serve adapters {backend} fp32: {same}/{len(reqs32)} requests equal generate() "
+            f"with their tenant's factors; launches {launched32}")
+        check(same == len(reqs32), f"adapters {backend} fp32: {same}/{len(reqs32)} match generate")
+        out[backend] = rec
+        del model, eng
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1080,9 +1303,47 @@ def main() -> int:
                 + f" bound_ms {tm_['bound_ms']:.6f} ({tm_['bound_by']}, {tm_['bytes']} B) [{smi}]")
         log(f"megakernel launch: {mk_grid} blocks of 256 threads, {mk_smem} B dynamic shared "
             f"memory per block; library_ms null (no single PyTorch call computes a layer stack)")
-        record["megakernel"] = dict(cases=mk_cases, flagship_t1=mk_flag, flagship_t4=mk_verify,
-                                    grid=mk_grid, smem=mk_smem, ptxas=mk_ptxas, card=smi)
         del mk_models
+        torch.cuda.empty_cache()
+
+        # 9b. the megakernel's LoRA sites: rank 8 on all six sites (the adapter
+        # block of finetune_lora.yaml), slots [0, 1, 2, 1] of a stack whose slot
+        # 0 is the base, scale 2 and 8/3 (not a bf16 value)
+        from dtc_tpu_torch.config.loader import load_finetune_config
+
+        _, mcfg_ad, _ = load_finetune_config(ROOT / "configs" / "finetune_lora.yaml")
+        lora_ids = [0, 1, 2, 1]
+        lora_models, mk_lora = {}, []
+        for i, (name, compute, t, kvd, alpha) in enumerate((
+            ("lora_bf16_bf16kv_t1_s2", "bfloat16", 1, "bfloat16", 16.0),
+            ("lora_bf16_bf16kv_t1_s8/3", "bfloat16", 1, "bfloat16", 64.0 / 3.0),
+            ("lora_bf16_bf16kv_t4_s8/3", "bfloat16", 4, "bfloat16", 64.0 / 3.0),
+            ("lora_bf16_int8_t1_s8/3", "bfloat16", 1, "int8", 64.0 / 3.0),
+            ("lora_fp32_fp32kv_t1_s8/3", "float32", 1, "float32", 64.0 / 3.0),
+        )):
+            if (compute, alpha) not in lora_models:
+                cfg_l = dataclasses.replace(
+                    mcfg_ad, adapter=dataclasses.replace(mcfg_ad.adapter, alpha=alpha))
+                model_l = megakernel_model(cfg_l, compute, args.seed + 900)
+                factors = tenant_factors(model_l.cfg, model_l.device, args.seed + 930, 2)
+                lora_models[compute, alpha] = (model_l, lora_stack(model_l, factors))
+            model_l, stack = lora_models[compute, alpha]
+            starts = [2, 37, mcfg.max_seq_len - t, mcfg.max_seq_len + 88]
+            mk_lora.append(megakernel_case(name, model_l, 4, t, kvd, starts,
+                                           seed=args.seed + 940 + i, lora=stack, ids=lora_ids))
+        model_l, stack = lora_models["bfloat16", 16.0]
+        mk_lora_t1 = megakernel_times(model_l, 4, 1, "bfloat16", [2, 37, 300, 511],
+                                      args.seed + 920, iters=100, lora=stack, ids=lora_ids)
+        log(f"megakernel flagship t1 with adapters (B 4, 12 layers, bf16, bf16 KV, rank 8, "
+            f"slots {lora_ids}): kernel_ms {mk_lora_t1['ms']:.6f} (without adapters on the "
+            f"same inputs {mk_lora_t1['base_ms']:.6f}) wrapper_ms {mk_lora_t1['wrapper_ms']:.6f} "
+            f"plain_ms {mk_lora_t1['plain_ms']:.6f} per_layer_ms {mk_lora_t1['per_layer_ms']:.6f} "
+            f"bound_ms {mk_lora_t1['bound_ms']:.6f} ({mk_lora_t1['bound_by']}, "
+            f"{mk_lora_t1['bytes']} B) [{smi}]")
+        record["megakernel"] = dict(cases=mk_cases, flagship_t1=mk_flag, flagship_t4=mk_verify,
+                                    lora_cases=mk_lora, flagship_t1_lora=mk_lora_t1,
+                                    grid=mk_grid, smem=mk_smem, ptxas=mk_ptxas, card=smi)
+        del lora_models, model_l, stack
         torch.cuda.empty_cache()
 
         # 10. serve the flagship under fused_layers: one megakernel launch per
@@ -1192,6 +1453,10 @@ def main() -> int:
         del model, eng
         torch.cuda.empty_cache()
 
+        # 12. multi-tenant adapter serving on the flagship
+        ad_rec = serve_adapters(scfg, mcfg_ad, args.seed, max_new, tokens_fl, fl_rec, smi)
+        record["serve_adapters"] = ad_rec
+
         main = results[0]
         kernels = [dict(
             name="decode_attention", route="cuda",
@@ -1223,6 +1488,18 @@ def main() -> int:
             ms=mk_flag["ms"], plain_ms=mk_flag["plain_ms"], bound_ms=mk_flag["bound_ms"],
             bound_by=mk_flag["bound_by"], library_ms=None,
             yardstick_per_layer_ms=mk_flag["per_layer_ms"],
+        ))
+        kernels.append(dict(
+            name="decode_fused_layers_lora", route="cuda",
+            source="dtc_tpu_torch/csrc/decode_fused.cu",
+            replaces="dtc_tpu/ops/decode_fused.py:151",
+            also_replaces="dtc_tpu/ops/decode_fused.py:216",
+            launches=ad_rec["fused_layers"]["megakernel_launches"],
+            max_abs_err=max(c["max_abs_err"] for c in mk_lora),
+            ms=mk_lora_t1["ms"], plain_ms=mk_lora_t1["plain_ms"],
+            bound_ms=mk_lora_t1["bound_ms"], bound_by=mk_lora_t1["bound_by"], library_ms=None,
+            without_adapters_ms=mk_lora_t1["base_ms"],
+            yardstick_per_layer_ms=mk_lora_t1["per_layer_ms"],
         ))
         record["kernels"] = kernels
     except Exception:

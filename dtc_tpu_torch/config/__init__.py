@@ -2,6 +2,7 @@
 
 from dtc_tpu_torch.config.loader import (
     load_config,
+    load_finetune_config,
     load_serve_config,
     load_yaml_dataclass,
     parse_yaml,
@@ -24,5 +25,5 @@ __all__ = [
     "DTYPE_BYTES", "AdapterConfig", "ChaosConfig", "ModelConfig",
     "OptimConfig", "ServeConfig", "SloConfig", "SpecConfig",
     "StreamRetryConfig", "TrainConfig", "WatchdogConfig", "load_config",
-    "load_serve_config", "load_yaml_dataclass", "parse_yaml",
+    "load_finetune_config", "load_serve_config", "load_yaml_dataclass", "parse_yaml",
 ]

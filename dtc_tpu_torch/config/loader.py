@@ -246,3 +246,33 @@ def load_config(
     model_cfg = load_yaml_dataclass(model_config_path, ModelConfig, overrides=model_overrides)
     optim_cfg = load_yaml_dataclass(optim_config_path, OptimConfig)
     return train_cfg, model_cfg, optim_cfg
+
+
+def load_finetune_config(
+    finetune_config_path: str | Path,
+    model_config_path: str | Path | None = None,
+    optim_config_path: str | Path | None = None,
+    model_overrides: dict[str, Any] | None = None,
+):
+    """Load the (train, model, optim) triple of a LoRA finetune config
+    (``configs/finetune_lora.yaml``): a TrainConfig file plus one top-level
+    ``adapter:`` block, which is lifted onto the model config, where
+    ``AdapterConfig`` lives (an ``adapter`` key in ``model_overrides``
+    wins). The model and optim configs default to the siblings, as in
+    :func:`load_config`."""
+    from dtc_tpu_torch.config.schema import ModelConfig, OptimConfig, TrainConfig
+
+    finetune_config_path = Path(finetune_config_path)
+    cfg_dir = finetune_config_path.parent
+    model_config_path = Path(model_config_path or cfg_dir / "model_config.yaml")
+    optim_config_path = Path(optim_config_path or cfg_dir / "optim_config.yaml")
+
+    raw = parse_yaml(finetune_config_path.read_text()) or {}
+    adapter = raw.pop("adapter", None)
+    train_cfg = _build(TrainConfig, raw, str(finetune_config_path))
+    overrides = dict(model_overrides or {})
+    if adapter is not None and "adapter" not in overrides:
+        overrides["adapter"] = adapter
+    model_cfg = load_yaml_dataclass(model_config_path, ModelConfig, overrides=overrides)
+    optim_cfg = load_yaml_dataclass(optim_config_path, OptimConfig)
+    return train_cfg, model_cfg, optim_cfg

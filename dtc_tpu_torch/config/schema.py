@@ -26,8 +26,11 @@ ADAPTER_TARGETS = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
 
 @dataclass(frozen=True)
 class AdapterConfig:
-    """LoRA adapter knobs. ``rank == 0`` (the default) disables adapters;
-    the port does not serve adapters yet and refuses ``rank > 0``."""
+    """LoRA adapter knobs. ``rank == 0`` (the default) disables adapters
+    and leaves the model bitwise as without them; ``rank > 0`` gives every
+    targeted dense layer a low-rank delta ``(alpha / rank) * B (A x)`` whose
+    factors are passed per call (``dtc_tpu_torch.adapters``). ``dropout``
+    applies to adapter training only, which the port does not run yet."""
 
     rank: int = 0
     alpha: float = 16.0

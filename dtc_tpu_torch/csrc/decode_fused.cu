@@ -4,7 +4,7 @@
 //
 // Replaces the JAX package's TPU kernel dtc_tpu/ops/decode_fused.py
 // _fused_layers_kernel (the `decode_attention: fused_layers` backend),
-// without its LoRA sites.
+// LoRA sites included.
 //
 // What it computes, per layer l and per row r = b * T + j (batch row b,
 // window position j, T <= 8), from the residual x (B, T, d_model) in the
@@ -16,6 +16,15 @@
 //   clamp(start, 0, S - T) -> attention of position j over cache columns
 //   < min(start + j, S) plus itself -> out_proj -> residual (compute dtype)
 //   -> LN2 -> fc1 -> tanh GELU -> fc2 -> residual.
+// LoRA sites (adapters): q, k and v on the LN1 output, out_proj before the
+// residual, fc1 before the GELU and fc2 before the residual each add, where
+// the site mask sets it, o = round(o + round(round(scale) *
+// round(sum_k z_k * round(B[j, k])))) after the bias, with
+// z = round(x_row . round(A)) over the site's whole input row (the JAX
+// package's apply_lora). Row r = b * T + j reads adapter slot ids[b] of the
+// resident factor stack (A (slots, L, rank, in), B (slots, L, out, rank),
+// fp32) through a per-layer table of slot 0's pointers; no per-row copy.
+// Without ids every row reads slot 0: one adapter shared by the batch.
 // Rounding points are the TPU kernel's: q is scaled in the compute dtype;
 // scores are fp32; one row max covers cache and the position itself; the
 // cached part's p is rounded to the compute dtype before p.V, the position's
@@ -37,9 +46,13 @@
 // warp one output column at a time: the warp streams that column's fp32
 // weight row (PyTorch's (out, in) layout, so the row is contiguous) once per
 // chunk of 8 input rows staged in shared memory; each block computes the
-// LayerNorm of the staged rows itself. An attention phase gives one block
-// one (batch row, head). Intermediates live in an fp32 scratch the wrapper
-// allocates; the kernel allocates nothing and never casts or copies weights.
+// LayerNorm of the staged rows itself, and, with adapters, each staged
+// row's z for the sites its columns belong to, from shared memory before its
+// column loop (the same summation order in every block, so every block holds
+// the same z bits; no extra grid barrier, A read from L2 once per block). An
+// attention phase gives one block one (batch row, head). Intermediates live
+// in an fp32 scratch the wrapper allocates; the kernel allocates nothing and
+// never casts or copies weights.
 //
 // Determinism and row independence. No atomics in any sum. Each output's sum
 // runs in an order fixed by the shapes (d_model, d_ff, S, D) and the row's
@@ -50,8 +63,11 @@
 // Bound: bytes. At the flagship (B 4, T 1, 12 layers of d_model 512, d_ff
 // 2048, fp32 weights) a call must read 151.3 MB of weights plus the K/V up
 // to the frontiers, 45-60 us at 3.35 TB/s; its operations are about 0.3
-// GFLOP. What holds this first version back is its 5 * L grid barriers and
-// one weight row in flight per warp (PERF.md has the measured times).
+// GFLOP. Each distinct adapter in the batch adds its factors' bytes (rank 8
+// on all six sites: 3.5 MB over 12 layers). What holds this first version
+// back is its 5 * L grid barriers and one weight row in flight per warp, and
+// with adapters the z step each block runs before its columns (PERF.md has
+// the measured times).
 //
 // Plain C interface (ctypes): dtc_fused_layers zeroes the barrier counter and
 // launches on the given stream, never synchronises, and returns
@@ -81,6 +97,10 @@ constexpr int kWeights = 16;       // weight pointers per layer
 constexpr int kDenseSmemBudget = 96 * 1024;
 constexpr int kMaxBlocksPerSm = 2;
 constexpr int kScratchHead = 64;   // floats before the buffers: the barrier
+constexpr int kLoraSites = 6;      // q, k, v, out_proj, fc1, fc2: mask bits 0..5
+constexpr int kLoraMaxRank = 64;   // LORA_MAX_RANK
+constexpr int kLoraZFloats = 3 * kRowChunk * kLoraMaxRank;  // z of one row chunk
+constexpr int kLoraSmemFloats = kLoraZFloats + kRowChunk;   // z, then the rows' slots
 constexpr float kLnEps = 1e-6f;
 constexpr float kScaleFloor = 1e-8f;  // KV_SCALE_FLOOR
 constexpr unsigned long long kBarrierTimeoutNs = 5000000000ull;
@@ -220,7 +240,58 @@ struct Params {
   float* scratch;              // barrier + x, qkv, attn, g buffers
   int B, T, L, S, dm, H, dff, per_row, row_chunk;
   float att_scale;             // D^-0.5 rounded to the compute dtype
+  const float* const* lw;      // (L, 2 * kLoraSites) slot 0's A, B pointers, or null
+  const int* lora_ids;         // (B,) adapter slots, or null: slot 0 for every row
+  int lora_mask, rank, lora_L; // sites present, rank, layers in the factor stack
+  float lora_scale;            // alpha / rank rounded to the compute dtype
 };
+
+__device__ __forceinline__ int lora_slot(const Params& p, int row) {
+  return p.lora_ids ? p.lora_ids[row / p.T] : 0;
+}
+
+// z[s][i][k] = round(sum_kk in[i][kk] * round(A_s[slot(i)][k][kk])) for the
+// staged rows i < nr, every rank k and each site site0 + s (s < nsites) set
+// in `need`. One warp per (s, i, four ranks), the four rows of A in flight
+// together; each z sums its lane's stride of the input row in order, then
+// across lanes, so its bits are set by K alone. Also leaves each staged
+// row's adapter slot in s_slot.
+template <int CD>
+__device__ void lora_z(const Params& p, const float* s_in, float* s_z, int* s_slot, int r0,
+                       int nr, int K, const float* const* lwl, int site0, int nsites, int need) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int R = p.rank;
+  const int groups = (R + 3) / 4;
+  if (threadIdx.x < nr) s_slot[threadIdx.x] = lora_slot(p, r0 + threadIdx.x);
+  for (int task = warp; task < nsites * nr * groups; task += kWarps) {
+    const int s = task / (nr * groups), rest = task - s * nr * groups;
+    const int i = rest / groups, k0 = (rest - i * groups) * 4;
+    if (!((need >> s) & 1)) continue;
+    const int slot = lora_slot(p, r0 + i);
+    const float* a = lwl[2 * (site0 + s)] + (static_cast<size_t>(slot) * p.lora_L * R + k0) * K;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int kk = lane * 4; kk < K; kk += 128) {
+      const float4 x4 = *reinterpret_cast<const float4*>(s_in + i * K + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (k0 + q < R) {
+          const float4 a4 =
+              __ldg(reinterpret_cast<const float4*>(a + static_cast<size_t>(q) * K + kk));
+          acc[q] = fmaf(x4.x, rnd<CD>(a4.x), acc[q]);
+          acc[q] = fmaf(x4.y, rnd<CD>(a4.y), acc[q]);
+          acc[q] = fmaf(x4.z, rnd<CD>(a4.z), acc[q]);
+          acc[q] = fmaf(x4.w, rnd<CD>(a4.w), acc[q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float t = warp_sum(acc[q]);
+      if (lane == 0 && k0 + q < R) s_z[(s * kRowChunk + i) * R + k0 + q] = rnd<CD>(t);
+    }
+  }
+}
 
 enum Src { kFromLn = 0, kFromBuf = 1 };
 enum Epi { kEpiQkv = 0, kEpiResid = 1, kEpiGelu = 2 };
@@ -259,35 +330,45 @@ __device__ void stage_rows(float* s_in, int r0, int nr, int K, int src, const fl
 }
 
 // One dense phase: out[r, j] = round(round(sum_k in[r, k] * round(W[j, k])) +
-// round(b[j])), then the epilogue, for every row r and output column j. `wi`
-// is the weight's index in the layer's table (q/k/v: kQW, three tables
-// side by side).
+// round(b[j])), plus the LoRA delta where site `site0` (+ which, for q/k/v)
+// is on, then the epilogue, for every row r and output column j. `wi` is the
+// weight's index in the layer's table (q/k/v: kQW, three tables side by
+// side); `lwl` the layer's LoRA table (null without adapters).
 template <int CD>
 __device__ void dense_phase(const Params& p, float* s_in, int K, int N, int src,
                             const float* src_buf, const float* ln_w, const float* ln_b,
                             const float* const* wl, int wi, int epi, float* out_buf,
-                            bool last_layer) {
+                            bool last_layer, const float* const* lwl, int site0) {
   const int R = p.B * p.T;
-  const int HD = N / 3;  // only read for q/k/v
+  const int nsites = epi == kEpiQkv ? 3 : 1;
+  const int NS = N / nsites;  // columns of one site
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gw = blockIdx.x * kWarps + warp;
   const int nw = gridDim.x * kWarps;
   const bool block_has_work = blockIdx.x * kWarps < N;
+  float* s_z = s_in + p.row_chunk * max(p.dm, p.dff);
+  int* s_slot = reinterpret_cast<int*>(s_z + kLoraZFloats);
+  // The adapter sites this block's columns fall in (block-uniform).
+  int need = 0;
+  const int site_bits = lwl ? (p.lora_mask >> site0) & ((1 << nsites) - 1) : 0;
+  if (site_bits) {
+    for (int w = 0; w < kWarps; ++w) {
+      for (int j = blockIdx.x * kWarps + w; j < N; j += nw) need |= 1 << (j / NS);
+    }
+    need &= site_bits;
+  }
   for (int r0 = 0; r0 < R; r0 += p.row_chunk) {
     const int nr = min(p.row_chunk, R - r0);
     if (block_has_work) stage_rows<CD>(s_in, r0, nr, K, src, src_buf, ln_w, ln_b);
     __syncthreads();
+    if (need) {
+      lora_z<CD>(p, s_in, s_z, s_slot, r0, nr, K, lwl, site0, nsites, need);
+      __syncthreads();
+    }
     for (int j = gw; j < N; j += nw) {
-      const float* wrow;
-      float bias;
-      if (epi == kEpiQkv) {
-        const int which = j / HD, jj = j - which * HD;
-        wrow = wl[wi + 2 * which] + static_cast<size_t>(jj) * K;
-        bias = __ldg(wl[wi + 2 * which + 1] + jj);
-      } else {
-        wrow = wl[wi] + static_cast<size_t>(j) * K;
-        bias = __ldg(wl[wi + 1] + j);
-      }
+      const int which = j / NS, jj = j - which * NS;
+      const float* wrow = wl[wi + 2 * which] + static_cast<size_t>(jj) * K;
+      const float bias = __ldg(wl[wi + 2 * which + 1] + jj);
       float acc[kRowChunk];
 #pragma unroll
       for (int i = 0; i < kRowChunk; ++i) acc[i] = 0.f;
@@ -315,7 +396,25 @@ __device__ void dense_phase(const Params& p, float* s_in, int K, int N, int src,
       }
       if (lane < nr) {
         const int r = r0 + lane;
-        const float o = rnd<CD>(rnd<CD>(mine) + rnd<CD>(bias));
+        float o = rnd<CD>(rnd<CD>(mine) + rnd<CD>(bias));
+        if ((need >> which) & 1) {
+          // delta = sum_k z_k * round(B[j, k]) in order of k, eight loads of
+          // the row of B in flight at a time.
+          const float* brow = lwl[2 * (site0 + which) + 1] +
+              (static_cast<size_t>(s_slot[lane]) * p.lora_L * NS + jj) * p.rank;
+          const float* z = s_z + (which * kRowChunk + lane) * p.rank;
+          float d = 0.f;
+          for (int k0 = 0; k0 < p.rank; k0 += 8) {
+            float bv[8];
+#pragma unroll
+            for (int q = 0; q < 8; ++q) bv[q] = k0 + q < p.rank ? __ldg(brow + k0 + q) : 0.f;
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+              if (k0 + q < p.rank) d = fmaf(z[k0 + q], rnd<CD>(bv[q]), d);
+            }
+          }
+          o = rnd<CD>(o + rnd<CD>(p.lora_scale * rnd<CD>(d)));
+        }
         if (epi == kEpiQkv) {
           out_buf[static_cast<size_t>(r) * N + j] = o;
         } else if (epi == kEpiGelu) {
@@ -632,9 +731,10 @@ fused_layers_kernel(Params p) {
 
   for (int l = 0; l < p.L; ++l) {
     const float* const* wl = p.w + static_cast<size_t>(l) * kWeights;
+    const float* const* lwl = p.lw ? p.lw + static_cast<size_t>(l) * 2 * kLoraSites : nullptr;
     const bool last = l == p.L - 1;
     dense_phase<CD>(p, sm, p.dm, 3 * HD, kFromLn, xbuf, wl[kLn1W], wl[kLn1B], wl, kQW, kEpiQkv,
-                    qkv, false);
+                    qkv, false, lwl, 0);
     grid_barrier(bar, ++nbar);
     for (int u = blockIdx.x; u < p.B * p.H; u += gridDim.x) {
       attention_unit<CD, KC, D>(p, sm, l, u / p.H, u % p.H, qkv, attn);
@@ -642,13 +742,13 @@ fused_layers_kernel(Params p) {
     }
     grid_barrier(bar, ++nbar);
     dense_phase<CD>(p, sm, HD, p.dm, kFromBuf, attn, nullptr, nullptr, wl, kOW, kEpiResid, xbuf,
-                    false);
+                    false, lwl, 3);
     grid_barrier(bar, ++nbar);
     dense_phase<CD>(p, sm, p.dm, p.dff, kFromLn, xbuf, wl[kLn2W], wl[kLn2B], wl, kFc1W, kEpiGelu,
-                    gbuf, false);
+                    gbuf, false, lwl, 4);
     grid_barrier(bar, ++nbar);
     dense_phase<CD>(p, sm, p.dff, p.dm, kFromBuf, gbuf, nullptr, nullptr, wl, kFc2W, kEpiResid,
-                    xbuf, last);
+                    xbuf, last, lwl, 5);
     if (!last) grid_barrier(bar, ++nbar);
   }
 }
@@ -679,7 +779,7 @@ cudaError_t configure(int dm, int dff, int* grid, int* smem) {
     return cudaSuccess;
   }
   const int kmax = dm > dff ? dm : dff;
-  const int dense = dense_row_chunk(dm, dff) * kmax * 4;
+  const int dense = (dense_row_chunk(dm, dff) * kmax + kLoraSmemFloats) * 4;
   const int attn = attn_smem_bytes<CD, KC, D>();
   *smem = dense > attn ? dense : attn;
   auto kernel = fused_layers_kernel<CD, KC, D>;
@@ -727,13 +827,19 @@ extern "C" int dtc_fused_layers(const void* x_in, void* x_out, const void* weigh
                                 void* k_cache, void* v_cache, float* k_scale, float* v_scale,
                                 const int* start, float* scratch, int B, int T, int L, int S,
                                 int dm, int H, int D, int dff, int per_row, float att_scale,
-                                int c_dtype, int kv_dtype, void* stream) {
+                                int c_dtype, int kv_dtype, const void* lora_table,
+                                const int* lora_ids, int lora_mask, int rank, int lora_layers,
+                                float lora_scale, void* stream) {
   if (c_dtype != DTC_CD || kv_dtype != DTC_KV) return static_cast<int>(cudaErrorInvalidValue);
   if (B < 1 || T < 1 || T > kMaxT || L < 1 || S < T || H < 1 || H * D != dm || dm % 4 != 0 ||
       dff % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (kv_dtype == 2 && (k_scale == nullptr || v_scale == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (lora_mask != 0 && (lora_table == nullptr || rank < 1 || rank > kLoraMaxRank ||
+                         lora_layers < L || (lora_mask >> kLoraSites) != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -750,6 +856,12 @@ extern "C" int dtc_fused_layers(const void* x_in, void* x_out, const void* weigh
   p.per_row = per_row;
   p.row_chunk = 1;
   p.att_scale = att_scale;
+  p.lw = lora_mask ? static_cast<const float* const*>(lora_table) : nullptr;
+  p.lora_ids = lora_ids;
+  p.lora_mask = lora_mask;
+  p.rank = rank;
+  p.lora_L = lora_layers;
+  p.lora_scale = lora_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch<DTC_CD, DTC_KV, 16>(p, st);

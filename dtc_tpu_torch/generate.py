@@ -38,7 +38,8 @@ def init_cache(model, batch_size: int) -> dict:
 
 
 @torch.no_grad()
-def decode_step(model, cache: dict, tok: torch.Tensor, spec_verify: bool = False):
+def decode_step(model, cache: dict, tok: torch.Tensor, spec_verify: bool = False,
+                lora: dict | None = None, lora_ids: torch.Tensor | None = None):
     """ONE decode iteration: apply the model to ``tok`` (B, T_new) at the
     cache's frontier. Returns ``(new_cache, logits)`` with logits
     ``(B, T_new, V_padded)``. The K/V buffers of ``cache`` are written in
@@ -49,10 +50,14 @@ def decode_step(model, cache: dict, tok: torch.Tensor, spec_verify: bool = False
     ``spec_verify=True`` a speculative verify window of up to
     ``SPEC_MAX_K`` tokens, runs the layer stack as one megakernel launch
     (:func:`dtc_tpu_torch.ops.decode_fused.fused_decode_step`); prefill
-    keeps the per-layer path."""
+    keeps the per-layer path.
+
+    ``lora``: an adapter-enabled model's factors (``dtc_tpu_torch.adapters``),
+    one adapter shared by the batch, or with ``lora_ids`` (B,) the serving
+    engine's stack, row b decoding under slot ``lora_ids[b]``."""
     if decode_fused.use_fused_layers(model.cfg, tok.shape[1], verify=spec_verify):
-        return decode_fused.fused_decode_step(model, cache, tok)
-    logits, new_index = model(tok, cache=cache)
+        return decode_fused.fused_decode_step(model, cache, tok, lora, lora_ids)
+    logits, new_index = model(tok, cache=cache, lora=lora, lora_ids=lora_ids)
     new = dict(cache)
     new["index"] = new_index
     return new, logits
@@ -86,12 +91,14 @@ def generate(
     temperature: float = 0.0,
     top_k: int | None = None,
     top_p: float | None = None,
+    lora: dict | None = None,
 ) -> torch.Tensor:
     """Sample ``max_new_tokens`` continuations of ``prompt`` (B, T_prompt)
     on the model's device. ``temperature == 0`` is greedy argmax;
     otherwise softmax sampling at that temperature with ``generator`` (a
     ``torch.Generator`` on the model's device), optionally filtered by
-    ``top_k`` then ``top_p``. Returns ``(B, max_new_tokens)`` int32."""
+    ``top_k`` then ``top_p``. ``lora``: one adapter's factors for the whole
+    batch. Returns ``(B, max_new_tokens)`` int32."""
     cfg = model.cfg
     prompt = torch.as_tensor(prompt, dtype=torch.int32, device=model.device)
     b, t_prompt = prompt.shape
@@ -122,9 +129,9 @@ def generate(
         return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
     cache = init_cache(model, b)
-    cache, logits = decode_step(model, cache, prompt)
+    cache, logits = decode_step(model, cache, prompt, lora=lora)
     toks = [sample(logits[:, -1])]
     for _ in range(max_new_tokens - 1):
-        cache, logits = decode_step(model, cache, toks[-1][:, None])
+        cache, logits = decode_step(model, cache, toks[-1][:, None], lora=lora)
         toks.append(sample(logits[:, -1]))
     return torch.stack(toks, dim=1)

@@ -21,6 +21,14 @@ kernels on the card under ``auto``). Dropout draws its keep masks from the
 caller's ``torch.Generator`` (flax's semantics: keep with probability
 1 - p, scale kept values by 1 / (1 - p)); nothing else in the model draws.
 
+LoRA adapters (``cfg.adapter.rank > 0``): the factors are not module
+parameters; the caller passes them per call as ``lora`` (see
+``dtc_tpu_torch.adapters``): one adapter's factors shared by every row,
+or with ``lora_ids`` a stack of adapters of which row b reads slot
+``lora_ids[b]`` (:func:`gather_slot_lora`, :func:`layer_lora`). Every
+targeted :class:`Dense` adds :func:`apply_lora`'s delta; without ``lora``
+the model is the base model, and at rank 0 nothing of it runs.
+
 Decode: :meth:`GPT.forward` with a ``cache`` dict (see
 ``dtc_tpu_torch.generate.init_cache``) writes each layer's new k/v into
 the packed ``(L, B, S, H·D)`` cache at the write frontier
@@ -99,22 +107,74 @@ class LayerNorm(nn.Module):
         return (x - mean) * mul + self.bias
 
 
+def lora_scale(cfg: ModelConfig) -> float:
+    """``alpha / rank`` rounded to the compute dtype, as the JAX package's
+    weakly typed Python scale is before it multiplies a compute-dtype
+    delta (PyTorch would multiply by the unrounded value)."""
+    return float(torch.tensor(cfg.adapter.scale, dtype=DTYPES[cfg.compute_dtype]))
+
+
+def apply_lora(y: torch.Tensor, x: torch.Tensor, factors, scale: float) -> torch.Tensor:
+    """``y + scale * ((x @ A) @ B)`` with the JAX package's rounding points
+    (``dtc_tpu/adapters/lora.py`` ``apply_lora``): factors cast to y's
+    (compute) dtype; ``z = x A`` rounded; the delta ``z B`` rounded; the
+    scaled delta rounded (``scale`` already in the compute dtype, see
+    :func:`lora_scale`); then added to ``y``. ``factors`` is ``(A, B)`` in
+    ``nn.Linear``'s orientation: A ``(r, in)``, B ``(out, r)`` shared by
+    every row, or A ``(B, r, in)``, B ``(B, out, r)`` one pair per batch
+    row of x ``(B, T, in)``."""
+    cd = y.dtype
+    a, b = factors[0].to(cd), factors[1].to(cd)
+    xc = x.to(cd)
+    if a.ndim == 2:
+        delta = F.linear(F.linear(xc, a), b)
+    else:
+        z = torch.einsum("bti,bri->btr", xc, a)
+        delta = torch.einsum("btr,bor->bto", z, b)
+    return y + delta * scale
+
+
+def gather_slot_lora(stack: dict | None, lora_ids: torch.Tensor | None) -> dict | None:
+    """Each row's factors copied out of a stack, ``(B, L, ...)`` leaves for
+    slot ids ``lora_ids`` (B,), once per call (the megakernel reads the
+    stack by the ids instead). Without ids ``stack`` is one adapter's
+    factors and passes unchanged."""
+    if stack is None or lora_ids is None:
+        return stack
+    ids = lora_ids.long()
+    return {k: v[ids] for k, v in stack.items()}
+
+
+def layer_lora(lora: dict | None, layer: int, per_row: bool) -> dict:
+    """The factors of one layer, ``{site: (A, B)}``: from one adapter's
+    ``(L, ...)`` leaves, or ``per_row`` from :func:`gather_slot_lora`'s
+    ``(B, L, ...)`` leaves."""
+    if lora is None:
+        return {}
+    at = (slice(None), layer) if per_row else layer
+    return {key[:-2]: (leaf[at], lora[key[:-2] + "_b"][at])
+            for key, leaf in lora.items() if key.endswith("_a")}
+
+
 class Dense(nn.Module):
     """``nn.Dense(dtype=compute, param_dtype=param)``: weight ``(out, in)``
     and bias in the parameter dtype, both cast to the compute dtype. As in
     flax, the product is rounded to the compute dtype before the bias is
-    added in the compute dtype (two roundings, not ``F.linear``'s one)."""
+    added in the compute dtype (two roundings, not ``F.linear``'s one).
+    With ``lora`` factors ``(A, B)`` it adds :func:`apply_lora`'s delta."""
 
     def __init__(self, d_in: int, d_out: int, cfg: ModelConfig, device=None):
         super().__init__()
         pdt = DTYPES[cfg.param_dtype]
         self.cdtype = DTYPES[cfg.compute_dtype]
+        self.lora_scale = lora_scale(cfg)
         self.weight = nn.Parameter(torch.empty(d_out, d_in, dtype=pdt, device=device))
         self.bias = nn.Parameter(torch.zeros(d_out, dtype=pdt, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lora=None) -> torch.Tensor:
         cd = self.cdtype
-        return F.linear(x.to(cd), self.weight.to(cd)) + self.bias.to(cd)
+        y = F.linear(x.to(cd), self.weight.to(cd)) + self.bias.to(cd)
+        return y if lora is None else apply_lora(y, x, lora, self.lora_scale)
 
 
 def _cache_write(buf: torch.Tensor, update: torch.Tensor, idx: torch.Tensor) -> None:
@@ -145,12 +205,16 @@ class CausalSelfAttention(nn.Module):
         self.out_proj = Dense(d, d, cfg, device)
 
     def forward(self, x: torch.Tensor, cache: dict | None = None,
-                layer: int = 0, idx: torch.Tensor | None = None) -> torch.Tensor:
+                layer: int = 0, idx: torch.Tensor | None = None,
+                lora: dict | None = None) -> torch.Tensor:
         cfg = self.cfg
+        lora = lora or {}
         b, t, _ = x.shape
         h, dh = cfg.n_heads, cfg.head_dim
         hd = h * dh
-        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        q = self.q_proj(x, lora.get("q_proj"))
+        k = self.k_proj(x, lora.get("k_proj"))
+        v = self.v_proj(x, lora.get("v_proj"))
         if cache is None:
             out = causal_attention(
                 q.view(b, t, h, dh), k.view(b, t, h, dh), v.view(b, t, h, dh),
@@ -188,7 +252,7 @@ class CausalSelfAttention(nn.Module):
                     q.view(b, t, h, dh), k_full.view(b, s, h, dh),
                     v_full.view(b, s, h, dh), idx,
                 )
-        return self.out_proj(out.reshape(b, t, cfg.d_model))
+        return self.out_proj(out.reshape(b, t, cfg.d_model), lora.get("out_proj"))
 
 
 class MLP(nn.Module):
@@ -197,8 +261,10 @@ class MLP(nn.Module):
         self.fc1 = Dense(cfg.d_model, cfg.d_ff, cfg, device)
         self.fc2 = Dense(cfg.d_ff, cfg.d_model, cfg, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+    def forward(self, x: torch.Tensor, lora: dict | None = None) -> torch.Tensor:
+        lora = lora or {}
+        h = F.gelu(self.fc1(x, lora.get("fc1")), approximate="tanh")
+        return self.fc2(h, lora.get("fc2"))
 
 
 class Block(nn.Module):
@@ -213,11 +279,11 @@ class Block(nn.Module):
         self.mlp = MLP(cfg, device)
 
     def forward(self, x, *, train: bool = False, gen=None, cache=None, layer: int = 0,
-                idx=None):
+                idx=None, lora: dict | None = None):
         cd, p = DTYPES[self.cfg.compute_dtype], self.cfg.dropout if train else 0.0
-        a = self.attn(self.ln_1(x).to(cd), cache, layer, idx)
+        a = self.attn(self.ln_1(x).to(cd), cache, layer, idx, lora)
         x = x + _dropout(a, p, gen)
-        m = self.mlp(self.ln_2(x).to(cd))
+        m = self.mlp(self.ln_2(x).to(cd), lora)
         return x + _dropout(m, p, gen)
 
 
@@ -259,9 +325,12 @@ class GPTStage(nn.Module):
         super().__init__()
         self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(n_layers))
 
-    def forward(self, h, *, train: bool = False, gen=None, cache=None, idx=None):
+    def forward(self, h, *, train: bool = False, gen=None, cache=None, idx=None,
+                lora: dict | None = None, lora_ids: torch.Tensor | None = None):
+        rows = gather_slot_lora(lora, lora_ids)
         for i, blk in enumerate(self.blocks):
-            h = blk(h, train=train, gen=gen, cache=cache, layer=i, idx=idx)
+            h = blk(h, train=train, gen=gen, cache=cache, layer=i, idx=idx,
+                    lora=layer_lora(rows, i, lora_ids is not None))
         return h
 
 
@@ -293,16 +362,15 @@ class GPTHead(nn.Module):
 class GPT(nn.Module):
     """Full decoder-only GPT on ``device`` (``cuda`` unless named), its
     parameters drawn from flax's initializer distributions with a
-    generator seeded by ``seed``. Mixture-of-experts, LoRA adapters and
-    rematerialization are not ported yet and raise
-    ``NotImplementedError``."""
+    generator seeded by ``seed``. With ``adapter.rank > 0`` it serves LoRA
+    factors passed per call (the adapter parameters are not part of the
+    module). Mixture-of-experts and rematerialization are not ported yet
+    and raise ``NotImplementedError``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
         if cfg.moe_experts > 0:
             raise NotImplementedError("mixture-of-experts is not ported yet")
-        if cfg.adapter.rank > 0:
-            raise NotImplementedError("LoRA adapters are not ported yet")
         if cfg.remat_mode != "none":
             raise NotImplementedError(
                 f"remat {cfg.remat!r} is not ported yet (queued after the "
@@ -340,20 +408,26 @@ class GPT(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 cache: dict | None = None, targets: torch.Tensor | None = None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                lora: dict | None = None, lora_ids: torch.Tensor | None = None):
         """Logits ``(B, T, V_padded)`` for tokens ``x`` (B, T), or with
         ``targets`` (B, T) the mean next-token cross entropy (float32
         scalar). ``train=True`` applies dropout with keep masks drawn from
         ``generator``. With ``cache`` (decode), returns ``(logits,
         new_index)``: the tokens are appended at the cache's write
         frontier, whose advanced value is ``new_index``. The caller keeps
-        the cumulative length within ``max_seq_len``."""
+        the cumulative length within ``max_seq_len``. ``lora`` /
+        ``lora_ids``: adapter factors (see :func:`gather_slot_lora`);
+        inference only."""
+        if lora is not None and train:
+            raise NotImplementedError("LoRA finetuning is not ported yet")
         if cache is None:
             h = self.embed(x, train=train, gen=generator)
-            return self.head(self.stage(h, train=train, gen=generator), targets)
+            h = self.stage(h, train=train, gen=generator, lora=lora, lora_ids=lora_ids)
+            return self.head(h, targets)
         idx = cache["index"]
         h = self.embed(x, train=False, pos_offset=idx)
-        h = self.stage(h, cache=cache, idx=idx)
+        h = self.stage(h, cache=cache, idx=idx, lora=lora, lora_ids=lora_ids)
         return self.head(h), idx + x.shape[1]
 
 
@@ -369,3 +443,19 @@ def param_count(cfg: ModelConfig) -> int:
     per_block = 4 * (d * d + d) + ffn + 4 * d
     head = 2 * d + (d * v + v)
     return embed + L * per_block + head
+
+
+def adapter_param_count(cfg: ModelConfig) -> int:
+    """Exact LoRA parameter count of one adapter (0 when disabled), counted
+    apart from :func:`param_count`: every tenant shares the base and pays
+    only this. Per targeted site and layer ``rank * (in + out)``; under
+    mixture-of-experts only the attention sites exist."""
+    a = cfg.adapter
+    if a.rank <= 0:
+        return 0
+    d, f = cfg.d_model, cfg.d_ff
+    dims = {"q_proj": (d, d), "k_proj": (d, d), "v_proj": (d, d), "out_proj": (d, d)}
+    if cfg.moe_experts == 0:
+        dims.update(fc1=(d, f), fc2=(f, d))
+    per_layer = sum(a.rank * (i + o) for t, (i, o) in dims.items() if t in a.target_modules)
+    return cfg.n_layers * per_layer

@@ -53,7 +53,8 @@ _VARIANTS = {
 }
 for _name in _VARIANTS:
     _SIGNATURES[_name] = {
-        "dtc_fused_layers": [_P] * 9 + [_I] * 9 + [_F] + [_I] * 2 + [_P],
+        "dtc_fused_layers": [_P] * 9 + [_I] * 9 + [_F] + [_I] * 2 + [_P] * 2 + [_I] * 3
+        + [_F, _P],
         "dtc_fused_layers_config": [_I] * 5 + [_P] * 2,
     }
 

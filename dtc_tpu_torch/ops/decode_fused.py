@@ -32,6 +32,14 @@ single-token step at frontier ``start + j``, which makes greedy speculation
 token-identical to plain decode in bfloat16 too. An idle serving slot whose
 frontier ran past the cache writes at ``S - t`` and reads ``min(start + j,
 S)`` columns; its output is discarded.
+
+LoRA sites (adapter-enabled models): q, k and v on the LN1 output,
+out_proj before the residual, fc1 before the GELU and fc2 before the
+residual add :func:`dtc_tpu_torch.models.gpt.apply_lora`'s delta. The
+factors are one adapter's ``(L, ...)`` leaves shared by every row, or a
+stack's ``(n_adapters, L, ...)`` leaves with per-row slot ids (``lora_ids``,
+(B,)): row ``b * t + j`` reads slot ``lora_ids[b]``. The kernel reads the
+stack where it lies, through a per-layer table of the factors' pointers.
 """
 
 from __future__ import annotations
@@ -40,7 +48,9 @@ import ctypes
 
 import torch
 
-from dtc_tpu_torch.models.gpt import DTYPES
+from dtc_tpu_torch.adapters.lora import SITES as LORA_SITES
+from dtc_tpu_torch.adapters.lora import site_dims
+from dtc_tpu_torch.models.gpt import DTYPES, gather_slot_lora, layer_lora, lora_scale
 from dtc_tpu_torch.ops.attention import NEG_INF
 from dtc_tpu_torch.ops.decode_attention import (
     KERNEL_HEAD_DIMS,
@@ -71,6 +81,14 @@ launches = 0
 # Weight pointer tables on the device, one per layer stack:
 # id(blocks) -> (data_ptr tuple, (L, 16) int64 tensor).
 _tables: dict[int, tuple[tuple[int, ...], torch.Tensor]] = {}
+
+#: Widest adapter rank the kernel takes (its z buffer in shared memory).
+#: Site i of ``LORA_SITES`` is bit i of the kernel's site mask.
+LORA_MAX_RANK = 64
+# LoRA pointer tables on the device: (data_ptrs, shapes, layers) -> (L, 12)
+# int64 tensor; the newest few are kept.
+_lora_tables: dict[tuple, torch.Tensor] = {}
+_LORA_TABLES_KEPT = 8
 
 
 def use_fused_layers(cfg, t_new: int, verify: bool = False) -> bool:
@@ -121,13 +139,16 @@ def _check(x: torch.Tensor, blocks, cache: dict) -> None:
 
 
 @torch.no_grad()
-def fused_layers_reference(x: torch.Tensor, blocks, cache: dict, idx) -> torch.Tensor:
+def fused_layers_reference(x: torch.Tensor, blocks, cache: dict, idx,
+                           lora: dict | None = None,
+                           lora_ids: torch.Tensor | None = None) -> torch.Tensor:
     """The plain version of the kernel: ``x`` (B, t, d_model) in the compute
     dtype through every block of ``blocks`` at the frontier ``idx`` (a
     scalar or one per row), writing each layer's window k/v (and int8
     scales) into ``cache`` in place. Returns the last layer's residual
-    (B, t, d_model). Uses the blocks' own ``LayerNorm`` and ``Dense``, so
-    its rounding points are the per-layer path's.
+    (B, t, d_model). Uses the blocks' own ``LayerNorm`` and ``Dense`` (with
+    their LoRA sites, ``lora`` / ``lora_ids`` as in ``GPT.forward``), so its
+    rounding points are the per-layer path's.
 
     Per layer the window is written at ``min(start, S - t)`` first; window
     position j then attends to cached positions ``< min(start + j, S)``
@@ -136,6 +157,7 @@ def fused_layers_reference(x: torch.Tensor, blocks, cache: dict, idx) -> torch.T
     fp32 p: the operations of a single-token step at frontier
     ``start + j``."""
     _check(x, blocks, cache)
+    _check_lora(x, blocks, lora, lora_ids)
     cfg = blocks[0].cfg
     cd = DTYPES[cfg.compute_dtype]
     b, t, _ = x.shape
@@ -152,10 +174,13 @@ def fused_layers_reference(x: torch.Tensor, blocks, cache: dict, idx) -> torch.T
     col_ok = torch.arange(s, device=x.device)[None, None, :] < n_c[:, :, None]  # (B, t, S)
     scale = float(torch.tensor(d ** -0.5, dtype=cd))  # rounded to the compute dtype
 
+    per_row_lora = gather_slot_lora(lora, lora_ids)
     for l, blk in enumerate(blocks):
+        fl = layer_lora(per_row_lora, l, lora_ids is not None)
         hln = blk.ln_1(x).to(cd)
-        q = blk.attn.q_proj(hln).view(b, t, h, d) * scale
-        k, v = blk.attn.k_proj(hln), blk.attn.v_proj(hln)
+        q = blk.attn.q_proj(hln, fl.get("q_proj")).view(b, t, h, d) * scale
+        k = blk.attn.k_proj(hln, fl.get("k_proj"))
+        v = blk.attn.v_proj(hln, fl.get("v_proj"))
         # The window into the cache, then every position as a reader sees it.
         if quant:
             kq, k_sc = quantize_kv(k, h)
@@ -180,9 +205,69 @@ def fused_layers_reference(x: torch.Tensor, blocks, cache: dict, idx) -> torch.T
         acc = torch.einsum("bhts,bshd->bhtd", p.to(cd).float(), v_all.view(b, s, h, d).float())
         acc = acc + p_own * v_new.view(b, t, h, d).float().transpose(1, 2)
         attn = (acc / lsum).to(cd).permute(0, 2, 1, 3).reshape(b, t, hd)
-        x = x + blk.attn.out_proj(attn)
-        x = x + blk.mlp(blk.ln_2(x).to(cd))
+        x = x + blk.attn.out_proj(attn, fl.get("out_proj"))
+        x = x + blk.mlp(blk.ln_2(x).to(cd), fl)
     return x
+
+
+def _check_lora(x: torch.Tensor, blocks, lora: dict | None, lora_ids) -> None:
+    if lora is None:
+        if lora_ids is not None:
+            raise ValueError("lora_ids without lora factors")
+        return
+    cfg = blocks[0].cfg
+    r = cfg.adapter.rank
+    if r <= 0:
+        raise ValueError("LoRA factors for a model without adapters (adapter.rank == 0)")
+    lead = 1 if lora_ids is None else 2
+    for key, leaf in lora.items():
+        site, ab = key[:-2], key[-2:]
+        if site not in LORA_SITES or ab not in ("_a", "_b") or site + "_a" not in lora \
+                or site + "_b" not in lora:
+            raise ValueError(f"not a pair of LoRA factors: {key!r}")
+        d_in, d_out = site_dims(cfg, site)
+        want = (r, d_in) if ab == "_a" else (d_out, r)
+        if leaf.ndim != lead + 2 or tuple(leaf.shape[-2:]) != want \
+                or leaf.shape[lead - 1] < len(blocks) or leaf.device != x.device:
+            raise ValueError(
+                f"LoRA factor {key} must be ({'n_adapters, ' if lead == 2 else ''}L, "
+                f"{want[0]}, {want[1]}) on {x.device}, got {tuple(leaf.shape)} on {leaf.device}"
+            )
+    if lora_ids is not None and (tuple(lora_ids.shape) != (x.shape[0],)
+                                 or lora_ids.device != x.device):
+        raise ValueError(f"lora_ids must be ({x.shape[0]},) on {x.device}")
+
+
+def _lora_table(lora: dict, n_layers: int, device) -> tuple[torch.Tensor, int, int]:
+    """The ``(L, 12)`` device table of each layer's factor pointers (A, B per
+    site in :data:`LORA_SITES` order; slot 0's, the kernel adds a slot's
+    offset; null where the site is not targeted), its site mask and the
+    factors' layer count. Built once per set of factor tensors and rebuilt
+    when one moves."""
+    key = tuple((k, v.data_ptr(), tuple(v.shape)) for k, v in sorted(lora.items())) + (n_layers,)
+    table = _lora_tables.get(key)
+    mask, lora_layers = 0, 0
+    for i, site in enumerate(LORA_SITES):
+        if site + "_a" in lora:
+            mask |= 1 << i
+            lora_layers = lora[site + "_a"].shape[-3]
+    if table is None:
+        ptrs = []
+        for leaf in lora.values():
+            if leaf.dtype != torch.float32 or not leaf.is_contiguous() or leaf.data_ptr() % 16:
+                raise ValueError("the megakernel reads contiguous, 16-byte aligned float32 "
+                                 f"LoRA factors; got {leaf.dtype}")
+        for l in range(n_layers):
+            for site in LORA_SITES:
+                for ab in ("_a", "_b"):
+                    leaf = lora.get(site + ab)
+                    ptrs.append(0 if leaf is None else
+                                leaf.data_ptr() + 4 * l * leaf.shape[-2] * leaf.shape[-1])
+        table = torch.tensor(ptrs, dtype=torch.int64, device=device).view(n_layers, 12)
+        while len(_lora_tables) >= _LORA_TABLES_KEPT:
+            _lora_tables.pop(next(iter(_lora_tables)))
+        _lora_tables[key] = table
+    return table, mask, lora_layers
 
 
 def _library(cd: torch.dtype, kv: torch.dtype):
@@ -213,19 +298,23 @@ def _weight_table(blocks, device) -> torch.Tensor:
     return hit[1]
 
 
-def fused_layers(x: torch.Tensor, blocks, cache: dict, idx) -> torch.Tensor:
+def fused_layers(x: torch.Tensor, blocks, cache: dict, idx, lora: dict | None = None,
+                 lora_ids: torch.Tensor | None = None) -> torch.Tensor:
     """The layer stack of one decode step (or verify window) in one launch:
     ``x`` (B, t, d_model) compute-dtype residual after the embedding,
     ``blocks`` the model's ``Block``s, ``cache`` the decode cache (written
-    in place at the frontier ``idx``, a scalar or one per row). Returns the
-    residual after the last block. CPU tensors take
+    in place at the frontier ``idx``, a scalar or one per row). ``lora``:
+    adapter factors, shared, or a stack read per row through ``lora_ids``
+    (B,) int32 slot ids (in range; the kernel does not check them).
+    Returns the residual after the last block. CPU tensors take
     :func:`fused_layers_reference`; CUDA tensors launch the Hopper kernel on
     the current stream or raise. Replaces the JAX package's
     ``_fused_layers_call`` (kernel ``_fused_layers_kernel``)."""
     global launches
     _check(x, blocks, cache)
+    _check_lora(x, blocks, lora, lora_ids)
     if x.device.type == "cpu":
-        return fused_layers_reference(x, blocks, cache, idx)
+        return fused_layers_reference(x, blocks, cache, idx, lora, lora_ids)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     cfg = blocks[0].cfg
@@ -248,6 +337,10 @@ def fused_layers(x: torch.Tensor, blocks, cache: dict, idx) -> torch.Tensor:
         raise ValueError("d_model and d_ff must be multiples of 4")
     if any(z.data_ptr() % 16 for z in (x, k, v)):
         raise ValueError("x and the cache must be 16-byte aligned")
+    if lora_ids is not None and (lora_ids.dtype != torch.int32 or not lora_ids.is_contiguous()):
+        raise ValueError("lora_ids must be contiguous int32")
+    if lora is not None and cfg.adapter.rank > LORA_MAX_RANK:
+        raise ValueError(f"adapter rank {cfg.adapter.rank} above the kernel's {LORA_MAX_RANK}")
     from dtc_tpu_torch.ops import _build
 
     lib = _library(cd, k.dtype)
@@ -259,9 +352,13 @@ def fused_layers(x: torch.Tensor, blocks, cache: dict, idx) -> torch.Tensor:
         64 + r * (dm + 3 * dm + dm + cfg.d_ff), dtype=torch.float32, device=x.device
     )
     out = torch.empty_like(x)
-    # The scale is rounded to the compute dtype first, as the reference's is.
+    # The scales are rounded to the compute dtype first, as the reference's are.
     scale = float(torch.tensor(cfg.head_dim ** -0.5, dtype=cd))
     null = ctypes.c_void_p(0)
+    if lora is None:
+        lora_table, lora_mask, lora_layers = None, 0, 0
+    else:
+        lora_table, lora_mask, lora_layers = _lora_table(lora, len(blocks), x.device)
     rc = lib.dtc_fused_layers(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(table.data_ptr()),
@@ -271,6 +368,10 @@ def fused_layers(x: torch.Tensor, blocks, cache: dict, idx) -> torch.Tensor:
         ctypes.c_void_p(start.data_ptr()), ctypes.c_void_p(scratch.data_ptr()),
         b, t, len(blocks), cfg.max_seq_len, dm, cfg.n_heads, cfg.head_dim, cfg.d_ff,
         int(per_row), ctypes.c_float(scale), _DTYPE_CODES[cd], _DTYPE_CODES[k.dtype],
+        ctypes.c_void_p(lora_table.data_ptr()) if lora_table is not None else null,
+        ctypes.c_void_p(lora_ids.data_ptr()) if lora_ids is not None else null,
+        lora_mask, cfg.adapter.rank if lora_mask else 0, lora_layers,
+        ctypes.c_float(lora_scale(cfg) if lora_mask else 0.0),
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     if rc != 0:
@@ -310,16 +411,18 @@ def head_rows(head, h: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def fused_decode_step(model, cache: dict, tok: torch.Tensor):
+def fused_decode_step(model, cache: dict, tok: torch.Tensor, lora: dict | None = None,
+                      lora_ids: torch.Tensor | None = None):
     """The ``fused_layers`` decode step: ``tok`` (B, t) at the cache's
     frontier (t == 1, or a verify window of up to ``SPEC_MAX_K``). Embed,
-    the layer stack in one megakernel launch, then the head. The K/V
-    buffers are written in place; the returned cache shares them and
-    carries a new index ``index + t``, so re-running from ``cache`` repeats
-    the step exactly. Returns ``(new_cache, logits)``."""
+    the layer stack in one megakernel launch (with the LoRA sites when
+    ``lora`` is given), then the head. The K/V buffers are written in
+    place; the returned cache shares them and carries a new index
+    ``index + t``, so re-running from ``cache`` repeats the step exactly.
+    Returns ``(new_cache, logits)``."""
     idx = cache["index"]
     h = model.embed(tok, pos_offset=idx)
-    h = fused_layers(h, model.stage.blocks, cache, idx)
+    h = fused_layers(h, model.stage.blocks, cache, idx, lora, lora_ids)
     new = dict(cache)
     new["index"] = idx + tok.shape[1]
     return new, head_rows(model.head, h)

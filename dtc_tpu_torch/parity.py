@@ -5,7 +5,8 @@ scan-stacked under ``stage/blocks/Block_0`` with a leading ``(L,)`` axis,
 and Dense kernels laid out ``(in, out)``. :func:`from_flax` unstacks the
 layers and transposes the kernels to ``nn.Linear``'s ``(out, in)``.
 Takes numpy arrays (``jax.tree.map(np.asarray, params)``), so this module
-needs neither jax nor flax.
+needs neither jax nor flax. :func:`lora_from_flax` carries a flax
+``"lora"`` collection (adapter factors) the same way.
 
 :func:`attention_tolerance` is the limit attention outputs are held to
 when two implementations are compared (kernel vs plain version, port vs
@@ -16,6 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from dtc_tpu_torch.adapters.lora import from_flax_arrays
 
 #: float32 outputs differ by summation order only.
 FP32_ATOL = 1e-5
@@ -95,3 +98,21 @@ def from_flax(params, cfg) -> dict[str, torch.Tensor]:
             sd[pre + name + ".weight"] = t(blk[grp][layer]["kernel"][i]).T.contiguous()
             sd[pre + name + ".bias"] = t(blk[grp][layer]["bias"][i])
     return sd
+
+
+def lora_from_flax(lora) -> dict[str, torch.Tensor]:
+    """One adapter's factors (CPU tensors, see ``dtc_tpu_torch.adapters``)
+    from a flax ``"lora"`` collection of numpy arrays: per site
+    ``(L, in, r)`` -> ``(L, r, in)`` and ``(L, r, out)`` -> ``(L, out, r)``,
+    the layer axis kept."""
+    flat = {}
+
+    def walk(node, path):
+        for key, sub in node.items():
+            if isinstance(sub, dict):
+                walk(sub, path + [key])
+            else:
+                flat["/".join(path + [key])] = sub
+
+    walk(lora, [])
+    return from_flax_arrays(flat)

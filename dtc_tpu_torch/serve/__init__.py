@@ -4,6 +4,7 @@ from dtc_tpu_torch.serve.engine import ServingEngine, init_slot_cache
 from dtc_tpu_torch.serve.paged_cache import PageAllocator, kv_token_bytes, pages_for
 from dtc_tpu_torch.serve.request import (
     TERMINAL_STATES,
+    AdapterStoreFullError,
     DeadlineExceededError,
     QueueFullError,
     Request,
@@ -14,12 +15,13 @@ from dtc_tpu_torch.serve.request import (
     ServeResult,
     ShedError,
     TransientStepError,
+    UnknownAdapterError,
 )
 
 __all__ = [
-    "TERMINAL_STATES", "DeadlineExceededError", "PageAllocator",
+    "TERMINAL_STATES", "AdapterStoreFullError", "DeadlineExceededError", "PageAllocator",
     "QueueFullError", "Request", "RequestFailedError", "RequestState",
     "RequestTooLargeError", "ServeError", "ServeResult", "ServingEngine",
-    "ShedError", "TransientStepError", "init_slot_cache", "kv_token_bytes",
+    "ShedError", "TransientStepError", "UnknownAdapterError", "init_slot_cache", "kv_token_bytes",
     "pages_for",
 ]

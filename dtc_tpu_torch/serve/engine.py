@@ -35,11 +35,25 @@ the model-native packed cache:
 Under ``decode_attention: fused_layers`` each decode step (and each
 verify window) runs the layer stack as one megakernel launch.
 
+- Multi-tenant LoRA adapters (model ``adapter.rank > 0``): ONE resident
+  ``(max_adapters, ...)`` factor stack (slot 0 all zero: the base model)
+  and a device ``(slots,)`` int32 tensor of each slot's adapter; every
+  decode step passes the stack with the slots' ids, so each row decodes
+  under its own tenant, and a prefill runs under its tenant's slot.
+  ``load_adapter`` validates a tenant's factors, registers it in the
+  :class:`~dtc_tpu_torch.adapters.AdapterStore` (LRU over idle tenants,
+  typed ``AdapterStoreFullError`` when all are in flight) and writes them
+  into the stack in place; a request names its tenant
+  (``Request.adapter``), which is pinned from submit to terminal.
+  Admitting a tenant changes values, never shapes or pointers. Shared
+  prefixes are stored per adapter; a (re)loaded or evicted tenant's
+  entries are dropped.
+
 Counters live in the plain dict ``counters`` under the JAX package's
 names (``serve_submitted``, ``serve_admissions``, ``serve_decode_steps``,
-``serve_spec_proposed``, ...). Not ported yet, and refused at construction
-with ``NotImplementedError``: chaos injection, online SLO objectives and
-LoRA adapters.
+``serve_spec_proposed``, ``adapter_loads``, ...). Not ported yet, and
+refused at construction with ``NotImplementedError``: chaos injection and
+online SLO objectives.
 
 Memory note: the K/V buffers are updated in place (see
 ``models/gpt.py``); a retried step re-writes the same positions with the
@@ -55,6 +69,13 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from dtc_tpu_torch.adapters import (
+    BASE_SLOT,
+    AdapterStore,
+    init_lora_stack,
+    lora_enabled,
+    validate_lora_tree,
+)
 from dtc_tpu_torch.generate import decode_step, init_cache
 from dtc_tpu_torch.resilience.retry import retry_call
 from dtc_tpu_torch.resilience.watchdog import StepWatchdog
@@ -70,6 +91,7 @@ from dtc_tpu_torch.serve.request import (
     ServeResult,
     ShedError,
     TransientStepError,
+    UnknownAdapterError,
 )
 from dtc_tpu_torch.spec import check_spec_backend, extract_draft, spec_round
 
@@ -152,6 +174,13 @@ class ServingEngine:
         self.alloc = PageAllocator(pool, cfg.page_size)
 
         self.cache = init_slot_cache(model, cfg.slots)
+        self.lora_on = lora_enabled(self.mcfg)
+        if self.lora_on:
+            self.adapter_store = AdapterStore(cfg.max_adapters)
+            self.lora_stack = init_lora_stack(model, cfg.max_adapters)
+            self.slot_adapter = torch.zeros((cfg.slots,), dtype=torch.int32, device=self.device)
+        else:
+            self.adapter_store = self.lora_stack = self.slot_adapter = None
         if self.spec_on:
             self.draft = extract_draft(model, cfg.spec.draft_layers)
             self.draft_cache = init_slot_cache(self.draft, cfg.slots)
@@ -182,8 +211,6 @@ class ServingEngine:
             unported.append("chaos injection (serve chaos)")
         if cfg.slo.any_objective:
             unported.append("online SLO objectives (serve slo)")
-        if mcfg.adapter.rank > 0:
-            unported.append("LoRA adapters (model adapter.rank > 0)")
         if unported:
             raise NotImplementedError(
                 "not ported yet: " + ", ".join(unported)
@@ -214,8 +241,6 @@ class ServingEngine:
                 f"request {req.rid}: rid already in flight "
                 f"(state {self.results[req.rid].state.value})"
             )
-        if req.adapter is not None:
-            raise NotImplementedError("LoRA adapters are not ported yet")
         now = self.clock()
         total = len(req.prompt) + req.max_new_tokens
         # Under speculation the verify window writes spec_k positions from
@@ -238,14 +263,28 @@ class ServingEngine:
                 + (" (incl. draft KV surcharge)" if self.spec_on else "")
                 + f" exceeds the pool ({self.alloc.total_pages})"
             )
+        if req.adapter is not None and (
+            not self.lora_on or req.adapter not in self.adapter_store
+        ):
+            self.counters["serve_rejected"] += 1
+            raise UnknownAdapterError(
+                f"request {req.rid}: adapter {req.adapter!r} is not resident"
+                + ("" if self.lora_on else
+                   " (model has no adapter support: adapter.rank == 0)")
+            )
         if len(self.queue) >= self.cfg.queue_depth:
             self.counters["serve_rejected"] += 1
             raise QueueFullError(
                 f"request {req.rid}: queue at depth {self.cfg.queue_depth}"
             )
+        if req.adapter is not None:
+            # Pinned from submit to terminal: an in-flight tenant's factors
+            # are never evicted under it (re-prefill after eviction needs them).
+            self.adapter_store.acquire(req.adapter)
         self.requests[req.rid] = req
         res = ServeResult(
             rid=req.rid, state=RequestState.QUEUED, tokens=[], submitted_t=now,
+            adapter=req.adapter,
         )
         self.results[req.rid] = res
         ttl = self.cfg.deadline_s if req.deadline_s is None else req.deadline_s
@@ -253,6 +292,49 @@ class ServingEngine:
         self.queue.append(req)
         self.counters["serve_submitted"] += 1
         return req.rid
+
+    def load_adapter(self, name: str, factors: dict) -> int:
+        """Make tenant ``name``'s LoRA factors resident; returns its stack
+        slot. ``factors`` is one adapter's factor dict
+        (``dtc_tpu_torch.adapters``: ``init_lora``, ``load_adapter_file``,
+        ``parity.lora_from_flax``). The write goes into the resident stack in
+        place, so the decode step's shapes and pointers never change. A full
+        store evicts the least-recently-used idle tenant; when every tenant
+        has in-flight requests it raises ``AdapterStoreFullError``.
+        Re-loading a resident name overwrites its factors (a hot update)
+        and raises ValueError while it has requests in flight. Prefix KV
+        built under an evicted or re-loaded tenant is dropped."""
+        if not self.lora_on:
+            raise ValueError(
+                "load_adapter on a lora-free engine (model adapter.rank == 0); "
+                "serve an adapter-enabled model config"
+            )
+        validate_lora_tree(self.lora_stack, factors)
+        slot, evicted = self.adapter_store.register(name)
+        if evicted is not None:
+            self.counters["adapter_evictions"] += 1
+            self._drop_adapter_prefixes(evicted)
+        # Prefix KV built under the old factors of this name is stale.
+        self._drop_adapter_prefixes(name)
+        with torch.no_grad():
+            for key, buf in self.lora_stack.items():
+                buf[slot].copy_(factors[key])
+        self.counters["adapter_loads"] += 1
+        return slot
+
+    def _drop_adapter_prefixes(self, name: str) -> None:
+        """Drop every shared-prefix entry built under adapter ``name``
+        (keys are ``(adapter, *tokens)``) and return its pages."""
+        for key in [k for k in self._prefix_store if k[0] == name]:
+            self._prefix_store.pop(key, None)
+            self.alloc.drop_prefix(key)
+
+    def _adapter_slot(self, req: Request) -> int:
+        """The request's stack slot (BASE_SLOT for base requests and on a
+        lora-free engine); the refcount keeps it resident while in flight."""
+        if not self.lora_on or req.adapter is None:
+            return BASE_SLOT
+        return self.adapter_store.slot_of(req.adapter)
 
     def drain_results(self) -> dict[str, ServeResult]:
         """Remove and return every terminal result."""
@@ -434,7 +516,9 @@ class ServingEngine:
             self.mcfg.max_seq_len,
         )
         try:
-            cache, _tok = self._checked_prefill(init_cache(self.model, 1), padded, plen)
+            cache, _tok = self._checked_prefill(
+                init_cache(self.model, 1), padded, plen, self._adapter_slot(req)
+            )
         except TransientStepError:
             self.alloc.drop_prefix(key)
             raise
@@ -451,13 +535,20 @@ class ServingEngine:
         cache, plen = self._prefix_store[key]
         return {k: v.clone() for k, v in cache.items()}, plen
 
-    def _checked_prefill(self, base: dict, padded: list[int], n_valid: int):
-        """Prefill + finite check under the transient-fault retry. Returns
-        (cache, next token) — the token sampled from the last VALID row."""
+    def _checked_prefill(self, base: dict, padded: list[int], n_valid: int,
+                         adapter_slot: int = BASE_SLOT):
+        """Prefill + finite check under the transient-fault retry, under the
+        adapter in stack slot ``adapter_slot``. Returns (cache, next token)
+        — the token sampled from the last VALID row."""
         prompt = torch.tensor([padded], dtype=torch.int32, device=self.device)
+        # One row, one adapter: its factors are views of its stack slot (the
+        # base slot's are zero, so a base prefill skips them).
+        lora = {}
+        if adapter_slot != BASE_SLOT:
+            lora["lora"] = {k: v[adapter_slot] for k, v in self.lora_stack.items()}
 
         def attempt():
-            cache, logits = decode_step(self.model, base, prompt)
+            cache, logits = decode_step(self.model, base, prompt, **lora)
             row = logits[0, n_valid - 1]
             tok = torch.argmax(row, dim=-1).to(torch.int32)
             fin = torch.isfinite(row.float()).all()
@@ -518,7 +609,9 @@ class ServingEngine:
                 suffix, self.cfg.prefill_bucket, self.mcfg.max_seq_len - base_len
             )
             self._retry_scope = [req.rid]
-            cache1, tok = self._checked_prefill(base, padded, len(suffix))
+            cache1, tok = self._checked_prefill(
+                base, padded, len(suffix), self._adapter_slot(req)
+            )
         except TransientStepError as e:
             self._release_slot(req.rid)
             err = RequestFailedError(
@@ -528,6 +621,9 @@ class ServingEngine:
             self._finish(req.rid, RequestState.FAILED, err)
             return
         self._insert(self.cache, cache1, slot_i, len(seq))
+        if self.lora_on:
+            # The slot decodes under this request's adapter from now on.
+            self.slot_adapter[slot_i] = self._adapter_slot(req)
         if self.spec_on:
             # The draft is prefilled over the FULL sequence at every
             # admission and re-admission (no prefix store on the draft),
@@ -596,10 +692,12 @@ class ServingEngine:
         prev_cache = self.cache  # a retry re-runs from here bit-exactly
         toks = torch.as_tensor(self.last_tok, device=self.device)[:, None]
         last_fin = np.ones((self.cfg.slots,), bool)
+        lora = (dict(lora=self.lora_stack, lora_ids=self.slot_adapter)
+                if self.lora_on else {})
 
         def attempt():
             nonlocal last_fin
-            cache, logits = decode_step(self.model, prev_cache, toks)
+            cache, logits = decode_step(self.model, prev_cache, toks, **lora)
             last = logits[:, -1]
             nxt = torch.argmax(last, dim=-1).to(torch.int32)
             fin = torch.isfinite(last.float()).all(dim=-1).to(torch.int32)
@@ -834,11 +932,13 @@ class ServingEngine:
             self._finish(rid, RequestState.DONE, None, now=now)
 
     def _release_slot(self, rid: str) -> None:
-        for slot in self.slots:
+        for i, slot in enumerate(self.slots):
             if slot.rid == rid:
                 slot.rid = None
                 slot.frontier = 0
                 slot.page_fp = {}
+                if self.lora_on:
+                    self.slot_adapter[i] = BASE_SLOT
         self.alloc.free(rid)
 
     def _finish(
@@ -850,7 +950,9 @@ class ServingEngine:
         res.finished_t = self.clock() if now is None else now
         self._deadline.pop(rid, None)
         self._eff_max_new.pop(rid, None)
-        self.requests.pop(rid, None)
+        req = self.requests.pop(rid, None)
+        if self.lora_on and req is not None and req.adapter is not None:
+            self.adapter_store.release(req.adapter)  # unpinned at terminal
         self.counters[f"serve_{state.value}"] += 1
 
     def _on_retry_event(self, etype: str, **fields: Any) -> None:

@@ -125,8 +125,11 @@ def _port_modules():
 
 
 def test_port_imports_no_jax_flax_or_dtc_tpu():
-    """Importing every port module in a fresh interpreter loads no jax,
-    flax, optax, click, yaml or dtc_tpu module."""
+    """Importing every port module (the adapters package included) in a
+    fresh interpreter loads no jax, flax, optax, click, yaml or dtc_tpu
+    module."""
+    assert {"dtc_tpu_torch.adapters", "dtc_tpu_torch.adapters.lora",
+            "dtc_tpu_torch.adapters.store"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"

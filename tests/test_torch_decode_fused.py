@@ -296,3 +296,136 @@ def test_engine_is_token_identical_to_generate(kv):
     for i, p in enumerate(prompts):
         assert res[f"r{i}"].state is RequestState.DONE
         assert res[f"r{i}"].tokens == generate(tm, [p], 6)[0].tolist(), f"r{i}"
+
+
+# --- the LoRA sites ---------------------------------------------------------
+
+from dtc_tpu.adapters import gather_slot_lora as jgather_slot_lora  # noqa: E402
+from dtc_tpu.adapters import init_lora as jinit_lora  # noqa: E402
+from dtc_tpu.adapters import init_lora_stack as jinit_lora_stack  # noqa: E402
+from dtc_tpu.config.schema import AdapterConfig as JAdapterConfig  # noqa: E402
+from dtc_tpu_torch.adapters import init_lora_stack  # noqa: E402
+from dtc_tpu_torch.config.schema import AdapterConfig  # noqa: E402
+from dtc_tpu_torch.parity import lora_from_flax  # noqa: E402
+
+_LORA_PAIRS = {}
+
+
+def _lora_pair(compute, kv, rank=6, alpha=16.0):
+    """The JAX and port models with adapters (all six sites; 16 / 6 is a
+    scale bf16 cannot hold) and a stack of three slots: 0 base, 1 and 2
+    random tenants, in each layout (cached)."""
+    key = (compute, kv, rank, alpha)
+    if key not in _LORA_PAIRS:
+        kw = dict(TINY, compute_dtype=compute, kv_cache_dtype=kv)
+        jm = JGPT(JCfg(**kw, adapter=JAdapterConfig(rank=rank, alpha=alpha)))
+        params = jm.init(
+            {"params": jax.random.PRNGKey(0)}, jnp.ones((1, 1), jnp.int32), train=False
+        )["params"]
+        tm = GPT(ModelConfig(**kw, adapter=AdapterConfig(rank=rank, alpha=alpha)), device="cpu")
+        tm.load_state_dict(from_flax(jax.tree.map(np.asarray, params), tm.cfg))
+        leaves, td = jax.tree.flatten(jinit_lora(jm, 0))
+        jstack = jinit_lora_stack(jm, 3)
+        tstack = init_lora_stack(tm, 3)
+        for slot in (1, 2):
+            rng = np.random.RandomState(30 + slot)
+            fac = jax.tree.unflatten(td, [
+                (0.3 * rng.randn(*l.shape) / np.sqrt(l.shape[-2])).astype(np.float32)
+                for l in leaves])
+            jstack = jax.tree.map(lambda st, f: st.at[slot].set(f), jstack, fac)
+            for k, v in lora_from_flax(fac).items():
+                tstack[k][slot].copy_(v)
+        _LORA_PAIRS[key] = (jm, params, tm, jstack, tstack)
+    return _LORA_PAIRS[key]
+
+
+# (compute dtype, KV dtype, window t, frontier, per-row slot ids)
+_LORA_CASES = [
+    ("float32", "auto", 1, [5, 31, 0], [2, 0, 1]),
+    ("float32", "auto", 4, 20, [1, 1, 0]),
+    ("float32", "int8", 4, [28, 3, 9], [0, 2, 1]),
+    ("bfloat16", "auto", 1, [5, 17, 30], [2, 0, 1]),
+    ("bfloat16", "auto", 4, [0, 12, 28], [1, 2, 0]),
+    ("bfloat16", "int8", 1, 9, [2, 1, 0]),
+]
+
+
+@pytest.mark.parametrize("compute,kv,t,start,ids", _LORA_CASES)
+def test_fused_step_with_lora_matches_jax_megakernel(compute, kv, t, start, ids):
+    """The megakernel step with per-row adapter slots (base among them)
+    against JAX's ``fused_decode_step(..., lora=gather_slot_lora(stack,
+    ids))`` in interpret mode: logits and every cache entry, within the
+    limits of the adapter-free cases."""
+    jm, params, tm, jstack, tstack = _lora_pair(compute, kv)
+    b = 3
+    rng = np.random.RandomState(t * 7 + ids[0])
+    jc, tc = _filled_caches(jm, tm, b, rng)
+    idx = np.asarray(start, np.int32)
+    jc["index"] = jnp.asarray(idx)
+    tc["index"] = torch.from_numpy(idx.copy())
+    tok = rng.randint(0, VOCAB, size=(b, t)).astype(np.int32)
+    jids = jnp.asarray(ids, jnp.int32)
+    jc2, jl = jdecode_step(jm, params, jc, jnp.asarray(tok), lora=jgather_slot_lora(jstack, jids),
+                           spec_verify=t > 1)
+    tc2, tl = decode_step(tm, tc, torch.from_numpy(tok), spec_verify=t > 1, lora=tstack,
+                          lora_ids=torch.tensor(ids, dtype=torch.int32))
+    jl = np.asarray(jl.astype(jnp.float32))
+    tl = tl.float().numpy()
+    _assert_close(tl[..., :VOCAB], jl[..., :VOCAB], compute)
+    h, d = tm.cfg.n_heads, tm.cfg.head_dim
+    for name in ("k", "v"):
+        if kv == "int8":
+            got = tc2[name].float() * tc2[f"{name}_scale"].repeat_interleave(d, dim=-1)
+            want = _jax_kv(jc2, name) * np.repeat(_jax_kv(jc2, f"{name}_scale"), d, axis=-1)
+            _assert_close(got.numpy(), want, compute, heads=h)
+        else:
+            _assert_close(tc2[name].float().numpy(), _jax_kv(jc2, name), compute, heads=h)
+    # The adapters move the tenants' rows well past the limit.
+    _, base = jdecode_step(jm, params, jc, jnp.asarray(tok), spec_verify=t > 1)
+    moved = np.abs(np.asarray(base.astype(jnp.float32)) - jl).max(axis=(1, 2))
+    for row, slot in enumerate(ids):
+        assert (moved[row] > 0.05) == (slot != 0), (row, slot, moved)
+
+
+@pytest.mark.parametrize("t", [1, 4])
+def test_plain_version_with_lora_matches_per_layer_path(t):
+    """float32: the megakernel's plain version with per-row slots against
+    the port's per-layer path (``fused`` at t 1, the multi-token append at
+    t 4) with the same stack and ids, and against a shared adapter."""
+    _, _, tm, _, stack = _lora_pair("float32", "auto")
+    ref = GPT(dataclasses.replace(tm.cfg, decode_attention="fused"), device="cpu")
+    ref.load_state_dict(tm.state_dict())
+    rng = np.random.RandomState(8)
+    b = 3
+    prompt = torch.from_numpy(rng.randint(0, VOCAB, size=(b, 9)).astype(np.int32))
+    cache, _ = decode_step(tm, init_cache(tm, b), prompt)
+    cache["index"] = torch.tensor([9, 4, 1], dtype=torch.int32)
+    tok = torch.from_numpy(rng.randint(0, VOCAB, size=(b, t)).astype(np.int32))
+    ids = torch.tensor([1, 0, 2], dtype=torch.int32)
+    shared = {k: v[2] for k, v in stack.items()}
+    for lora, lora_ids in ((stack, ids), (shared, None)):
+        before = {k: v.clone() for k, v in cache.items()}
+        _, l1 = decode_fused.fused_decode_step(tm, dict(before), tok, lora, lora_ids)
+        _, l2 = decode_step(ref, dict(before), tok, lora=lora, lora_ids=lora_ids)
+        _assert_close(l1[..., :VOCAB].numpy(), l2[..., :VOCAB].numpy(), "float32")
+
+
+def test_wrapper_checks_lora_factors():
+    _, _, tm, _, stack = _lora_pair("float32", "auto")
+    cache = init_cache(tm, 2)
+    x = torch.zeros(2, 1, tm.cfg.d_model)
+    idx = torch.tensor(0, dtype=torch.int32)
+    ids = torch.tensor([0, 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="lora_ids"):
+        decode_fused.fused_layers(x, tm.stage.blocks, cache, idx, stack, ids[:1])
+    with pytest.raises(ValueError, match="without lora"):
+        decode_fused.fused_layers(x, tm.stage.blocks, cache, idx, None, ids)
+    with pytest.raises(ValueError, match="q_proj_a"):
+        decode_fused.fused_layers(x, tm.stage.blocks, cache, idx,
+                                  dict(stack, q_proj_a=stack["q_proj_a"][..., :8]), ids)
+    with pytest.raises(ValueError, match="pair"):
+        decode_fused.fused_layers(x, tm.stage.blocks, cache, idx,
+                                  {k: v for k, v in stack.items() if k != "fc2_b"}, ids)
+    _, _, plain = _pair("float32", "auto")
+    with pytest.raises(ValueError, match="rank == 0"):
+        decode_fused.fused_layers(x, plain.stage.blocks, cache, idx, stack, ids)

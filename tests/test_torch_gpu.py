@@ -1,7 +1,8 @@
-"""The port on a CUDA card: the decode-attention and flash-attention
-kernels against their plain versions, and the kernels on the model's
-decode and training paths. Needs an NVIDIA GPU with ``nvcc``; elsewhere
-every test skips with the reason.
+"""The port on a CUDA card: the decode-attention, flash-attention and
+decode megakernel kernels (the last with its LoRA sites) against their
+plain versions, and the kernels on the model's decode and training paths.
+Needs an NVIDIA GPU with ``nvcc``; elsewhere every test skips with the
+reason.
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -379,3 +380,194 @@ def test_megakernel_rejects_bad_input(cuda):
         decode_fused.fused_layers(x.float(), model.stage.blocks, cache, idx)
     with pytest.raises(ValueError):  # a window wider than SPEC_MAX_K
         decode_fused.fused_layers(x.repeat(1, 9, 1), model.stage.blocks, cache, idx)
+
+
+# --- the megakernel's LoRA sites (adapter serving) -------------------------
+
+def _lora_stack(model, n_slots, seed, scale=0.3):
+    """A resident factor stack: slot 0 zero (base), the others random."""
+    from dtc_tpu_torch.adapters import init_lora_stack
+
+    stack = init_lora_stack(model, n_slots)
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.no_grad():
+        for k, v in stack.items():
+            fan = v.shape[-1]
+            v[1:].copy_(scale * torch.randn(v[1:].shape, device=v.device, generator=g) / fan ** 0.5)
+    return stack
+
+
+def _flagship_lora_model(dev, compute, alpha):
+    """The flagship's widths and depth with an adapter of rank 8 on all six
+    sites, random biases and LayerNorm parameters."""
+    import dataclasses
+    from pathlib import Path
+
+    from dtc_tpu_torch.config.loader import load_finetune_config
+    from dtc_tpu_torch.models.gpt import GPT
+
+    root = Path(__file__).resolve().parent.parent
+    _, cfg, _ = load_finetune_config(root / "configs" / "finetune_lora.yaml")
+    cfg = dataclasses.replace(
+        cfg, compute_dtype=compute, decode_attention="fused_layers",
+        adapter=dataclasses.replace(cfg.adapter, alpha=alpha))
+    model = GPT(cfg, device=dev, seed=7)
+    g = torch.Generator(device=dev).manual_seed(8)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.ndim == 1:
+                p.add_(0.2 * torch.randn(p.shape, device=dev, generator=g))
+    return model
+
+
+def _row_limit(want, compute, ulps=8):
+    """float32: 1e-5 of each row's largest |value| (at least 1e-5);
+    bfloat16: ``ulps`` ulps of it, as :func:`_mk_limit`."""
+    w = want.float()
+    rowmax = w.abs().amax(dim=-1, keepdim=True)
+    if compute == "float32":
+        return 1e-5 * rowmax.clamp_min(1.0)
+    return _mk_limit(want, compute, ulps)
+
+
+@pytest.mark.parametrize("alpha", [16.0, 64.0 / 3.0])
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_megakernel_lora_matches_plain_at_the_flagship(cuda, compute, t, alpha):
+    """The flagship (rank 8, all six sites; scale 2 and 8/3, which bf16
+    cannot hold), B 4 on slots [0, 1, 2, 1]: the kernel's residual and
+    caches against its plain version, over all 12 layers; the adapters
+    move the tenant rows, and the base row equals the adapter-free kernel."""
+    from dtc_tpu_torch.ops import decode_fused
+
+    model = _flagship_lora_model(cuda, compute, alpha)
+    stack = _lora_stack(model, 3, seed=11)
+    ids = torch.tensor([0, 1, 2, 1], dtype=torch.int32, device=cuda)
+    x, cache = _mk_inputs(model, 4, t, seed=12)
+    idx = torch.tensor([2, 37, 300, 508], dtype=torch.int32, device=cuda)
+    blocks = model.stage.blocks
+
+    def run(fn, lora, lora_ids):
+        c = {k: v.clone() for k, v in cache.items()}
+        out = fn(x, blocks, c, idx, lora, lora_ids)
+        torch.cuda.synchronize()
+        return out, c
+
+    before = decode_fused.launches
+    got, c_got = run(decode_fused.fused_layers, stack, ids)
+    assert decode_fused.launches == before + 1
+    want, c_want = run(decode_fused.fused_layers_reference, stack, ids)
+    assert torch.isfinite(got.float()).all()
+    diff = (got.float() - want.float()).abs()
+    assert (diff <= _row_limit(want, compute)).all(), float(diff.max())
+    _mk_check_cache(c_got, c_want, compute, model.cfg.n_heads)
+    base, _ = run(decode_fused.fused_layers, None, None)
+    assert torch.equal(base[0], got[0])
+    assert all(float((got[r].float() - base[r].float()).abs().max()) > 0.01 for r in (1, 2, 3))
+
+
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_megakernel_lora_matches_plain(cuda, d, t, kv):
+    """Small models (rank 6, alpha 16), per-row slots and a shared adapter,
+    scalar and per-row frontiers: residual and caches against the plain
+    version."""
+    import dataclasses
+
+    from dtc_tpu_torch.config.schema import AdapterConfig
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.ops import decode_fused
+
+    compute = "float32" if kv == "float32" else "bfloat16"
+    base = _mk_model(cuda, d, compute, "auto" if kv != "int8" else "int8")
+    model = GPT(dataclasses.replace(base.cfg, adapter=AdapterConfig(rank=6, alpha=16.0)),
+                device=cuda)
+    model.load_state_dict(base.state_dict())
+    stack = _lora_stack(model, 3, seed=d + t)
+    s = model.cfg.max_seq_len
+    x, cache = _mk_inputs(model, 4, t, seed=d * 10 + t)
+    ids = torch.tensor([2, 0, 1, 2], dtype=torch.int32, device=cuda)
+    shared = {k: v[1].contiguous() for k, v in stack.items()}
+    for idx in (torch.tensor([0, s - t, s + 5, 17], dtype=torch.int32, device=cuda),
+                torch.tensor(s - t, dtype=torch.int32, device=cuda)):
+        for lora, lora_ids in ((stack, ids), (shared, None)):
+            c1 = {k: v.clone() for k, v in cache.items()}
+            c2 = {k: v.clone() for k, v in cache.items()}
+            got = decode_fused.fused_layers(x, model.stage.blocks, c1, idx, lora, lora_ids)
+            want = decode_fused.fused_layers_reference(x, model.stage.blocks, c2, idx, lora,
+                                                       lora_ids)
+            torch.cuda.synchronize()
+            _mk_assert_close(got, want, compute, f"out at {idx.tolist()}")
+            _mk_check_cache(c1, c2, compute, 4)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_megakernel_lora_rows_are_independent_and_deterministic(cuda, compute):
+    """With per-row adapter slots: two runs give the same bits; window row j
+    equals a single-token step at frontier + j; a row alone equals the row
+    in the batch (the serving engine's bf16 solo identity rests on it)."""
+    import dataclasses
+
+    from dtc_tpu_torch.config.schema import AdapterConfig
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.ops import decode_fused
+
+    base = _mk_model(cuda, 32, compute, "auto", n_layers=3)
+    model = GPT(dataclasses.replace(base.cfg, adapter=AdapterConfig(rank=8, alpha=21.0)),
+                device=cuda)
+    model.load_state_dict(base.state_dict())
+    stack = _lora_stack(model, 4, seed=5)
+    ids = torch.tensor([3, 0, 1, 3], dtype=torch.int32, device=cuda)
+    x, cache = _mk_inputs(model, 4, 4, seed=6)
+    idx = torch.tensor([3, 20, 0, 41], dtype=torch.int32, device=cuda)
+    blocks = model.stage.blocks
+
+    def run(xx, cc, ii, lid):
+        c = {k: v.clone() for k, v in cc.items()}
+        out = decode_fused.fused_layers(xx, blocks, c, ii, stack, lid)
+        torch.cuda.synchronize()
+        return out, c
+
+    out1, c1 = run(x, cache, idx, ids)
+    out2, c2 = run(x, cache, idx, ids)
+    assert torch.equal(out1, out2) and all(torch.equal(c1[k], c2[k]) for k in c1)
+    seq = {k: v.clone() for k, v in cache.items()}
+    for j in range(4):
+        one = decode_fused.fused_layers(x[:, j:j + 1].contiguous(), blocks, seq, idx + j,
+                                        stack, ids)
+        assert torch.equal(one[:, 0], out1[:, j]), j
+    for r in range(4):
+        row_cache = {k: v[:, r:r + 1].contiguous() if k != "index" else v
+                     for k, v in cache.items()}
+        alone, _ = run(x[r:r + 1].contiguous(), row_cache, idx[r:r + 1], ids[r:r + 1].contiguous())
+        assert torch.equal(alone[0], out1[r]), r
+
+
+def test_generate_with_lora_on_cuda_matches_cpu_fp32(cuda):
+    """float32 (TF32 off): generate() with an adapter under fused_layers on
+    the card, one megakernel launch per decode step, emits the CPU's
+    tokens."""
+    from dtc_tpu_torch.adapters import init_lora
+    from dtc_tpu_torch.config.schema import AdapterConfig
+    from dtc_tpu_torch.generate import generate
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.ops import decode_fused
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(vocab_size=97, d_model=64, n_layers=4, n_heads=2, d_ff=128,
+                      max_seq_len=64, compute_dtype="float32", decode_attention="fused_layers",
+                      adapter=AdapterConfig(rank=4, alpha=8.0))
+    cpu = GPT(cfg, device="cpu", seed=3)
+    gpu = GPT(cfg, device=cuda, seed=3)
+    gpu.load_state_dict(cpu.state_dict())
+    lora = init_lora(cpu, seed=4)
+    g = torch.Generator().manual_seed(5)
+    lora = {k: v if k.endswith("_a") else 0.5 * torch.randn(v.shape, generator=g)
+            for k, v in lora.items()}
+    prompt = [[5, 9, 1, 44, 2, 7]]
+    m0 = decode_fused.launches
+    out = generate(gpu, prompt, 12, lora={k: v.to(cuda) for k, v in lora.items()})
+    assert decode_fused.launches - m0 == 11
+    assert out.cpu().tolist() == generate(cpu, prompt, 12, lora=lora).tolist()
+    assert out.cpu().tolist() != generate(cpu, prompt, 12).tolist()

@@ -6,9 +6,6 @@ port's ``generate()`` on the same prompt — and, in float32 with the flax
 weights carried across, the JAX ``ServingEngine``'s tokens.
 """
 
-import dataclasses
-from types import SimpleNamespace
-
 import numpy as np
 import pytest
 
@@ -22,7 +19,6 @@ from dtc_tpu.models.gpt import GPT as JGPT
 from dtc_tpu.serve import Request as JRequest
 from dtc_tpu.serve import ServingEngine as JServingEngine
 from dtc_tpu_torch.config.schema import (
-    AdapterConfig,
     ChaosConfig,
     ModelConfig,
     ServeConfig,
@@ -317,26 +313,16 @@ def test_corrupted_page_is_caught_and_re_prefilled(models):
     assert res["x"].state is RequestState.DONE and res["x"].tokens == ref
 
 
-@pytest.mark.parametrize("what", ["chaos", "slo", "adapter"])
+@pytest.mark.parametrize("what", ["chaos", "slo"])
 def test_unported_features_raise(models, what):
     """Each is a later slice: construction refuses it."""
     _, _, tm = models
     scfg = {
         "chaos": ServeConfig(chaos=ChaosConfig(enabled=True, serve_stall_at_step=2)),
         "slo": ServeConfig(slo=SloConfig(ttft_p99_s=2.0)),
-    }.get(what, ServeConfig(slots=1))
-    model = tm
-    if what == "adapter":
-        # A stand-in carrying only what the engine reads: the GPT itself
-        # refuses adapters, so no real model with them can be built.
-        model = SimpleNamespace(
-            cfg=dataclasses.replace(tm.cfg, adapter=AdapterConfig(rank=4)),
-            device=torch.device("cpu"),
-        )
-        with pytest.raises(NotImplementedError):
-            GPT(model.cfg, device="cpu")
+    }[what]
     with pytest.raises(NotImplementedError):
-        ServingEngine(model, scfg)
+        ServingEngine(tm, scfg)
 
 
 def test_grower_that_evicts_itself_returns_its_pages(models):
