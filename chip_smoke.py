@@ -27,8 +27,16 @@ Phases (each prints its own lines; any failure exits non-zero):
 5. Serve the flagship in float32 compute: every request's tokens equal the
    port's ``generate()`` on the same prompt. TF32 stays off from here on.
 6. Flash-attention kernels vs plain, at the flagship training shape (B 8,
-   T 512, H 16, D 32) in bfloat16 and float32 and at a ragged T (B 2,
-   T 1000): out, lse, dq, dk, dv within limits that scale with the values
+   T 512, H 16, D 32) in bfloat16 and float32, at a ragged T (B 2,
+   T 1000), at the long-context training calls of phases 13-14 (B 4,
+   T 4096 and B 2, T 8192, H 16, D 32, bfloat16; at T 8192 the JAX package
+   takes its split backward, TPU kernel rows 8-9; the plain versions run
+   one batch row at a time, their float32 (B, H, T, T) tensors being 1.1
+   and 4.3 GB a row) and at shapes where the JAX package takes its
+   transpose-layout kernels (rows 10-14: B 4, T 1024, 8 heads of 48, the
+   call phase 8 trains with; B 2, T 1000, 3 heads of 32; bfloat16 and
+   float32): out,
+   lse, dq, dk, dv within limits that scale with the values
    (``attention_tolerance`` / ``grad_tolerance``), planted faults (a causal
    mask one column off; delta dropped from the backward) over them, and
    device times of the kernels, the plain versions and the yardstick
@@ -42,9 +50,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    12 x steps x 2 (backward) times. Step time, tokens/s, MFU, peak memory.
    ``--profile`` adds a torch.profiler window over steady training steps
    (device busy share, time by kernel).
-8. Path agreement: a small float32 config trained a few steps once with
-   ``attention: flash`` (the kernels) and once with ``attention: dense``
-   from the same weights and batches; the losses agree within 1e-4.
+8. Path agreement: two small float32 configs (8 heads of 32 at T 256; 8
+   heads of 48 at T 1024, a head dim the JAX package runs through its
+   transpose-layout kernels, at phase 6's shape for them; batch 4)
+   trained a few steps once with ``attention: flash`` (the kernels) and
+   once with ``attention: dense`` from the same weights and batches; the
+   losses agree within 1e-4.
 9. Decode megakernel vs plain (``csrc/decode_fused.cu``) at the flagship
    widths and depth (B 4, S 512, per-row frontiers from 2 to past S;
    bfloat16 and float32 compute; bfloat16, int8 and float32 KV; t 1 and a
@@ -78,6 +89,23 @@ Phases (each prints its own lines; any failure exits non-zero):
     and tokens/s beside phase 10's adapter-free run; then float32 under
     both backends: every request's tokens equal ``generate()`` with its
     tenant's factors.
+13. Long-context training: (a) T 4096 as ``python -m dtc_tpu_torch.main
+    --train_config_path configs/train_config_longctx.yaml
+    --model_config_path configs/model_config_longctx.yaml --dataset
+    synthetic --no-obs --steps 30 --output_dir build/...`` runs it (B 4,
+    ``remat: block_save_flash``, dropout 0.1, bfloat16 compute), and (b)
+    T 8192, B 2: the same configs after ``dataclasses.replace`` as
+    ``bench.py``'s ``long_context_t8192_b2``; 5 warmup and 30 timed steps
+    each: finite losses that fall, ``log.csv`` with one row per timed step,
+    the flash kernels launched 12 (forward) and 24 (backward) times a step.
+    Step time, tokens/s, MFU, peak memory beside ``train_memory_bytes``.
+    ``--profile`` adds a torch.profiler window over (b).
+14. Remat modes: T 4096, B 4, dropout 0.1, bfloat16, ``none``, ``block``,
+    ``block_save_flash`` and ``mlp``, 2 warmup and 4 timed steps each from
+    one seed: the losses of the four are equal bit for bit, the flash
+    forward launches 12 / 24 / 12 / 12 times a step, and peak memory orders
+    ``block`` < ``block_save_flash`` < ``none`` and ``mlp`` < ``none``; each
+    peak beside ``train_memory_bytes``.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -435,19 +463,21 @@ def percentile(xs, q):
 # ---------------------------------------------------------------------------
 
 def flash_bounds(b, t, h, d, dtype):
-    """Least time of the forward and of the backward on these inputs: the
-    bytes each must move (forward q, k, v in, out and lse out; backward q,
-    k, v, out, dO and lse in, dq, dk, dv out) over HBM bandwidth, against
-    the causal products it must do (key <= query pairs only: 2 products in
-    the forward, 5 in the backward, 2 operations per multiply-add) over the
-    peak rate of the dtype. Returns {"fwd"|"bwd": (ms, bound_by, bytes)}."""
+    """Least time of the forward, of the backward and of both on these
+    inputs: the bytes each must move (forward q, k, v in, out and lse out;
+    backward q, k, v, out, dO and lse in, dq, dk, dv out) over HBM
+    bandwidth, against the causal products it must do (key <= query pairs
+    only: 2 products in the forward, 5 in the backward, 2 operations per
+    multiply-add) over the peak rate of the dtype. Returns
+    {"fwd"|"bwd"|"fwd_bwd": (ms, bound_by, bytes)}."""
     el = {"float32": 4, "bfloat16": 2}[dtype]
     tensor = b * t * h * d * el
     stats = b * h * t * 4
     pairs = b * h * t * (t + 1) // 2
     out = {}
     for kind, nbytes, products in (("fwd", 4 * tensor + stats, 2),
-                                   ("bwd", 8 * tensor + stats, 5)):
+                                   ("bwd", 8 * tensor + stats, 5),
+                                   ("fwd_bwd", 12 * tensor + 2 * stats, 7)):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = 2 * products * pairs * d / PEAK_OPS[dtype] * 1e3
         out[kind] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes)
@@ -480,7 +510,28 @@ def _flash_backward_without_delta(q, k, v, out, lse, do, h):
     return fa.flash_attention_backward_reference(q, k, v, torch.zeros_like(out), lse, do, h)
 
 
-def flash_case(name, b, t, h, d, dtype, seed, iters):
+def _by_rows(fn, rows, *xs):
+    """``fn`` over ``xs`` a batch slice of ``rows`` rows at a time, the
+    outputs concatenated along the batch: the same function, since the
+    plain versions treat every batch row apart, in a fraction of their
+    memory."""
+    import torch
+
+    if rows is None:
+        return fn(*xs)
+    parts = [fn(*(x[i:i + rows] for x in xs)) for i in range(0, xs[0].shape[0], rows)]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def flash_case(name, b, t, h, d, dtype, seed, iters, rows=None):
+    """The flash kernels against their plain versions on one shape: the
+    errors over their limits, the planted faults over them, and device
+    times beside the bounds. ``rows``: run the plain versions (and the
+    faults) that many batch rows at a time, timed eagerly (CUDA events
+    around whole calls), where a whole call's float32 (B, H, T, T)
+    tensors would not fit."""
     import torch
     import torch.nn.functional as F
 
@@ -492,14 +543,20 @@ def flash_case(name, b, t, h, d, dtype, seed, iters):
     dt = getattr(torch, dtype)
     q, k, v, do = (torch.randn(b, t, h * d, device=dev, generator=g).to(dt) for _ in range(4))
 
+    def ref_fwd(q, k, v):
+        return fa.flash_attention_reference(q, k, v, h)
+
+    def ref_bwd(q, k, v, o, lse, do):
+        return fa.flash_attention_backward_reference(q, k, v, o, lse, do, h)
+
     def ratio(got, want, limit):
         diff = (got.float() - want.float()).abs()
         return diff.max().item(), (diff / limit.to(dev)).max().item()
 
     out, lse = fa.flash_attention_forward(q, k, v, h)
-    want_out, want_lse = fa.flash_attention_reference(q, k, v, h)
+    want_out, want_lse = _by_rows(ref_fwd, rows, q, k, v)
     grads = fa.flash_attention_backward(q, k, v, want_out, want_lse, do, h)
-    want_grads = fa.flash_attention_backward_reference(q, k, v, want_out, want_lse, do, h)
+    want_grads = _by_rows(ref_bwd, rows, q, k, v, want_out, want_lse, do)
     torch.cuda.synchronize()
     limits = {"out": attention_tolerance(want_out, h),
               "lse": torch.full(want_lse.shape, FP32_ATOL)}
@@ -512,12 +569,15 @@ def flash_case(name, b, t, h, d, dtype, seed, iters):
         errs[n] = ratio(got, want, limits[n])
         log(f"flash {name}: {n} max_abs_err {errs[n][0]:.3e}, {errs[n][1]:.3f} of its limit")
         check(errs[n][1] <= 1.0, f"flash {name}: {n} error {errs[n][0]} over its limit")
+    del out, lse, grads
 
     faults = {
         "causal mask one column off (out)": (
-            _flash_faulty_forward(q, k, v, h), want_out, limits["out"]),
+            _by_rows(lambda q, k, v: _flash_faulty_forward(q, k, v, h), rows, q, k, v),
+            want_out, limits["out"]),
     }
-    bad = _flash_backward_without_delta(q, k, v, want_out, want_lse, do, h)
+    bad = _by_rows(lambda *xs: _flash_backward_without_delta(*xs, h), rows,
+                   q, k, v, want_out, want_lse, do)
     for n, gb, w in zip(("dq", "dk"), bad, want_grads):
         faults[f"delta dropped ({n})"] = (gb, w, limits[n])
     fault_ratio = {}
@@ -525,14 +585,18 @@ def flash_case(name, b, t, h, d, dtype, seed, iters):
         fault_ratio[fname] = ratio(got, want, limit)[1]
         log(f"flash {name}: planted fault '{fname}': {fault_ratio[fname]:.3f} of the limit")
         check(fault_ratio[fname] > 1.0, f"flash {name}: the limit misses '{fname}'")
+    del faults, bad, want_grads, limits
+    torch.cuda.empty_cache()
 
     # Device times, each from ``iters`` calls replayed as one CUDA graph.
     fwd_ms = graph_ms(lambda: fa.flash_attention_forward(q, k, v, h), iters)
     bwd_ms = graph_ms(
         lambda: fa.flash_attention_backward(q, k, v, want_out, want_lse, do, h), iters)
-    plain_fwd_ms = graph_ms(lambda: fa.flash_attention_reference(q, k, v, h), iters)
-    plain_bwd_ms = graph_ms(
-        lambda: fa.flash_attention_backward_reference(q, k, v, want_out, want_lse, do, h), iters)
+    plain_timer = graph_ms if rows is None else functools.partial(cuda_ms, warmup=1)
+    plain_fwd_ms = plain_timer(lambda: _by_rows(ref_fwd, rows, q, k, v), iters)
+    plain_bwd_ms = plain_timer(
+        lambda: _by_rows(ref_bwd, rows, q, k, v, want_out, want_lse, do), iters)
+    torch.cuda.empty_cache()
     # Yardstick only, never called by the port: SDPA's forward, and its
     # backward alone (the forward's graph is kept and differentiated again).
     q4, k4, v4 = (x.view(b, t, h, d).transpose(1, 2).detach().requires_grad_(True)
@@ -558,15 +622,17 @@ def flash_case(name, b, t, h, d, dtype, seed, iters):
         log(f"flash {name} {kind}: kernel_ms {ms:.6f} plain_ms {plain:.6f} library_ms "
             f"{lib:.6f} bound_ms {bms:.6f} ({by}, {nbytes} B)")
     log(f"flash {name}: kernels fwd + bwd {fwd_ms + bwd_ms:.6f} ms, SDPA fwd + bwd "
-        f"{lib_fwd_bwd_ms:.6f} ms")
+        f"{lib_fwd_bwd_ms:.6f} ms, bound {bounds['fwd_bwd'][0]:.6f} ms ({bounds['fwd_bwd'][1]})")
     return dict(
         case=name, b=b, t=t, h=h, d=d, dtype=dtype, errors=errs, fault_over_limit=fault_ratio,
+        plain_rows_at_a_time=rows,
         fwd_max_abs_err=max(errs["out"][0], errs["lse"][0]),
         bwd_max_abs_err=max(errs[n][0] for n in ("dq", "dk", "dv")),
         fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
         library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms, library_fwd_bwd_ms=lib_fwd_bwd_ms,
         fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
         bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1],
+        fwd_bwd_bound_ms=bounds["fwd_bwd"][0], fwd_bwd_bound_by=bounds["fwd_bwd"][1],
     )
 
 
@@ -635,10 +701,11 @@ def profile_train(model_cfg, train_cfg, opt_cfg, steps: int = 5):
     return dict(steps=steps, **device_time_by_kernel(prof, wall))
 
 
-def path_agreement(seed: int, steps: int = 4):
-    """A small float32 model trained ``steps`` steps once with the flash
-    kernels and once with dense attention, same weights and batches:
-    returns the two loss lists."""
+def path_agreement(seed: int, head_dim: int = 32, steps: int = 4, max_seq_len: int = 256):
+    """A small float32 model (8 heads of ``head_dim``, T ``max_seq_len``,
+    batch 4) trained ``steps`` steps once with the flash kernels and once with dense
+    attention, same weights and batches: returns the two loss lists and
+    the flash run's kernel launches (forward, backward)."""
     import dataclasses
 
     from dtc_tpu_torch.config.schema import ModelConfig, ObsConfig, OptimConfig, TrainConfig
@@ -649,16 +716,102 @@ def path_agreement(seed: int, steps: int = 4):
                        output_dir="", dataset="synthetic", warmup_steps=0, prefetch=0,
                        obs=ObsConfig(enabled=False))
     ocfg = OptimConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0)
-    base = ModelConfig(vocab_size=1000, d_model=256, n_layers=2, n_heads=8, d_ff=1024,
-                       max_seq_len=256, dropout=0.0, compute_dtype="float32")
-    losses = {}
+    d_model = 8 * head_dim
+    base = ModelConfig(vocab_size=1000, d_model=d_model, n_layers=2, n_heads=8,
+                       d_ff=4 * d_model, max_seq_len=max_seq_len, dropout=0.0,
+                       compute_dtype="float32")
+    losses, launches = {}, {}
     for impl in ("flash", "dense"):
-        f0 = fa.fwd_launches
+        fa.fwd_launches = fa.bwd_launches = 0    # the path starts here
         losses[impl] = train(tcfg, dataclasses.replace(base, attention=impl), ocfg).losses
-        launched = fa.fwd_launches - f0
-        check(launched == (base.n_layers * steps if impl == "flash" else 0),
-              f"path agreement: attention {impl} launched the flash forward {launched} times")
-    return losses
+        launches[impl] = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+        want = (base.n_layers * steps, base.n_layers * steps * fa.BWD_KERNELS)
+        check(launches[impl] == (want if impl == "flash" else (0, 0)),
+              f"path agreement: attention {impl} launched the flash kernels {launches[impl]} "
+              f"times")
+    return losses, launches["flash"]
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: long-context training and the remat modes
+# ---------------------------------------------------------------------------
+
+def train_long_context(out_dir: str, steps: int, t8192: bool = False):
+    """13(a): ``python -m dtc_tpu_torch.main --train_config_path
+    configs/train_config_longctx.yaml --model_config_path
+    configs/model_config_longctx.yaml --dataset synthetic --no-obs --steps
+    STEPS --output_dir OUT_DIR`` (5 warmup steps, the trainer's default).
+    13(b) with ``t8192``: the same configs after
+    ``dataclasses.replace(max_seq_len=8192, attention_block_kv_bwd=1024)``
+    and batch 2, as ``bench.py``'s ``long_context_t8192_b2``, through
+    ``train()``. Returns (result, configs, launches (fwd, bwd), peak bytes)."""
+    import dataclasses
+
+    import torch
+
+    from dtc_tpu_torch import main as cli
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.train.trainer import train
+
+    cfgs = [ROOT / "configs" / n for n in ("train_config_longctx.yaml",
+                                           "model_config_longctx.yaml")]
+    tcfg, mcfg, ocfg = load_config(*cfgs)
+    tcfg = dataclasses.replace(
+        tcfg, dataset="synthetic", obs=dataclasses.replace(tcfg.obs, enabled=False),
+        steps=steps, output_dir=out_dir)
+    if t8192:
+        mcfg = dataclasses.replace(mcfg, max_seq_len=8192, attention_block_kv_bwd=1024)
+        tcfg = dataclasses.replace(tcfg, batch=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fa.fwd_launches = fa.bwd_launches = 0        # the main path starts here
+    if t8192:
+        res = train(tcfg, mcfg, ocfg)
+    else:
+        res = cli.main(["--train_config_path", str(cfgs[0]), "--model_config_path",
+                        str(cfgs[1]), "--dataset", "synthetic", "--no-obs", "--steps",
+                        str(steps), "--output_dir", out_dir])
+    launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+    peak = torch.cuda.max_memory_allocated() - base
+    return res, (tcfg, mcfg, ocfg), launches, peak
+
+
+def remat_modes(warmup: int = 2, steps: int = 4):
+    """14: the T 4096 long-context configs (B 4, dropout 0.1, bfloat16)
+    under each remat mode, ``warmup`` + ``steps`` steps from one seed, no
+    ``log.csv``. Returns ({mode: (losses, launches (fwd, bwd), peak bytes,
+    train_memory_bytes, mean step seconds)}, train config, model config)."""
+    import dataclasses
+
+    import torch
+
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.train.trainer import train
+    from dtc_tpu_torch.utils.metrics import train_memory_bytes
+
+    tcfg, mcfg, ocfg = load_config(ROOT / "configs" / "train_config_longctx.yaml",
+                                   ROOT / "configs" / "model_config_longctx.yaml")
+    tcfg = dataclasses.replace(tcfg, dataset="synthetic", steps=steps, warmup_steps=warmup,
+                               obs=dataclasses.replace(tcfg.obs, enabled=False), output_dir="")
+    out = {}
+    for mode in ("none", "block", "block_save_flash", "mlp"):
+        cfg = dataclasses.replace(mcfg, remat=mode)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fa.fwd_launches = fa.bwd_launches = 0    # the path starts here
+        res = train(tcfg, cfg, ocfg)
+        launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+        peak = torch.cuda.max_memory_allocated() - base
+        out[mode] = (res.losses, launches, peak,
+                     train_memory_bytes(cfg, tcfg.batch, cfg.max_seq_len),
+                     res.elapsed_times[-1] / steps)
+        del res
+    return out, tcfg, mcfg
 
 
 # ---------------------------------------------------------------------------
@@ -1201,12 +1354,25 @@ def main() -> int:
             ("bf16_flagship", 8, 512, 16, 32, "bfloat16"),
             ("fp32_flagship", 8, 512, 16, 32, "float32"),
             ("bf16_t1000", 2, 1000, 16, 32, "bfloat16"),
+            # the JAX package's transpose-layout shapes (rows 10-14); fp32_d48
+            # is phase 8's call
+            ("bf16_d48", 4, 1024, 8, 48, "bfloat16"),
+            ("fp32_d48", 4, 1024, 8, 48, "float32"),
+            ("bf16_h3", 2, 1000, 3, 32, "bfloat16"),
+            ("fp32_h3", 2, 1000, 3, 32, "float32"),
         ]
         flash = [
             flash_case(name, b, t, h, d, dt, seed=args.seed + 100 + i, iters=50)
             for i, (name, b, t, h, d, dt) in enumerate(flash_cases)
         ]
-        record["flash_cases"] = flash
+        # the long-context training calls of phases 13-14: T 4096 (B 4) and
+        # T 8192 (B 2), where the JAX package takes its split backward
+        # (rows 8-9); the plain versions one row at a time
+        flash_4k = flash_case("bf16_t4096", 4, 4096, 16, 32, "bfloat16",
+                              seed=args.seed + 111, iters=5, rows=1)
+        flash_8k = flash_case("bf16_t8192", 2, 8192, 16, 32, "bfloat16",
+                              seed=args.seed + 110, iters=5, rows=1)
+        record["flash_cases"] = flash + [flash_4k, flash_8k]
         torch.cuda.empty_cache()
 
         # 7. train the flagship as the command line would
@@ -1259,13 +1425,19 @@ def main() -> int:
                 log(f"  {row['device_ms']:.4f} ms x{row['count']} {row['name']}")
             torch.cuda.empty_cache()
 
-        # 8. path agreement: flash kernels vs dense attention, float32
-        agree = path_agreement(args.seed)
-        gap = max(abs(a - b) for a, b in zip(agree["flash"], agree["dense"]))
-        record["path_agreement"] = dict(agree, max_abs_diff=gap)
-        log(f"path agreement: flash {agree['flash']} vs dense {agree['dense']}: max abs "
-            f"diff {gap:.3e} (limit 1e-4)")
-        check(gap <= 1e-4, f"flash and dense training disagree by {gap}")
+        # 8. path agreement: flash kernels vs dense attention, float32, at
+        # head dims 32 and 48 (the latter the JAX package's transpose-layout
+        # family, at phase 6's fp32_d48 shape)
+        record["path_agreement"] = {}
+        for head_dim, seq in ((32, 256), (48, 1024)):
+            agree, pa_launches = path_agreement(args.seed, head_dim=head_dim, max_seq_len=seq)
+            gap = max(abs(a - b) for a, b in zip(agree["flash"], agree["dense"]))
+            record["path_agreement"][f"d{head_dim}"] = dict(
+                agree, max_abs_diff=gap, flash_launches=pa_launches)
+            log(f"path agreement (8 heads of {head_dim}, T {seq}): flash {agree['flash']} vs dense "
+                f"{agree['dense']}: max abs diff {gap:.3e} (limit 1e-4); flash launches "
+                f"{pa_launches}")
+            check(gap <= 1e-4, f"flash and dense training disagree by {gap} at D {head_dim}")
 
         # 9. the decode megakernel vs plain at the flagship widths and depth
         import dataclasses
@@ -1457,6 +1629,94 @@ def main() -> int:
         ad_rec = serve_adapters(scfg, mcfg_ad, args.seed, max_new, tokens_fl, fl_rec, smi)
         record["serve_adapters"] = ad_rec
 
+        # 13. long-context training: T 4096 from the command line, T 8192 as
+        # bench.py's long_context_t8192_b2
+        from dtc_tpu_torch.utils.metrics import train_memory_bytes
+
+        long_rec, steps = {}, 30
+        for tag, t8192 in (("t4096", False), ("t8192", True)):
+            out_dir = ROOT / "build" / f"chip_smoke_longctx_{tag}"
+            res, (ltcfg, lmcfg, locfg), (fwd_l, bwd_l), peak = train_long_context(
+                str(out_dir), steps, t8192)
+            losses = res.losses
+            check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+                  f"long context {tag}: {len(losses)} losses, not all finite: {losses}")
+            first, last5 = losses[0], sum(losses[-5:]) / 5
+            check(last5 < first, f"long context {tag}: loss did not fall: first {first}, "
+                  f"last-5 mean {last5}")
+            rows = (out_dir / "log.csv").read_text().splitlines()
+            check(rows[0] == "step,elapsed_time,loss" and len(rows) == steps + 1,
+                  f"long context {tag} log.csv: header {rows[:1]}, {len(rows) - 1} rows for "
+                  f"{steps} steps")
+            n_steps = steps + ltcfg.warmup_steps
+            per_step = (fwd_l / n_steps, bwd_l / n_steps)
+            check(per_step == (lmcfg.n_layers, lmcfg.n_layers * fa.BWD_KERNELS),
+                  f"long context {tag}: flash launches fwd {fwd_l} / bwd {bwd_l} for "
+                  f"{n_steps} steps (want {lmcfg.n_layers} and "
+                  f"{lmcfg.n_layers * fa.BWD_KERNELS} per step)")
+            # sync_every_step: false stamps rows at dispatch; the window's
+            # last row is re-stamped after its sync, so the mean step is the
+            # last elapsed time over the steps
+            step_s = res.elapsed_times[-1] / steps
+            tok = ltcfg.batch * lmcfg.max_seq_len
+            budget = train_memory_bytes(lmcfg, ltcfg.batch, lmcfg.max_seq_len)
+            long_rec[tag] = dict(
+                batch=ltcfg.batch, seq_len=lmcfg.max_seq_len, remat=lmcfg.remat_mode,
+                steps=steps, warmup_steps=ltcfg.warmup_steps, losses=losses,
+                step_ms_mean=step_s * 1e3, tokens_per_s=tok / step_s,
+                mfu=gpt_step_flops(lmcfg, ltcfg.batch, lmcfg.max_seq_len)
+                / (step_s * H100_BF16_PEAK_FLOPS),
+                peak_allocated=peak, train_memory_bytes=budget,
+                flash_fwd_launches=fwd_l, flash_bwd_launches=bwd_l,
+                total_time_s=res.total_time_s, card=smi,
+            )
+            log(f"long context {tag} (B {ltcfg.batch}, T {lmcfg.max_seq_len}, "
+                f"{lmcfg.remat_mode}): {steps} steps after {ltcfg.warmup_steps} warmup, loss "
+                f"{first:.4f} -> {losses[-1]:.4f} (last-5 mean {last5:.4f}), log.csv {steps} "
+                f"rows, flash launches fwd {fwd_l} = {lmcfg.n_layers} x {n_steps}, bwd "
+                f"{bwd_l} = {lmcfg.n_layers * fa.BWD_KERNELS} x {n_steps} [{smi}]")
+            log(f"long context {tag}: step_ms mean {step_s * 1e3:.6f}, tokens/s {tok / step_s:.3f}, "
+                f"MFU {long_rec[tag]['mfu']:.6f} (of 989 TFLOP/s bf16 dense), peak allocated "
+                f"{peak} B, train_memory_bytes total {budget['total']:.0f} B (activations "
+                f"{budget['activations']:.0f} B) [{smi}]")
+            del res
+            torch.cuda.empty_cache()
+            if t8192 and args.profile:
+                prof = profile_train(lmcfg, ltcfg, locfg, steps=3)
+                long_rec[tag]["profile"] = prof
+                log(f"profile long context {tag}: {prof['steps']} steps, wall "
+                    f"{prof['wall_s']:.6f} s, device busy {prof['device_busy_s']:.6f} s (share "
+                    f"{prof['busy_share']:.4f}), {prof['kernel_launches']} kernels [{smi}]")
+                for row in prof["top"]:
+                    log(f"  {row['device_ms']:.4f} ms x{row['count']} {row['name']}")
+                torch.cuda.empty_cache()
+        record["long_context"] = long_rec
+
+        # 14. the remat modes at T 4096: the same bits, their launches and
+        # their peak memory
+        modes, rtcfg, rmcfg = remat_modes()
+        n_steps = rtcfg.warmup_steps + rtcfg.steps
+        recompute = {"block": 2}
+        for mode, (losses, (fwd_r, bwd_r), peak, budget, step_s) in modes.items():
+            log(f"remat {mode} (T {rmcfg.max_seq_len}, B {rtcfg.batch}, dropout "
+                f"{rmcfg.dropout}): losses {losses}; flash launches fwd {fwd_r} "
+                f"({fwd_r / n_steps:g} a step), bwd {bwd_r}; step_ms mean {step_s * 1e3:.6f} "
+                f"over {rtcfg.steps} steps; peak allocated {peak} B, train_memory_bytes total "
+                f"{budget['total']:.0f} B (activations {budget['activations']:.0f} B) [{smi}]")
+            check(losses == modes["none"][0],
+                  f"remat {mode}: losses {losses} differ from none's {modes['none'][0]}")
+            want = rmcfg.n_layers * n_steps
+            check((fwd_r, bwd_r) == (want * recompute.get(mode, 1), want * fa.BWD_KERNELS),
+                  f"remat {mode}: flash launches fwd {fwd_r} / bwd {bwd_r} for {n_steps} steps")
+        peaks = {m: v[2] for m, v in modes.items()}
+        check(peaks["block"] < peaks["block_save_flash"] < peaks["none"]
+              and peaks["mlp"] < peaks["none"], f"remat peak memory out of order: {peaks}")
+        record["remat"] = {m: dict(losses=v[0], flash_launches=v[1], peak_allocated=v[2],
+                                   train_memory_bytes=v[3], step_ms_mean=v[4] * 1e3, card=smi)
+                           for m, v in modes.items()}
+        log(f"remat: losses of the four modes equal bit for bit; peak memory {peaks} [{smi}]")
+        torch.cuda.empty_cache()
+
         main = results[0]
         kernels = [dict(
             name="decode_attention", route="cuda",
@@ -1474,7 +1734,8 @@ def main() -> int:
                 source="dtc_tpu_torch/csrc/flash_attention.cu",
                 replaces=f"dtc_tpu/ops/flash_attention.py:{row}",
                 also_replaces=f"dtc_tpu/ops/flash_attention.py:{multi}",
-                launches=launched, max_abs_err=max(c[f"{part}_max_abs_err"] for c in flash),
+                launches=launched,
+                max_abs_err=max(c[f"{part}_max_abs_err"] for c in flash[:3]),
                 ms=fl[f"{part}_ms"], plain_ms=fl[f"plain_{part}_ms"],
                 bound_ms=fl[f"{part}_bound_ms"], bound_by=fl[f"{part}_bound_by"],
                 library_ms=fl[f"library_{part}_ms"],
@@ -1500,6 +1761,34 @@ def main() -> int:
             bound_ms=mk_lora_t1["bound_ms"], bound_by=mk_lora_t1["bound_by"], library_ms=None,
             without_adapters_ms=mk_lora_t1["base_ms"],
             yardstick_per_layer_ms=mk_lora_t1["per_layer_ms"],
+        ))
+        kernels.append(dict(
+            name="flash_attention_bwd_t8192", route="cuda",
+            source="dtc_tpu_torch/csrc/flash_attention.cu",
+            replaces="dtc_tpu/ops/flash_attention.py:704",
+            also_replaces="dtc_tpu/ops/flash_attention.py:733",
+            launches=long_rec["t8192"]["flash_bwd_launches"],
+            max_abs_err=flash_8k["bwd_max_abs_err"],
+            ms=flash_8k["bwd_ms"], plain_ms=flash_8k["plain_bwd_ms"],
+            bound_ms=flash_8k["bwd_bound_ms"], bound_by=flash_8k["bwd_bound_by"],
+            library_ms=flash_8k["library_bwd_ms"],
+            fwd_ms=flash_8k["fwd_ms"], fwd_bound_ms=flash_8k["fwd_bound_ms"],
+        ))
+        d48 = next(c for c in flash if c["case"] == "fp32_d48")  # phase 8's call
+        d48_launches = record["path_agreement"]["d48"]["flash_launches"]
+        kernels.append(dict(
+            name="flash_attention_fwd_bwd_d48", route="cuda",
+            source="dtc_tpu_torch/csrc/flash_attention.cu",
+            replaces="dtc_tpu/ops/flash_attention.py:74",
+            also_replaces=[f"dtc_tpu/ops/flash_attention.py:{n}" for n in (97, 198, 246, 276)],
+            launches=sum(d48_launches),
+            max_abs_err=max(c[f"{part}_max_abs_err"] for c in flash
+                            if c["d"] == 48 or c["h"] == 3 for part in ("fwd", "bwd")),
+            ms=d48["fwd_ms"] + d48["bwd_ms"], plain_ms=d48["plain_fwd_ms"] + d48["plain_bwd_ms"],
+            bound_ms=d48["fwd_bwd_bound_ms"], bound_by=d48["fwd_bwd_bound_by"],
+            library_ms=d48["library_fwd_bwd_ms"],
+            fwd_ms=d48["fwd_ms"], bwd_ms=d48["bwd_ms"],
+            fwd_launches=d48_launches[0], bwd_launches=d48_launches[1],
         ))
         record["kernels"] = kernels
     except Exception:

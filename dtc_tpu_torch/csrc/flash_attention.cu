@@ -1,9 +1,17 @@
 // Causal flash attention, forward and backward, for Hopper (sm_90a).
 //
-// Replaces the JAX package's TPU kernels dtc_tpu/ops/flash_attention.py
+// Replaces the JAX package's TPU kernels in dtc_tpu/ops/flash_attention.py:
 // _fwd_kernel_packed (forward, whole KV in one tile) and _bwd_kernel_packed
-// (fused single-tile backward), and walks KV tiles at any T, so it also covers
-// what _fwd_kernel_packed_multi and _bwd_kernel_packed_multi compute.
+// (fused single-tile backward); it walks KV tiles at any T, so it also covers
+// what _fwd_kernel_packed_multi and _bwd_kernel_packed_multi compute, and its
+// backward is the same split as _dq_kernel_packed / _dkv_kernel_packed (the
+// TPU's backward past T 4096, where full-T dk/dv scratches outgrow VMEM;
+// here shared memory is O(tile) at every T). The transpose-layout family
+// (_fwd_kernel_single, _fwd_kernel, _bwd_kernel_single, _dq_kernel,
+// _dkv_kernel) computes the same function on (B, H, T, D) tensors for head
+// dims and head counts the TPU's 128-lane groups do not fit; these kernels
+// take the packed layout at any H and every head dim that is a multiple of 16
+// up to 128, so they replace that family too.
 //
 // Layout: q, k, v, out, dout, dq, dk, dv are packed (B, T, H*D) in one dtype
 // (float32 or bfloat16); lse and delta are (B, H, T) float32.
@@ -30,18 +38,24 @@
 // Tiles are staged in shared memory as float32 with one column of padding;
 // each thread owns a 4 x 8 piece of the 64 x 64 score tile (rows tr + 16 i,
 // columns tc + 8 j) and the matching 4 x D/8 piece of the output tile, and
-// every product is a plain float32 FMA loop over shared memory.
+// every product is a plain float32 FMA loop over shared memory. Any head dim
+// that is a multiple of 8 maps onto the threads so; the instances are the
+// multiples of 16 up to 128. The largest, D 128, takes 165,376 B of shared
+// memory in the dk/dv kernel, under the 227 KB a block may have.
 //
 // Bound. At the flagship (B 8, T 512, H 16, D 32, bfloat16) both directions
 // are bound by bytes on paper: the forward must move q, k, v, out and lse,
 // 17,039,360 B, 5.09 us at 3.35 TB/s, against 2.15 GFLOP of causal products,
 // 2.18 us at the bf16 tensor-core peak; the backward 33,816,576 B (10.1 us)
-// against 5.38 GFLOP (5.44 us). This kernel reads each tile once per block
-// that needs it and writes each output once, but it does its products on the
-// CUDA cores, not the tensor cores, and the forward recomputes q K^T in its
-// second pass, so it is bound by float32 FMA issue and shared-memory loads,
-// far above that bound (PERF.md has its times). Tensor-core products
-// (mma/wgmma), TMA staging and a one-pass online softmax are later work.
+// against 5.38 GFLOP (5.44 us). The work grows with T^2 and the bytes with T,
+// so at long context (B 2, T 8192) both directions are bound by operations:
+// 137 GFLOP forward (0.139 ms), 344 GFLOP backward (0.347 ms). This kernel
+// reads each tile once per block that needs it and writes each output once,
+// but it does its products on the CUDA cores, not the tensor cores, and the
+// forward recomputes q K^T in its second pass, so it is bound by float32 FMA
+// issue and shared-memory loads, far above those bounds (PERF.md has its
+// times). Tensor-core products (mma/wgmma), TMA staging and a one-pass online
+// softmax are later work.
 //
 // Plain C interface (ctypes): each entry point launches on the given stream,
 // never synchronises, allocates nothing, and returns cudaGetLastError().
@@ -447,17 +461,18 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
 }
 
 // dtype codes shared with the wrapper: 0 float32, 1 bfloat16.
-#define DTC_DISPATCH(DTYPE, D, CALL)                                        \
-  switch ((DTYPE) * 1000 + (D)) {                                           \
-    case 16: { using T = float; constexpr int kD = 16; return CALL; }       \
-    case 32: { using T = float; constexpr int kD = 32; return CALL; }       \
-    case 64: { using T = float; constexpr int kD = 64; return CALL; }       \
-    case 128: { using T = float; constexpr int kD = 128; return CALL; }     \
-    case 1016: { using T = __nv_bfloat16; constexpr int kD = 16; return CALL; }  \
-    case 1032: { using T = __nv_bfloat16; constexpr int kD = 32; return CALL; }  \
-    case 1064: { using T = __nv_bfloat16; constexpr int kD = 64; return CALL; }  \
-    case 1128: { using T = __nv_bfloat16; constexpr int kD = 128; return CALL; } \
-    default: return cudaErrorInvalidValue;                                  \
+#define DTC_CASE(DTYPE, ELEM, DIM, CALL) \
+  case (DTYPE) * 1000 + (DIM): { using T = ELEM; constexpr int kD = DIM; return CALL; }
+#define DTC_CASES(DTYPE, ELEM, CALL)                                   \
+  DTC_CASE(DTYPE, ELEM, 16, CALL) DTC_CASE(DTYPE, ELEM, 32, CALL)      \
+  DTC_CASE(DTYPE, ELEM, 48, CALL) DTC_CASE(DTYPE, ELEM, 64, CALL)      \
+  DTC_CASE(DTYPE, ELEM, 80, CALL) DTC_CASE(DTYPE, ELEM, 96, CALL)      \
+  DTC_CASE(DTYPE, ELEM, 112, CALL) DTC_CASE(DTYPE, ELEM, 128, CALL)
+#define DTC_DISPATCH(DTYPE, D, CALL)                \
+  switch ((DTYPE) * 1000 + (D)) {                   \
+    DTC_CASES(0, float, CALL)                       \
+    DTC_CASES(1, __nv_bfloat16, CALL)               \
+    default: return cudaErrorInvalidValue;          \
   }
 
 cudaError_t fwd_any(const void* q, const void* k, const void* v, void* out, float* lse,

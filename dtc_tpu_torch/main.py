@@ -19,7 +19,9 @@ from dtc_tpu_torch.config.loader import load_config
 from dtc_tpu_torch.train.trainer import train
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None):
+    """Parse ``argv`` (the command line by default), train, and return the
+    trainer's ``TrainResult``."""
     p = argparse.ArgumentParser(description="Train a GPT with the PyTorch port.")
     p.add_argument("--train_config_path", default="configs/train_config_dp.yaml")
     p.add_argument("--model_config_path", default=None)
@@ -47,7 +49,7 @@ def main(argv: list[str] | None = None) -> None:
     if args.obs is not None:
         train_cfg = replace(train_cfg, obs=replace(train_cfg.obs, enabled=args.obs))
     print(f"Running `{train_cfg.parallel}` on {args.device or 'cuda'}.")
-    train(train_cfg, model_cfg, opt_cfg, device=args.device)
+    return train(train_cfg, model_cfg, opt_cfg, device=args.device)
 
 
 if __name__ == "__main__":

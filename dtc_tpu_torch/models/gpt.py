@@ -21,6 +21,17 @@ kernels on the card under ``auto``). Dropout draws its keep masks from the
 caller's ``torch.Generator`` (flax's semantics: keep with probability
 1 - p, scale kept values by 1 / (1 - p)); nothing else in the model draws.
 
+Rematerialisation (``cfg.remat``, the JAX package's three modes) drops a
+block's activations after the forward and recomputes them in the backward
+with ``torch.utils.checkpoint`` (:func:`_recompute`): ``block`` (or
+``true``) the whole block, flash forward included; ``block_save_flash``
+the block around the attention call, whose residuals q, k, v, out and lse
+stay saved, so the backward re-runs LN, out_proj, the MLP and the
+residual ops but neither the flash forward nor the q/k/v projections;
+``mlp`` the MLP's ``d_ff``-wide intermediates only. The recompute replays
+the forward's dropout masks and leaves the generator where the forward
+left it: a remat mode gives the same bits as ``none``.
+
 LoRA adapters (``cfg.adapter.rank > 0``): the factors are not module
 parameters; the caller passes them per call as ``lora`` (see
 ``dtc_tpu_torch.adapters``): one adapter's factors shared by every row,
@@ -45,6 +56,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from dtc_tpu_torch.config.schema import ModelConfig
 from dtc_tpu_torch.ops import decode_attention as fused
@@ -81,6 +93,30 @@ def _dropout(x: torch.Tensor, p: float, gen: torch.Generator | None) -> torch.Te
         raise ValueError("dropout in training needs the caller's torch.Generator")
     keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _recompute(fn, *args, gen: torch.Generator | None = None):
+    """``fn(*args, gen)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    the tensors it saves for the backward are dropped after the forward and
+    recomputed when the backward needs them. ``preserve_rng_state`` covers
+    only the global generators, not the caller's ``gen`` that dropout draws
+    from; so the forward draws from ``gen`` itself and the recompute from a
+    new generator set to the state ``gen`` had before the forward. The
+    recompute thus draws the forward's keep masks again, and ``gen`` ends
+    the step where it would without remat."""
+    state = None if gen is None else gen.get_state()
+    calls = 0
+
+    def run(*xs):
+        nonlocal calls
+        g = gen
+        if calls and gen is not None:  # the backward's recompute
+            g = torch.Generator(device=gen.device)
+            g.set_state(state)
+        calls += 1
+        return fn(*xs, g)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -207,6 +243,9 @@ class CausalSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, cache: dict | None = None,
                 layer: int = 0, idx: torch.Tensor | None = None,
                 lora: dict | None = None) -> torch.Tensor:
+        """The q/k/v projections and attention: out_proj's (B, T, d_model)
+        input. The block applies ``out_proj`` itself, so that remat can
+        split the block around the flash call."""
         cfg = self.cfg
         lora = lora or {}
         b, t, _ = x.shape
@@ -252,7 +291,7 @@ class CausalSelfAttention(nn.Module):
                     q.view(b, t, h, dh), k_full.view(b, s, h, dh),
                     v_full.view(b, s, h, dh), idx,
                 )
-        return self.out_proj(out.reshape(b, t, cfg.d_model), lora.get("out_proj"))
+        return out.reshape(b, t, cfg.d_model)
 
 
 class MLP(nn.Module):
@@ -268,11 +307,14 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """x + Attn(LN(x)); x + MLP(LN(x)), the residual in the compute dtype."""
+    """x + Attn(LN(x)); x + MLP(LN(x)), the residual in the compute dtype.
+    In training with gradients, ``cfg.remat_mode`` picks what is recomputed
+    in the backward (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        self.cdtype = DTYPES[cfg.compute_dtype]
         self.ln_1 = LayerNorm(cfg.d_model, device)
         self.attn = CausalSelfAttention(cfg, device)
         self.ln_2 = LayerNorm(cfg.d_model, device)
@@ -280,10 +322,33 @@ class Block(nn.Module):
 
     def forward(self, x, *, train: bool = False, gen=None, cache=None, layer: int = 0,
                 idx=None, lora: dict | None = None):
-        cd, p = DTYPES[self.cfg.compute_dtype], self.cfg.dropout if train else 0.0
-        a = self.attn(self.ln_1(x).to(cd), cache, layer, idx, lora)
-        x = x + _dropout(a, p, gen)
-        m = self.mlp(self.ln_2(x).to(cd), lora)
+        p = self.cfg.dropout if train else 0.0
+        mode = self.cfg.remat_mode
+        if not (train and cache is None and torch.is_grad_enabled()):
+            mode = "none"
+        if mode == "block":
+            return _recompute(lambda x, g: self._rest(x, self._attend(x, lora), p, g, lora),
+                              x, gen=gen)
+        if mode == "block_save_flash":
+            # LN_1 recomputed; the projections and the flash call outside
+            # any checkpoint, so their residuals (h, q, k, v, out, lse) stay.
+            h = _recompute(lambda x, _: self.ln_1(x).to(self.cdtype), x)
+            a = self.attn(h, lora=lora)
+            return _recompute(lambda x, a, g: self._rest(x, a, p, g, lora), x, a, gen=gen)
+        a = self._attend(x, lora, cache, layer, idx)
+        return self._rest(x, a, p, gen, lora, remat_mlp=mode == "mlp")
+
+    def _attend(self, x, lora, cache=None, layer: int = 0, idx=None):
+        return self.attn(self.ln_1(x).to(self.cdtype), cache, layer, idx, lora)
+
+    def _rest(self, x, a, p: float, gen, lora, remat_mlp: bool = False):
+        """From attention's output ``a`` on: out_proj, dropout, residual;
+        LN_2, the MLP (recomputed in the backward with ``remat_mlp``),
+        dropout, residual."""
+        x = x + _dropout(self.attn.out_proj(a, (lora or {}).get("out_proj")), p, gen)
+        h = self.ln_2(x).to(self.cdtype)
+        m = (_recompute(lambda h, _: self.mlp(h, lora), h) if remat_mlp
+             else self.mlp(h, lora))
         return x + _dropout(m, p, gen)
 
 
@@ -364,18 +429,13 @@ class GPT(nn.Module):
     parameters drawn from flax's initializer distributions with a
     generator seeded by ``seed``. With ``adapter.rank > 0`` it serves LoRA
     factors passed per call (the adapter parameters are not part of the
-    module). Mixture-of-experts and rematerialization are not ported yet
-    and raise ``NotImplementedError``."""
+    module). Mixture-of-experts is not ported yet and raises
+    ``NotImplementedError``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
         if cfg.moe_experts > 0:
             raise NotImplementedError("mixture-of-experts is not ported yet")
-        if cfg.remat_mode != "none":
-            raise NotImplementedError(
-                f"remat {cfg.remat!r} is not ported yet (queued after the "
-                "training slice); use remat: false"
-            )
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = GPTEmbed(cfg, dev)

@@ -23,6 +23,14 @@ the plain PyTorch versions of the same arithmetic. There is no fallback
 from the one to the other. ``fwd_launches`` and ``bwd_launches`` count
 kernel launches (the backward launches two kernels per call: dq, then
 dk/dv).
+
+The kernels take any T and any head count, and every head dim in
+:data:`KERNEL_HEAD_DIMS`. So they stand for all of the JAX package's
+flash kernels that run on one chip: the packed ones, the split backward
+it takes past T 4096 (``_dq_kernel_packed`` / ``_dkv_kernel_packed``), and
+the transpose-layout family it takes where 128-lane head groups do not fit
+(``_flash``). The TPU tilings (``attention_block_*``) do not apply: the
+kernels' tiles are 64 x 64 at every T.
 """
 
 from __future__ import annotations
@@ -33,8 +41,10 @@ import torch
 
 NEG_INF = -1e9
 
-#: Head dims the kernels are instantiated for.
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: Head dims the kernels are instantiated for: every multiple of 16 up to
+#: 128. The JAX package's transpose-layout kernels also take head dims up
+#: to 512; those are still to port (ROADMAP.md §B).
+KERNEL_HEAD_DIMS = tuple(range(16, 129, 16))
 
 #: Kernels one backward call launches (dq + delta, then dk/dv).
 BWD_KERNELS = 2
@@ -132,7 +142,18 @@ def _check_cuda(h: int, *xs: torch.Tensor) -> None:
         raise ValueError(
             f"inputs must all be float32 or all bfloat16, got {[x.dtype for x in xs]}"
         )
-    d = q.shape[2] // h
+    check_head_dim(q.shape[2] // h)
+
+
+def check_head_dim(d: int) -> None:
+    """Raise ``ValueError`` unless the kernels have an instance for head
+    dim ``d``."""
+    if d > KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(
+            f"head_dim {d}: the flash kernels stop at {KERNEL_HEAD_DIMS[-1]}; head dims "
+            "up to 512 (the JAX package's transpose-layout kernels) are still to port "
+            "(ROADMAP.md §B)"
+        )
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in the kernels' {KERNEL_HEAD_DIMS}")
 

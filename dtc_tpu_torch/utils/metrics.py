@@ -1,10 +1,11 @@
-"""Throughput and MFU accounting. :func:`mfu` takes the device's peak
-rate as a parameter; :func:`peak_flops` knows only the card the port is
-written for."""
+"""Throughput, MFU and memory accounting. :func:`mfu` takes the device's
+peak rate as a parameter; :func:`peak_flops` knows only the card the port
+is written for; :func:`train_memory_bytes` is the JAX package's analytic
+budget of one training step."""
 
 from __future__ import annotations
 
-from dtc_tpu_torch.config.schema import ModelConfig
+from dtc_tpu_torch.config.schema import DTYPE_BYTES, ModelConfig
 from dtc_tpu_torch.models.gpt import param_count
 
 #: NVIDIA H100 SXM dense bf16 tensor-core peak (data sheet), FLOP/s, at the
@@ -43,3 +44,48 @@ def mfu(cfg: ModelConfig, batch: int, seq_len: int, step_time_s: float,
     if peak_flops is None or peak_flops <= 0 or step_time_s <= 0:
         return None
     return gpt_step_flops(cfg, batch, seq_len) / (step_time_s * peak_flops)
+
+
+def train_memory_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> dict[str, float]:
+    """The JAX package's analytic device-memory budget of one training step
+    (``dtc_tpu/utils/metrics.py`` ``train_memory_bytes``), for what the port
+    trains: one device under ``dp`` with float32 master weights, so no
+    master copy and no collective buffers. Bytes by component:
+
+    - ``params``, ``grads``: every parameter in ``param_dtype``;
+    - ``moments``: AdamW's two float32 moments;
+    - ``activations``: per layer ``(10·d_model + 2·d_ff)`` values a token
+      in ``compute_dtype``, plus with ``attention: dense`` the float32
+      (B, H, T, T) probabilities; ``remat`` ``block`` and
+      ``block_save_flash`` keep one residual a layer plus one layer's
+      working set, ``mlp`` drops the two ``d_ff``-wide intermediates;
+      plus the logits;
+    - ``batch_io``: the int32 (x, y) batch.
+
+    A structural estimate, not a simulator: it does not tell
+    ``block_save_flash``'s saved flash residuals from ``block``."""
+    n = param_count(cfg)
+    pbytes = float(DTYPE_BYTES.get(cfg.param_dtype, 4))
+    cbytes = float(DTYPE_BYTES.get(cfg.compute_dtype, 4))
+    params = n * pbytes
+    moments = n * 8.0
+    grads = n * pbytes
+    dm, ff = cfg.d_model, cfg.d_ff
+    layer_acts = batch * seq_len * (10.0 * dm + 2.0 * ff) * cbytes
+    if cfg.attention == "dense":
+        layer_acts += batch * cfg.n_heads * (seq_len ** 2) * 4.0
+    n_layers = float(cfg.n_layers)
+    if cfg.remat_mode in ("block", "block_save_flash"):
+        acts = n_layers * batch * seq_len * dm * cbytes + layer_acts
+    elif cfg.remat_mode == "mlp":
+        acts = n_layers * (layer_acts - batch * seq_len * 2.0 * ff * cbytes)
+    else:
+        acts = n_layers * layer_acts
+    acts += batch * seq_len * cfg.padded_vocab_size * cbytes  # logits
+    batch_io = 2.0 * batch * seq_len * 4.0
+    master = comm = 0.0
+    total = params + master + moments + grads + acts + comm + batch_io
+    return {
+        "params": params, "master": master, "moments": moments, "grads": grads,
+        "activations": acts, "comm_buffers": comm, "batch_io": batch_io, "total": total,
+    }

@@ -5,7 +5,11 @@ JAX runs its Pallas kernels in interpret mode here (as
 ``tests/test_flash_attention.py`` does): ``block_q = block_kv = T`` takes the
 single-tile kernels (TPU kernel rows 4 and 5), ``T/2`` the multi-tile ones
 (rows 6 and 7). The port runs its plain versions, which are what its CUDA
-kernels are held against on the card.
+kernels are held against on the card. With ``_PACKED_MAX_T`` lowered to 128,
+T 256 takes JAX's packed split backward (rows 8 and 9, its route past T
+4096). Head dims and head counts that 128-lane groups do not fit take JAX's
+transpose-layout family (rows 10-14: ``_flash`` over (B, H, T, D), q
+pre-scaled outside the kernels).
 
 Tolerances (``dtc_tpu_torch.parity``):
 - float32: ``out`` and ``lse`` 1e-5 absolute, gradients 1e-5 × the tensor's
@@ -15,7 +19,11 @@ Tolerances (``dtc_tpu_torch.parity``):
   gradients 4 ulps of each head's largest |value| over the tensor (one
   rounding of p or ds to bf16 may flip where the sum orders differ; the
   multi-tile kernels also round p against a running max); ``lse`` stays
-  float32, 1e-5 absolute.
+  float32, 1e-5 absolute. Where the two differ in rounding points (JAX's
+  split backward scales dq per tile in float32 where the port scales once;
+  the transposed family's dq comes back through the VJP of ``q * scale``,
+  rounded to q's dtype twice, with the scale itself rounded) the same
+  limits hold.
 """
 
 import numpy as np
@@ -59,6 +67,36 @@ def _jax(q, k, v, do, block, dtype):
     return packed(out), torch.from_numpy(lse), [packed(x) for x in grads]
 
 
+def _jax_transposed(q, k, v, do, block, dtype):
+    """JAX's transpose-layout route, as ``flash_causal_attention`` takes it
+    where ``_packed_group`` is None: q scaled by ``D**-0.5`` in its dtype,
+    (B, H, T, D) tensors through ``_flash``; lse from ``_fwd_call`` on the
+    same pre-scaled, transposed q. Returns what :func:`_jax` does."""
+    b, t, h, d = q.shape
+    assert jfa._packed_group(d, h) is None
+    jq, jk, jv, jdo = (jnp.asarray(x, _JDT[dtype]) for x in (q, k, v, do))
+
+    def tr(x):
+        return x.transpose(0, 2, 1, 3)
+
+    def fn(q, k, v):
+        q = q * q.dtype.type(d ** -0.5)
+        return tr(jfa._flash(tr(q), tr(k), tr(v), block, block))
+
+    out, vjp = jax.vjp(fn, jq, jk, jv)
+    grads = vjp(jdo)
+    if jfa.supports(t, d, block, block):  # the public entry point takes this route
+        pub = jfa.flash_causal_attention(jq, jk, jv, block_q=block, block_kv=block)
+        assert np.array_equal(np.asarray(pub, np.float32), np.asarray(out, np.float32))
+    _, lse = jfa._fwd_call(tr(jq * jq.dtype.type(d ** -0.5)), tr(jk), tr(jv), block, block)
+
+    def packed(x):
+        return torch.from_numpy(np.array(jnp.asarray(x, jnp.float32))).reshape(b, t, h * d)
+
+    return (packed(out), torch.from_numpy(np.array(lse).reshape(b, h, t)),
+            [packed(x) for x in grads])
+
+
 def _port(q, k, v, do, dtype):
     b, t, h, d = q.shape
     tdt = getattr(torch, dtype)
@@ -77,9 +115,9 @@ def _assert_within(name, got, want, limit):
     assert worst <= 1.0, f"{name}: max error {err.max().item():.3e} is {worst:.2f}x its limit"
 
 
-def _compare(b, t, h, d, dtype, block, seed):
+def _compare(b, t, h, d, dtype, block, seed, reference=_jax):
     q, k, v, do = _inputs(b, t, h, d, seed)
-    jout, jlse, jgrads = _jax(q, k, v, do, block, dtype)
+    jout, jlse, jgrads = reference(q, k, v, do, block, dtype)
     tout, tlse, tgrads = _port(q, k, v, do, dtype)
     want_dt = getattr(torch, dtype)
     assert tout.dtype == want_dt and tlse.dtype == torch.float32
@@ -104,6 +142,48 @@ def test_matches_jax_multi_tile_kernels(dtype):
     (``_bwd_kernel_packed_multi``): T 256 in blocks of 128, the online
     softmax and causal block skipping of the long-context path."""
     _compare(2, 256, 8, 32, dtype, block=128, seed=7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matches_jax_packed_split_backward(monkeypatch, dtype):
+    """TPU kernel rows 8 (``_dq_kernel_packed``) and 9 (``_dkv_kernel_packed``):
+    the split backward JAX takes past ``_PACKED_MAX_T`` (4096), lowered to
+    128 here as ``tests/test_flash_attention.py`` does, at T 256 in blocks
+    of 128; a spy proves JAX went through ``_packed_split_bwd_call``."""
+    monkeypatch.setattr(jfa, "_PACKED_MAX_T", 128)
+    calls = []
+    real = jfa._packed_split_bwd_call
+
+    def spy(*args):
+        calls.append(args[0].shape)
+        return real(*args)
+
+    monkeypatch.setattr(jfa, "_packed_split_bwd_call", spy)
+    _compare(2, 256, 4, 32, dtype, block=128, seed=11)
+    assert calls == [(2, 256, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tiles", ["single", "multi"])
+@pytest.mark.parametrize("b,t,h,d", [(2, 128, 3, 32), (1, 256, 4, 16), (2, 256, 2, 48)])
+def test_matches_jax_transpose_layout_kernels(b, t, h, d, tiles, dtype):
+    """TPU kernel rows 10-14, the transpose-layout family: 3 heads of 32 and
+    4 of 16 (a head count no 128-lane group divides), 2 heads of 48 (a head
+    dim that does not divide 128). ``single`` takes ``_fwd_kernel_single``
+    and ``_bwd_kernel_single`` (rows 10, 12); ``multi`` (two tiles) takes
+    ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel`` (rows 11, 13, 14)."""
+    block = t if tiles == "single" else t // 2
+    _compare(b, t, h, d, dtype, block=block, seed=t + h + d, reference=_jax_transposed)
+
+
+def test_kernel_head_dims_cover_every_multiple_of_16_up_to_128():
+    assert tfa.KERNEL_HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)
+    for d in tfa.KERNEL_HEAD_DIMS:
+        tfa.check_head_dim(d)
+    with pytest.raises(ValueError, match="ROADMAP"):  # the JAX package's D up to 512
+        tfa.check_head_dim(256)
+    with pytest.raises(ValueError, match="not in the kernels"):
+        tfa.check_head_dim(40)
 
 
 def test_ragged_length_matches_dense_attention():

@@ -1,6 +1,7 @@
 """The port on a CUDA card: the decode-attention, flash-attention and
 decode megakernel kernels (the last with its LoRA sites) against their
-plain versions, and the kernels on the model's decode and training paths.
+plain versions, and the kernels on the model's decode and training paths
+(rematerialisation included).
 Needs an NVIDIA GPU with ``nvcc``; elsewhere every test skips with the
 reason.
 
@@ -12,6 +13,8 @@ a few bf16 ulps of each head's largest output), gradients
 ``parity.grad_tolerance`` (float32 1e-5 × the largest |value|; bfloat16 a
 few ulps of each head's largest value).
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -111,17 +114,11 @@ def _flash_case(dev, b, t, h, d, dt, seed=0):
     return [torch.randn(b, t, h * d, device=dev, generator=g).to(dt) for _ in range(4)]
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t", [2, 64, 100, 512])
-def test_flash_kernels_match_plain(cuda, t, dt, d):
-    """Forward (out, lse) and backward (dq, dk, dv) kernels against their
-    plain versions, at tile-aligned and ragged T."""
+def _flash_matches_plain(dev, b, t, h, d, dt, seed=0):
     from dtc_tpu_torch.ops import flash_attention as fa
     from dtc_tpu_torch.parity import grad_tolerance
 
-    h = 2
-    q, k, v, do = _flash_case(cuda, 2, t, h, d, dt)
+    q, k, v, do = _flash_case(dev, b, t, h, d, dt, seed)
     out, lse = fa.flash_attention_forward(q, k, v, h)
     want_out, want_lse = fa.flash_attention_reference(q, k, v, h)
     torch.cuda.synchronize()
@@ -132,7 +129,32 @@ def test_flash_kernels_match_plain(cuda, t, dt, d):
     torch.cuda.synchronize()
     for g_, w_ in zip(got, want):
         assert g_.dtype == dt
-        assert ((g_.float() - w_.float()).abs() <= grad_tolerance(w_, h).to(cuda)).all()
+        assert ((g_.float() - w_.float()).abs() <= grad_tolerance(w_, h).to(dev)).all()
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [2, 64, 100, 512])
+def test_flash_kernels_match_plain(cuda, t, dt, d):
+    """Forward (out, lse) and backward (dq, dk, dv) kernels against their
+    plain versions, at tile-aligned and ragged T, at every head dim the
+    kernels have."""
+    _flash_matches_plain(cuda, 2, t, 2, d, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,d", [(2, 1000, 3, 32), (1, 1024, 8, 48), (1, 300, 5, 112)])
+def test_flash_kernels_match_plain_where_jax_transposes(cuda, b, t, h, d, dt):
+    """Shapes that take the JAX package's transpose-layout family (TPU kernel
+    rows 10-14): head counts no 128-lane group divides, head dims that do
+    not divide 128."""
+    _flash_matches_plain(cuda, b, t, h, d, dt, seed=h + d)
+
+
+def test_flash_kernels_match_plain_at_t8192(cuda):
+    """T 8192, where the JAX package takes its split backward (TPU kernel
+    rows 8-9), bfloat16."""
+    _flash_matches_plain(cuda, 1, 8192, 2, 32, torch.bfloat16, seed=8)
 
 
 def test_flash_autograd_counts_launches_and_is_deterministic(cuda):
@@ -148,8 +170,8 @@ def test_flash_autograd_counts_launches_and_is_deterministic(cuda):
         grads.append([x.grad for x in xs])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
-    x = torch.zeros(2, 300, 48, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # a head_dim the kernels have no instance for
+    x = torch.zeros(2, 300, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP"):  # a head_dim past the kernels'
         fa.flash_attention_forward(x, x, x, 1)
 
 
@@ -176,6 +198,34 @@ def test_training_on_cuda_runs_the_flash_kernels_and_matches_dense(cuda):
     assert fa.fwd_launches - f0 == 2 * 4 and fa.bwd_launches - b0 == 2 * 4 * fa.BWD_KERNELS
     dense = train(tcfg, dataclasses.replace(mcfg, attention="dense"), ocfg).losses
     assert max(abs(a - b) for a, b in zip(auto, dense)) <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["block", "block_save_flash", "mlp"])
+def test_remat_on_cuda_gives_the_bits_of_none(cuda, mode):
+    """One bf16 training step with dropout 0.1 through the flash kernels:
+    each remat mode gives ``none``'s loss and gradients bit for bit and
+    leaves the generator in the same state; ``block`` re-runs the flash
+    forward in the backward, the other modes do not."""
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    cfg = ModelConfig(vocab_size=97, d_model=128, n_layers=2, n_heads=4, d_ff=512,
+                      max_seq_len=256, dropout=0.1, compute_dtype="bfloat16")
+    x = torch.randint(0, 97, (2, 256), device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    runs = {}
+    for m in ("none", mode):
+        model = GPT(dataclasses.replace(cfg, remat=m), device=cuda, seed=0)
+        gen = torch.Generator(cuda).manual_seed(3)
+        f0 = fa.fwd_launches
+        loss = model(x, train=True, targets=x.roll(-1, 1), generator=gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[m] = (loss, [p.grad for p in model.parameters()], gen.get_state(),
+                   fa.fwd_launches - f0)
+    (l0, g0, s0, n0), (l1, g1, s1, n1) = runs["none"], runs[mode]
+    assert torch.equal(l0, l1) and torch.equal(s0, s1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert (n0, n1) == (2, 4 if mode == "block" else 2)
 
 
 # --- the layer-fused decode megakernel (serving, fused_layers) ------------

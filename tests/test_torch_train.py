@@ -256,7 +256,7 @@ def test_unported_training_features_raise(tmp_path, over):
               ts.OptimConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0), device="cpu")
 
 
-@pytest.mark.parametrize("over", [dict(remat=True), dict(attention="ring")])
+@pytest.mark.parametrize("over", [dict(moe_experts=2), dict(attention="ring")])
 def test_unported_model_features_raise(over):
     model_cfg = _tiny_model_cfg(**over)
     with pytest.raises(NotImplementedError):
