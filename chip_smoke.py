@@ -105,7 +105,39 @@ Phases (each prints its own lines; any failure exits non-zero):
     one seed: the losses of the four are equal bit for bit, the flash
     forward launches 12 / 24 / 12 / 12 times a step, and peak memory orders
     ``block`` < ``block_save_flash`` < ``none`` and ``mlp`` < ``none``; each
-    peak beside ``train_memory_bytes``.
+    peak beside ``train_memory_bytes``. Then each mode's peak with the head +
+    CE on all 16,384 rows at once (as before it was chunked) beside its
+    peak now (it must drop), and an allocation trace of one ``none`` step
+    each way (``torch.cuda.memory`` history): the step's peak and the
+    blocks of 256 MiB or more live at it, by the port's source line.
+15. The zigzag ring's block kernels (TPU kernel rows 15-16, the flash
+    kernels without the causal mask and with float32 gradients) against
+    their plain versions: the chunk of T 8192 over a ring of 4 (B 2, tc
+    1024, H 16, D 32) in bfloat16 and float32, of T 4096 (B 4, tc 512),
+    ragged chunks (tc 8, 40 and 1000) and head dims 16, 64 and 128; forward
+    causal and not, the backward from a given lse and out; the gradients
+    float32 (values bfloat16 cannot hold); planted faults (the diagonal
+    still masked without the causal mask; the zero-filled keys past a
+    ragged tc unmasked; the gradients rounded to bfloat16) over the
+    limits; device times beside the bounds, the plain versions' and
+    SDPA's (forward; backward alone).
+16. The zigzag ring on one card: the per-rank schedules over 4 and 2
+    virtual ranks (the in-process transport) at (B 2, T 8192, H 16, D 32),
+    bfloat16 and float32, forward and gradients, against the same
+    schedules on the plain block versions and against the single-card
+    flash kernels on the whole sequence; block launches 2R+1 forward and
+    2R+1 backward calls a rank; ring ms beside flash ms (one card
+    emulating R ranks, not a multi-card time). Then one training step of
+    the long-context flagship at T 8192 (float32 compute) with
+    ``attention: ring`` over 4 virtual ranks against the flash kernels'
+    step (losses within 1e-4, 12 x 4 x 9 block forward calls).
+17. The trainer over NCCL at world size 1: ``torchrun --nproc_per_node 1
+    -m dtc_tpu_torch.main`` on ``train_config_dp.yaml`` (torchrun's
+    environment set in this process), 5 + 20 steps of the flagship, against
+    the same command in one process: the losses equal bit for bit, one
+    gradient all-reduce a step, the flash kernels' launches, ``log.csv``
+    from rank 0. It proves the process group, the reduction and rank-0
+    logging on the card, not several cards.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -217,8 +249,13 @@ def ptxas_report(text: str):
             mangled = m.group(1)
             found = re.search(r"\d+([a-z_]+_kernel)I", mangled)
             kname = found.group(1) if found else mangled
-            args = (["bf16" if "nv_bfloat16" in mangled else "f32"]
-                    if kname.startswith("flash") else [])
+            args = []
+            if kname.startswith("flash"):
+                # the template's types: __nv_bfloat16, float, or a repeat
+                # (S..._) of the bfloat16 seen before
+                seg = mangled.split(kname + "I", 1)[-1].split("Li", 1)[0]
+                args = ["f32" if tok == "f" else "bf16"
+                        for tok in re.findall(r"13__nv_bfloat16|S\d*_|f", seg)]
             args += re.findall(r"Li(\d+)E", mangled)
             inst = f"{kname}<{', '.join(args)}>"
         elif "spill stores" in line:
@@ -396,13 +433,40 @@ def serve(serve_cfg, model_cfg, seed: int, reqs, device: str = "cuda", adapters=
         eng.submit(r)
     da.launches = decode_fused.launches = 0  # the main path starts here
     t0 = time.perf_counter()
-    res = eng.run(max_steps=10_000)
+    # eng.run(), one iteration at a time, noting which ran a prefill
+    eng.prefill_iterations = []
+    for _ in range(10_000):
+        before = eng.counters["serve_prefills"]
+        more = eng.step()
+        if eng.counters["serve_prefills"] > before:
+            eng.prefill_iterations.append(eng._it)
+        if not more:
+            break
+    res = eng.results
     if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(decode_attention=da.launches,  # ...and ends here
                     fused_layers=decode_fused.launches)
     return model, eng, res, wall, launches
+
+
+def watchdog_report(eng, tag: str) -> list[dict]:
+    """Log each iteration the serving watchdog flagged (``serve_hung_steps``):
+    its index, whether it ran a prefill, its time against the trailing
+    median of the working iterations before it."""
+    rows = []
+    for flag in eng.hung_steps:
+        row = dict(flag, prefill=flag["step"] in eng.prefill_iterations)
+        rows.append(row)
+        log(f"{tag}: the watchdog flags iteration {flag['step']} "
+            f"({'with' if row['prefill'] else 'without'} a prefill; prefills at iterations "
+            f"{eng.prefill_iterations}): {flag['duration_s'] * 1e3:.1f} ms against a trailing "
+            f"median of {flag['median_s'] * 1e3:.1f} ms ({flag['factor']}x, limit "
+            f"{eng.cfg.watchdog.factor}x)")
+    if not rows:
+        log(f"{tag}: the watchdog flags no iteration")
+    return rows
 
 
 def profile_decode(model, serve_cfg, reqs, iterations: int = 16):
@@ -669,10 +733,13 @@ def train_flagship(steps: int, warmup: int, out_dir: str):
     return res, (tcfg, mcfg, ocfg), launches, peak
 
 
-def profile_train(model_cfg, train_cfg, opt_cfg, steps: int = 5):
+def profile_train(model_cfg, train_cfg, opt_cfg, steps: int = 5, host_keys=(),
+                  device: str = "cuda"):
     """Device time by kernel over ``steps`` steady training steps of the
     flagship (torch.profiler, CUDA activity) against the host wall time of
-    the same window: the device's busy share."""
+    the same window: the device's busy share. ``host_keys``: profiler rows
+    (host ranges and ops) whose names hold one of these are also returned,
+    with their host and device times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -682,8 +749,8 @@ def profile_train(model_cfg, train_cfg, opt_cfg, steps: int = 5):
     from dtc_tpu_torch.train.optimizer import create_optimizer
     from dtc_tpu_torch.train.train_step import train_step
 
-    dev = torch.device("cuda")
-    model = GPT(model_cfg, seed=train_cfg.seed)
+    dev = torch.device(device)
+    model = GPT(model_cfg, device=dev, seed=train_cfg.seed)
     opt = create_optimizer(model.parameters(), opt_cfg, total_steps=train_cfg.steps)
     gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
     batches = synthetic_batch_iterator(train_cfg.batch, model_cfg.max_seq_len + 1,
@@ -698,7 +765,50 @@ def profile_train(model_cfg, train_cfg, opt_cfg, steps: int = 5):
             train_step(model, opt, x, y, gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return dict(steps=steps, **device_time_by_kernel(prof, wall))
+    host = [dict(name=ev.key[:80], count=ev.count, host_ms=ev.cpu_time_total / 1e3,
+                 device_ms=getattr(ev, "device_time_total", 0) / 1e3)
+            for ev in prof.key_averages() if any(k in ev.key for k in host_keys)]
+    return dict(steps=steps, host=host, **device_time_by_kernel(prof, wall))
+
+
+def profile_nccl_world1(model_cfg, train_cfg, opt_cfg, steps: int = 10,
+                        device: str = "cuda"):
+    """Phase 17's flagship step profiled alone and then inside an NCCL
+    process group of one rank (joined here as torchrun's environment asks;
+    ``train_step`` then averages the gradients): wall and device time per
+    step of each, and the host and device time of the gradient average
+    (``average_over_ranks``) and of its all-reduce."""
+    import os
+
+    from torch.profiler import record_function
+
+    from dtc_tpu_torch.train import train_step as ts_mod
+    from dtc_tpu_torch.utils import dist as dist_utils
+
+    real_avg = ts_mod.average_over_ranks
+
+    def avg(*a, **k):
+        with record_function("average_over_ranks"):
+            return real_avg(*a, **k)
+
+    out = {}
+    for mode in ("alone", "nccl"):
+        env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(_free_port())) if mode == "nccl" else {}
+        os.environ.update(env)
+        ts_mod.average_over_ranks = avg
+        try:
+            dist_utils.initialize(device)
+            out[mode] = profile_train(model_cfg, train_cfg, opt_cfg, steps,
+                                      host_keys=("average_over_ranks", "all_reduce",
+                                                 "allreduce", "nccl", "Optimizer.step"),
+                                      device=device)
+        finally:
+            ts_mod.average_over_ranks = real_avg
+            dist_utils.teardown()
+            for key in env:
+                del os.environ[key]
+    return out
 
 
 def path_agreement(seed: int, head_dim: int = 32, steps: int = 4, max_seq_len: int = 256):
@@ -778,10 +888,12 @@ def train_long_context(out_dir: str, steps: int, t8192: bool = False):
     return res, (tcfg, mcfg, ocfg), launches, peak
 
 
-def remat_modes(warmup: int = 2, steps: int = 4):
+def remat_modes(warmup: int = 2, steps: int = 4, ce_rows: int | None = None):
     """14: the T 4096 long-context configs (B 4, dropout 0.1, bfloat16)
     under each remat mode, ``warmup`` + ``steps`` steps from one seed, no
-    ``log.csv``. Returns ({mode: (losses, launches (fwd, bwd), peak bytes,
+    ``log.csv``; with ``ce_rows`` the head + CE works on that many rows at
+    a time (all 16,384 of them: the backward as it was before it was
+    chunked). Returns ({mode: (losses, launches (fwd, bwd), peak bytes,
     train_memory_bytes, mean step seconds)}, train config, model config)."""
     import dataclasses
 
@@ -789,6 +901,7 @@ def remat_modes(warmup: int = 2, steps: int = 4):
 
     from dtc_tpu_torch.config.loader import load_config
     from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.ops import fused_ce
     from dtc_tpu_torch.train.trainer import train
     from dtc_tpu_torch.utils.metrics import train_memory_bytes
 
@@ -797,21 +910,465 @@ def remat_modes(warmup: int = 2, steps: int = 4):
     tcfg = dataclasses.replace(tcfg, dataset="synthetic", steps=steps, warmup_steps=warmup,
                                obs=dataclasses.replace(tcfg.obs, enabled=False), output_dir="")
     out = {}
-    for mode in ("none", "block", "block_save_flash", "mlp"):
-        cfg = dataclasses.replace(mcfg, remat=mode)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        fa.fwd_launches = fa.bwd_launches = 0    # the path starts here
-        res = train(tcfg, cfg, ocfg)
-        launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
-        peak = torch.cuda.max_memory_allocated() - base
-        out[mode] = (res.losses, launches, peak,
-                     train_memory_bytes(cfg, tcfg.batch, cfg.max_seq_len),
-                     res.elapsed_times[-1] / steps)
-        del res
+    default_rows = fused_ce.CE_CHUNK_ROWS
+    fused_ce.CE_CHUNK_ROWS = ce_rows or default_rows
+    try:
+        for mode in ("none", "block", "block_save_flash", "mlp"):
+            cfg = dataclasses.replace(mcfg, remat=mode)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fa.fwd_launches = fa.bwd_launches = 0    # the path starts here
+            res = train(tcfg, cfg, ocfg)
+            launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+            peak = torch.cuda.max_memory_allocated() - base
+            out[mode] = (res.losses, launches, peak,
+                         train_memory_bytes(cfg, tcfg.batch, cfg.max_seq_len),
+                         res.elapsed_times[-1] / steps)
+            del res
+    finally:
+        fused_ce.CE_CHUNK_ROWS = default_rows
     return out, tcfg, mcfg
+
+
+def memory_trace(ce_rows: int | None = None, min_bytes: int = 256 << 20):
+    """One ``remat: none`` training step of the T 4096 long-context model
+    under ``torch.cuda.memory``'s allocation history (the head + CE on
+    ``ce_rows`` rows at a time, its default when None): the step's peak
+    above what was allocated before it, and the blocks of at least
+    ``min_bytes`` live at that peak, by the port's source line that
+    allocated them (innermost ``dtc_tpu_torch`` frame)."""
+    import dataclasses
+
+    import torch
+
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.data.prefetch import split_to_device
+    from dtc_tpu_torch.data.synthetic import synthetic_batch_iterator
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.ops import fused_ce
+    from dtc_tpu_torch.train.optimizer import create_optimizer
+    from dtc_tpu_torch.train.train_step import train_step
+
+    tcfg, mcfg, ocfg = load_config(ROOT / "configs" / "train_config_longctx.yaml",
+                                   ROOT / "configs" / "model_config_longctx.yaml")
+    mcfg = dataclasses.replace(mcfg, remat="none")
+    dev = torch.device("cuda")
+    model = GPT(mcfg, seed=tcfg.seed)
+    opt = create_optimizer(model.parameters(), ocfg, total_steps=2)
+    gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
+    batches = synthetic_batch_iterator(tcfg.batch, mcfg.max_seq_len + 1, mcfg.vocab_size,
+                                       seed=tcfg.seed * 1000)
+    default_rows = fused_ce.CE_CHUNK_ROWS
+    fused_ce.CE_CHUNK_ROWS = ce_rows or default_rows
+    try:
+        train_step(model, opt, *split_to_device(next(batches), dev), gen)
+        x, y = split_to_device(next(batches), dev)
+        torch.cuda.synchronize()
+        torch.cuda.memory._record_memory_history(stacks="python", max_entries=1 << 20,
+                                                 clear_history=True)
+        train_step(model, opt, x, y, gen)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+        torch.cuda.memory._record_memory_history(enabled=None)
+    finally:
+        fused_ce.CE_CHUNK_ROWS = default_rows
+    events = snap["device_traces"][torch.cuda.current_device()]
+
+    def replay(stop=None):
+        live, cur, peak, at = {}, 0, 0, 0
+        for i, ev in enumerate(events[:stop]):
+            if ev["action"] == "alloc":
+                live[ev["addr"]] = ev
+                cur += ev["size"]
+            elif ev["action"] == "free_requested" and ev["addr"] in live:
+                cur -= live.pop(ev["addr"])["size"]
+            if cur > peak:
+                peak, at = cur, i + 1
+        return live, peak, at
+
+    _, peak, at = replay()
+    live, _, _ = replay(at)
+    big: dict[str, list[int]] = {}
+    for ev in live.values():
+        if ev["size"] < min_bytes:
+            continue
+        frame = next((f for f in ev.get("frames", []) if "dtc_tpu_torch" in f["filename"]),
+                     None)
+        where = (f"{Path(frame['filename']).name}:{frame['line']} ({frame['name']})"
+                 if frame else "?")
+        big.setdefault(where, []).append(ev["size"])
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(ce_rows=ce_rows or default_rows, peak_above_step_start=peak, events=len(events),
+                live_at_peak={w: sorted(v, reverse=True) for w, v in big.items()},
+                live_big_bytes=sum(sum(v) for v in big.values()))
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the ring's block kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def block_bounds(b, tc, h, d, dtype, causal):
+    """Least time of the ring's block forward and backward on these inputs:
+    the bytes each must move (forward q, k, v in, out and lse out; backward
+    q, k, v, out, dO and lse in, float32 dq, dk, dv out) over HBM bandwidth,
+    against the products on the visible (query, key) pairs (all tc² without
+    the causal mask; 2 products in the forward, 5 in the backward, 2
+    operations per multiply-add) over the dtype's peak rate. Returns
+    {"fwd"|"bwd": (ms, bound_by, bytes)}."""
+    el = {"float32": 4, "bfloat16": 2}[dtype]
+    tensor = b * tc * h * d
+    stats = b * h * tc * 4
+    pairs = b * h * (tc * (tc + 1) // 2 if causal else tc * tc)
+    out = {}
+    for kind, nbytes, products in (("fwd", 4 * tensor * el + stats, 2),
+                                   ("bwd", 5 * tensor * el + stats + 3 * tensor * 4, 5)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * products * pairs * d / PEAK_OPS[dtype] * 1e3
+        out[kind] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes)
+    return out
+
+
+def _block_forward_unmasked_tail(q, k, v, h):
+    """The plain non-causal block forward over keys zero-padded to a
+    multiple of the kernels' 64-key tile, the padding left unmasked: what
+    the ``key < n`` mask of the last, partial tile keeps out."""
+    import torch
+
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    b, tc, hd = q.shape
+    pad = (-tc) % 64
+    kp, vp = (torch.cat([x, x.new_zeros(b, pad, hd)], dim=1) for x in (k, v))
+    d = hd // h
+    qs = q.view(b, tc, h, d) * fa._scale_q(d, q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), kp.view(b, tc + pad, h, d).float())
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vp.view(b, tc + pad, h, d).float())
+    return o.to(q.dtype).reshape(b, tc, hd)
+
+
+def bf16_share(x) -> float:
+    """Share of ``x``'s float32 values that bfloat16 cannot hold (near 1
+    for real float32 results; 0 for values rounded to bfloat16)."""
+    import torch
+
+    return float((x.to(torch.bfloat16).float() != x).float().mean())
+
+
+def block_case(name, b, tc, h, d, dtype, seed, iters, device: str = "cuda"):
+    """The ring's block kernels against their plain versions at one chunk
+    shape: forward causal and not, the backward (both) from a given lse
+    and out (the block's own, its lse raised by log 2 as if the ring had
+    merged as much mass again); errors over the limits, planted faults
+    over them, device times beside the bounds and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.parity import FP32_ATOL, attention_tolerance, grad_tolerance
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(b, tc, h * d, device=dev, generator=g).to(dt) for _ in range(4))
+
+    def ratio(got, want, limit):
+        diff = (got.float() - want.float()).abs()
+        return diff.max().item(), (diff / limit.to(dev)).max().item()
+
+    errs, faults, given = {}, {}, {}
+    for causal in (False, True):
+        tag = "causal" if causal else "full"
+        out, lse = fa.flash_block_forward(q, k, v, h, causal)
+        want_out, want_lse = fa.flash_block_reference(q, k, v, h, causal)
+        lse_g = want_lse + math.log(2.0)
+        grads = fa.flash_block_backward(q, k, v, want_out, lse_g, do, h, causal)
+        want_grads = fa.flash_block_backward_reference(q, k, v, want_out, lse_g, do, h, causal)
+        torch.cuda.synchronize()
+        limits = {"out": attention_tolerance(want_out, h),
+                  "lse": torch.full(want_lse.shape, FP32_ATOL)}
+        for n, w in zip(("dq", "dk", "dv"), want_grads):
+            limits[n] = grad_tolerance(w.to(dt), h)
+        pairs = {"out": (out, want_out), "lse": (lse, want_lse)}
+        pairs.update({n: (gg, w) for n, gg, w in zip(("dq", "dk", "dv"), grads, want_grads)})
+        for n, (got, want) in pairs.items():
+            check(bool(torch.isfinite(got.float()).all()), f"block {name} {tag}: non-finite {n}")
+            errs[f"{tag}_{n}"] = ratio(got, want, limits[n])
+            log(f"block {name} {tag}: {n} max_abs_err {errs[f'{tag}_{n}'][0]:.3e}, "
+                f"{errs[f'{tag}_{n}'][1]:.3f} of its limit")
+            check(errs[f"{tag}_{n}"][1] <= 1.0, f"block {name} {tag}: {n} over its limit")
+        shares = [bf16_share(gg) for gg in grads]
+        check(all(gg.dtype == torch.float32 for gg in grads) and min(shares) > 0.5,
+              f"block {name} {tag}: gradients not float32 ({[gg.dtype for gg in grads]}, "
+              f"share bf16 cannot hold {shares})")
+        # The planted faults, against the same limits.
+        rounded = [w.to(torch.bfloat16).float() for w in want_grads]
+        faults[f"{tag}: gradients rounded to bf16"] = max(
+            max(ratio(r, w, limits[n])[1] for r, w, n in zip(rounded, want_grads,
+                                                             ("dq", "dk", "dv"))),
+            2.0 * (min(bf16_share(r) for r in rounded) <= 0.5))
+        if not causal:
+            masked, _ = fa.flash_block_reference(q, k, v, h, True)
+            faults["full: the diagonal still masked"] = ratio(masked, want_out, limits["out"])[1]
+            if tc % 64:
+                tail = _block_forward_unmasked_tail(q, k, v, h)
+                faults["full: keys past tc unmasked"] = ratio(tail, want_out, limits["out"])[1]
+        given[causal] = (want_out, lse_g)
+        del out, lse, grads, want_grads, limits
+    for fname, r in faults.items():
+        log(f"block {name}: planted fault '{fname}': {r:.3f} of the limit")
+        check(r > 1.0, f"block {name}: the limit misses '{fname}'")
+    torch.cuda.empty_cache()
+
+    times = {}
+    for causal in (False, True):
+        tag = "causal" if causal else "full"
+        o_g, l_g = given[causal]
+        times[f"{tag}_fwd"] = graph_ms(lambda: fa.flash_block_forward(q, k, v, h, causal), iters)
+        times[f"{tag}_bwd"] = graph_ms(
+            lambda: fa.flash_block_backward(q, k, v, o_g, l_g, do, h, causal), iters)
+        times[f"{tag}_plain_fwd"] = graph_ms(
+            lambda: fa.flash_block_reference(q, k, v, h, causal), iters)
+        times[f"{tag}_plain_bwd"] = graph_ms(
+            lambda: fa.flash_block_backward_reference(q, k, v, o_g, l_g, do, h, causal), iters)
+        # Yardstick only, never called by the port: SDPA on the same inputs.
+        q4, k4, v4 = (x.view(b, tc, h, d).transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        do4 = do.view(b, tc, h, d).transpose(1, 2)
+        times[f"{tag}_library_fwd"] = graph_ms(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal), iters)
+        side = _capture_stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+        torch.cuda.current_stream().wait_stream(side)
+        times[f"{tag}_library_bwd"] = graph_ms(
+            lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True), iters)
+        bounds = block_bounds(b, tc, h, d, dtype, causal)
+        for kind in ("fwd", "bwd"):
+            times[f"{tag}_{kind}_bound"], times[f"{tag}_{kind}_bound_by"], _ = bounds[kind]
+            log(f"block {name} {tag} {kind}: kernel_ms {times[f'{tag}_{kind}']:.6f} plain_ms "
+                f"{times[f'{tag}_plain_{kind}']:.6f} library_ms "
+                f"{times[f'{tag}_library_{kind}']:.6f} bound_ms {bounds[kind][0]:.6f} "
+                f"({bounds[kind][1]}, {bounds[kind][2]} B)")
+        del o4, q4, k4, v4
+    torch.cuda.empty_cache()
+    return dict(case=name, b=b, tc=tc, h=h, d=d, dtype=dtype, errors=errs,
+                fault_over_limit=faults,
+                fwd_max_abs_err=max(v[0] for k_, v in errs.items()
+                                    if k_.endswith(("out", "lse"))),
+                bwd_max_abs_err=max(v[0] for k_, v in errs.items()
+                                    if k_.endswith(("dq", "dk", "dv"))),
+                **times)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the zigzag ring on one card
+# ---------------------------------------------------------------------------
+
+def ring_on_one_card(ring, b, t, h, d, dtype, seed, reps: int = 3, device: str = "cuda"):
+    """The zigzag ring's per-rank schedules over ``ring`` virtual ranks of
+    one card (the in-process transport) at (B, T, H, D): forward and the
+    gradients against the same schedules on the block kernels' plain
+    versions and against the single-card flash kernels on the whole
+    sequence; block launches per call; ring ms beside flash ms (fwd + bwd,
+    mean of ``reps``; one card emulating the ranks, not a multi-card
+    time)."""
+    import torch
+
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.ops import ring_attention as ra
+    from dtc_tpu_torch.parity import attention_tolerance, grad_tolerance
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(b, t, h, d, device=dev, generator=g).to(dt) for _ in range(4))
+    vring = ra.InProcessRing(ring)
+
+    def run(fn):
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*xs)
+        grads = torch.autograd.grad(out, xs, do)
+        return out.detach(), grads
+
+    fa.block_fwd_launches = fa.block_bwd_launches = 0      # the path starts here
+    got = run(lambda *xs: ra.ring_causal_attention(*xs, vring))
+    launches = (fa.block_fwd_launches, fa.block_bwd_launches)  # ...and ends here
+    want_calls = ring * (2 * ring + 1)
+    check(launches == (want_calls, want_calls * fa.BWD_KERNELS),
+          f"ring {ring} {dtype}: block launches {launches} for one call over {ring} ranks "
+          f"(want {2 * ring + 1} forward and {2 * ring + 1} backward calls a rank)")
+    real = fa.flash_block_forward, fa.flash_block_backward
+    fa.flash_block_forward = lambda *a: fa.flash_block_reference(*a)
+    fa.flash_block_backward = lambda *a: fa.flash_block_backward_reference(*a)
+    try:
+        plain = run(lambda *xs: ra.ring_causal_attention(*xs, vring))
+    finally:
+        fa.flash_block_forward, fa.flash_block_backward = real
+    flash = run(fa.flash_causal_attention)
+    torch.cuda.synchronize()
+    hd = h * d
+    pk = lambda x: x.reshape(b, t, hd)
+    res = dict(ring=ring, b=b, t=t, h=h, d=d, dtype=dtype, block_fwd_launches=launches[0],
+               block_bwd_launches=launches[1])
+    for ref_name, ref in (("plain", plain), ("flash", flash)):
+        pairs = [("out", got[0], ref[0], attention_tolerance(pk(ref[0]), h))]
+        pairs += [(n, gg, w, grad_tolerance(pk(w), h))
+                  for n, gg, w in zip(("dq", "dk", "dv"), got[1], ref[1])]
+        for n, a, w, lim in pairs:
+            diff = (pk(a).float() - pk(w).float()).abs()
+            r = (diff / lim.to(dev)).max().item()
+            res[f"{ref_name}_{n}"] = (diff.max().item(), r)
+            log(f"ring {ring} {dtype} vs {ref_name}: {n} max_abs_err {diff.max().item():.3e}, "
+                f"{r:.3f} of its limit")
+            check(r <= 1.0, f"ring {ring} {dtype}: {n} against {ref_name} over its limit")
+    del plain, flash
+    torch.cuda.empty_cache()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            run(fn)
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / reps
+
+    run(lambda *xs: ra.ring_causal_attention(*xs, vring))   # warm
+    res["ring_ms"] = timed(lambda *xs: ra.ring_causal_attention(*xs, vring))
+    res["flash_ms"] = timed(fa.flash_causal_attention)
+    log(f"ring {ring} {dtype} (B {b}, T {t}, {h} heads of {d}): block launches {launches} "
+        f"(= {ring} ranks x {2 * ring + 1} calls); forward + backward {res['ring_ms']:.3f} ms "
+        f"over {ring} virtual ranks on one card (not a multi-card time) against the "
+        f"single-card flash kernels' {res['flash_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    return res
+
+
+def ring_training_step(ring: int, seed: int, device: str = "cuda", t: int = 8192):
+    """One training step of the long-context flagship at T ``t``, B 2
+    (float32 compute, ``remat: none``, dropout 0) with ``attention: ring``
+    over ``ring`` virtual ranks of one card, against the same step with
+    the flash kernels from the same weights and batch: the losses within
+    1e-4 (phase 8's limit for two attention paths) and the block launches
+    of 12 layers."""
+    import dataclasses
+
+    import torch
+
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.data.prefetch import split_to_device
+    from dtc_tpu_torch.data.synthetic import synthetic_batch_iterator
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.ops import ring_attention as ra
+    from dtc_tpu_torch.train.optimizer import create_optimizer
+    from dtc_tpu_torch.train.train_step import train_step
+
+    tcfg, mcfg, ocfg = load_config(ROOT / "configs" / "train_config_longctx.yaml",
+                                   ROOT / "configs" / "model_config_longctx.yaml")
+    mcfg = dataclasses.replace(mcfg, max_seq_len=t, remat="none", dropout=0.0,
+                               compute_dtype="float32")
+    dev = torch.device(device)
+    x, y = split_to_device(next(synthetic_batch_iterator(2, t + 1, mcfg.vocab_size,
+                                                         seed=seed)), dev)
+    out = {}
+    for impl in ("ring", "flash"):
+        model = GPT(dataclasses.replace(mcfg, attention=impl), device=dev, seed=seed)
+        opt = create_optimizer(model.parameters(), ocfg, total_steps=1)
+        fa.block_fwd_launches = fa.block_bwd_launches = 0      # the path starts here
+        with ra.use_ring(ra.InProcessRing(ring)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(train_step(model, opt, x, y, None))
+            step_s = time.perf_counter() - t0
+        out[impl] = (loss, (fa.block_fwd_launches, fa.block_bwd_launches), step_s)  # ...end
+        del model, opt
+        torch.cuda.empty_cache()
+    calls = mcfg.n_layers * ring * (2 * ring + 1)
+    check(out["ring"][1] == (calls, calls * fa.BWD_KERNELS) and out["flash"][1] == (0, 0),
+          f"ring training: block launches {out['ring'][1]} (want {calls} forward calls of "
+          f"{mcfg.n_layers} layers x {ring} ranks x {2 * ring + 1})")
+    gap = abs(out["ring"][0] - out["flash"][0])
+    log(f"ring training (T {t}, B 2, {mcfg.n_layers} layers, ring {ring} on one card): loss "
+        f"{out['ring'][0]:.6f} vs flash {out['flash'][0]:.6f} (gap {gap:.3e}, limit 1e-4); "
+        f"block launches {out['ring'][1]}; step {out['ring'][2] * 1e3:.1f} ms (flash "
+        f"{out['flash'][2] * 1e3:.1f} ms; first step of each, one card)")
+    check(gap <= 1e-4, f"ring training loss {out['ring'][0]} vs flash {out['flash'][0]}")
+    return dict(ring=ring, loss_ring=out["ring"][0], loss_flash=out["flash"][0], gap=gap,
+                block_launches=out["ring"][1], step_ms_ring=out["ring"][2] * 1e3,
+                step_ms_flash=out["flash"][2] * 1e3)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the trainer over NCCL at world size 1
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def train_nccl_world1(steps: int, out_dir: str, device: str | None = None):
+    """``torchrun --nproc_per_node 1 -m dtc_tpu_torch.main
+    --train_config_path configs/train_config_dp.yaml --dataset synthetic
+    --no-obs --steps STEPS --output_dir OUT_DIR``, the rendezvous in this
+    process (torchrun's environment set here), then the same command
+    without it: the losses equal bit for bit. Returns (losses over NCCL,
+    single-process losses, the backend, gradient averages, flash launches
+    of the NCCL run, log.csv rows)."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from dtc_tpu_torch import main as cli
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.train import train_step as ts_mod
+    from dtc_tpu_torch.utils import dist as dist_utils
+
+    argv = ["--train_config_path", str(ROOT / "configs" / "train_config_dp.yaml"),
+            "--dataset", "synthetic", "--no-obs", "--steps", str(steps)]
+    if device:
+        argv += ["--device", device]
+    env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()))
+    seen = {"backend": None, "averages": 0}
+    real_init, real_avg = dist_utils.initialize, ts_mod.average_over_ranks
+
+    def init(*a, **k):
+        dev = real_init(*a, **k)
+        seen["backend"] = dist.get_backend()
+        return dev
+
+    def avg(*a, **k):
+        seen["averages"] += 1
+        return real_avg(*a, **k)
+
+    for d in (out_dir, out_dir + "_alone"):  # an earlier run's log.csv is refused
+        shutil.rmtree(d, ignore_errors=True)
+    os.environ.update(env)
+    dist_utils.initialize, ts_mod.average_over_ranks = init, avg
+    try:
+        fa.fwd_launches = fa.bwd_launches = 0        # the main path starts here
+        res = cli.main(argv + ["--output_dir", out_dir])
+        launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+    finally:
+        dist_utils.initialize, ts_mod.average_over_ranks = real_init, real_avg
+        for key in env:
+            del os.environ[key]
+    check(not dist.is_initialized(), "phase 17: the trainer left its process group open")
+    rows = (Path(out_dir) / "log.csv").read_text().splitlines()
+    alone = cli.main(argv + ["--output_dir", out_dir + "_alone"])
+    return res, alone, seen, launches, rows
 
 
 # ---------------------------------------------------------------------------
@@ -1168,6 +1725,7 @@ def serve_adapters(scfg, mcfg_ad, seed: int, max_new: int, tokens_fl, fl_rec, sm
             decode_attention_launches=launched["decode_attention"], wall_s=wall,
             ttft_p50_s=percentile(ttft, 0.5), ms_per_token_mean=sum(mspt) / len(mspt),
             tokens_per_s=n_tok / wall, counters=dict(eng.counters), card=smi,
+            watchdog_flags=watchdog_report(eng, f"serve adapters {backend}"),
         )
         log(f"serve adapters {backend}: 6/6 done ({', '.join(str(a) for a in ADAPTER_SPREAD)}), "
             f"{n_tok} tokens, {steps} decode iterations, launches {launched}; ms/token "
@@ -1221,7 +1779,8 @@ def main() -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true",
                    help="also profile steady bf16 decode iterations and flagship "
-                        "training steps (device busy share)")
+                        "training steps (device busy share), the latter alone and "
+                        "over NCCL at world size 1 as well")
     args = p.parse_args()
 
     try:
@@ -1238,6 +1797,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     record: dict = {}
+    wall0 = time.perf_counter()
     try:
         # 1. device
         smi = nvidia_smi_line()
@@ -1542,6 +2102,7 @@ def main() -> int:
             decode_attention_launches=launched["decode_attention"], wall_s=wall,
             ttft_p50_s=percentile(ttft, 0.5), ms_per_token_mean=sum(mspt) / len(mspt),
             tokens_per_s=n_tok / wall, counters=dict(eng.counters), card=smi,
+            watchdog_flags=watchdog_report(eng, "serve fused_layers"),
         )
         log(f"serve fused_layers: 6/6 done, {n_tok} tokens, {steps_fl} decode iterations, "
             f"{launched['fused_layers']} megakernel launches, {launched['decode_attention']} "
@@ -1716,6 +2277,105 @@ def main() -> int:
                            for m, v in modes.items()}
         log(f"remat: losses of the four modes equal bit for bit; peak memory {peaks} [{smi}]")
         torch.cuda.empty_cache()
+        # 14b. the head + CE's float32 (B·T, V) temporaries: each mode's peak
+        # with the CE on all 16,384 rows at once (as before it was chunked)
+        # beside its peak now, and an allocation trace of one step each way
+        from dtc_tpu_torch.ops import fused_ce
+
+        whole = rmcfg.max_seq_len * rtcfg.batch
+        old_modes, _, _ = remat_modes(ce_rows=whole)
+        old_peaks = {m: v[2] for m, v in old_modes.items()}
+        for mode in peaks:
+            log(f"remat {mode}: peak allocated {peaks[mode]} B with the head + CE chunked "
+                f"({fused_ce.CE_CHUNK_ROWS} rows), {old_peaks[mode]} B unchunked; drop "
+                f"{old_peaks[mode] - peaks[mode]} B; step_ms mean {modes[mode][4] * 1e3:.6f} "
+                f"chunked, {old_modes[mode][4] * 1e3:.6f} unchunked [{smi}]")
+            record["remat"][mode]["peak_allocated_ce_unchunked"] = old_peaks[mode]
+            record["remat"][mode]["step_ms_mean_ce_unchunked"] = old_modes[mode][4] * 1e3
+            check(peaks[mode] < old_peaks[mode],
+                  f"remat {mode}: the chunked head + CE did not lower the peak "
+                  f"({peaks[mode]} B against {old_peaks[mode]} B)")
+        record["memory_trace"] = {}
+        for tag, rows_ in (("unchunked", whole), ("chunked", None)):
+            tr = memory_trace(ce_rows=rows_)
+            record["memory_trace"][tag] = tr
+            log(f"memory trace, remat none, head + CE {tag} ({tr['ce_rows']} rows): the step's "
+                f"peak {tr['peak_above_step_start']} B above its start ({tr['events']} events); "
+                f"blocks >= 256 MiB live at the peak: {tr['live_big_bytes']} B [{smi}]")
+            for where, sizes in sorted(tr["live_at_peak"].items(), key=lambda kv: -sum(kv[1])):
+                log(f"  {len(sizes)} x {sizes[0]} B (sum {sum(sizes)} B) from {where}")
+        torch.cuda.empty_cache()
+
+        # 15. the ring's block kernels against their plain versions
+        block_specs = [
+            ("bf16_tc1024", 2, 1024, 16, 32, "bfloat16"),   # T 8192 over a ring of 4
+            ("fp32_tc1024", 2, 1024, 16, 32, "float32"),
+            ("bf16_tc512", 4, 512, 16, 32, "bfloat16"),     # T 4096 over a ring of 4
+            ("bf16_tc8", 2, 8, 16, 32, "bfloat16"),         # ragged chunks
+            ("bf16_tc40", 2, 40, 16, 32, "bfloat16"),
+            ("bf16_tc1000", 2, 1000, 16, 32, "bfloat16"),
+            ("fp32_tc1000", 2, 1000, 16, 32, "float32"),
+            ("bf16_d16", 2, 512, 32, 16, "bfloat16"),       # other head dims
+            ("bf16_d64", 2, 512, 8, 64, "bfloat16"),
+            ("bf16_d128", 2, 512, 4, 128, "bfloat16"),
+            ("fp32_d128", 2, 512, 4, 128, "float32"),
+        ]
+        blocks = [block_case(name, b, tc, h, d, dt, seed=args.seed + 150 + i, iters=20)
+                  for i, (name, b, tc, h, d, dt) in enumerate(block_specs)]
+        record["block_cases"] = blocks
+
+        # 16. the zigzag ring on one card: R virtual ranks at (B 2, T 8192,
+        # H 16, D 32), then one training step of the model on the ring
+        ring_recs = [ring_on_one_card(r, 2, 8192, 16, 32, dt, seed=args.seed + 160 + i)
+                     for i, (r, dt) in enumerate(((4, "bfloat16"), (2, "bfloat16"),
+                                                  (4, "float32"), (2, "float32")))]
+        record["ring_one_card"] = ring_recs
+        record["ring_training"] = ring_training_step(4, args.seed)
+
+        # 17. the trainer over NCCL at world size 1: bit-equal to one process
+        from dtc_tpu_torch.config.loader import load_config
+
+        steps17 = 20
+        res17, alone17, seen17, launches17, rows17 = train_nccl_world1(
+            steps17, str(ROOT / "build" / "chip_smoke_nccl"))
+        n17 = steps17 + load_config(ROOT / "configs" / "train_config_dp.yaml")[0].warmup_steps
+        check(seen17["backend"] == "nccl" and seen17["averages"] == n17,
+              f"phase 17: backend {seen17['backend']}, {seen17['averages']} gradient averages "
+              f"for {n17} steps")
+        check(res17.losses == alone17.losses and len(res17.losses) == steps17,
+              f"phase 17: NCCL losses {res17.losses} != one process's {alone17.losses}")
+        check(rows17[0] == "step,elapsed_time,loss" and len(rows17) == steps17 + 1,
+              f"phase 17: log.csv {rows17}")
+        check(launches17 == (12 * n17, 12 * n17 * fa.BWD_KERNELS),
+              f"phase 17: flash launches {launches17} for {n17} steps")
+        def median_step_ms(res):
+            el = res.elapsed_times
+            return sorted(b - a for a, b in zip([0.0] + el[:-1], el))[len(el) // 2] * 1e3
+
+        record["nccl_world1"] = dict(losses=res17.losses, losses_alone=alone17.losses,
+                                     backend=seen17["backend"], averages=seen17["averages"],
+                                     flash_launches=launches17, card=smi,
+                                     step_ms_median=median_step_ms(res17),
+                                     step_ms_median_alone=median_step_ms(alone17))
+        log(f"trainer over NCCL at world size 1 (torchrun's environment, the flagship, "
+            f"{steps17} steps after 5 warmup): losses {res17.losses} equal the single-process "
+            f"run's bit for bit; {seen17['averages']} gradient all-reduces; flash launches "
+            f"{launches17}; log.csv {len(rows17) - 1} rows; step_ms median "
+            f"{record['nccl_world1']['step_ms_median']:.6f} (one process: "
+            f"{record['nccl_world1']['step_ms_median_alone']:.6f}). This proves the process "
+            f"group, the reduction and rank-0 logging on one card, not several cards [{smi}]")
+        if args.profile:
+            tcfg17, mcfg17, ocfg17 = load_config(ROOT / "configs" / "train_config_dp.yaml")
+            prof17 = profile_nccl_world1(mcfg17, tcfg17, ocfg17)
+            record["profile_nccl_world1"] = prof17
+            for mode, pr in prof17.items():
+                log(f"profile phase 17 {mode}: {pr['steps']} steps, wall "
+                    f"{pr['wall_s'] / pr['steps'] * 1e3:.6f} ms a step, device busy "
+                    f"{pr['device_busy_s'] / pr['steps'] * 1e3:.6f} ms a step (share "
+                    f"{pr['busy_share']:.4f}), {pr['kernel_launches']} kernels [{smi}]")
+                for row in pr["top"][:8] + pr["host"]:
+                    log(f"  {row}")
+            torch.cuda.empty_cache()
 
         main = results[0]
         kernels = [dict(
@@ -1790,6 +2450,24 @@ def main() -> int:
             fwd_ms=d48["fwd_ms"], bwd_ms=d48["bwd_ms"],
             fwd_launches=d48_launches[0], bwd_launches=d48_launches[1],
         ))
+        main_block = blocks[0]
+        # The model's own run on the ring (phase 16's training step) counts
+        # the launches; the op-level calls' counts gate each call above.
+        ring_launches = record["ring_training"]["block_launches"]
+        for part, launched, row in (("fwd", ring_launches[0], 1096),
+                                    ("bwd", ring_launches[1], 1118)):
+            kernels.append(dict(
+                name=f"flash_block_{part}", route="cuda",
+                source="dtc_tpu_torch/csrc/flash_attention.cu",
+                replaces=f"dtc_tpu/ops/flash_attention.py:{row}",
+                launches=launched,
+                max_abs_err=max(c[f"{part}_max_abs_err"] for c in blocks),
+                ms=main_block[f"full_{part}"], plain_ms=main_block[f"full_plain_{part}"],
+                bound_ms=main_block[f"full_{part}_bound"],
+                bound_by=main_block[f"full_{part}_bound_by"],
+                library_ms=main_block[f"full_library_{part}"],
+                causal_ms=main_block[f"causal_{part}"],
+            ))
         record["kernels"] = kernels
     except Exception:
         traceback.print_exc()
@@ -1802,6 +2480,7 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1, default=str))
+    log(f"chip smoke: {time.perf_counter() - wall0:.1f} s wall in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -93,7 +93,7 @@ class ModelConfig:
     # Single-token decode attention: "fused" = the hand-written decode
     # kernel (ops/decode_attention.py), "xla" = the plain masked softmax
     # (ops/attention.py), "fused_layers" = the layer-fused decode
-    # megakernel, which the port does not have yet.
+    # megakernel (ops/decode_fused.py, one launch for all layers).
     decode_attention: str = "fused"
     # KV-cache storage dtype: auto (= compute_dtype) | float32 | bfloat16
     # (aliases fp32/bf16) | int8 (per-(position, head) scales).

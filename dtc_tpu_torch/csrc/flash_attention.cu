@@ -1,4 +1,5 @@
-// Causal flash attention, forward and backward, for Hopper (sm_90a).
+// Flash attention, forward and backward, for Hopper (sm_90a): causal over a
+// whole sequence, or over one chunk pair of the zigzag ring, causal or not.
 //
 // Replaces the JAX package's TPU kernels in dtc_tpu/ops/flash_attention.py:
 // _fwd_kernel_packed (forward, whole KV in one tile) and _bwd_kernel_packed
@@ -11,14 +12,22 @@
 // _dkv_kernel) computes the same function on (B, H, T, D) tensors for head
 // dims and head counts the TPU's 128-lane groups do not fit; these kernels
 // take the packed layout at any H and every head dim that is a multiple of 16
-// up to 128, so they replace that family too.
+// up to 128, so they replace that family too. With causal = 0 and float32
+// gradients the same kernels are the zigzag ring's block kernels,
+// _block_fwd_kernel and _block_bwd_kernel (rows 15-16 of PERF.md's table):
+// attention over one (tc x tc) chunk pair, the diagonal pair causal and every
+// other pair not; the backward takes the ring's merged lse and out (delta =
+// rowsum(dO * O) from them, in the dq kernel) and writes float32 dq, dk, dv
+// whatever the inputs' dtype.
 //
-// Layout: q, k, v, out, dout, dq, dk, dv are packed (B, T, H*D) in one dtype
-// (float32 or bfloat16); lse and delta are (B, H, T) float32.
+// Layout: q, k, v, out, dout are packed (B, T, H*D) in one dtype (float32 or
+// bfloat16); dq, dk, dv are packed in that dtype or float32; lse and delta
+// are (B, H, T) float32.
 //
 // What it computes, per (batch row, head), with the TPU kernels' rounding
 // points: q is scaled by D^-0.5 in q's dtype (the scale itself rounded to that
-// dtype); scores are float32; the causal mask keeps key <= query; the forward
+// dtype); scores are float32; keys past T never count, and with causal = 1
+// the mask keeps key <= query; the forward
 // is a one-pass softmax per row, p cast to v's dtype before the float32 P*V
 // sum, out = acc / l in q's dtype, lse = m + log(l). The backward recomputes
 // p = exp(s - lse), delta = rowsum(dO * O) in float32, dp = dO V^T,
@@ -28,13 +37,15 @@
 // Design. One block of 128 threads per (64-row tile, head, batch row); blocks
 // never share an output element, so there are no atomics and two runs give
 // the same bits. The forward takes two passes over the KV tiles up to the
-// diagonal (tiles above it are skipped): the first finds each row's max and
+// diagonal (tiles above it are skipped; without the causal mask, over every
+// tile, the last one's keys past T masked): the first finds each row's max and
 // sum, the second forms p against the row's final max, exactly as the
 // single-tile TPU kernel does, so p rounds to v's dtype at the same values as
 // the plain version and no running rescale is needed. The backward is the
 // FA2 split: a dq kernel (one block per q tile, walking KV tiles up to the
 // diagonal) that also writes delta for its rows, then a dk/dv kernel (one
-// block per KV tile, walking q tiles from the diagonal on) that reads it.
+// block per KV tile, walking q tiles from the diagonal on, or all of them) that
+// reads it.
 // Tiles are staged in shared memory as float32 with one column of padding;
 // each thread owns a 4 x 8 piece of the 64 x 64 score tile (rows tr + 16 i,
 // columns tc + 8 j) and the matching 4 x D/8 piece of the output tile, and
@@ -55,7 +66,9 @@
 // forward recomputes q K^T in its second pass, so it is bound by float32 FMA
 // issue and shared-memory loads, far above those bounds (PERF.md has its
 // times). Tensor-core products (mma/wgmma), TMA staging and a one-pass online
-// softmax are later work.
+// softmax are later work. A ring block (no causal mask, B 2, tc 1024, H 16,
+// D 32, bfloat16) does twice the products of a causal call at that T, on the
+// same design.
 //
 // Plain C interface (ctypes): each entry point launches on the given stream,
 // never synchronises, allocates nothing, and returns cudaGetLastError().
@@ -126,6 +139,13 @@ __device__ __forceinline__ void load_tile(float* s, const T* g, int HD, int row0
   }
 }
 
+// Does query row `row` see key `key`? With `causal`, the keys <= row (for a
+// row < n these are all < n; rows past n are never written); without it,
+// every key short of the zero-filled rest of the last tile (key < n).
+__device__ __forceinline__ bool visible(int key, int row, int n, int causal) {
+  return causal ? key <= row : key < n;
+}
+
 // Sum over the 8 threads that share a score row (consecutive lanes).
 __device__ __forceinline__ float row_sum8(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
@@ -148,7 +168,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
-                 int n, int H, float scale_q) {
+                 int n, int H, float scale_q, int causal) {
   constexpr int DS = D + 1;
   constexpr int NJ = D / 8;
   extern __shared__ float smem[];
@@ -158,6 +178,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sP = sV + kBK * DS;
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // the longest rows start first
+  const int kt_last = causal ? qt : gridDim.x - 1;
   const int h = blockIdx.y, b = blockIdx.z;
   const int HD = H * D;
   const size_t base = static_cast<size_t>(b) * n * HD + static_cast<size_t>(h) * D;
@@ -170,7 +191,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
-  for (int kt = 0; kt <= qt; ++kt) {
+  for (int kt = 0; kt <= kt_last; ++kt) {
     __syncthreads();
     load_tile<T, D, kBK, false>(sK, k + base, HD, kt * kBK, n, 0.f);
     __syncthreads();
@@ -182,13 +203,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float tmax = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        if (kt * kBK + tc + 8 * j <= row) tmax = fmaxf(tmax, s[i][j]);
+        if (visible(kt * kBK + tc + 8 * j, row, n, causal)) tmax = fmaxf(tmax, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max8(tmax));
       float part = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        if (kt * kBK + tc + 8 * j <= row) part += expf(s[i][j] - m_new);
+        if (visible(kt * kBK + tc + 8 * j, row, n, causal)) part += expf(s[i][j] - m_new);
       }
       l[i] = l[i] * expf(m[i] - m_new) + row_sum8(part);
       m[i] = m_new;
@@ -197,7 +218,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // Pass 2: p against the row's final max, rounded to v's dtype, times V.
   float o[4][NJ] = {};
-  for (int kt = 0; kt <= qt; ++kt) {
+  for (int kt = 0; kt <= kt_last; ++kt) {
     __syncthreads();
     load_tile<T, D, kBK, false>(sK, k + base, HD, kt * kBK, n, 0.f);
     load_tile<T, D, kBK, false>(sV, v + base, HD, kt * kBK, n, 0.f);
@@ -210,7 +231,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = tc + 8 * j;
-        const float p = (kt * kBK + c <= q0 + r) ? expf(s[i][j] - m[i]) : 0.f;
+        const float p = visible(kt * kBK + c, q0 + r, n, causal) ? expf(s[i][j] - m[i]) : 0.f;
         sP[r * kPS + c] = round_t<T>(p);
       }
     }
@@ -234,13 +255,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // backward: dq (+ delta), then dk/dv
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+// TG: the gradients' type, T or (for the ring's blocks) float32.
+template <typename T, typename TG, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ out,
                     const T* __restrict__ dout, const float* __restrict__ lse,
-                    float* __restrict__ delta, T* __restrict__ dq, int n, int H,
-                    float scale_q, float scale) {
+                    float* __restrict__ delta, TG* __restrict__ dq, int n, int H,
+                    float scale_q, float scale, int causal) {
   constexpr int DS = D + 1;
   constexpr int NJ = D / 8;
   extern __shared__ float smem[];
@@ -280,7 +302,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   float acc[4][NJ] = {};
-  for (int kt = 0; kt <= qt; ++kt) {
+  const int kt_last = causal ? qt : gridDim.x - 1;
+  for (int kt = 0; kt <= kt_last; ++kt) {
     __syncthreads();
     load_tile<T, D, kBK, false>(sK, k + base, HD, kt * kBK, n, 0.f);
     load_tile<T, D, kBK, false>(sV, v + base, HD, kt * kBK, n, 0.f);
@@ -294,7 +317,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = tc + 8 * j;
-        const bool valid = row < n && kt * kBK + c <= row;
+        const bool valid = row < n && visible(kt * kBK + c, row, n, causal);
         const float p = valid ? expf(s[i][j] - ls[i]) : 0.f;
         sS[r * kPS + c] = round_t<T>(p * (dp[i][j] - dl[i]));  // ds in k's dtype
       }
@@ -307,18 +330,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + tr + 16 * i;
     if (row >= n) continue;
-    T* drow = dq + base + static_cast<size_t>(row) * HD;
+    TG* drow = dq + base + static_cast<size_t>(row) * HD;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) drow[tc + 8 * j] = from_f<T>(acc[i][j] * scale);
+    for (int j = 0; j < NJ; ++j) drow[tc + 8 * j] = from_f<TG>(acc[i][j] * scale);
   }
 }
 
-template <typename T, int D>
+template <typename T, typename TG, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int n, int H, float scale_q) {
+                     TG* __restrict__ dk, TG* __restrict__ dv, int n, int H, float scale_q,
+                     int causal) {
   constexpr int DS = D + 1;
   constexpr int NJ = D / 8;
   extern __shared__ float smem[];
@@ -342,7 +366,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, D, kBK, false>(sV, v + base, HD, k0, n, 0.f);
 
   float dk_acc[4][NJ] = {}, dv_acc[4][NJ] = {};
-  for (int qt = kt; qt < nq; ++qt) {
+  for (int qt = causal ? kt : 0; qt < nq; ++qt) {
     const int q0 = qt * kBQ;
     __syncthreads();
     load_tile<T, D, kBQ, true>(sQ, q + base, HD, q0, n, scale_q);
@@ -359,7 +383,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = tc + 8 * j;
-        const bool valid = row < n && k0 + c <= row;
+        const bool valid = row < n && visible(k0 + c, row, n, causal);
         const float p = valid ? expf(s[i][j] - ls) : 0.f;
         sP[r * kPS + c] = round_t<T>(p);                      // p in dO's dtype
         sS[r * kPS + c] = round_t<T>(p * (dp[i][j] - dl));    // ds in q's dtype
@@ -375,12 +399,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + tr + 16 * i;
     if (key >= n) continue;
-    T* krow = dk + base + static_cast<size_t>(key) * HD;
-    T* vrow = dv + base + static_cast<size_t>(key) * HD;
+    TG* krow = dk + base + static_cast<size_t>(key) * HD;
+    TG* vrow = dv + base + static_cast<size_t>(key) * HD;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      krow[tc + 8 * j] = from_f<T>(dk_acc[i][j]);
-      vrow[tc + 8 * j] = from_f<T>(dv_acc[i][j]);
+      krow[tc + 8 * j] = from_f<TG>(dk_acc[i][j]);
+      vrow[tc + 8 * j] = from_f<TG>(dv_acc[i][j]);
     }
   }
 }
@@ -419,44 +443,44 @@ cudaError_t allow_smem(K* kern, size_t bytes, unsigned long long& done) {
 
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                int n, int H, float scale_q, cudaStream_t st) {
+                int n, int H, float scale_q, int causal, cudaStream_t st) {
   auto kern = flash_fwd_kernel<T, D>;
   static unsigned long long done = 0;  // one bit per device
   cudaError_t e = allow_smem(kern, fwd_smem<D>(), done);
   if (e != cudaSuccess) return e;
   kern<<<grid(B, n, H), kThreads, fwd_smem<D>(), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, n, H, scale_q);
+      static_cast<T*>(out), lse, n, H, scale_q, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename TG, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* out,
                    const void* dout, const float* lse, float* delta, void* dq, int B, int n,
-                   int H, float scale_q, float scale, cudaStream_t st) {
-  auto kern = flash_bwd_dq_kernel<T, D>;
+                   int H, float scale_q, float scale, int causal, cudaStream_t st) {
+  auto kern = flash_bwd_dq_kernel<T, TG, D>;
   static unsigned long long done = 0;  // one bit per device
   cudaError_t e = allow_smem(kern, dq_smem<D>(), done);
   if (e != cudaSuccess) return e;
   kern<<<grid(B, n, H), kThreads, dq_smem<D>(), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(out), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), n, H, scale_q, scale);
+      static_cast<TG*>(dq), n, H, scale_q, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename TG, int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const float* lse, const float* delta, void* dk, void* dv, int B, int n,
-                    int H, float scale_q, cudaStream_t st) {
-  auto kern = flash_bwd_dkv_kernel<T, D>;
+                    int H, float scale_q, int causal, cudaStream_t st) {
+  auto kern = flash_bwd_dkv_kernel<T, TG, D>;
   static unsigned long long done = 0;  // one bit per device
   cudaError_t e = allow_smem(kern, dkv_smem<D>(), done);
   if (e != cudaSuccess) return e;
   kern<<<grid(B, n, H), kThreads, dkv_smem<D>(), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      n, H, scale_q);
+      static_cast<const T*>(dout), lse, delta, static_cast<TG*>(dk), static_cast<TG*>(dv),
+      n, H, scale_q, causal);
   return cudaGetLastError();
 }
 
@@ -474,54 +498,80 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
     DTC_CASES(1, __nv_bfloat16, CALL)               \
     default: return cudaErrorInvalidValue;          \
   }
+// The backward's (input, gradient) dtype pairs, code dtype * 2 + gdtype:
+// float32 / float32 (0), bfloat16 / float32 (2, the ring's blocks) and
+// bfloat16 / bfloat16 (3).
+#define DTC_GCASE(CODE, ELEM, GELEM, DIM, CALL)                     \
+  case (CODE) * 1000 + (DIM): {                                    \
+    using T = ELEM; using TG = GELEM; constexpr int kD = DIM; return CALL; }
+#define DTC_GCASES(CODE, ELEM, GELEM, CALL)                                          \
+  DTC_GCASE(CODE, ELEM, GELEM, 16, CALL) DTC_GCASE(CODE, ELEM, GELEM, 32, CALL)      \
+  DTC_GCASE(CODE, ELEM, GELEM, 48, CALL) DTC_GCASE(CODE, ELEM, GELEM, 64, CALL)      \
+  DTC_GCASE(CODE, ELEM, GELEM, 80, CALL) DTC_GCASE(CODE, ELEM, GELEM, 96, CALL)      \
+  DTC_GCASE(CODE, ELEM, GELEM, 112, CALL) DTC_GCASE(CODE, ELEM, GELEM, 128, CALL)
+#define DTC_GDISPATCH(DTYPE, GDTYPE, D, CALL)                \
+  switch (((DTYPE) * 2 + (GDTYPE)) * 1000 + (D)) {           \
+    DTC_GCASES(0, float, float, CALL)                        \
+    DTC_GCASES(2, __nv_bfloat16, float, CALL)                \
+    DTC_GCASES(3, __nv_bfloat16, __nv_bfloat16, CALL)        \
+    default: return cudaErrorInvalidValue;                   \
+  }
 
 cudaError_t fwd_any(const void* q, const void* k, const void* v, void* out, float* lse,
-                    int B, int n, int H, int D, float scale_q, int dtype, cudaStream_t st) {
-  DTC_DISPATCH(dtype, D, (fwd<T, kD>(q, k, v, out, lse, B, n, H, scale_q, st)))
+                    int B, int n, int H, int D, float scale_q, int dtype, int causal,
+                    cudaStream_t st) {
+  DTC_DISPATCH(dtype, D, (fwd<T, kD>(q, k, v, out, lse, B, n, H, scale_q, causal, st)))
 }
 
 cudaError_t dq_any(const void* q, const void* k, const void* v, const void* out,
                    const void* dout, const float* lse, float* delta, void* dq, int B, int n,
-                   int H, int D, float scale_q, float scale, int dtype, cudaStream_t st) {
-  DTC_DISPATCH(dtype, D, (bwd_dq<T, kD>(q, k, v, out, dout, lse, delta, dq, B, n, H,
-                                        scale_q, scale, st)))
+                   int H, int D, float scale_q, float scale, int dtype, int gdtype, int causal,
+                   cudaStream_t st) {
+  DTC_GDISPATCH(dtype, gdtype, D, (bwd_dq<T, TG, kD>(q, k, v, out, dout, lse, delta, dq, B,
+                                                     n, H, scale_q, scale, causal, st)))
 }
 
 cudaError_t dkv_any(const void* q, const void* k, const void* v, const void* dout,
                     const float* lse, const float* delta, void* dk, void* dv, int B, int n,
-                    int H, int D, float scale_q, int dtype, cudaStream_t st) {
-  DTC_DISPATCH(dtype, D, (bwd_dkv<T, kD>(q, k, v, dout, lse, delta, dk, dv, B, n, H,
-                                         scale_q, st)))
+                    int H, int D, float scale_q, int dtype, int gdtype, int causal,
+                    cudaStream_t st) {
+  DTC_GDISPATCH(dtype, gdtype, D, (bwd_dkv<T, TG, kD>(q, k, v, dout, lse, delta, dk, dv, B,
+                                                      n, H, scale_q, causal, st)))
 }
 
 bool bad_shape(int B, int n, int H) { return B < 1 || n < 1 || H < 1 || H > 65535 || B > 65535; }
 
 }  // namespace
 
+// dtype / gdtype: 0 float32, 1 bfloat16 (the inputs' and the gradients' types);
+// causal: 1 masks key > query, 0 masks only keys past T.
 extern "C" int dtc_flash_fwd(const void* q, const void* k, const void* v, void* out,
                              float* lse, int B, int T, int H, int D, float scale_q,
-                             int dtype, void* stream) {
+                             int dtype, int causal, void* stream) {
   if (bad_shape(B, T, H)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(fwd_any(q, k, v, out, lse, B, T, H, D, scale_q, dtype,
+  return static_cast<int>(fwd_any(q, k, v, out, lse, B, T, H, D, scale_q, dtype, causal,
                                   static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int dtc_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* out, const void* dout, const float* lse,
                                 float* delta, void* dq, int B, int T, int H, int D,
-                                float scale_q, float scale, int dtype, void* stream) {
+                                float scale_q, float scale, int dtype, int gdtype,
+                                int causal, void* stream) {
   if (bad_shape(B, T, H)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dq_any(q, k, v, out, dout, lse, delta, dq, B, T, H, D, scale_q,
-                                 scale, dtype, static_cast<cudaStream_t>(stream)));
+                                 scale, dtype, gdtype, causal,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int dtc_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse, const float* delta,
                                  void* dk, void* dv, int B, int T, int H, int D,
-                                 float scale_q, int dtype, void* stream) {
+                                 float scale_q, int dtype, int gdtype, int causal,
+                                 void* stream) {
   if (bad_shape(B, T, H)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dkv_any(q, k, v, dout, lse, delta, dk, dv, B, T, H, D, scale_q,
-                                  dtype, static_cast<cudaStream_t>(stream)));
+                                  dtype, gdtype, causal, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* dtc_error_string(int code) {

@@ -4,6 +4,12 @@ JAX package's ``main.py``:
     python -m dtc_tpu_torch.main --train_config_path configs/train_config_dp.yaml \\
         --dataset synthetic --no-obs [--steps N] [--output_dir DIR] [--device cpu]
 
+Over several processes, under ``torchrun`` (NCCL on cards, one per rank;
+gloo with ``--device cpu``)::
+
+    torchrun --nproc_per_node N -m dtc_tpu_torch.main --train_config_path ... \
+        --dataset synthetic --no-obs --output_dir DIR
+
 The model and optim configs default to the train config's siblings. Runs on
 ``cuda`` unless ``--device`` names another device. ``--output_dir``
 overrides the config's: the trainer refuses to overwrite an existing
@@ -13,6 +19,7 @@ overrides the config's: the trainer refuses to overwrite an existing
 from __future__ import annotations
 
 import argparse
+import os
 from dataclasses import replace
 
 from dtc_tpu_torch.config.loader import load_config
@@ -48,7 +55,8 @@ def main(argv: list[str] | None = None):
         train_cfg = replace(train_cfg, dataset=args.dataset)
     if args.obs is not None:
         train_cfg = replace(train_cfg, obs=replace(train_cfg.obs, enabled=args.obs))
-    print(f"Running `{train_cfg.parallel}` on {args.device or 'cuda'}.")
+    if os.environ.get("RANK", "0") == "0":
+        print(f"Running `{train_cfg.parallel}` on {args.device or 'cuda'}.")
     return train(train_cfg, model_cfg, opt_cfg, device=args.device)
 
 

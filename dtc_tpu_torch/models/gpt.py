@@ -17,7 +17,10 @@ logits are in the compute dtype with pad columns at -1e9.
 Training: ``GPT.forward(x, train=True, targets=y, generator=g)`` returns
 the mean next-token loss through the fused head + cross-entropy. Attention
 goes through ``causal_attention(impl=cfg.attention)`` (the Hopper flash
-kernels on the card under ``auto``). Dropout draws its keep masks from the
+kernels on the card under ``auto``). Under ``attention: ring`` with a ring
+of processes, ``x`` is this rank's sequence shard and its positions start
+at the shard's offset (``ring_attention.position_offset``); the loss is the
+mean over the shard's tokens. Dropout draws its keep masks from the
 caller's ``torch.Generator`` (flax's semantics: keep with probability
 1 - p, scale kept values by 1 / (1 - p)); nothing else in the model draws.
 
@@ -60,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dtc_tpu_torch.config.schema import ModelConfig
 from dtc_tpu_torch.ops import decode_attention as fused
+from dtc_tpu_torch.ops import ring_attention
 from dtc_tpu_torch.ops.attention import causal_attention, decode_attention
 from dtc_tpu_torch.ops.fused_ce import fused_head_ce, head_logits
 
@@ -370,8 +374,9 @@ class GPTEmbed(nn.Module):
         s = cfg.max_seq_len
         tok = self.wte(x)
         ar = torch.arange(t, device=x.device)
-        if isinstance(pos_offset, int) and pos_offset == 0:
-            pos = self.wpe.weight[:t][None]
+        if isinstance(pos_offset, int):
+            # A sequence shard from position pos_offset (ring attention).
+            pos = self.wpe.weight[pos_offset:pos_offset + t][None]
         elif pos_offset.ndim == 1:
             # Per-slot positions. Rows past the table (an idle slot whose
             # frontier ran on) clamp to the last row; their outputs are
@@ -482,7 +487,10 @@ class GPT(nn.Module):
         if lora is not None and train:
             raise NotImplementedError("LoRA finetuning is not ported yet")
         if cache is None:
-            h = self.embed(x, train=train, gen=generator)
+            # Under ring attention a rank holds one sequence shard.
+            ring = self.cfg.attention == "ring"
+            start = ring_attention.position_offset(x.shape[1]) if ring else 0
+            h = self.embed(x, train=train, gen=generator, pos_offset=start)
             h = self.stage(h, train=train, gen=generator, lora=lora, lora_ids=lora_ids)
             return self.head(h, targets)
         idx = cache["index"]

@@ -36,9 +36,9 @@ _SIGNATURES = {
         "dtc_decode_attention": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     },
     "flash_attention": {
-        "dtc_flash_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
-        "dtc_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P],
-        "dtc_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+        "dtc_flash_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+        "dtc_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _F] + [_I] * 3 + [_P],
+        "dtc_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     },
 }
 

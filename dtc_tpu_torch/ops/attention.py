@@ -57,8 +57,10 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal self-attention over ``(B, T, H, D)`` tensors. ``flash`` is the
     flash-attention wrapper (the Hopper kernels on a CUDA tensor, their
     plain versions on a CPU tensor); ``dense`` the plain masked softmax;
-    ``auto`` takes flash for a CUDA tensor, at any T, and dense otherwise.
-    ``ring`` and ``ulysses`` (sequence parallelism) are not ported."""
+    ``auto`` takes flash for a CUDA tensor, at any T, and dense otherwise;
+    ``ring`` the zigzag ring over the current ring
+    (:func:`dtc_tpu_torch.ops.ring_attention.use_ring`; dense without one).
+    ``ulysses`` is not ported."""
     if impl == "auto":
         impl = "flash" if q.is_cuda else "dense"
     if impl == "dense":
@@ -67,9 +69,13 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         from dtc_tpu_torch.ops.flash_attention import flash_causal_attention
 
         return flash_causal_attention(q, k, v)
-    if impl in ("ring", "ulysses"):
+    if impl == "ring":
+        from dtc_tpu_torch.ops.ring_attention import ring_causal_attention
+
+        return ring_causal_attention(q, k, v)
+    if impl == "ulysses":
         raise NotImplementedError(
-            f"attention {impl!r} (sequence parallelism) is not ported yet; "
-            "it comes with the multi-card slices"
+            "attention 'ulysses' (all-to-all sequence parallelism) is not ported yet; "
+            "it comes with MoE and multi-host (ROADMAP.md §A7)"
         )
     raise ValueError(f"unknown attention impl {impl!r}")

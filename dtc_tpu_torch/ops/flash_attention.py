@@ -31,6 +31,18 @@ it takes past T 4096 (``_dq_kernel_packed`` / ``_dkv_kernel_packed``), and
 the transpose-layout family it takes where 128-lane head groups do not fit
 (``_flash``). The TPU tilings (``attention_block_*``) do not apply: the
 kernels' tiles are 64 x 64 at every T.
+
+The same kernels, without the causal mask and with float32 gradients, are
+the zigzag ring's block kernels (``_block_fwd_kernel`` /
+``_block_bwd_kernel``, reached through ``_block_call``):
+:func:`flash_block_forward` gives ``(out in q's dtype, lse)`` over one
+``(B, tc, H·D)`` chunk pair, causal or not; :func:`flash_block_backward`
+takes the ring's merged lse and out (delta comes from them) and returns
+float32 ``(dq, dk, dv)`` whatever the inputs' dtype. Their plain versions
+are :func:`flash_block_reference` / :func:`flash_block_backward_reference`;
+``block_fwd_launches`` / ``block_bwd_launches`` count their launches apart
+from the causal wrappers'. The JAX package keeps a block's lse as
+``(B, H·D/128, tc, 128/D)``; the port keeps ``(B, H, tc)`` as everywhere.
 """
 
 from __future__ import annotations
@@ -52,9 +64,11 @@ BWD_KERNELS = 2
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since the last reset (the wrappers add one per launch,
-#: nowhere else).
+#: nowhere else): the causal wrappers' and the ring blocks'.
 fwd_launches = 0
 bwd_launches = 0
+block_fwd_launches = 0
+block_bwd_launches = 0
 
 
 def _scale_q(d: int, dtype: torch.dtype) -> float:
@@ -79,15 +93,16 @@ def _causal(t: int, device) -> torch.Tensor:
     return ar[None, :] <= ar[:, None]                     # (query, key)
 
 
-def flash_attention_reference(q, k, v, h: int):
+def flash_attention_reference(q, k, v, h: int, causal: bool = True):
     """Plain version of the forward kernel on packed ``(B, T, H·D)``
-    tensors. Returns ``(out (B, T, H·D) in q's dtype, lse (B, H, T)
-    float32)``."""
+    tensors, causal unless ``causal`` is false. Returns ``(out (B, T, H·D)
+    in q's dtype, lse (B, H, T) float32)``."""
     b, t, hd = q.shape
     d = hd // h
     qs = _heads(q, h) * _scale_q(d, q.dtype)
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), _heads(k, h).float())
-    s = torch.where(_causal(t, q.device), s, NEG_INF)
+    if causal:
+        s = torch.where(_causal(t, q.device), s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -96,14 +111,18 @@ def flash_attention_reference(q, k, v, h: int):
     return out, (m + torch.log(l)).squeeze(-1)
 
 
-def flash_attention_backward_reference(q, k, v, out, lse, do, h: int):
+def flash_attention_backward_reference(q, k, v, out, lse, do, h: int, causal: bool = True,
+                                       grad_dtype: torch.dtype | None = None):
     """Plain version of the backward kernels. Returns ``(dq, dk, dv)``,
-    each packed ``(B, T, H·D)`` in its input's dtype."""
+    each packed ``(B, T, H·D)`` in ``grad_dtype``, or in its input's dtype
+    when that is None."""
     b, t, hd = q.shape
     d = hd // h
     qs = _heads(q, h) * _scale_q(d, q.dtype)
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), _heads(k, h).float())
-    p = torch.where(_causal(t, q.device), torch.exp(s - lse[..., None]), 0.0)
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = torch.where(_causal(t, q.device), p, 0.0)
     do4 = _heads(do, h)
     delta = (do4.float() * _heads(out, h).float()).sum(-1).permute(0, 2, 1)  # (B, H, T)
     dp = torch.einsum("bqhd,bkhd->bhqk", do4.float(), _heads(v, h).float())
@@ -113,8 +132,21 @@ def flash_attention_backward_reference(q, k, v, out, lse, do, h: int):
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qs.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do4.float())
     return tuple(
-        g.to(x.dtype).reshape(b, t, hd) for g, x in ((dq, q), (dk, k), (dv, v))
+        g.to(grad_dtype or x.dtype).reshape(b, t, hd) for g, x in ((dq, q), (dk, k), (dv, v))
     )
+
+
+def flash_block_reference(q, k, v, h: int, causal: bool):
+    """Plain version of the ring's block forward: attention of one chunk
+    pair, causal (the diagonal pair) or not. ``(out, lse)`` as
+    :func:`flash_attention_reference`."""
+    return flash_attention_reference(q, k, v, h, causal)
+
+
+def flash_block_backward_reference(q, k, v, out, lse, do, h: int, causal: bool):
+    """Plain version of the ring's block backward from the ring's merged
+    ``out`` and ``lse``: float32 ``(dq, dk, dv)``."""
+    return flash_attention_backward_reference(q, k, v, out, lse, do, h, causal, torch.float32)
 
 
 def _check(h: int, *xs: torch.Tensor) -> None:
@@ -169,13 +201,8 @@ def _raise_on(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"flash attention {what} launch failed: {_build.error_string(lib, rc)}")
 
 
-def flash_attention_forward(q, k, v, h: int):
-    """``(out, lse)`` of causal attention on packed tensors: the plain
-    version for CPU tensors, the forward kernel for CUDA tensors."""
-    global fwd_launches
-    _check(h, q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, h)
+def _forward_kernel(q, k, v, h: int, causal: bool):
+    """Launch the forward kernel on checked CUDA tensors."""
     _check_cuda(h, q, k, v)
     from dtc_tpu_torch.ops import _build
 
@@ -186,23 +213,21 @@ def flash_attention_forward(q, k, v, h: int):
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
     rc = lib.dtc_flash_fwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), b, t, h, d,
-        _scale_q(d, q.dtype), _DTYPE_CODES[q.dtype],
+        _scale_q(d, q.dtype), _DTYPE_CODES[q.dtype], int(causal),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _raise_on(lib, rc, "forward")
-    fwd_launches += 1
     return out, lse
 
 
-def flash_attention_backward(q, k, v, out, lse, do, h: int):
-    """``(dq, dk, dv)``: the plain version for CPU tensors, the dq and
-    dk/dv kernels for CUDA tensors."""
-    global bwd_launches
-    _check(h, q, k, v, out, do)
+def _check_lse(lse, q, h: int) -> None:
     if tuple(lse.shape) != (q.shape[0], h, q.shape[1]):
         raise ValueError(f"lse must be (B, H, T), got {tuple(lse.shape)}")
-    if q.device.type == "cpu":
-        return flash_attention_backward_reference(q, k, v, out, lse, do, h)
+
+
+def _backward_kernels(q, k, v, out, lse, do, h: int, causal: bool, grad_dtype):
+    """Launch the dq and dk/dv kernels on checked CUDA tensors; the
+    gradients in ``grad_dtype``."""
     _check_cuda(h, q, k, v, out, do)
     if lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous float32 tensor on q's device")
@@ -212,22 +237,72 @@ def flash_attention_backward(q, k, v, out, lse, do, h: int):
     b, t, hd = q.shape
     d = hd // h
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    code, scale_q = _DTYPE_CODES[q.dtype], _scale_q(d, q.dtype)
+    code, gcode, scale_q = _DTYPE_CODES[q.dtype], _DTYPE_CODES[grad_dtype], _scale_q(d, q.dtype)
     delta = torch.empty_like(lse)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dv = (torch.empty(q.shape, dtype=grad_dtype, device=q.device) for _ in range(3))
     rc = lib.dtc_flash_bwd_dq(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(do), _ptr(lse), _ptr(delta),
-        _ptr(dq), b, t, h, d, scale_q, _scale(d), code, stream,
+        _ptr(dq), b, t, h, d, scale_q, _scale(d), code, gcode, int(causal), stream,
     )
     _raise_on(lib, rc, "backward (dq)")
-    bwd_launches += 1
     rc = lib.dtc_flash_bwd_dkv(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
-        _ptr(dv), b, t, h, d, scale_q, code, stream,
+        _ptr(dv), b, t, h, d, scale_q, code, gcode, int(causal), stream,
     )
     _raise_on(lib, rc, "backward (dk/dv)")
-    bwd_launches += 1
     return dq, dk, dv
+
+
+def flash_attention_forward(q, k, v, h: int):
+    """``(out, lse)`` of causal attention on packed tensors: the plain
+    version for CPU tensors, the forward kernel for CUDA tensors."""
+    global fwd_launches
+    _check(h, q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, h)
+    out, lse = _forward_kernel(q, k, v, h, True)
+    fwd_launches += 1
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, out, lse, do, h: int):
+    """``(dq, dk, dv)``: the plain version for CPU tensors, the dq and
+    dk/dv kernels for CUDA tensors."""
+    global bwd_launches
+    _check(h, q, k, v, out, do)
+    _check_lse(lse, q, h)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, out, lse, do, h)
+    grads = _backward_kernels(q, k, v, out, lse, do, h, True, q.dtype)
+    bwd_launches += BWD_KERNELS
+    return grads
+
+
+def flash_block_forward(q, k, v, h: int, causal: bool):
+    """The ring's block forward on one ``(B, tc, H·D)`` chunk pair:
+    ``(out in q's dtype, lse (B, H, tc) float32)``, causal or not. The
+    plain version for CPU tensors, the forward kernel for CUDA tensors."""
+    global block_fwd_launches
+    _check(h, q, k, v)
+    if q.device.type == "cpu":
+        return flash_block_reference(q, k, v, h, causal)
+    out, lse = _forward_kernel(q, k, v, h, causal)
+    block_fwd_launches += 1
+    return out, lse
+
+
+def flash_block_backward(q, k, v, out, lse, do, h: int, causal: bool):
+    """The ring's block backward from the ring's merged ``out`` and
+    ``lse``: float32 ``(dq, dk, dv)``. The plain version for CPU tensors,
+    the dq and dk/dv kernels for CUDA tensors."""
+    global block_bwd_launches
+    _check(h, q, k, v, out, do)
+    _check_lse(lse, q, h)
+    if q.device.type == "cpu":
+        return flash_block_backward_reference(q, k, v, out, lse, do, h, causal)
+    grads = _backward_kernels(q, k, v, out, lse, do, h, causal, torch.float32)
+    block_bwd_launches += BWD_KERNELS
+    return grads
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -1,0 +1,266 @@
+"""The port over several processes (``torch.distributed`` with gloo on the
+CPU, as ``torchrun --device cpu`` runs it) against the JAX package on its
+8-device CPU mesh, on the same flax weights and synthetic batches at
+dropout 0.
+
+- One spawn of 4 processes: the ring's ``DistRing`` transport at R 4
+  gives the in-process transport's result bit for bit in float32, forward
+  and gradients, on every path (the zigzag on the block kernels' plain
+  versions, the zigzag on plain blocks, the uniform schedule); the
+  zigzag conversion's self-pairs are local copies (gloo refuses a send to
+  one's own rank). Then the trainer under ``parallel: 3d`` with
+  ``MeshConfig(pipe=1, data=2, model=2)`` and ``attention: ring`` against
+  JAX's ring training (``data=4, model=2``: JAX's mesh must cover its 8
+  devices; the global batch, the ring of 2 and so the losses are the
+  same), 3 steps, JAX's rtol 2e-4 (``tests/test_ring_attention.py``).
+- One spawn of 2 processes: ``parallel: dp`` against JAX's dp on 8
+  devices at the same global batch, 3 steps, rtol 2e-4; rank 0 alone
+  writes ``log.csv``, one row per step.
+
+The worker is this file run as a script (it imports no JAX). Each spawn
+has its own timeout.
+"""
+
+import dataclasses
+import json
+import os
+import pickle
+import re
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+SPAWN_TIMEOUT_S = 180
+
+# The ring transport cases: (name, schedule, heads, head dim); 32 takes the
+# block kernels' path, 24 the plain blocks'.
+RING_CASES = (("zigzag_kernels", "zigzag", 4, 32), ("zigzag_blocks", "zigzag", 2, 24),
+              ("uniform", "uniform", 2, 24))
+
+
+def _ring_inputs(h, d):
+    rng = np.random.RandomState(d)
+    return [rng.randn(2, 64, h, d).astype(np.float32) for _ in range(3)]
+
+
+def _ring_result(ring, q, k, v, schedule):
+    """Out and the gradients of sum(out²) for the tensors a ring holds."""
+    from dtc_tpu_torch.ops import ring_attention as tra
+
+    tq, tk, tv = (torch.from_numpy(np.ascontiguousarray(x)).requires_grad_(True)
+                  for x in (q, k, v))
+    out = tra.ring_causal_attention(tq, tk, tv, ring, schedule=schedule)
+    grads = torch.autograd.grad((out ** 2).sum(), (tq, tk, tv))
+    return [out.detach().numpy()] + [g.numpy() for g in grads]
+
+
+# ---------------------------------------------------------------------------
+# the worker (a process of the spawn)
+# ---------------------------------------------------------------------------
+
+def _worker(case: str, out_dir: str) -> None:
+    from dtc_tpu_torch.config import schema as ts
+    from dtc_tpu_torch.config.loader import _build
+    from dtc_tpu_torch.ops import ring_attention as tra
+    from dtc_tpu_torch.train.trainer import train
+    from dtc_tpu_torch.utils import dist as dist_utils
+
+    out = Path(out_dir)
+    dist_utils.initialize("cpu")
+    rank, world = dist_utils.rank(), dist_utils.world_size()
+    if case == "ring":
+        ring = tra.DistRing(range(world))
+        for name, schedule, h, d in RING_CASES:
+            shards = [x[:, rank * 64 // world:(rank + 1) * 64 // world]
+                      for x in _ring_inputs(h, d)]
+            np.savez(out / f"{name}_r{rank}.npz", *_ring_result(ring, *shards, schedule))
+    spec = json.loads((out / "config.json").read_text())
+    with open(out / "params.pkl", "rb") as f:
+        params = pickle.load(f)
+    res = train(_build(ts.TrainConfig, spec["train"], "train"),
+                _build(ts.ModelConfig, spec["model"], "model"),
+                _build(ts.OptimConfig, spec["optim"], "optim"),
+                device="cpu", params=params)
+    (out / f"losses_r{rank}.json").write_text(json.dumps(res.losses))
+    dist_utils.teardown()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(world: int, case: str, out_dir: Path) -> None:
+    """Run the worker in ``world`` processes with torchrun's environment."""
+    port = str(_free_port())
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="localhost", MASTER_PORT=port, OMP_NUM_THREADS="1",
+                   PYTHONPATH=str(ROOT))
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, case, str(out_dir)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SPAWN_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {rank} exited {p.returncode}:\n{log}"
+
+
+# ---------------------------------------------------------------------------
+# the tests (JAX in the test process only)
+# ---------------------------------------------------------------------------
+
+def _write_run(out_dir: Path, train_cfg, model_cfg, opt_cfg, params) -> None:
+    import jax
+
+    spec = {k: dataclasses.asdict(c) for k, c in
+            (("train", train_cfg), ("model", model_cfg), ("optim", opt_cfg))}
+    (out_dir / "config.json").write_text(json.dumps(spec))
+    with open(out_dir / "params.pkl", "wb") as f:
+        pickle.dump(jax.tree.map(np.asarray, params), f)
+
+
+def _flax_params(cfg):
+    import jax
+    import jax.numpy as jnp
+
+    from dtc_tpu.models.gpt import GPT as JGPT
+
+    return jax.jit(
+        lambda r, x: JGPT(cfg).init({"params": r, "dropout": r}, x, train=False)
+    )(jax.random.PRNGKey(0), jnp.ones((1, cfg.max_seq_len), jnp.int32))["params"]
+
+
+def _check_losses(out_dir: Path, world: int, want) -> None:
+    losses = [json.loads((out_dir / f"losses_r{r}.json").read_text()) for r in range(world)]
+    assert all(lo == losses[0] for lo in losses), "the ranks logged different losses"
+    np.testing.assert_allclose(losses[0], want, rtol=2e-4)
+    rows = (out_dir / "log" / "log.csv").read_text().splitlines()
+    assert rows[0] == "step,elapsed_time,loss" and len(rows) == len(want) + 1
+    np.testing.assert_allclose([float(r.split(",")[2]) for r in rows[1:]], losses[0],
+                               rtol=1e-6)
+
+
+def test_ring_transport_and_ring_training_over_four_gloo_processes(
+        tmp_path, tiny_model_cfg, opt_cfg, train_cfg_factory):
+    from dtc_tpu.config.schema import MeshConfig as JMesh
+    from dtc_tpu.train.trainer import train as jtrain
+    from dtc_tpu_torch.ops import ring_attention as tra
+
+    ring_model = dataclasses.replace(tiny_model_cfg, attention="ring")
+    want = jtrain(train_cfg_factory("3d", steps=3, log_every=1,
+                                    mesh=JMesh(pipe=1, data=4, model=2)),
+                  ring_model, opt_cfg).losses
+    port_cfg = train_cfg_factory("3d", steps=3, log_every=1,
+                                 mesh=JMesh(pipe=1, data=2, model=2),
+                                 output_dir=str(tmp_path / "log"))
+    port_cfg = dataclasses.replace(port_cfg, obs=dataclasses.replace(port_cfg.obs,
+                                                                     enabled=False))
+    # the same parameter tree as the dense model (JAX inits outside any mesh)
+    _write_run(tmp_path, port_cfg, ring_model, opt_cfg, _flax_params(tiny_model_cfg))
+    _spawn(4, "ring", tmp_path)
+
+    for name, schedule, h, d in RING_CASES:
+        want_ring = _ring_result(tra.InProcessRing(4), *_ring_inputs(h, d), schedule)
+        got = [np.load(tmp_path / f"{name}_r{r}.npz") for r in range(4)]
+        for j, label in enumerate(("out", "dq", "dk", "dv")):
+            whole = np.concatenate([g[f"arr_{j}"] for g in got], axis=1)
+            assert whole.tobytes() == want_ring[j].tobytes(), f"{name} {label}"
+    _check_losses(tmp_path, 4, want)
+
+
+def test_dp_training_over_two_gloo_processes_matches_jax(
+        tmp_path, tiny_model_cfg, opt_cfg, train_cfg_factory):
+    from dtc_tpu.train.trainer import train as jtrain
+
+    want = jtrain(train_cfg_factory("dp", steps=3, log_every=1), tiny_model_cfg,
+                  opt_cfg).losses
+    port_cfg = train_cfg_factory("dp", steps=3, log_every=1,
+                                 output_dir=str(tmp_path / "log"))
+    port_cfg = dataclasses.replace(port_cfg, obs=dataclasses.replace(port_cfg.obs,
+                                                                     enabled=False))
+    _write_run(tmp_path, port_cfg, tiny_model_cfg, opt_cfg, _flax_params(tiny_model_cfg))
+    _spawn(2, "dp", tmp_path)
+    _check_losses(tmp_path, 2, want)
+
+
+def test_ring_under_pipeline_parallelism_raises(tiny_model_cfg, opt_cfg, train_cfg_factory):
+    """As JAX's trainer: ValueError naming the pipeline, before any mesh."""
+    from dtc_tpu_torch.config import schema as ts
+    from dtc_tpu_torch.config.loader import _build
+    from dtc_tpu_torch.train.trainer import train
+
+    cfg = train_cfg_factory("3d", steps=1, pp_microbatches=2,
+                            mesh=ts.MeshConfig(pipe=2, data=2, model=2))
+    port = lambda cls, c: _build(cls, dataclasses.asdict(c), "test")
+    with pytest.raises(ValueError, match="pipeline"):
+        train(port(ts.TrainConfig, cfg),
+              port(ts.ModelConfig, dataclasses.replace(tiny_model_cfg, attention="ring")),
+              port(ts.OptimConfig, opt_cfg), device="cpu")
+
+
+@pytest.mark.parametrize("parallel,mesh,n,layers", [
+    ("dp", (0, 0, 0), 8, None), ("tp", (0, 0, 0), 8, None), ("3d", (1, 2, 4), 8, None),
+    ("dp", (0, 0, 2), 8, None), ("pp", (0, 0, 0), 8, 4), ("3d", (2, 2, 2), 8, 4),
+    ("dp", (1, 1, 1), 1, None), ("3d", (1, 2, 2), 8, None), ("dp", (0, 3, 0), 8, None),
+])
+def test_resolve_mesh_shape_matches_jax(parallel, mesh, n, layers):
+    """The port's copy of ``resolve_mesh_shape``: the JAX package's shape,
+    or its ValueError."""
+    from dtc_tpu.config.schema import MeshConfig as JMesh
+    from dtc_tpu.parallel.mesh import resolve_mesh_shape as jresolve
+    from dtc_tpu_torch.config.schema import MeshConfig
+    from dtc_tpu_torch.parallel.mesh import resolve_mesh_shape
+
+    try:
+        want = jresolve(parallel, n, JMesh(*mesh), n_layers=layers)
+    except ValueError as e:
+        with pytest.raises(ValueError, match=re.escape(str(e))):
+            resolve_mesh_shape(parallel, n, MeshConfig(*mesh), n_layers=layers)
+        return
+    assert resolve_mesh_shape(parallel, n, MeshConfig(*mesh), n_layers=layers) == want
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 4), (1, 4, 2), (2, 2, 2), (1, 8, 1)])
+def test_rank_coordinates_follow_the_jax_mesh_device_order(shape):
+    from dtc_tpu.config.schema import MeshConfig as JMesh
+    from dtc_tpu.parallel.mesh import mesh_from_config
+    from dtc_tpu_torch.parallel.mesh import coords
+
+    mesh = mesh_from_config("3d", JMesh(*shape))
+    ids = np.vectorize(lambda dev: dev.id)(mesh.devices)
+    for rank in range(8):
+        assert ids[coords(rank, shape)] == rank
+
+
+def test_failed_rendezvous_raises(monkeypatch):
+    """torchrun's environment asks for 2 processes; the other never comes:
+    the rank raises instead of training alone."""
+    from dtc_tpu_torch.utils import dist as dist_utils
+
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    monkeypatch.setattr(dist_utils, "TIMEOUT_S", 2)
+    with pytest.raises(RuntimeError, match="does not train alone"):
+        dist_utils.initialize("cpu")
+    assert not torch.distributed.is_initialized()
+    assert dist_utils.world_size() == 1 and dist_utils.is_lead_process()
+
+
+if __name__ == "__main__":
+    _worker(sys.argv[1], sys.argv[2])

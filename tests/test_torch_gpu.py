@@ -621,3 +621,71 @@ def test_generate_with_lora_on_cuda_matches_cpu_fp32(cuda):
     assert decode_fused.launches - m0 == 11
     assert out.cpu().tolist() == generate(cpu, prompt, 12, lora=lora).tolist()
     assert out.cpu().tolist() != generate(cpu, prompt, 12).tolist()
+
+
+@pytest.mark.parametrize("tc", [8, 40, 1000, 1024])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_block_kernels_match_plain(cuda, tc, dt, causal):
+    """The zigzag ring's block kernels (TPU kernel rows 15-16): forward
+    causal or not; the backward from a given lse and out, float32
+    gradients whatever the inputs' dtype."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.parity import grad_tolerance
+
+    h, d = 4, 32
+    q, k, v, do = _flash_case(cuda, 2, tc, h, d, dt, seed=tc)
+    out, lse = fa.flash_block_forward(q, k, v, h, causal)
+    want_out, want_lse = fa.flash_block_reference(q, k, v, h, causal)
+    _assert_close(out, want_out, h)
+    assert ((lse - want_lse).abs() <= 1e-5).all()
+    grads = fa.flash_block_backward(q, k, v, want_out, want_lse + 0.5, do, h, causal)
+    want = fa.flash_block_backward_reference(q, k, v, want_out, want_lse + 0.5, do, h, causal)
+    for g_, w in zip(grads, want):
+        assert g_.dtype == torch.float32
+        limit = grad_tolerance(w.to(dt), h).to(cuda)
+        assert ((g_ - w).abs() <= limit).all()
+
+
+def test_ring_on_one_card_launches_the_block_kernels(cuda):
+    """The zigzag ring over 4 virtual ranks on CUDA tensors: 2R+1 block
+    forward and backward calls a rank, and the result of the same
+    schedules on the plain block versions."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.ops import ring_attention as ra
+
+    q, k, v, do = (x.view(2, 512, 4, 32) for x in
+                   _flash_case(cuda, 2, 512, 4, 32, torch.float32, seed=3))
+
+    def run():
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = ra.ring_causal_attention(*xs, ra.InProcessRing(4))
+        return (out.detach(), *torch.autograd.grad(out, xs, do))
+
+    f0, b0 = fa.block_fwd_launches, fa.block_bwd_launches
+    got = run()
+    assert (fa.block_fwd_launches - f0, fa.block_bwd_launches - b0) == (36, 36 * fa.BWD_KERNELS)
+    real = fa.flash_block_forward, fa.flash_block_backward
+    fa.flash_block_forward = fa.flash_block_reference
+    fa.flash_block_backward = fa.flash_block_backward_reference
+    try:
+        want = run()
+    finally:
+        fa.flash_block_forward, fa.flash_block_backward = real
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= 1e-5 * max(float(b.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("h,d", [(16, 8), (2, 24), (1, 144)])
+def test_ring_raises_on_cuda_at_a_head_dim_without_kernels(cuda, h, d):
+    """On CUDA tensors the zigzag ring runs the block kernels or raises, as
+    the single-card flash path does: a head dim the kernels lack never
+    falls back to plain blocks on the card."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.ops import ring_attention as ra
+
+    q = torch.randn(1, 32, h, d, device=cuda)
+    f0 = fa.block_fwd_launches
+    with pytest.raises(ValueError, match="ROADMAP.md §B" if d > 128 else "head_dim"):
+        ra.ring_causal_attention(q, q, q, ra.InProcessRing(2))
+    assert fa.block_fwd_launches == f0

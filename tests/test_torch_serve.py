@@ -379,3 +379,85 @@ def test_retry_call_max_elapsed_caps_episode():
                    jitter=0.0, max_elapsed_s=5.0, transient=(OSError,),
                    sleep=clock.advance, clock=clock)
     assert len(calls) == 3
+
+
+class _IterationClock:
+    """A clock under which every scheduler iteration lasts ``prefill_s``
+    when it ran a prefill and ``decode_s`` otherwise: the iteration's
+    first reading (the engine's ``t0``) is its start, later readings add
+    the duration its work so far calls for. ``prefills`` reads the
+    engine's prefill count; :meth:`begin` opens an iteration."""
+
+    def __init__(self, prefill_s, decode_s):
+        self.t, self.prefills = 0.0, None
+        self.prefill_s, self.decode_s = prefill_s, decode_s
+        self._open = self._started = False
+        self._count = 0
+
+    def begin(self):
+        self._open, self._started, self._count = True, False, self.prefills()
+
+    def _dt(self):
+        return self.prefill_s if self.prefills() > self._count else self.decode_s
+
+    def __call__(self):
+        if not self._open:
+            return self.t
+        if not self._started:
+            self._started = True
+            return self.t
+        return self.t + self._dt()
+
+    def end(self):
+        self.t += self._dt()
+        self._open = False
+
+
+def test_serve_watchdog_flags_the_iterations_the_reference_flags(models):
+    """The serving watchdog's rule (a working iteration, admission prefill
+    included, is flagged past ``factor`` x the trailing median of the
+    iterations before it) in the port's engine against the JAX engine's,
+    on the same iteration times: prefill iterations 40 ms, decode
+    iterations 2 ms (the megakernel's decode median on the card). Both
+    flag the same iterations, and every one holds a prefill: a mid-run
+    admission measured against a decode median is what the rule counts."""
+    jm, params, tm = models
+    prompts = _prompts(11, [5, 7, 4, 6, 8, 3])
+    cfg = dict(slots=2, page_size=4, queue_depth=8, max_new_tokens=12, prefill_bucket=8)
+    flagged, prefill_its = {}, {}
+    for name in ("port", "jax"):
+        clock = _IterationClock(0.040, 0.002)
+        if name == "port":
+            eng = ServingEngine(tm, ServeConfig(**cfg), clock=clock)
+            clock.prefills = lambda: eng.counters["serve_prefills"]
+            reqs = [Request(rid=f"r{i}", prompt=p, max_new_tokens=12)
+                    for i, p in enumerate(prompts)]
+        else:
+            eng = JServingEngine(jm, params, JServeConfig(**cfg), clock=clock)
+            clock.prefills = lambda: eng.reg.counter("serve_prefills").value
+            reqs = [JRequest(rid=f"r{i}", prompt=p, max_new_tokens=12)
+                    for i, p in enumerate(prompts)]
+        flags, held = [], []
+        observe = eng.watchdog.observe
+
+        def record(step, duration_s, observe=observe, flags=flags):
+            flag = observe(step, duration_s)
+            if flag is not None:
+                flags.append(step)
+            return flag
+
+        eng.watchdog.observe = record
+        for r in reqs:
+            eng.submit(r)
+        more = True
+        while more:
+            clock.begin()
+            before = clock.prefills()
+            more = eng.step()
+            if clock.prefills() > before:
+                held.append(eng._it)
+            clock.end()
+        flagged[name], prefill_its[name] = flags, held
+    assert prefill_its["port"] == prefill_its["jax"]
+    assert flagged["port"] == flagged["jax"]
+    assert flagged["port"] and set(flagged["port"]) <= set(prefill_its["port"])

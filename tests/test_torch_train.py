@@ -83,6 +83,41 @@ def test_fused_head_ce_matches_jax():
     assert float(tb.grad[vocab:].abs().max()) == 0.0       # pad columns get nothing
 
 
+def test_fused_head_ce_chunk_boundary_matches_jax(monkeypatch):
+    """The head + CE works on ``CE_CHUNK_ROWS`` rows at a time: with 7-row
+    chunks over 24 rows (the last chunk 3 rows) the loss and dh are the
+    unchunked ones bit for bit (exact per row), and the loss and all three
+    gradients match JAX's within the float32 limits."""
+    from dtc_tpu_torch.ops import fused_ce as tce
+
+    rng = np.random.RandomState(5)
+    n, d, v, vocab = 24, 16, 128, 97
+    h = rng.randn(2, n // 2, d).astype(np.float32)
+    w = (0.2 * rng.randn(d, v)).astype(np.float32)
+    b = (0.1 * rng.randn(v)).astype(np.float32)
+    y = rng.randint(0, vocab, size=(2, n // 2)).astype(np.int32)
+    jloss, jgrads = jax.value_and_grad(
+        lambda h, w, b: jfused_head_ce(h, w, b, jnp.asarray(y), vocab), argnums=(0, 1, 2)
+    )(jnp.asarray(h), jnp.asarray(w), jnp.asarray(b))
+
+    def port():
+        th = torch.tensor(h, requires_grad=True)
+        tw = torch.tensor(w.T.copy(), requires_grad=True)
+        tb = torch.tensor(b, requires_grad=True)
+        loss = fused_head_ce(th, tw, tb, torch.from_numpy(y), vocab)
+        loss.backward()
+        return loss, th.grad, tw.grad, tb.grad
+
+    whole = port()
+    monkeypatch.setattr(tce, "CE_CHUNK_ROWS", 7)
+    loss, dh, dw, db = port()
+    assert torch.equal(loss, whole[0]) and torch.equal(dh, whole[1])
+    _close(loss, jloss, "loss")
+    _close(dh, jgrads[0], "dh")
+    _close(dw.T, jgrads[1], "dW")
+    _close(db, jgrads[2], "db")
+
+
 def test_model_loss_and_every_gradient_match_jax_with_flash():
     """GPT(x, targets=y) at dropout 0, float32, attention: flash, on a config
     that takes JAX's packed single-tile kernels (T 128, D 32): the loss and
@@ -245,10 +280,11 @@ def test_trainer_without_a_card_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("over", [
-    dict(parallel="tp"), dict(mesh=ts.MeshConfig(data=2)), dict(dataset="fineweb"),
+    dict(parallel="pp"), dict(parallel="fsdp"), dict(dataset="fineweb"),
     dict(checkpoint_every=10), dict(eval_every=5), dict(obs=ts.ObsConfig()),
     dict(resilience=ts.ResilienceConfig(chaos=ts.ChaosConfig(enabled=True))),
     dict(multihost=True), dict(profile_start=1, profile_stop=2),
+    dict(mesh=ts.MeshConfig(pipe=2)), dict(parallel="tp", mesh=ts.MeshConfig(model=2)),
 ])
 def test_unported_training_features_raise(tmp_path, over):
     with pytest.raises(NotImplementedError):
@@ -256,7 +292,7 @@ def test_unported_training_features_raise(tmp_path, over):
               ts.OptimConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0), device="cpu")
 
 
-@pytest.mark.parametrize("over", [dict(moe_experts=2), dict(attention="ring")])
+@pytest.mark.parametrize("over", [dict(moe_experts=2), dict(attention="ulysses")])
 def test_unported_model_features_raise(over):
     model_cfg = _tiny_model_cfg(**over)
     with pytest.raises(NotImplementedError):
