@@ -139,6 +139,38 @@ Phases (each prints its own lines; any failure exits non-zero):
     from rank 0. It proves the process group, the reduction and rank-0
     logging on the card, not several cards.
 
+18. The FSDP ring's kernels (TPU kernel rows 17-18, the all-gather-matmul
+    step and the matmul + reduce-scatter step) against their plain versions
+    over 4 virtual ranks (the in-process transport) at the flagship's
+    dense sites (x (4096, 512 or 2048) bf16 and float32; q/k/v and fc1 with
+    the contraction sharded, out_proj and fc2 with the output sharded) and
+    ragged shapes (m 100, blocks of 50 and 75): the forward ring and both
+    backward rings in float32 within 1e-5 of each row's largest value (bf16
+    products are exact in float32), the op's outputs rounded to the compute
+    dtype within ``parity.row_tolerance``; 2R² and R² launches a call;
+    planted faults (the chunk order one ring step off, ``w_t`` ignored, the
+    arriving accumulator not added, partials rounded to bf16 before they
+    accumulate) over the limit; device times of the forward and dw rings
+    at the four bf16 sites, the plain versions' and one ``torch.matmul``'s,
+    beside the bounds. The kernels line gives each row at the site where
+    it is slowest against its bound, and every site's ms.
+19. FSDP over 4 virtual ranks on one card: the flagship
+    (``train_config_fsdp.yaml``, dropout 0) under ``collectives:
+    overlapped``, every dense site through the ring's kernels: float32
+    losses within 1e-4 of the unsharded run over 4 steps; bf16 35 steps,
+    finite and falling, 576 all-gather-matmul and 288 reduce-scatter
+    launches a rank a step; step ms beside the unsharded step (one card
+    emulating 4 ranks, not a multi-card time); peak memory beside
+    ``train_memory_bytes(parallel="fsdp")``. ``--profile`` adds a
+    torch.profiler window over 3 of its steps (device time by kernel).
+20. The FSDP trainer over NCCL at world size 1: ``torchrun
+    --nproc_per_node 1 -m dtc_tpu_torch.main --train_config_path
+    configs/train_config_fsdp.yaml`` (torchrun's environment set in this
+    process), 5 + 10 steps: ``collectives: xla`` bit-equal to one process;
+    ``overlapped`` (a copy of the config adding it) inert: JAX's warning,
+    no ring launch, the xla losses; ``log.csv`` from rank 0 in a fresh
+    ``--output_dir``.
+
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
@@ -734,12 +766,12 @@ def train_flagship(steps: int, warmup: int, out_dir: str):
 
 
 def profile_train(model_cfg, train_cfg, opt_cfg, steps: int = 5, host_keys=(),
-                  device: str = "cuda"):
+                  device: str = "cuda", fsdp=None):
     """Device time by kernel over ``steps`` steady training steps of the
     flagship (torch.profiler, CUDA activity) against the host wall time of
     the same window: the device's busy share. ``host_keys``: profiler rows
     (host ranges and ops) whose names hold one of these are also returned,
-    with their host and device times."""
+    with their host and device times. ``fsdp``: the steps' FSDP state."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -756,13 +788,13 @@ def profile_train(model_cfg, train_cfg, opt_cfg, steps: int = 5, host_keys=(),
     batches = synthetic_batch_iterator(train_cfg.batch, model_cfg.max_seq_len + 1,
                                        model_cfg.vocab_size, seed=train_cfg.seed * 1000)
     for _ in range(3):
-        train_step(model, opt, *split_to_device(next(batches), dev), gen)
+        train_step(model, opt, *split_to_device(next(batches), dev), gen, fsdp)
     data = [split_to_device(next(batches), dev) for _ in range(steps)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for x, y in data:
-            train_step(model, opt, x, y, gen)
+            train_step(model, opt, x, y, gen, fsdp)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     host = [dict(name=ev.key[:80], count=ev.count, host_ms=ev.cpu_time_total / 1e3,
@@ -1372,6 +1404,323 @@ def train_nccl_world1(steps: int, out_dir: str, device: str | None = None):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the FSDP ring's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def overlap_bounds(rows, k, n, dtype):
+    """Least time of the ring's forward pass (row 17: ``x (rows, k) @ w (k,
+    n)``, float32 out) and of its dw pass (row 18: ``xᵀ @ dy``, dy (rows,
+    n), float32 (k, n) out) over all the ring's ranks: each input read
+    once and the float32 output written once over HBM bandwidth, against
+    2·rows·k·n operations over the dtype's peak. Returns {"ag"|"rs": (ms,
+    bound_by)}."""
+    el = {"float32": 4, "bfloat16": 2}[dtype]
+    t_ops = 2 * rows * k * n / PEAK_OPS[dtype] * 1e3
+    out = {}
+    for kind, nbytes in (("ag", (rows * k + k * n) * el + rows * n * 4),
+                         ("rs", (rows * k + rows * n) * el + k * n * 4)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[kind] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def overlap_faults(ring: int):
+    """Planted faults in the plain step versions, each breaking the ring
+    one way: ``{name: (kind, step)}``, ``kind`` "ag" or "rs"."""
+    import torch
+
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+
+    def chunk_off(x, w, out, *, src, **kw):          # chunk order one ring step off
+        oc.ag_step_reference(x, w, out, src=(src + 1) % ring, **kw)
+
+    def w_t_ignored(x, w, out, *, w_t, **kw):        # the chunk's bytes read untransposed
+        if w_t:
+            w = w.contiguous().reshape(w.shape[1], w.shape[0])
+        oc.ag_step_reference(x, w, out, w_t=False, **kw)
+
+    def acc_dropped(a, b, acc, **kw):                # the arriving accumulator not added
+        return oc.rs_step_reference(a, b, None, **kw)
+
+    def ag_rounded(x, w, out, *, src, slice_x, slice_out, w_t, accumulate):
+        xs, ws = oc._ag_operands(x, w, src, slice_x, w_t)  # partials rounded to bf16 first
+        part = (xs.float() @ ws.float()).to(torch.bfloat16).float()
+        n = ws.shape[1]
+        dest = out[:, src * n:(src + 1) * n] if slice_out else out
+        dest.copy_(dest + part if accumulate else part)
+
+    def rs_rounded(a, b, acc, **kw):
+        part = oc.rs_step_reference(a, b, None, **kw).to(torch.bfloat16).float()
+        return part if acc is None else acc + part
+
+    return {"chunk order one ring step off": ("ag", chunk_off),
+            "w_t ignored": ("ag", w_t_ignored),
+            "arriving accumulator not added": ("rs", acc_dropped),
+            "partials rounded to bf16 (all-gather-matmul)": ("ag", ag_rounded),
+            "partials rounded to bf16 (reduce-scatter)": ("rs", rs_rounded)}
+
+
+def overlap_case(name, b, t, k, n, shard_axis, dtype, seed, ring: int = 4, iters: int = 0,
+                 device: str = "cuda"):
+    """The FSDP ring's kernels against their plain versions over ``ring``
+    virtual ranks of one card, at x (b, t, k), w (k, n) sharded along
+    ``shard_axis``: the forward ring (row 17) and the backward rings (row 17
+    for dx with ``w_t``, row 18 for dw), float32 ring outputs within
+    ``row_tolerance(float32)`` (bf16 products are exact in float32: the sums'
+    order is the only difference), the op's outputs rounded to ``dtype``
+    within ``row_tolerance(dtype)``; launch counts; the planted faults over
+    the float32 limit. With ``iters``: device times of the forward ring and
+    the dw ring (kernels, plain versions, one ``torch.matmul``) beside the
+    bounds."""
+    import torch
+
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+    from dtc_tpu_torch.ops.ring_attention import InProcessRing
+    from dtc_tpu_torch.parity import row_tolerance
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x, dy = (torch.randn(b * t, c, device=dev, generator=g).to(dt) for c in (k, n))
+    w = (torch.randn(k, n, device=dev, generator=g) * k ** -0.5).to(dt)
+    vring = InProcessRing(ring)
+    f32 = torch.float32
+
+    def rings(ag=None, rs=None):
+        y = oc.ring_ag_matmul(x, w, vring, shard_axis=shard_axis, step=ag)
+        return (y, *oc.ring_backward(x, w, dy, vring, shard_axis=shard_axis, ag=ag, rs=rs))
+
+    oc.ag_launches = oc.rs_launches = 0
+    got = rings()
+    launches = (oc.ag_launches, oc.rs_launches)
+    check(launches == (2 * ring * ring, ring * ring),
+          f"overlap {name}: launches {launches} (want {2 * ring * ring} all-gather-matmul "
+          f"and {ring * ring} reduce-scatter steps over {ring} ranks)")
+    want = rings(oc.ag_step_reference, oc.rs_step_reference)
+    xt, wt = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    y_op = oc.overlap_dense_matmul(xt, wt, shard_axis=shard_axis, ring=vring)
+    op = (y_op.detach(), *torch.autograd.grad(y_op, (xt, wt), dy))
+    torch.cuda.synchronize()
+    res = dict(case=name, b=b, t=t, k=k, n=n, shard_axis=shard_axis, dtype=dtype, ring=ring,
+               launches=launches, errors={}, fault_over_limit={})
+    names = ("y", "dx", "dw")
+    for nm, a, ref in zip(names, got, want):
+        check(a.dtype == f32 and bool(torch.isfinite(a).all()), f"overlap {name}: {nm} not finite")
+        diff = (a - ref).abs()
+        r = (diff / row_tolerance(ref, f32).to(dev)).max().item()
+        res["errors"][f"{nm}_f32"] = (diff.max().item(), r)
+        check(r <= 1.0, f"overlap {name}: float32 {nm} {r:.3f} of its limit")
+    for nm, a, ref in zip(names, op, want):
+        ref = ref.to(dt)
+        check(a.dtype == dt, f"overlap {name}: the op's {nm} is {a.dtype}")
+        diff = (a.float() - ref.float()).abs()
+        r = (diff / row_tolerance(ref, dt).to(dev)).max().item()
+        res["errors"][nm] = (diff.max().item(), r)
+        check(r <= 1.0, f"overlap {name}: {nm} {r:.3f} of its {dtype} limit")
+    for fname, (kind, fault) in overlap_faults(ring).items():
+        bad = rings(ag=fault) if kind == "ag" else rings(rs=fault)
+        r = max(((a - ref).abs() / row_tolerance(ref, f32).to(dev)).max().item()
+                for a, ref in zip(bad, want))
+        res["fault_over_limit"][fname] = r
+    log(f"overlap {name} ({dtype}, x ({b * t}, {k}) @ w ({k}, {n}), shard axis {shard_axis}, "
+        f"ring {ring}): launches {launches}; " + ", ".join(
+            f"{kk} {v[0]:.3e} ({v[1]:.3f} of the limit)" for kk, v in res["errors"].items()))
+    for fname, r in res["fault_over_limit"].items():
+        log(f"overlap {name}: planted fault '{fname}': {r:.3f} of the float32 limit")
+        check(r > 1.0, f"overlap {name}: the limit misses '{fname}'")
+    res["max_abs_err_ag"] = max(res["errors"][kk][0] for kk in ("y", "dx", "y_f32", "dx_f32"))
+    res["max_abs_err_rs"] = max(res["errors"][kk][0] for kk in ("dw", "dw_f32"))
+    del got, want, op
+    if iters:
+        fwd = lambda step=None: oc.ring_ag_matmul(x, w, vring, shard_axis=shard_axis, step=step)
+        dw = lambda step=None: oc.reduce_scatter_matmul(x, dy, shard_axis=shard_axis,
+                                                        ring=vring, step=step)
+        bounds = overlap_bounds(b * t, k, n, dtype)
+        res.update(
+            ag_ms=graph_ms(fwd, iters), ag_plain_ms=graph_ms(
+                lambda: fwd(oc.ag_step_reference), iters),
+            ag_library_ms=graph_ms(lambda: torch.matmul(x, w), iters),
+            rs_ms=graph_ms(dw, iters), rs_plain_ms=graph_ms(
+                lambda: dw(oc.rs_step_reference), iters),
+            rs_library_ms=graph_ms(lambda: torch.matmul(x.t(), dy), iters),
+            ag_bound_ms=bounds["ag"][0], ag_bound_by=bounds["ag"][1],
+            rs_bound_ms=bounds["rs"][0], rs_bound_by=bounds["rs"][1])
+        for kind in ("ag", "rs"):
+            log(f"overlap {name} {kind} ring ({ring} virtual ranks, {ring * ring} launches): "
+                f"kernel_ms {res[f'{kind}_ms']:.6f} plain_ms {res[f'{kind}_plain_ms']:.6f} "
+                f"library_ms {res[f'{kind}_library_ms']:.6f} bound_ms "
+                f"{res[f'{kind}_bound_ms']:.6f} ({res[f'{kind}_bound_by']})")
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 19: FSDP over virtual ranks on one card
+# ---------------------------------------------------------------------------
+
+def fsdp_virtual(seed: int, ring: int = 4, steps32: int = 4, steps: int = 35,
+                 device: str = "cuda", profile: bool = False):
+    """The flagship (``train_config_fsdp.yaml`` + ``model_config.yaml``, B 8,
+    T 512, dropout 0) under ``collectives: overlapped`` with an FSDP ring of
+    ``ring`` virtual ranks on one card, so every dense site runs the ring's
+    kernels: float32 losses within 1e-4 of the unsharded run over
+    ``steps32`` steps; bf16 ``steps`` steps with finite losses whose last-5
+    mean is below the first, the kernels' launches (counted on this run:
+    the main path's), the step ms beside the unsharded bf16 step (one card
+    emulating the ranks, not a multi-card time) and the peak memory beside
+    ``train_memory_bytes(parallel="fsdp")``. ``profile``: also the device
+    time by kernel of 3 steady bf16 steps on the ring (torch.profiler)."""
+    import dataclasses
+
+    import torch
+
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.data.prefetch import split_to_device
+    from dtc_tpu_torch.data.synthetic import synthetic_batch_iterator
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+    from dtc_tpu_torch.ops.ring_attention import InProcessRing
+    from dtc_tpu_torch.parallel.fsdp import FSDP
+    from dtc_tpu_torch.train.optimizer import create_optimizer
+    from dtc_tpu_torch.train.train_step import train_step
+    from dtc_tpu_torch.utils.metrics import train_memory_bytes
+
+    tcfg, mcfg, ocfg = load_config(ROOT / "configs" / "train_config_fsdp.yaml",
+                                   ROOT / "configs" / "model_config.yaml",
+                                   ROOT / "configs" / "optim_config.yaml")
+    mcfg = dataclasses.replace(mcfg, dropout=0.0, collectives="overlapped")
+    dev = torch.device(device)
+    it = synthetic_batch_iterator(tcfg.batch, mcfg.max_seq_len + 1, mcfg.vocab_size, seed=seed)
+    batches = [split_to_device(next(it), dev) for _ in range(steps)]
+
+    def run(cfg, n, state):
+        model = GPT(cfg, device=dev, seed=seed)
+        opt = create_optimizer(model.parameters(), ocfg, total_steps=steps)
+        losses, times = [], []
+        for x, y in batches[:n]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(train_step(model, opt, x, y, None, state)))  # syncs
+            times.append(time.perf_counter() - t0)
+        return losses, sorted(times)[len(times) // 2] * 1e3
+
+    rec = dict(ring=ring, batch=tcfg.batch, t=mcfg.max_seq_len)
+    m32 = dataclasses.replace(mcfg, compute_dtype="float32")
+    plain32, _ = run(m32, steps32, None)
+    ring32, _ = run(m32, steps32, FSDP(InProcessRing(ring)))
+    gap = max(abs(a - b_) for a, b_ in zip(plain32, ring32))
+    rec.update(float32_losses=ring32, float32_losses_unsharded=plain32, float32_gap=gap)
+    log(f"fsdp float32 ({ring} virtual ranks, overlapped): losses {ring32} vs unsharded "
+        f"{plain32} (gap {gap:.3e}, limit 1e-4)")
+    check(gap <= 1e-4, f"fsdp float32: ring losses {ring32} vs unsharded {plain32}")
+
+    torch.cuda.empty_cache()
+    plain, plain_ms = run(mcfg, 10, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    oc.ag_launches = oc.rs_launches = 0                     # the main path starts here
+    losses, step_ms = run(mcfg, steps, FSDP(InProcessRing(ring)))
+    launches = (oc.ag_launches, oc.rs_launches)             # ...and ends here
+    peak = torch.cuda.max_memory_allocated() - base
+    sites = mcfg.n_layers * 6
+    want = (steps * ring * sites * 2 * ring, steps * ring * sites * ring)
+    budget = train_memory_bytes(mcfg, tcfg.batch, mcfg.max_seq_len, ring, "fsdp")
+    rec.update(losses=losses, launches=launches, launches_per_rank_step=(
+        launches[0] // (steps * ring), launches[1] // (steps * ring)), step_ms=step_ms,
+        step_ms_unsharded=plain_ms, peak_allocated=peak,
+        train_memory_bytes_fsdp=budget["total"])
+    log(f"fsdp bf16 ({ring} virtual ranks, overlapped, {steps} steps): losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches} (= {steps} steps x {ring} "
+        f"ranks x ({2 * ring * sites}, {ring * sites}) a rank); step_ms median {step_ms:.3f} on "
+        f"one card emulating {ring} ranks, not a multi-card time (unsharded {plain_ms:.3f}); "
+        f"peak allocated {peak} B for all {ring} virtual ranks, train_memory_bytes(fsdp, data "
+        f"{ring}) {budget['total']:.0f} B a rank")
+    check(all(math.isfinite(v) for v in losses), f"fsdp bf16: non-finite losses {losses}")
+    check(sum(losses[-5:]) / 5 < losses[0], f"fsdp bf16: losses do not fall {losses}")
+    check(launches == want, f"fsdp bf16: launches {launches}, want {want}")
+    torch.cuda.empty_cache()
+    if profile:
+        pr = profile_train(mcfg, tcfg, ocfg, steps=3, device=device,
+                           fsdp=FSDP(InProcessRing(ring)))
+        rec["profile"] = pr
+        log(f"profile fsdp bf16 ({ring} virtual ranks): {pr['wall_s'] / 3 * 1e3:.3f} ms a step "
+            f"wall, device busy {pr['device_busy_s'] / 3 * 1e3:.3f} ms a step (share "
+            f"{pr['busy_share']:.4f}), {pr['kernel_launches']} kernels")
+        for row in pr["top"][:8]:
+            log(f"  {row['device_ms']:.4f} ms x{row['count']} {row['name']}")
+        torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the FSDP trainer over NCCL at world size 1
+# ---------------------------------------------------------------------------
+
+def fsdp_nccl_world1(steps: int, out_dir: str, device: str | None = None):
+    """``torchrun --nproc_per_node 1 -m dtc_tpu_torch.main
+    --train_config_path configs/train_config_fsdp.yaml --dataset synthetic
+    --no-obs --steps STEPS --output_dir OUT_DIR`` (torchrun's environment set
+    in this process) under ``collectives: xla`` and, from a copy of the
+    config that adds ``collectives: overlapped``, under ``overlapped``; then
+    the xla command in one process. Returns {mode: (result, stdout, ring
+    launches, log.csv rows)}, the backend, and the single-process result."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from dtc_tpu_torch import main as cli
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+    from dtc_tpu_torch.utils import dist as dist_utils
+
+    base = Path(out_dir)
+    shutil.rmtree(base, ignore_errors=True)  # an earlier run's log.csv is refused
+    base.mkdir(parents=True)
+    ovl = base / "train_config_fsdp_overlapped.yaml"
+    ovl.write_text((ROOT / "configs" / "train_config_fsdp.yaml").read_text()
+                   + "\ncollectives: overlapped\n")
+    argv = ["--model_config_path", str(ROOT / "configs" / "model_config.yaml"),
+            "--optim_config_path", str(ROOT / "configs" / "optim_config.yaml"),
+            "--dataset", "synthetic", "--no-obs", "--steps", str(steps)]
+    if device:
+        argv += ["--device", device]
+    configs = {"xla": ROOT / "configs" / "train_config_fsdp.yaml", "overlapped": ovl}
+    env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()))
+    seen = {"backend": None}
+    real_init = dist_utils.initialize
+
+    def init(*a, **k):
+        dev = real_init(*a, **k)
+        seen["backend"] = dist.get_backend()
+        return dev
+
+    runs = {}
+    os.environ.update(env)
+    dist_utils.initialize = init
+    try:
+        for mode, cfg in configs.items():
+            buf = io.StringIO()
+            oc.ag_launches = oc.rs_launches = 0
+            with contextlib.redirect_stdout(buf):
+                res = cli.main(["--train_config_path", str(cfg), *argv,
+                                "--output_dir", str(base / mode)])
+            rows = (base / mode / "log.csv").read_text().splitlines()
+            runs[mode] = (res, buf.getvalue(), (oc.ag_launches, oc.rs_launches), rows)
+            check(not dist.is_initialized(), "phase 20: the trainer left its process group open")
+    finally:
+        dist_utils.initialize = real_init
+        for key in env:
+            del os.environ[key]
+    alone = cli.main(["--train_config_path", str(configs["xla"]), *argv,
+                      "--output_dir", str(base / "alone")])
+    return runs, seen["backend"], alone
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the decode megakernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -1779,8 +2128,9 @@ def main() -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true",
                    help="also profile steady bf16 decode iterations and flagship "
-                        "training steps (device busy share), the latter alone and "
-                        "over NCCL at world size 1 as well")
+                        "training steps (device busy share), the latter alone, "
+                        "over NCCL at world size 1 and under FSDP over 4 virtual "
+                        "ranks as well")
     args = p.parse_args()
 
     try:
@@ -2377,6 +2727,57 @@ def main() -> int:
                     log(f"  {row}")
             torch.cuda.empty_cache()
 
+        # 18. the FSDP ring's kernels (rows 17-18) against their plain
+        # versions over 4 virtual ranks, at the flagship's dense sites
+        overlap_specs = [
+            ("bf16_qkv", 8, 512, 512, 512, 0, "bfloat16", 20),
+            ("bf16_fc1", 8, 512, 512, 2048, 0, "bfloat16", 20),
+            ("bf16_out_proj", 8, 512, 512, 512, 1, "bfloat16", 20),
+            ("bf16_fc2", 8, 512, 2048, 512, 1, "bfloat16", 20),
+            ("fp32_qkv", 8, 512, 512, 512, 0, "float32", 0),
+            ("fp32_fc1", 8, 512, 512, 2048, 0, "float32", 0),
+            ("fp32_out_proj", 8, 512, 512, 512, 1, "float32", 0),
+            ("fp32_fc2", 8, 512, 2048, 512, 1, "float32", 0),
+            ("bf16_ragged", 4, 100, 200, 300, 0, "bfloat16", 0),   # m 100, blocks 50 / 75
+            ("bf16_ragged_out", 4, 100, 200, 300, 1, "bfloat16", 0),
+            ("fp32_ragged", 4, 100, 200, 300, 0, "float32", 0),
+        ]
+        overlap = [overlap_case(name, b, t, k, n, sa, dt, seed=args.seed + 180 + i, iters=it)
+                   for i, (name, b, t, k, n, sa, dt, it) in enumerate(overlap_specs)]
+        record["overlap_cases"] = overlap
+
+        # 19. FSDP over 4 virtual ranks on one card, overlapped: the dense
+        # sites run the kernels (the launches of the kernels line)
+        record["fsdp_virtual"] = fsdp_virtual(args.seed, profile=args.profile)
+
+        # 20. the FSDP trainer over NCCL at world size 1: xla bit-equal to one
+        # process, overlapped inert
+        steps20 = 10
+        runs20, backend20, alone20 = fsdp_nccl_world1(
+            steps20, str(ROOT / "build" / "chip_smoke_fsdp"))
+        x20, o20 = runs20["xla"], runs20["overlapped"]
+        inert = "collectives: overlapped is inert on this run" in o20[1]
+        check(backend20 == "nccl", f"phase 20: backend {backend20}")
+        check(x20[0].losses == alone20.losses and len(x20[0].losses) == steps20,
+              f"phase 20: NCCL losses {x20[0].losses} != one process's {alone20.losses}")
+        check(o20[0].losses == x20[0].losses,
+              f"phase 20: overlapped losses {o20[0].losses} != xla's {x20[0].losses}")
+        check(inert and o20[2] == (0, 0) and x20[2] == (0, 0),
+              f"phase 20: overlapped inert warning {inert}, ring launches {o20[2]} / {x20[2]}")
+        for mode, (_, _, _, rows) in runs20.items():
+            check(rows[0] == "step,elapsed_time,loss" and len(rows) == steps20 + 1,
+                  f"phase 20 {mode}: log.csv {rows}")
+        record["fsdp_nccl_world1"] = dict(
+            losses=x20[0].losses, losses_alone=alone20.losses,
+            losses_overlapped=o20[0].losses, backend=backend20, inert_warning=inert,
+            ring_launches=dict(xla=x20[2], overlapped=o20[2]), card=smi)
+        log(f"FSDP trainer over NCCL at world size 1 (torchrun's environment, the flagship, "
+            f"{steps20} steps after 5 warmup): xla losses {x20[0].losses} equal the "
+            f"single-process run's bit for bit; overlapped: the inert warning printed, ring "
+            f"launches {o20[2]}, losses equal xla's; log.csv {len(x20[3]) - 1} rows each. "
+            f"This proves the process group, the gathers and reduce-scatters and rank-0 "
+            f"logging on one card, not several cards [{smi}]")
+
         main = results[0]
         kernels = [dict(
             name="decode_attention", route="cuda",
@@ -2467,6 +2868,24 @@ def main() -> int:
                 bound_by=main_block[f"full_{part}_bound_by"],
                 library_ms=main_block[f"full_library_{part}"],
                 causal_ms=main_block[f"causal_{part}"],
+            ))
+        # Rows 17-18: launches from phase 19's FSDP training (the model's
+        # own run over 4 virtual ranks); times at the bf16 site where the
+        # kernel is slowest against its bound, every timed site's in sites_ms.
+        timed = [c for c in overlap if "ag_ms" in c]
+        fsdp_launches = record["fsdp_virtual"]["launches"]
+        for kind, launched, row, name in (("ag", fsdp_launches[0], 231, "overlap_ag_matmul"),
+                                          ("rs", fsdp_launches[1], 296, "overlap_rs_matmul")):
+            worst = max(timed, key=lambda c: c[f"{kind}_ms"] / c[f"{kind}_bound_ms"])
+            kernels.append(dict(
+                name=name, route="cuda", source="dtc_tpu_torch/csrc/overlap_collectives.cu",
+                replaces=f"dtc_tpu/ops/overlap_collectives.py:{row}",
+                launches=launched,
+                max_abs_err=max(c[f"max_abs_err_{kind}"] for c in overlap),
+                ms=worst[f"{kind}_ms"], plain_ms=worst[f"{kind}_plain_ms"],
+                bound_ms=worst[f"{kind}_bound_ms"], bound_by=worst[f"{kind}_bound_by"],
+                library_ms=worst[f"{kind}_library_ms"], site=worst["case"],
+                sites_ms={c["case"]: c[f"{kind}_ms"] for c in timed},
             ))
         record["kernels"] = kernels
     except Exception:

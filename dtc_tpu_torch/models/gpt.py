@@ -35,6 +35,12 @@ residual ops but neither the flash forward nor the q/k/v projections;
 the forward's dropout masks and leaves the generator where the forward
 left it: a remat mode gives the same bits as ``none``.
 
+FSDP (``parallel: fsdp``, :mod:`dtc_tpu_torch.parallel.fsdp`): under an
+FSDP state a rank's parameters may be shards; every module reads a
+parameter through ``fsdp.full`` where it uses it, and the dense sites
+under ``collectives: overlapped`` compute on their shard over the ring
+(:class:`Dense`). Without a state both are the plain reads.
+
 LoRA adapters (``cfg.adapter.rank > 0``): the factors are not module
 parameters; the caller passes them per call as ``lora`` (see
 ``dtc_tpu_torch.adapters``): one adapter's factors shared by every row,
@@ -66,6 +72,8 @@ from dtc_tpu_torch.ops import decode_attention as fused
 from dtc_tpu_torch.ops import ring_attention
 from dtc_tpu_torch.ops.attention import causal_attention, decode_attention
 from dtc_tpu_torch.ops.fused_ce import fused_head_ce, head_logits
+from dtc_tpu_torch.ops.overlap_collectives import overlap_dense_matmul
+from dtc_tpu_torch.parallel import fsdp
 
 DTYPES = {
     "float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -143,8 +151,8 @@ class LayerNorm(nn.Module):
         x = x.float()
         mean = x.mean(dim=-1, keepdim=True)
         var = torch.clamp_min((x * x).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
-        mul = torch.rsqrt(var + LN_EPS) * self.weight
-        return (x - mean) * mul + self.bias
+        mul = torch.rsqrt(var + LN_EPS) * fsdp.full(self.weight)
+        return (x - mean) * mul + fsdp.full(self.bias)
 
 
 def lora_scale(cfg: ModelConfig) -> float:
@@ -201,19 +209,35 @@ class Dense(nn.Module):
     and bias in the parameter dtype, both cast to the compute dtype. As in
     flax, the product is rounded to the compute dtype before the bias is
     added in the compute dtype (two roundings, not ``F.linear``'s one).
-    With ``lora`` factors ``(A, B)`` it adds :func:`apply_lora`'s delta."""
+    With ``lora`` factors ``(A, B)`` it adds :func:`apply_lora`'s delta.
 
-    def __init__(self, d_in: int, d_out: int, cfg: ModelConfig, device=None):
+    ``shard_axis``: the axis of the flax kernel ``(in, out)`` that FSDP
+    shards, 0 (the input: q/k/v/fc1) or 1 (the output: out_proj/fc2). Under
+    ``collectives: overlapped`` with an FSDP ring in scope
+    (:func:`~dtc_tpu_torch.parallel.fsdp.overlap_ring`) the product runs
+    through :func:`overlap_dense_matmul` on this rank's shard of the
+    weight; otherwise the weight is used whole (all-gathered under FSDP)."""
+
+    def __init__(self, d_in: int, d_out: int, cfg: ModelConfig, device=None,
+                 shard_axis: int = 0):
         super().__init__()
         pdt = DTYPES[cfg.param_dtype]
         self.cdtype = DTYPES[cfg.compute_dtype]
         self.lora_scale = lora_scale(cfg)
+        self.shard_axis = shard_axis
+        self.overlapped = cfg.collectives == "overlapped"
         self.weight = nn.Parameter(torch.empty(d_out, d_in, dtype=pdt, device=device))
         self.bias = nn.Parameter(torch.zeros(d_out, dtype=pdt, device=device))
 
     def forward(self, x: torch.Tensor, lora=None) -> torch.Tensor:
         cd = self.cdtype
-        y = F.linear(x.to(cd), self.weight.to(cd)) + self.bias.to(cd)
+        ring = fsdp.overlap_ring() if self.overlapped else None
+        if ring is None:
+            y = F.linear(x.to(cd), fsdp.full(self.weight).to(cd))
+        else:
+            y = overlap_dense_matmul(x.to(cd), self.weight.to(cd).t(),
+                                     shard_axis=self.shard_axis, ring=ring)
+        y = y + fsdp.full(self.bias).to(cd)
         return y if lora is None else apply_lora(y, x, lora, self.lora_scale)
 
 
@@ -242,7 +266,7 @@ class CausalSelfAttention(nn.Module):
         self.q_proj = Dense(d, d, cfg, device)
         self.k_proj = Dense(d, d, cfg, device)
         self.v_proj = Dense(d, d, cfg, device)
-        self.out_proj = Dense(d, d, cfg, device)
+        self.out_proj = Dense(d, d, cfg, device, shard_axis=1)
 
     def forward(self, x: torch.Tensor, cache: dict | None = None,
                 layer: int = 0, idx: torch.Tensor | None = None,
@@ -302,7 +326,7 @@ class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.fc1 = Dense(cfg.d_model, cfg.d_ff, cfg, device)
-        self.fc2 = Dense(cfg.d_ff, cfg.d_model, cfg, device)
+        self.fc2 = Dense(cfg.d_ff, cfg.d_model, cfg, device, shard_axis=1)
 
     def forward(self, x: torch.Tensor, lora: dict | None = None) -> torch.Tensor:
         lora = lora or {}
@@ -372,20 +396,21 @@ class GPTEmbed(nn.Module):
         cfg = self.cfg
         t = x.shape[1]
         s = cfg.max_seq_len
-        tok = self.wte(x)
+        tok = F.embedding(x, fsdp.full(self.wte.weight))
+        wpe = fsdp.full(self.wpe.weight)
         ar = torch.arange(t, device=x.device)
         if isinstance(pos_offset, int):
             # A sequence shard from position pos_offset (ring attention).
-            pos = self.wpe.weight[pos_offset:pos_offset + t][None]
+            pos = wpe[pos_offset:pos_offset + t][None]
         elif pos_offset.ndim == 1:
             # Per-slot positions. Rows past the table (an idle slot whose
             # frontier ran on) clamp to the last row; their outputs are
             # discarded by the caller.
             rows = (pos_offset[:, None].long() + ar[None]).clamp(0, s - 1)
-            pos = self.wpe.weight[rows]
+            pos = wpe[rows]
         else:
             start = pos_offset.clamp(0, s - t).long()
-            pos = self.wpe.weight[start + ar][None]
+            pos = wpe[start + ar][None]
         h = (tok + pos).to(DTYPES[cfg.compute_dtype])
         return _dropout(h, cfg.dropout if train else 0.0, gen)
 
@@ -423,7 +448,8 @@ class GPTHead(nn.Module):
 
     def forward(self, h: torch.Tensor, targets: torch.Tensor | None = None) -> torch.Tensor:
         hc = self.ln_f(h).to(DTYPES[self.cfg.compute_dtype])
-        w, b, v = self.lm_head.weight, self.lm_head.bias, self.cfg.vocab_size
+        w, b = fsdp.full(self.lm_head.weight), fsdp.full(self.lm_head.bias)
+        v = self.cfg.vocab_size
         if targets is not None:
             return fused_head_ce(hc, w, b, targets, v)
         return head_logits(hc, w, b, v)

@@ -28,7 +28,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 #: The C signatures of each library's entry points: {function: argtypes}.
 _SIGNATURES = {
@@ -39,6 +39,10 @@ _SIGNATURES = {
         "dtc_flash_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
         "dtc_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _F] + [_I] * 3 + [_P],
         "dtc_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+    },
+    "overlap_collectives": {
+        "dtc_overlap_ag_step": [_P, _L, _L, _P, _L, _L, _P, _L] + [_I] * 5 + [_P],
+        "dtc_overlap_rs_step": [_P, _L, _L, _P, _L, _L, _P, _P] + [_I] * 4 + [_P],
     },
 }
 

@@ -1,0 +1,379 @@
+"""Overlapped training collectives: FSDP's ring all-gather fused with the
+matmul that consumes the weight, and the weight gradient's matmul fused with
+a streamed ring reduce-scatter (the JAX package's
+``ops/overlap_collectives.py``).
+
+Under FSDP a dense layer's weight ``w`` (K, N) is cut along ``shard_axis``
+into R chunks, one per rank of the data ring, and each rank holds the
+token rows of its share of the batch. :func:`overlap_dense_matmul` computes
+``x @ w`` without gathering ``w`` first:
+
+- forward (all-gather-matmul): at ring step ``s`` rank ``idx`` multiplies
+  by the chunk it holds, chunk ``(idx - s) % R``, while that chunk travels
+  on to the right neighbour. ``shard_axis`` 0 (q/k/v/fc1: the contraction
+  is sharded) multiplies the matching column block of x and adds the
+  partial to a float32 accumulator; ``shard_axis`` 1 (out_proj/fc2: the
+  output is sharded) writes the chunk's output column block.
+- backward: dx by a second ring pass over the same chunks, transposed
+  (``w_t``: ZeRO-3 keeps only the shard and re-gathers), and dw by the
+  streamed matmul + reduce-scatter: at step ``s`` rank ``idx`` computes
+  its rows' partial of gradient block ``(idx - s - 1) % R``, adds the
+  accumulator that just arrived and sends it right; after R steps rank
+  ``idx`` holds block ``idx``, summed over every rank's rows.
+
+Partials accumulate in float32 and the result is rounded once to the
+inputs' dtype (the caller adds the bias after, in that dtype, as flax's
+Dense does). The two backward rings run as one schedule, so the weight
+chunk and the accumulator travel together while dx's product runs.
+
+One ring step is one launch of a hand-written Hopper kernel on a CUDA
+tensor (``csrc/overlap_collectives.cu``): :func:`ag_step` (TPU kernel row
+17, ``_overlap_ag_matmul_kernel``) and :func:`rs_step` (row 18,
+``_overlap_rs_matmul_kernel``); on a CPU tensor their plain versions
+:func:`ag_step_reference` / :func:`rs_step_reference`, per-step PyTorch
+products with the JAX package's ``_decomposed_*`` schedules. There is no
+fallback from the one to the other. ``ag_launches`` / ``rs_launches`` count
+kernel launches. The TPU kernels copy chunks between chips from inside the
+kernel; here each exchange is a transport's point-to-point exchange,
+started before the step's product and waited for after it (over NCCL the
+transfer runs on NCCL's stream while the product runs on the compute
+stream; see :class:`~dtc_tpu_torch.ops.ring_attention.Pending`).
+
+Transports (``ring``): a :class:`~dtc_tpu_torch.ops.ring_attention.DistRing`
+over the data ranks (x and w are this rank's rows and chunk), or an
+:class:`~dtc_tpu_torch.ops.ring_attention.InProcessRing` of R virtual ranks
+on one device (x and w are the whole batch and weight, rank i's rows being
+batch rows ``i·B/R`` on). The JAX package's applicability ladder is copied
+as semantics: without a ring or with a ring of one, or where ``ring_dim %
+R`` (the sharded dim of w) or ``batch % R`` is not 0, the op is the plain
+product ``x @ w``. Its pallas -> decomposed step for shapes over the TPU's
+VMEM budget does not apply: the kernels mask their ragged edges.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: Kernel launches since the last reset (the wrappers add one per launch,
+#: nowhere else): row 17's all-gather-matmul steps, row 18's
+#: matmul + reduce-scatter steps.
+ag_launches = 0
+rs_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# one ring step: plain versions and kernels
+# ---------------------------------------------------------------------------
+
+def _cols(x: torch.Tensor, width: int, block: int) -> torch.Tensor:
+    return x[:, block * width:(block + 1) * width]
+
+
+def _ag_operands(x, w, src: int, slice_x: bool, w_t: bool):
+    """``(x_s, w_s)`` of one all-gather-matmul step: the product is
+    ``x_s @ w_s``."""
+    ws = w.t() if w_t else w
+    return (_cols(x, ws.shape[0], src) if slice_x else x), ws
+
+
+def _rs_operands(a, b, j: int, blk: int, slice_a: bool):
+    """``(a_j, b_j)`` of one reduce-scatter step: the product is
+    ``a_jᵀ @ b_j``."""
+    return (_cols(a, blk, j), b) if slice_a else (a, _cols(b, blk, j))
+
+
+def ag_step_reference(x, w, out, *, src: int, slice_x: bool, slice_out: bool, w_t: bool,
+                      accumulate: bool) -> None:
+    """Plain version of one all-gather-matmul step, in place on the float32
+    ``out``: ``part = x_s @ w_s``, where ``w_s`` is the chunk ``w`` (its
+    transpose with ``w_t``) and ``x_s`` the ``src`` column block of x
+    (``slice_x``) or x. The destination is the ``src`` output column block
+    (``slice_out``) or ``out``; ``part`` is added to it (``accumulate``) or
+    written to it."""
+    xs, ws = _ag_operands(x, w, src, slice_x, w_t)
+    part = xs.float().contiguous() @ ws.float().contiguous()
+    dest = _cols(out, ws.shape[1], src) if slice_out else out
+    dest.copy_(dest + part if accumulate else part)
+
+
+def rs_step_reference(a, b, acc, *, j: int, blk: int, slice_a: bool) -> torch.Tensor:
+    """Plain version of one matmul + reduce-scatter step: ``acc + a_jᵀ @
+    b_j`` in float32 over the token rows, where ``a`` (``slice_a``) or else
+    ``b`` is cut to its ``blk``-wide column block ``j``, and ``acc`` is the
+    accumulator that arrived (None at the first step)."""
+    a_j, b_j = _rs_operands(a, b, j, blk, slice_a)
+    part = a_j.float().t().contiguous() @ b_j.float().contiguous()
+    return part if acc is None else acc + part
+
+
+def _check_pair(p: torch.Tensor, q: torch.Tensor, what: str) -> None:
+    if p.ndim != 2 or q.ndim != 2:
+        raise ValueError(f"{what}: expected 2-D operands, got {tuple(p.shape)}, {tuple(q.shape)}")
+    if p.dtype not in _DTYPE_CODES or q.dtype != p.dtype:
+        raise ValueError(f"{what}: operands must both be float32 or both bfloat16, got "
+                         f"{p.dtype}, {q.dtype}")
+    if p.device != q.device:
+        raise ValueError(f"{what}: operands on {p.device} and {q.device}")
+
+
+def _check_f32(t: torch.Tensor, shape, device, what: str) -> None:
+    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or t.device != device:
+        raise ValueError(f"{what} must be float32 {tuple(shape)} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _lib_and_stream(t: torch.Tensor):
+    from dtc_tpu_torch.ops import _build
+
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return _build.load("overlap_collectives"), ctypes.c_void_p(
+        torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        from dtc_tpu_torch.ops import _build
+
+        raise RuntimeError(f"overlap {what} launch failed: {_build.error_string(lib, rc)}")
+
+
+def ag_step(x, w, out, *, src: int, slice_x: bool, slice_out: bool, w_t: bool,
+            accumulate: bool) -> None:
+    """One all-gather-matmul ring step (TPU kernel row 17), in place on the
+    float32 ``out`` (see :func:`ag_step_reference`): the plain version for
+    CPU tensors, the kernel for CUDA tensors. ``x`` and ``w`` may be any
+    2-D views (strides are passed to the kernel); ``out`` is a row-major
+    float32 matrix."""
+    global ag_launches
+    _check_pair(x, w, "ag_step")
+    xs, ws = _ag_operands(x, w, src, slice_x, w_t)
+    (m, k), (k2, n) = xs.shape, ws.shape
+    fits = out.shape[1] >= (src + 1) * n if slice_out else out.shape[1] == n
+    if k != k2 or out.ndim != 2 or out.shape[0] != m or not fits:
+        raise ValueError(f"ag_step: x block {tuple(xs.shape)}, w chunk {tuple(ws.shape)}, "
+                         f"out {tuple(out.shape)} do not fit")
+    _check_f32(out, out.shape, x.device, "ag_step's out")
+    if x.device.type == "cpu":
+        return ag_step_reference(x, w, out, src=src, slice_x=slice_x, slice_out=slice_out,
+                                 w_t=w_t, accumulate=accumulate)
+    if out.stride(1) != 1:
+        raise ValueError("ag_step: out must be row-major")
+    lib, stream = _lib_and_stream(x)
+    o = _cols(out, n, src) if slice_out else out
+    rc = lib.dtc_overlap_ag_step(
+        ctypes.c_void_p(xs.data_ptr()), xs.stride(0), xs.stride(1),
+        ctypes.c_void_p(ws.data_ptr()), ws.stride(0), ws.stride(1),
+        ctypes.c_void_p(o.data_ptr()), o.stride(0), m, n, k, int(accumulate),
+        _DTYPE_CODES[x.dtype], stream)
+    _raise_on(lib, rc, "all-gather-matmul step")
+    ag_launches += 1
+
+
+def rs_step(a, b, acc, *, j: int, blk: int, slice_a: bool) -> torch.Tensor:
+    """One matmul + reduce-scatter ring step (TPU kernel row 18): the new
+    float32 stage buffer ``acc + a_jᵀ @ b_j`` (see
+    :func:`rs_step_reference`). The plain version for CPU tensors, the
+    kernel for CUDA tensors."""
+    global rs_launches
+    _check_pair(a, b, "rs_step")
+    a_j, b_j = _rs_operands(a, b, j, blk, slice_a)
+    if a_j.shape[0] != b_j.shape[0]:
+        raise ValueError(f"rs_step: {a_j.shape[0]} and {b_j.shape[0]} token rows")
+    shape = (a_j.shape[1], b_j.shape[1])
+    if acc is not None:
+        _check_f32(acc, shape, a.device, "rs_step acc")
+    if a.device.type == "cpu":
+        return rs_step_reference(a, b, acc, j=j, blk=blk, slice_a=slice_a)
+    if acc is not None and not acc.is_contiguous():
+        raise ValueError("rs_step: acc must be contiguous")
+    lib, stream = _lib_and_stream(a)
+    out = torch.empty(shape, dtype=torch.float32, device=a.device)
+    rc = lib.dtc_overlap_rs_step(
+        ctypes.c_void_p(a_j.data_ptr()), a_j.stride(0), a_j.stride(1),
+        ctypes.c_void_p(b_j.data_ptr()), b_j.stride(0), b_j.stride(1),
+        ctypes.c_void_p(0 if acc is None else acc.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        shape[0], shape[1], a_j.shape[0], _DTYPE_CODES[a.dtype], stream)
+    _raise_on(lib, rc, "matmul + reduce-scatter step")
+    rs_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the ring schedules (one generator per rank; see ring_attention's transports)
+# ---------------------------------------------------------------------------
+
+def _right(ring: int) -> tuple[int, ...]:
+    return tuple((i + 1) % ring for i in range(ring))
+
+
+def _ag_program(idx: int, ring: int, x, w, *, slice_x: bool, slice_out: bool, w_t: bool,
+                step=None):
+    """One rank's all-gather-matmul: the float32 ``(m, N_out)`` product of
+    its rows ``x`` with the gathered weight, its chunk ``w`` travelling
+    right while each step multiplies."""
+    step = step or ag_step
+    ws = w.t() if w_t else w
+    width = ws.shape[1] * (ring if slice_out else 1)
+    out = torch.empty(x.shape[0], width, dtype=torch.float32, device=x.device)
+    w_cur = w
+    for s in range(ring):
+        pending = (yield [(_right(ring), w_cur)]) if s < ring - 1 else None
+        step(x, w_cur, out, src=(idx - s) % ring, slice_x=slice_x, slice_out=slice_out,
+             w_t=w_t, accumulate=s > 0 and not slice_out)
+        if pending is not None:
+            (w_cur,) = pending.wait()
+    return out
+
+
+def _rs_program(idx: int, ring: int, a, b, *, slice_a: bool, step=None):
+    """One rank's streamed matmul + reduce-scatter: its float32 block of
+    ``aᵀ @ b`` summed over every rank's rows."""
+    step = step or rs_step
+    blk = (a if slice_a else b).shape[1] // ring
+    acc = None
+    for s in range(ring):
+        stage = step(a, b, acc, j=(idx - s - 1) % ring, blk=blk, slice_a=slice_a)
+        if s == ring - 1:
+            return stage
+        (acc,) = (yield [(_right(ring), stage)]).wait()
+
+
+def _bwd_program(idx: int, ring: int, x, w, dy, *, contract: bool, flip: bool = False,
+                 ag=None, rs=None):
+    """One rank's backward of the forward ring: float32 ``(dx, dw)`` for
+    its rows and chunk (``w.t()`` with ``flip``). The dx ring re-gathers
+    the chunks transposed (out-block writes when the contraction is
+    sharded, accumulation otherwise); dw is the streamed reduce-scatter of
+    ``xᵀ @ dy`` over the sharded dim. Both travel in one exchange a step,
+    and dx's product runs while it is in flight."""
+    ag, rs = ag or ag_step, rs or rs_step
+    logical = w.t() if flip else w
+    blk = logical.shape[0] if contract else logical.shape[1]
+    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    w_cur, acc = w, None
+    for s in range(ring):
+        stage = rs(x, dy, acc, j=(idx - s - 1) % ring, blk=blk, slice_a=contract)
+        pending = (yield [(_right(ring), w_cur), (_right(ring), stage)]
+                   ) if s < ring - 1 else None
+        ag(dy, w_cur, dx, src=(idx - s) % ring, slice_x=not contract, slice_out=contract,
+           w_t=not flip, accumulate=s > 0 and not contract)
+        if pending is not None:
+            w_cur, acc = pending.wait()
+    return dx, stage
+
+
+def _split(ring, x, w, shard_axis: int):
+    """Each held rank's rows of ``x`` (m, K) and chunk of ``w``, the chunk
+    as ``(base, flip)``: the chunk is ``base.t()`` with ``flip``. A chunk
+    whose transpose is contiguous (``Dense.weight``'s shard, viewed (K, N))
+    travels as that contiguous base, with no copy."""
+    n = len(ring.ranks)
+    chunks = []
+    for c in w.chunk(n, shard_axis):
+        flip = not c.is_contiguous() and c.t().is_contiguous()
+        chunks.append((c.t() if flip else c, flip))
+    return x.chunk(n, 0), chunks
+
+
+def ring_ag_matmul(x, w, ring, *, shard_axis: int, step=None) -> torch.Tensor:
+    """The forward ring over ``ring``'s ranks: the float32 product of the
+    token rows ``x`` (m, K) and the weight ``w`` (K, N) held as chunks
+    along ``shard_axis``, rows of every held rank stacked. ``step``
+    replaces :func:`ag_step` (a comparison or a planted fault)."""
+    xs, ws = _split(ring, x, w, shard_axis)
+    contract = shard_axis == 0
+    outs = ring.run((_ag_program(i, ring.size, xi, base, slice_x=contract,
+                                 slice_out=not contract, w_t=flip, step=step)
+                     for i, xi, (base, flip) in zip(ring.ranks, xs, ws)), overlap=True)
+    return torch.cat(outs, 0) if len(outs) > 1 else outs[0]
+
+
+def ring_backward(x, w, dy, ring, *, shard_axis: int, ag=None, rs=None):
+    """The backward rings: float32 ``(dx (m, K), dw)`` with ``dw`` held as
+    ``w`` is (each held rank's chunk along ``shard_axis``)."""
+    xs, ws = _split(ring, x, w, shard_axis)
+    dys = dy.chunk(len(ring.ranks), 0)
+    res = ring.run((_bwd_program(i, ring.size, xi, base, di, contract=shard_axis == 0,
+                                 flip=flip, ag=ag, rs=rs)
+                    for i, xi, (base, flip), di in zip(ring.ranks, xs, ws, dys)),
+                   overlap=True)
+    if len(res) == 1:
+        return res[0]
+    return torch.cat([r[0] for r in res], 0), torch.cat([r[1] for r in res], shard_axis)
+
+
+class _RingMatmul(torch.autograd.Function):
+    """``x @ w`` over the ring, rounded once to x's dtype. Saves the held
+    rows and chunk only (ZeRO-3: the backward re-gathers)."""
+
+    @staticmethod
+    def forward(ctx, ring, shard_axis, x, w):
+        ctx.ring, ctx.shard_axis = ring, shard_axis
+        ctx.save_for_backward(x, w)
+        return ring_ag_matmul(x, w, ring, shard_axis=shard_axis).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = ring_backward(x, w, dy.to(x.dtype), ctx.ring, shard_axis=ctx.shard_axis)
+        return None, None, dx.to(x.dtype), dw.to(w.dtype)
+
+
+def _held(ring, size: int) -> int:
+    """The global size of a dim of which ``ring`` holds ``size``."""
+    return size * ring.size // len(ring.ranks)
+
+
+def overlap_dense_matmul(x: torch.Tensor, w: torch.Tensor, *, shard_axis: int,
+                         ring=None) -> torch.Tensor:
+    """``x @ w`` with FSDP's weight gather (and, in the backward, its
+    gradient reduce-scatter) overlapped with the matmul over ``ring``.
+
+    ``x``: (B, ..., K) activations in the compute dtype, the batch axis
+    over the ring's ranks; ``w``: (K, N) in x's dtype, its ``shard_axis``
+    (0: the contraction, q/k/v/fc1; 1: the output, out_proj/fc2) over the
+    ring's ranks; under a ``DistRing`` both are this rank's share. Returns
+    (B, ..., N) in x's dtype. The plain ``x @ w`` where the JAX package's
+    ladder says so (module docstring)."""
+    if shard_axis not in (0, 1):
+        raise ValueError(f"shard_axis must be 0 or 1, got {shard_axis}")
+    if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
+        raise ValueError(f"x and w must both be float32 or both bfloat16, got {x.dtype}, "
+                         f"{w.dtype}")
+    k = w.shape[0] if ring is None or shard_axis else _held(ring, w.shape[0])
+    if w.ndim != 2 or x.shape[-1] != k:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not multiply")
+    if ring is None or ring.size <= 1:
+        return torch.matmul(x, w)
+    r = ring.size
+    if _held(ring, w.shape[shard_axis]) % r or _held(ring, x.shape[0]) % r:
+        return torch.matmul(x, w)
+    y = _RingMatmul.apply(ring, shard_axis, x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+def reduce_scatter_matmul(a: torch.Tensor, b: torch.Tensor, *, shard_axis: int,
+                          ring=None, step=None) -> torch.Tensor:
+    """``aᵀ @ b`` summed over the ring's token shards, in float32, scattered
+    blockwise over ``shard_axis`` of the product (0: a's columns, 1: b's):
+    the backward's dw op alone. ``a`` (..., K) and ``b`` (..., N) hold the
+    ranks' rows; under an ``InProcessRing`` the result is every rank's
+    block, in order. A scatter dim that does not divide by the ring raises
+    (as in the JAX package). ``step`` replaces :func:`rs_step`."""
+    a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    _check_pair(a2, b2, "reduce_scatter_matmul")
+    if ring is None or ring.size <= 1:
+        return (step or rs_step)(a2, b2, None, j=0, blk=a2.shape[1], slice_a=True)
+    dim = (a2 if shard_axis == 0 else b2).shape[1]
+    if dim % ring.size:
+        raise ValueError(f"reduce_scatter_matmul: scatter dim {dim} not divisible by ring "
+                         f"{ring.size}")
+    rows = a2.chunk(len(ring.ranks), 0), b2.chunk(len(ring.ranks), 0)
+    outs = ring.run((_rs_program(i, ring.size, ai, bi, slice_a=shard_axis == 0, step=step)
+                     for i, ai, bi in zip(ring.ranks, *rows)), overlap=True)
+    return torch.cat(outs, shard_axis) if len(outs) > 1 else outs[0]

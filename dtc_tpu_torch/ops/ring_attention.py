@@ -51,6 +51,12 @@ tensors that arrive. Two transports run them:
 
 A caller picks a ring explicitly or through :func:`use_ring`; without one
 the ring has one rank and attention is dense, as in the JAX package.
+
+``run(programs, overlap=True)`` hands a program a :class:`Pending`
+instead of the tensors: the exchange is started and the program calls
+``wait()`` when it needs what arrived, so it can queue work in between
+(the FSDP ring of ``ops/overlap_collectives.py`` multiplies while the next
+chunk travels). Such an exchange is not differentiable.
 """
 
 from __future__ import annotations
@@ -81,6 +87,23 @@ def _inverse(perm) -> tuple[int, ...]:
     return tuple(inv)
 
 
+class Pending:
+    """The tensors of a started exchange: :meth:`wait` returns them once
+    they have arrived. Over NCCL the wait orders the current stream after
+    the transfer (the host does not block); over gloo it blocks the host.
+    Holds the sent tensors until then, so no buffer of the transfer is
+    freed and reused while it is in flight."""
+
+    def __init__(self, tensors, works=(), sent=()):
+        self._tensors, self._works, self._sent = tensors, list(works), list(sent)
+
+    def wait(self) -> list[torch.Tensor]:
+        for work in self._works:
+            work.wait()
+        self._works, self._sent = [], []
+        return self._tensors
+
+
 class InProcessRing:
     """``size`` virtual ranks in one thread. Tensors are the global ones;
     :meth:`run` steps every rank's program to its next exchange, routes
@@ -94,7 +117,7 @@ class InProcessRing:
         """First sequence position of the tokens a caller holds: all of them."""
         return 0
 
-    def run(self, programs) -> list:
+    def run(self, programs, overlap: bool = False) -> list:
         programs = list(programs)
         n = len(programs)
         results, sends, done = [None] * n, [None] * n, [False] * n
@@ -116,7 +139,7 @@ class InProcessRing:
                 for j, (perm, x) in enumerate(sends[i]):
                     recv[perm[i]][j] = x
             for i in range(n):
-                advance(i, recv[i])
+                advance(i, Pending(recv[i]) if overlap else recv[i])
         return results
 
 
@@ -142,26 +165,30 @@ class DistRing:
         """Send ``xs[j]`` to ring rank ``perms[j][me]`` and receive from
         ``perms[j]``'s source of me, all in one batch of point-to-point
         operations; a self-pair is a local copy."""
+        return self.start(perms, xs).wait()
+
+    def start(self, perms, xs) -> Pending:
+        """:meth:`exchange`, started: the transfers are in flight when this
+        returns."""
         import torch.distributed as dist
 
         me = self.ranks[0]
-        ops, out = [], []
+        ops, out, sent = [], [], []
         for j, (perm, x) in enumerate(zip(perms, xs)):
             dst, src = perm[me], perm.index(me)
             if dst == me:
                 out.append(x.clone())
                 continue
             buf = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-            ops.append(dist.P2POp(dist.isend, x.contiguous(), self.global_ranks[dst],
+            sent.append(x.contiguous())
+            ops.append(dist.P2POp(dist.isend, sent[-1], self.global_ranks[dst],
                                   self.group, j))
             ops.append(dist.P2POp(dist.irecv, buf, self.global_ranks[src], self.group, j))
             out.append(buf)
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
-        return out
+        works = dist.batch_isend_irecv(ops) if ops else []
+        return Pending(out, works, sent)
 
-    def run(self, programs) -> list:
+    def run(self, programs, overlap: bool = False) -> list:
         (program,) = programs
         value = None
         while True:
@@ -169,8 +196,9 @@ class DistRing:
                 sends = program.send(value)
             except StopIteration as stop:
                 return [stop.value]
-            value = list(_Exchange.apply(self, tuple(p for p, _ in sends),
-                                         *(x for _, x in sends)))
+            perms, xs = tuple(p for p, _ in sends), [x for _, x in sends]
+            value = (self.start(perms, xs) if overlap
+                     else list(_Exchange.apply(self, perms, *xs)))
 
 
 class _Exchange(torch.autograd.Function):

@@ -4,9 +4,9 @@ port's counterpart of the JAX package's ``parallel/mesh.py``.
 :func:`resolve_mesh_shape` is the JAX package's, with its validation and
 messages. :class:`Mesh` places the ranks in the JAX mesh's device order,
 row-major over ``(pipe, data, model)`` (model innermost), and holds the
-process groups of the ranks that share every coordinate but one: the
-``data`` group (the ranks that split the batch) and the ``model`` group
-(the ring of ``attention: ring``).
+``model`` group (the ring of ``attention: ring``) of the ranks that share
+every coordinate but that one. :func:`check_fsdp` refuses the meshes FSDP
+does not run on yet; on the others FSDP's ring is the whole world.
 """
 
 from __future__ import annotations
@@ -96,6 +96,23 @@ def coords(rank: int, shape: tuple[int, int, int]) -> tuple[int, int, int]:
     """``(pipe, data, model)`` of ``rank`` in the JAX mesh's device order."""
     _, d, m = shape
     return rank // (d * m), (rank // m) % d, rank % m
+
+
+def check_fsdp(shape: tuple[int, int, int], attention: str) -> None:
+    """Raise ``NotImplementedError`` for a ``parallel: fsdp`` mesh the port
+    does not train on yet: FSDP runs over the data axis with ``model`` 1
+    and ``pipe`` 1."""
+    p, _, m = shape
+    if m > 1:
+        what = ("ring attention over a model axis" if attention == "ring"
+                else "a model axis (Megatron tensor parallelism)")
+        raise NotImplementedError(
+            f"the PyTorch port does not train parallel: fsdp with {what} yet "
+            "(DP×FSDP×TP and FSDP with ring attention wait for TP, ROADMAP.md §A1)")
+    if p > 1:
+        raise NotImplementedError(
+            "the PyTorch port does not train parallel: fsdp with a pipe axis yet "
+            "(pipeline parallelism, ROADMAP.md §A1)")
 
 
 class Mesh:

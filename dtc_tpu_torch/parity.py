@@ -6,11 +6,14 @@ and Dense kernels laid out ``(in, out)``. :func:`from_flax` unstacks the
 layers and transposes the kernels to ``nn.Linear``'s ``(out, in)``.
 Takes numpy arrays (``jax.tree.map(np.asarray, params)``), so this module
 needs neither jax nor flax. :func:`lora_from_flax` carries a flax
-``"lora"`` collection (adapter factors) the same way.
+``"lora"`` collection (adapter factors) the same way. :func:`fsdp_shards`
+cuts such a parameter set into one rank's FSDP shards and
+:func:`gather_shards` puts every rank's shards back together.
 
 :func:`attention_tolerance` is the limit attention outputs are held to
 when two implementations are compared (kernel vs plain version, port vs
-JAX package); :func:`grad_tolerance` the limit on attention gradients.
+JAX package); :func:`grad_tolerance` the limit on attention gradients;
+:func:`row_tolerance` the limit on matmul outputs (the FSDP ring's).
 """
 
 from __future__ import annotations
@@ -66,6 +69,20 @@ def grad_tolerance(want: torch.Tensor, n_heads: int) -> torch.Tensor:
     return (BF16_ULPS * ulp).expand(heads.shape).reshape(want.shape)
 
 
+def row_tolerance(want: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Per-element limit on ``|got - want|`` for matmul outputs compared in
+    ``dtype``: float32 :data:`FP32_ATOL` of each row's largest ``|want|``
+    (summation order only); bfloat16 :data:`BF16_ULPS` ulps of each row's
+    largest ``|want|``."""
+    top = want.detach().float().cpu().abs().amax(dim=-1, keepdim=True)
+    if dtype == torch.float32:
+        return (FP32_ATOL * top).expand(want.shape)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"no tolerance for {dtype}")
+    _, e = torch.frexp(top)
+    return (BF16_ULPS * torch.exp2((e - 8).float())).expand(want.shape)
+
+
 _DENSE = {
     "attn.q_proj": ("attn", "q_proj"), "attn.k_proj": ("attn", "k_proj"),
     "attn.v_proj": ("attn", "v_proj"), "attn.out_proj": ("attn", "out_proj"),
@@ -98,6 +115,35 @@ def from_flax(params, cfg) -> dict[str, torch.Tensor]:
             sd[pre + name + ".weight"] = t(blk[grp][layer]["kernel"][i]).T.contiguous()
             sd[pre + name + ".bias"] = t(blk[grp][layer]["bias"][i])
     return sd
+
+
+def fsdp_shards(state: dict[str, torch.Tensor], rank: int, world: int) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s FSDP shards of a whole ``state_dict`` (such as
+    :func:`from_flax` gives): each parameter FSDP shards cut into ``world``
+    equal chunks along its sharded dim
+    (:func:`~dtc_tpu_torch.parallel.sharding.param_shard_dim`), the others
+    whole."""
+    from dtc_tpu_torch.parallel.sharding import param_shard_dim
+
+    out = {}
+    for name, x in state.items():
+        d = param_shard_dim(name)
+        if d is not None and x.shape[d] % world:
+            raise ValueError(f"{name}: dim {d} of {tuple(x.shape)} does not divide by {world}")
+        out[name] = x if d is None else x.chunk(world, d)[rank].clone()
+    return out
+
+
+def gather_shards(shards: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+    """The whole ``state_dict`` from every rank's :func:`fsdp_shards`, in
+    rank order (the whole parameters from rank 0)."""
+    from dtc_tpu_torch.parallel.sharding import param_shard_dim
+
+    out = {}
+    for name, x in shards[0].items():
+        d = param_shard_dim(name)
+        out[name] = x if d is None else torch.cat([s[name] for s in shards], d)
+    return out
 
 
 def lora_from_flax(lora) -> dict[str, torch.Tensor]:

@@ -16,6 +16,12 @@ match optax's ``chain(clip_by_global_norm, adamw)`` (the JAX package's
 
 Parameters and moments are updated in place (the JAX package's donated
 train state does the same work functionally).
+
+Under FSDP (``fsdp``, a :class:`~dtc_tpu_torch.parallel.fsdp.FSDP` state
+over a ``DistRing``) a rank holds shards of the sharded parameters and
+whole copies of the rest: the clip's global norm sums the sharded
+gradients' squared norms over the data group and counts the whole ones
+once. AdamW is elementwise and runs on the shards as they are.
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ def lr_schedule(cfg: OptimConfig, total_steps: int):
 class ClippedAdamW:
     """Clip by global norm, then AdamW, over ``params`` (their ``.grad``)."""
 
-    def __init__(self, params, cfg: OptimConfig, total_steps: int = 0):
+    def __init__(self, params, cfg: OptimConfig, total_steps: int = 0, fsdp=None):
         if cfg.precision != "fp32":
             raise NotImplementedError(
                 "precision: bf16_mixed (fp32 master weights) is not ported "
@@ -62,6 +68,9 @@ class ClippedAdamW:
             )
         self.params = [p for p in params if p.requires_grad]
         self.cfg = cfg
+        self.fsdp = fsdp if fsdp is not None and fsdp.distributed else None
+        self._sharded = (None if self.fsdp is None else
+                         [self.fsdp.sharded(p) for p in self.params])
         self.lr = lr_schedule(cfg, total_steps)
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -81,7 +90,7 @@ class ClippedAdamW:
         if any(g is None for g in grads):
             raise RuntimeError("every parameter needs a gradient before step()")
         if cfg.grad_clip > 0:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = torch.linalg.vector_norm(self._param_norms(grads))
             factor = torch.where(norm < cfg.grad_clip, 1.0, cfg.grad_clip / norm)
             grads = torch._foreach_mul(grads, factor)
         lr = self.lr(self.count)
@@ -100,6 +109,22 @@ class ClippedAdamW:
             torch._foreach_add_(upd, self.params, alpha=cfg.weight_decay)
         torch._foreach_add_(self.params, upd, alpha=-lr)
 
+    def _param_norms(self, grads) -> torch.Tensor:
+        """Each parameter's gradient norm; under FSDP a sharded one's is the
+        norm over every rank's shard (the squares summed over the data
+        group; at one rank ``sqrt(x²)`` gives x back, so the single-process
+        bits)."""
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.fsdp is None:
+            return norms
+        import torch.distributed as dist
 
-def create_optimizer(params, cfg: OptimConfig, total_steps: int = 0) -> ClippedAdamW:
-    return ClippedAdamW(params, cfg, total_steps)
+        mask = torch.tensor(self._sharded, device=norms.device)
+        sq = torch.where(mask, norms * norms, torch.zeros_like(norms))
+        dist.all_reduce(sq, group=self.fsdp.ring.group)
+        return torch.where(mask, torch.sqrt(sq), norms)
+
+
+def create_optimizer(params, cfg: OptimConfig, total_steps: int = 0,
+                     fsdp=None) -> ClippedAdamW:
+    return ClippedAdamW(params, cfg, total_steps, fsdp)

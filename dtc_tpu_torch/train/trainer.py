@@ -1,9 +1,20 @@
 """The training loop: the port's counterpart of the JAX package's
-``train/trainer.py`` for a data-parallel run, on one device or over the
-processes ``torchrun`` starts (:mod:`dtc_tpu_torch.utils.dist`), with
+``train/trainer.py`` for a data-parallel or FSDP run, on one device or over
+the processes ``torchrun`` starts (:mod:`dtc_tpu_torch.utils.dist`), with
 ``attention: ring`` sequence parallelism over the mesh's ``model`` axis.
 
-Over several processes every rank holds the whole model. Each draws the
+Under ``parallel: fsdp`` in a process group each rank keeps its shard of
+every parameter FSDP shards (cut from the full ``GPT(seed)`` init or from
+``params``, so the start equals the unsharded run) and trains with the
+:class:`~dtc_tpu_torch.parallel.fsdp.FSDP` state over every rank (FSDP
+runs with ``model`` and ``pipe`` 1, so the data axis is the world);
+``collectives`` (either config; ``train_step.resolve_collectives``) picks
+the gathered path or the overlapped ring. ``TrainResult.model`` then holds
+the gathered weights. Under ``overlapped`` without a usable FSDP ring the
+JAX package's inert warning is printed and every matmul keeps its plain
+product.
+
+Under DP every rank holds the whole model. Each draws the
 global batch of the JAX package's process 0 (``synthetic_batch_iterator``
 from seed ``seed·1000``) and takes its rows (its ``data`` coordinate) and,
 under ring attention, its sequence shard (its ``model`` coordinate); the
@@ -41,11 +52,13 @@ from dtc_tpu_torch.data.prefetch import PrefetchIterator
 from dtc_tpu_torch.data.synthetic import synthetic_batch_iterator
 from dtc_tpu_torch.models.gpt import GPT, resolve_device
 from dtc_tpu_torch.ops.ring_attention import DistRing, use_ring
-from dtc_tpu_torch.parallel.mesh import Mesh, resolve_mesh_shape
+from dtc_tpu_torch.parallel import sharding
+from dtc_tpu_torch.parallel.fsdp import FSDP
+from dtc_tpu_torch.parallel.mesh import AXIS_NAMES, Mesh, check_fsdp, resolve_mesh_shape
 from dtc_tpu_torch.resilience.guard import AnomalyGuard
 from dtc_tpu_torch.resilience.watchdog import StepWatchdog
 from dtc_tpu_torch.train.optimizer import create_optimizer
-from dtc_tpu_torch.train.train_step import train_step
+from dtc_tpu_torch.train.train_step import resolve_collectives, train_step
 from dtc_tpu_torch.utils import dist as dist_utils
 from dtc_tpu_torch.utils.logging import CSVLogger
 from dtc_tpu_torch.utils.metrics import mfu, peak_flops
@@ -53,6 +66,10 @@ from dtc_tpu_torch.utils.metrics import mfu, peak_flops
 
 @dataclass
 class TrainResult:
+    """``model``: the trained model, whole (under FSDP the shards
+    gathered); ``optimizer``: its optimizer (under FSDP over this rank's
+    shards)."""
+
     model: GPT
     optimizer: object
     losses: list[float] = field(default_factory=list)
@@ -74,17 +91,15 @@ def refuse_unported(train_cfg: TrainConfig, model_cfg: ModelConfig) -> None:
             "composes with the data axis) or attention='ulysses'"
         )
     refusals = [
-        (train_cfg.parallel in ("pp", "fsdp", "none"),
-         f"parallel: {train_cfg.parallel} (tensor, pipeline and FSDP parallelism come "
-         "after DP and ring attention)"),
+        (train_cfg.parallel in ("pp", "none"),
+         f"parallel: {train_cfg.parallel} (tensor and pipeline parallelism come after "
+         "DP, ring attention and FSDP)"),
         (m.pipe > 1 or train_cfg.pp_microbatches > 1,
          "a pipe axis or pp_microbatches > 1 (pipeline parallelism)"),
         (not ring and (train_cfg.parallel == "tp" or m.model > 1),
          "a model axis without attention: ring (Megatron tensor parallelism)"),
         ((m.dcn_pipe, m.dcn_data, m.dcn_model) != (1, 1, 1),
          "dcn mesh factors (multi-host)"),
-        (train_cfg.collectives == "overlapped",
-         "collectives: overlapped (TPU kernel rows 17-18, with FSDP)"),
         (train_cfg.dataset == "fineweb",
          "dataset: fineweb (waits for a dataset in the repository; use "
          "--dataset synthetic)"),
@@ -125,6 +140,7 @@ def train(
     trainer's seed for process 0). Under torchrun's environment the
     process group is joined first (and left at the end, if this call
     joined it) and the mesh spans its ranks."""
+    model_cfg = resolve_collectives(train_cfg, model_cfg)
     refuse_unported(train_cfg, model_cfg)
     joined = dist_utils.launched() and not torch.distributed.is_initialized()
     dev = dist_utils.initialize(device) or resolve_device(device)
@@ -147,6 +163,8 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
     world, rank = dist_utils.world_size(), dist_utils.rank()
     shape = resolve_mesh_shape(train_cfg.parallel, world, train_cfg.mesh,
                                n_layers=model_cfg.n_layers)
+    if train_cfg.parallel == "fsdp":
+        check_fsdp(shape, model_cfg.attention)
     mesh = Mesh(shape, rank) if world > 1 else None
     _, n_data, n_model = shape
     seq = model_cfg.max_seq_len
@@ -161,7 +179,11 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
         from dtc_tpu_torch.parity import from_flax
 
         model.load_state_dict(from_flax(params, model_cfg))
-    opt = create_optimizer(model.parameters(), opt_cfg, total_steps=train_cfg.steps)
+    fsdp = None
+    if train_cfg.parallel == "fsdp" and torch.distributed.is_initialized():
+        fsdp = FSDP(DistRing(range(world))).shard_(model)
+    opt = create_optimizer(model.parameters(), opt_cfg, total_steps=train_cfg.steps,
+                           fsdp=fsdp)
     gen = torch.Generator(device=dev).manual_seed(train_cfg.seed + rank)
 
     log_path = os.path.join(train_cfg.output_dir, "log.csv")
@@ -201,15 +223,24 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
 
     say(f"[dtc_tpu_torch] strategy={train_cfg.parallel} device={dev}"
         + (f" ({torch.cuda.get_device_name(dev)})" if cuda else "")
-        + (f" mesh={dict(zip(('pipe', 'data', 'model'), shape))} processes={world}"
+        + (f" mesh={dict(zip(AXIS_NAMES, shape))} processes={world}"
            if torch.distributed.is_initialized() else ""))
+    rules = sharding.FSDP_RULES if train_cfg.parallel == "fsdp" else sharding.DEFAULT_RULES
+    if model_cfg.attention == "ring":
+        rules = sharding.ring_rules_from(rules)
+    if (model_cfg.collectives == "overlapped"
+            and sharding.fsdp_axis(rules, dict(zip(AXIS_NAMES, shape))) is None):
+        say("[dtc_tpu_torch] WARNING: collectives: overlapped is inert on this run — "
+            "no usable FSDP ring in scope (the active rules don't shard 'embed_p', its "
+            "mesh axis is size 1, or sequence-parallel rules own the activations); every "
+            "matmul keeps its plain product")
     try:
         with ring:
             if train_cfg.warmup_steps:
                 say("Warmup")
             for _ in range(train_cfg.warmup_steps):
                 x, y = next(data_it)
-                loss = train_step(model, opt, x, y, gen)
+                loss = train_step(model, opt, x, y, gen, fsdp)
             if train_cfg.warmup_steps:
                 float(loss)  # wait for the warmup updates
 
@@ -224,7 +255,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
                 if wd is not None:
                     wd.arm(step)
                 x, y = next(data_it)
-                device_losses.append(train_step(model, opt, x, y, gen))
+                device_losses.append(train_step(model, opt, x, y, gen, fsdp))
                 if sync_every_step:
                     sync()
                 now = time.perf_counter()
@@ -270,6 +301,8 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
         if csv is not None:
             csv.close()
     result.total_time_s = time.perf_counter() - start
+    if fsdp is not None:
+        result.model = fsdp.gathered(model)
     say(f"Total time: {result.total_time_s}")
     say("End")
     return result

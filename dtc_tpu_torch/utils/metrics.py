@@ -46,44 +46,53 @@ def mfu(cfg: ModelConfig, batch: int, seq_len: int, step_time_s: float,
     return gpt_step_flops(cfg, batch, seq_len) / (step_time_s * peak_flops)
 
 
-def train_memory_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> dict[str, float]:
+def train_memory_bytes(cfg: ModelConfig, batch: int, seq_len: int, data: int = 1,
+                       parallel: str = "dp") -> dict[str, float]:
     """The JAX package's analytic device-memory budget of one training step
-    (``dtc_tpu/utils/metrics.py`` ``train_memory_bytes``), for what the port
-    trains: one device under ``dp`` with float32 master weights, so no
-    master copy and no collective buffers. Bytes by component:
+    (``dtc_tpu/utils/metrics.py`` ``train_memory_bytes``) for a device of a
+    data axis of ``data`` devices under ``parallel`` (``dp`` or ``fsdp``;
+    the port trains no TP or PP mesh yet), with float32 master weights (no
+    master copy). Bytes by component:
 
-    - ``params``, ``grads``: every parameter in ``param_dtype``;
-    - ``moments``: AdamW's two float32 moments;
+    - ``params``, ``grads``: the device's parameters in ``param_dtype``,
+      every parameter, or 1/``data`` of them under ``fsdp``;
+    - ``moments``: AdamW's two float32 moments of those;
     - ``activations``: per layer ``(10·d_model + 2·d_ff)`` values a token
-      in ``compute_dtype``, plus with ``attention: dense`` the float32
-      (B, H, T, T) probabilities; ``remat`` ``block`` and
-      ``block_save_flash`` keep one residual a layer plus one layer's
-      working set, ``mlp`` drops the two ``d_ff``-wide intermediates;
-      plus the logits;
-    - ``batch_io``: the int32 (x, y) batch.
+      of the device's batch rows in ``compute_dtype``, plus with
+      ``attention: dense`` the float32 (B, H, T, T) probabilities;
+      ``remat`` ``block`` and ``block_save_flash`` keep one residual a
+      layer plus one layer's working set, ``mlp`` drops the two
+      ``d_ff``-wide intermediates; plus the logits;
+    - ``comm_buffers``: the JAX package's ``comm_bytes_per_step`` over the
+      data axis, ``2·(d-1)/d`` (DP's all-reduce) or ``3·(d-1)/d`` (FSDP's
+      gathers and reduce-scatter) of the parameters' bytes;
+    - ``batch_io``: the int32 (x, y) rows.
 
     A structural estimate, not a simulator: it does not tell
     ``block_save_flash``'s saved flash residuals from ``block``."""
     n = param_count(cfg)
+    local = n / data if parallel == "fsdp" else n
     pbytes = float(DTYPE_BYTES.get(cfg.param_dtype, 4))
     cbytes = float(DTYPE_BYTES.get(cfg.compute_dtype, 4))
-    params = n * pbytes
-    moments = n * 8.0
-    grads = n * pbytes
+    params = local * pbytes
+    moments = local * 8.0
+    grads = local * pbytes
+    b_loc = batch / data
     dm, ff = cfg.d_model, cfg.d_ff
-    layer_acts = batch * seq_len * (10.0 * dm + 2.0 * ff) * cbytes
+    layer_acts = b_loc * seq_len * (10.0 * dm + 2.0 * ff) * cbytes
     if cfg.attention == "dense":
-        layer_acts += batch * cfg.n_heads * (seq_len ** 2) * 4.0
+        layer_acts += b_loc * cfg.n_heads * (seq_len ** 2) * 4.0
     n_layers = float(cfg.n_layers)
     if cfg.remat_mode in ("block", "block_save_flash"):
-        acts = n_layers * batch * seq_len * dm * cbytes + layer_acts
+        acts = n_layers * b_loc * seq_len * dm * cbytes + layer_acts
     elif cfg.remat_mode == "mlp":
-        acts = n_layers * (layer_acts - batch * seq_len * 2.0 * ff * cbytes)
+        acts = n_layers * (layer_acts - b_loc * seq_len * 2.0 * ff * cbytes)
     else:
         acts = n_layers * layer_acts
-    acts += batch * seq_len * cfg.padded_vocab_size * cbytes  # logits
-    batch_io = 2.0 * batch * seq_len * 4.0
-    master = comm = 0.0
+    acts += b_loc * seq_len * cfg.padded_vocab_size * cbytes  # logits
+    comm = (3.0 if parallel == "fsdp" else 2.0) * (data - 1) / data * n * pbytes
+    batch_io = 2.0 * b_loc * seq_len * 4.0
+    master = 0.0
     total = params + master + moments + grads + acts + comm + batch_io
     return {
         "params": params, "master": master, "moments": moments, "grads": grads,

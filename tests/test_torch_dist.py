@@ -16,6 +16,16 @@ dropout 0.
 - One spawn of 2 processes: ``parallel: dp`` against JAX's dp on 8
   devices at the same global batch, 3 steps, rtol 2e-4; rank 0 alone
   writes ``log.csv``, one row per step.
+- One spawn of 4 processes: the FSDP ring's op (``overlap_dense_matmul``,
+  both shard axes, forward and gradients, and ``reduce_scatter_matmul``)
+  over a ``DistRing`` gives the in-process ring's result bit for bit in
+  float32; then ``parallel: fsdp`` under ``collectives: xla`` and under
+  ``overlapped`` against JAX's FSDP training of each mode on its 8
+  devices (same global batch), 3 steps, rtol 2e-4; each rank holds a
+  quarter of every sharded parameter and the gathered model equals its
+  shards; rank 0 alone writes ``log.csv``; one FSDP backward's reduced
+  gradients, loss and clip norm equal one process's on the whole batch
+  (AdamW hides a wrong gradient scale from the losses).
 
 The worker is this file run as a script (it imports no JAX). Each spawn
 has its own timeout.
@@ -49,6 +59,29 @@ def _ring_inputs(h, d):
     return [rng.randn(2, 64, h, d).astype(np.float32) for _ in range(3)]
 
 
+# The FSDP ring's op cases: (name, shard axis, K, N).
+OVERLAP_CASES = (("contract", 0, 64, 128), ("out", 1, 64, 128), ("contract_kn", 0, 128, 64),
+                 ("out_kn", 1, 128, 64))
+
+
+def _overlap_inputs(k, n):
+    rng = np.random.RandomState(k + n)
+    return [rng.randn(*shape).astype(np.float32) for shape in ((8, 4, k), (k, n), (8, 4, n))]
+
+
+def _overlap_result(ring, x, w, dy, shard_axis):
+    """Out and the gradients of ``<out, dy>`` for the rows and chunk a ring
+    holds, then the reduce-scatter of ``xᵀ @ dy`` over the sharded dim."""
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+
+    tx, tw = (torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(True) for a in (x, w))
+    tdy = torch.from_numpy(np.ascontiguousarray(dy))
+    out = oc.overlap_dense_matmul(tx, tw, shard_axis=shard_axis, ring=ring)
+    dx, dw = torch.autograd.grad(out, (tx, tw), tdy)
+    rs = oc.reduce_scatter_matmul(tx.detach(), tdy, shard_axis=shard_axis, ring=ring)
+    return [out.detach().numpy(), dx.numpy(), dw.numpy(), rs.numpy()]
+
+
 def _ring_result(ring, q, k, v, schedule):
     """Out and the gradients of sum(out²) for the tensors a ring holds."""
     from dtc_tpu_torch.ops import ring_attention as tra
@@ -80,15 +113,108 @@ def _worker(case: str, out_dir: str) -> None:
             shards = [x[:, rank * 64 // world:(rank + 1) * 64 // world]
                       for x in _ring_inputs(h, d)]
             np.savez(out / f"{name}_r{rank}.npz", *_ring_result(ring, *shards, schedule))
+    if case == "fsdp":
+        ring = tra.DistRing(range(world))
+        for name, axis, k, n in OVERLAP_CASES:
+            x, w, dy = _overlap_inputs(k, n)
+            rows = slice(rank * 8 // world, (rank + 1) * 8 // world)
+            chunk = np.split(w, world, axis=axis)[rank]
+            np.savez(out / f"{name}_r{rank}.npz",
+                     *_overlap_result(ring, x[rows], chunk, dy[rows], axis))
     spec = json.loads((out / "config.json").read_text())
     with open(out / "params.pkl", "rb") as f:
         params = pickle.load(f)
-    res = train(_build(ts.TrainConfig, spec["train"], "train"),
-                _build(ts.ModelConfig, spec["model"], "model"),
-                _build(ts.OptimConfig, spec["optim"], "optim"),
-                device="cpu", params=params)
-    (out / f"losses_r{rank}.json").write_text(json.dumps(res.losses))
+    train_cfg = _build(ts.TrainConfig, spec["train"], "train")
+    runs = [("", train_cfg)]
+    if case == "fsdp":
+        runs.append(("_overlapped", dataclasses.replace(
+            train_cfg, collectives="overlapped", output_dir=train_cfg.output_dir + "_overlapped")))
+    for tag, cfg in runs:
+        steps = _count_ring_steps()
+        res = train(cfg, _build(ts.ModelConfig, spec["model"], "model"),
+                    _build(ts.OptimConfig, spec["optim"], "optim"), device="cpu", params=params)
+        (out / f"losses{tag}_r{rank}.json").write_text(json.dumps(res.losses))
+        if case == "fsdp":
+            report = dict(params=_shard_report(res, rank, world), ring_steps=steps())
+            (out / f"shards{tag}_r{rank}.json").write_text(json.dumps(report))
+            _fsdp_gradients(out / f"grads{tag}_r{rank}.npz", spec, params, tag, rank, world)
     dist_utils.teardown()
+
+
+def _fsdp_batch(vocab: int, seq: int):
+    return np.random.RandomState(7).randint(0, vocab, (8, seq + 1))
+
+
+def _fsdp_gradients(path, spec, params, tag, rank, world):
+    """One FSDP backward from the flax weights on this rank's rows of a
+    fixed batch, reduced as the train step reduces it: this rank's
+    gradients (shards or whole), the averaged loss, the clip's global
+    norm and the FSDP ring's step calls (the ``_overlapped`` tag's model
+    runs its dense sites through the ring)."""
+    from dtc_tpu_torch.config import schema as ts
+    from dtc_tpu_torch.config.loader import _build
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.ops import ring_attention as tra
+    from dtc_tpu_torch.parallel.fsdp import FSDP, use_fsdp
+    from dtc_tpu_torch.parity import from_flax
+    from dtc_tpu_torch.train.optimizer import create_optimizer
+
+    cfg = _build(ts.ModelConfig, spec["model"], "model")
+    if tag:
+        cfg = dataclasses.replace(cfg, collectives="overlapped")
+    model = GPT(cfg, device="cpu")
+    model.load_state_dict(from_flax(params, cfg))
+    state = FSDP(tra.DistRing(range(world))).shard_(model)
+    opt = create_optimizer(model.parameters(), _build(ts.OptimConfig, spec["optim"], "optim"),
+                           3, fsdp=state)
+    tokens = torch.from_numpy(_fsdp_batch(cfg.vocab_size, cfg.max_seq_len))
+    rows = tokens[rank * 8 // world:(rank + 1) * 8 // world]
+    steps = _count_ring_steps()
+    with use_fsdp(state):
+        loss = model(rows[:, :-1], train=True, targets=rows[:, 1:])
+        loss.backward()
+    ring_steps = steps()
+    loss = state.reduce_gradients(opt.params, loss)
+    norm = torch.linalg.vector_norm(opt._param_norms([p.grad for p in opt.params]))
+    np.savez(path, loss=loss.detach().numpy(), norm=norm.numpy(), ring_steps=ring_steps,
+             **{n: p.grad.numpy() for n, p in model.named_parameters()})
+
+
+def _count_ring_steps():
+    """Count the FSDP ring's step calls (the kernels' plain versions on the
+    CPU) from now on; returns a function that stops counting and gives
+    ``[all-gather-matmul steps, reduce-scatter steps]``."""
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+
+    real, counts = (oc.ag_step, oc.rs_step), [0, 0]
+
+    def counted(i):
+        def step(*a, **k):
+            counts[i] += 1
+            return real[i](*a, **k)
+        return step
+
+    oc.ag_step, oc.rs_step = counted(0), counted(1)
+
+    def stop():
+        oc.ag_step, oc.rs_step = real
+        return counts
+    return stop
+
+
+def _shard_report(res, rank, world):
+    """Per parameter: (its shape, this rank's shard's shape, whether the
+    shard is the gathered model's chunk bit for bit and the gathered
+    model holds no gradient)."""
+    from dtc_tpu_torch.parallel.sharding import param_shard_dim
+
+    report = {}
+    for (name, whole), shard in zip(res.model.named_parameters(), res.optimizer.params):
+        d = param_shard_dim(name)
+        want = whole if d is None else whole.chunk(world, d)[rank]
+        report[name] = (list(whole.shape), list(shard.shape),
+                        bool(torch.equal(want, shard)) and whole.grad is None)
+    return report
 
 
 def _free_port() -> int:
@@ -144,11 +270,12 @@ def _flax_params(cfg):
     )(jax.random.PRNGKey(0), jnp.ones((1, cfg.max_seq_len), jnp.int32))["params"]
 
 
-def _check_losses(out_dir: Path, world: int, want) -> None:
-    losses = [json.loads((out_dir / f"losses_r{r}.json").read_text()) for r in range(world)]
+def _check_losses(out_dir: Path, world: int, want, tag: str = "") -> None:
+    losses = [json.loads((out_dir / f"losses{tag}_r{r}.json").read_text())
+              for r in range(world)]
     assert all(lo == losses[0] for lo in losses), "the ranks logged different losses"
     np.testing.assert_allclose(losses[0], want, rtol=2e-4)
-    rows = (out_dir / "log" / "log.csv").read_text().splitlines()
+    rows = (out_dir / f"log{tag}" / "log.csv").read_text().splitlines()
     assert rows[0] == "step,elapsed_time,loss" and len(rows) == len(want) + 1
     np.testing.assert_allclose([float(r.split(",")[2]) for r in rows[1:]], losses[0],
                                rtol=1e-6)
@@ -195,6 +322,71 @@ def test_dp_training_over_two_gloo_processes_matches_jax(
     _write_run(tmp_path, port_cfg, tiny_model_cfg, opt_cfg, _flax_params(tiny_model_cfg))
     _spawn(2, "dp", tmp_path)
     _check_losses(tmp_path, 2, want)
+
+
+def test_fsdp_over_four_gloo_processes_matches_jax(
+        tmp_path, tiny_model_cfg, opt_cfg, train_cfg_factory):
+    from dtc_tpu.train.trainer import train as jtrain
+    from dtc_tpu_torch.ops import ring_attention as tra
+    from dtc_tpu_torch.parallel.sharding import param_shard_dim
+
+    want = {tag: jtrain(train_cfg_factory("fsdp", steps=3, log_every=1, collectives=mode),
+                        tiny_model_cfg, opt_cfg).losses
+            for tag, mode in (("", "xla"), ("_overlapped", "overlapped"))}
+    port_cfg = train_cfg_factory("fsdp", steps=3, log_every=1, output_dir=str(tmp_path / "log"))
+    port_cfg = dataclasses.replace(port_cfg, obs=dataclasses.replace(port_cfg.obs,
+                                                                     enabled=False))
+    _write_run(tmp_path, port_cfg, tiny_model_cfg, opt_cfg, _flax_params(tiny_model_cfg))
+    _spawn(4, "fsdp", tmp_path)
+
+    for name, axis, k, n in OVERLAP_CASES:
+        want_ring = _overlap_result(tra.InProcessRing(4), *_overlap_inputs(k, n), axis)
+        got = [np.load(tmp_path / f"{name}_r{r}.npz") for r in range(4)]
+        for j, (label, cat_axis) in enumerate((("out", 0), ("dx", 0), ("dw", axis),
+                                               ("reduce_scatter", axis))):
+            whole = np.concatenate([g[f"arr_{j}"] for g in got], axis=cat_axis)
+            assert whole.tobytes() == want_ring[j].tobytes(), f"{name} {label}"
+    # The reduced gradients (gathered from the ranks' shards), loss and
+    # clip norm against one process's on the whole batch: the 1/R applied
+    # once, the whole parameters averaged, the norm over the shards.
+    from dtc_tpu_torch.config import schema as ts
+    from dtc_tpu_torch.config.loader import _build
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.parity import from_flax, gather_shards
+
+    cfg = _build(ts.ModelConfig, dataclasses.asdict(tiny_model_cfg), "model")
+    model = GPT(cfg, device="cpu")
+    model.load_state_dict(from_flax(_flax_params(tiny_model_cfg), cfg))
+    tokens = torch.from_numpy(_fsdp_batch(cfg.vocab_size, cfg.max_seq_len))
+    loss = model(tokens[:, :-1], train=True, targets=tokens[:, 1:])
+    loss.backward()
+    norm = torch.linalg.vector_norm(torch.stack([p.grad.norm() for p in model.parameters()]))
+    # A rank's ring steps in a step: 6 dense sites of every layer, R steps
+    # forward and R for dx (all-gather-matmul), R for dw (reduce-scatter).
+    calls = tiny_model_cfg.n_layers * 6
+    for tag in want:
+        got = [dict(np.load(tmp_path / f"grads{tag}_r{r}.npz")) for r in range(4)]
+        for g in got:
+            assert g["ring_steps"].tolist() == ([calls * 8, calls * 4] if tag else [0, 0]), tag
+        np.testing.assert_allclose(got[0]["loss"], loss.item(), rtol=1e-6)
+        np.testing.assert_allclose(got[0]["norm"], norm.item(), rtol=1e-5)
+        grads = gather_shards([{n: torch.from_numpy(g[n]) for n, _ in model.named_parameters()}
+                               for g in got])
+        for n, p in model.named_parameters():
+            np.testing.assert_allclose(grads[n].numpy(), p.grad.numpy(), rtol=1e-4, atol=1e-6,
+                                       err_msg=f"{tag} {n}")
+
+    for tag in want:
+        _check_losses(tmp_path, 4, want[tag], tag)
+        for r in range(4):
+            report = json.loads((tmp_path / f"shards{tag}_r{r}.json").read_text())
+            assert report["ring_steps"] == ([3 * calls * 8, 3 * calls * 4] if tag
+                                            else [0, 0]), tag
+            for pname, (whole, shard, equal) in report["params"].items():
+                d = param_shard_dim(pname)
+                quarter = list(whole) if d is None else [
+                    s // 4 if i == d else s for i, s in enumerate(whole)]
+                assert shard == quarter and equal, (tag, r, pname, whole, shard, equal)
 
 
 def test_ring_under_pipeline_parallelism_raises(tiny_model_cfg, opt_cfg, train_cfg_factory):

@@ -1,7 +1,7 @@
-"""The port on a CUDA card: the decode-attention, flash-attention and
-decode megakernel kernels (the last with its LoRA sites) against their
-plain versions, and the kernels on the model's decode and training paths
-(rematerialisation included).
+"""The port on a CUDA card: the decode-attention, flash-attention, decode
+megakernel (with its LoRA sites) and FSDP ring kernels against their plain
+versions, and the kernels on the model's decode and training paths
+(rematerialisation and the FSDP ring over virtual ranks included).
 Needs an NVIDIA GPU with ``nvcc``; elsewhere every test skips with the
 reason.
 
@@ -19,7 +19,7 @@ import dataclasses
 import pytest
 import torch
 
-from dtc_tpu_torch.config.schema import ModelConfig
+from dtc_tpu_torch.config.schema import ModelConfig, OptimConfig
 from dtc_tpu_torch.ops import decode_attention as da
 from dtc_tpu_torch.parity import attention_tolerance
 
@@ -689,3 +689,108 @@ def test_ring_raises_on_cuda_at_a_head_dim_without_kernels(cuda, h, d):
     with pytest.raises(ValueError, match="ROADMAP.md §B" if d > 128 else "head_dim"):
         ra.ring_causal_attention(q, q, q, ra.InProcessRing(2))
     assert fa.block_fwd_launches == f0
+
+
+def _overlap_case(dev, m, k, n, dt, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(*s, device=dev, generator=g).to(dt) for s in ((m, k), (k, n), (m, n))]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(64, 128, 256), (100, 200, 300), (33, 20, 7),
+                                   (640, 64, 256)])
+@pytest.mark.parametrize("shard_axis", [0, 1])
+@pytest.mark.parametrize("flip", [False, True])
+def test_overlap_steps_match_plain(cuda, dt, m, k, n, shard_axis, flip):
+    """The FSDP ring's step kernels (TPU kernel rows 17-18) over a ring of 4
+    virtual ranks, a weight held as it is or transposed (``Dense.weight``'s
+    layout): the float32 ring outputs within 1e-5 of each row's largest
+    value (bf16 products are exact in float32), 2R² and R² launches. The
+    small grids take the 32 x 32 tiles with the split contraction; m 640
+    also the 64 x 64 tiles (160 of them in a contract-mode step)."""
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+    from dtc_tpu_torch.ops.ring_attention import InProcessRing
+    from dtc_tpu_torch.parity import row_tolerance
+
+    x, w, dy = _overlap_case(cuda, 4 * m, 4 * k, 4 * n, dt, seed=m)
+    w = w.t().contiguous().t() if flip else w
+    ring = InProcessRing(4)
+
+    def run(ag=None, rs=None):
+        y = oc.ring_ag_matmul(x, w, ring, shard_axis=shard_axis, step=ag)
+        return (y, *oc.ring_backward(x, w, dy, ring, shard_axis=shard_axis, ag=ag, rs=rs))
+
+    a0, r0 = oc.ag_launches, oc.rs_launches
+    got = run()
+    assert (oc.ag_launches - a0, oc.rs_launches - r0) == (32, 16)
+    want = run(oc.ag_step_reference, oc.rs_step_reference)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        assert ((a - b).abs() <= row_tolerance(b, torch.float32).to(cuda)).all()
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_overlap_planted_faults_land_over_the_limit(cuda, dt):
+    """chip_smoke's planted faults (chunk order off by one step, ``w_t``
+    ignored on a non-square chunk, the arriving accumulator dropped,
+    partials rounded to bf16) break the comparison the kernels pass."""
+    import chip_smoke
+
+    r = chip_smoke.overlap_case("gpu_test", 2, 50, 96, 160, 0, {torch.float32: "float32",
+                                                               torch.bfloat16: "bfloat16"}[dt],
+                                seed=5)
+    assert all(v > 1.0 for v in r["fault_over_limit"].values())
+    assert all(v[1] <= 1.0 for v in r["errors"].values())
+
+
+def test_overlap_op_on_cuda_launches_or_raises(cuda):
+    """On CUDA tensors the op launches the kernels or raises: operands it
+    cannot take (float16, mixed dtypes, a CPU accumulator) raise, and the
+    model's dense sites under an overlapped FSDP ring launch one step
+    kernel a ring step."""
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+    from dtc_tpu_torch.ops.ring_attention import InProcessRing
+
+    x, w, _ = _overlap_case(cuda, 32, 64, 128, torch.float32)
+    a0 = oc.ag_launches
+    with pytest.raises(ValueError):
+        oc.overlap_dense_matmul(x.half(), w.half(), shard_axis=0, ring=InProcessRing(4))
+    with pytest.raises(ValueError):
+        oc.overlap_dense_matmul(x, w.to(torch.bfloat16), shard_axis=0, ring=InProcessRing(4))
+    with pytest.raises(ValueError):
+        oc.rs_step(x, x, torch.zeros(64, 64), j=0, blk=64, slice_a=True)
+    assert oc.ag_launches == a0
+    y = oc.overlap_dense_matmul(x, w, shard_axis=1, ring=InProcessRing(4))
+    assert oc.ag_launches - a0 == 16
+    assert ((y - x @ w).abs() <= 1e-5 * (x @ w).abs().amax(-1, keepdim=True)).all()
+
+
+def test_fsdp_overlapped_training_on_cuda_matches_unsharded(cuda):
+    """A small float32 model under an overlapped FSDP ring of 4 virtual
+    ranks: the dense sites launch the kernels (R² forward and 2R² backward
+    steps a site and call), and 3 steps' losses equal the unsharded run's
+    within 1e-5."""
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+    from dtc_tpu_torch.ops.ring_attention import InProcessRing
+    from dtc_tpu_torch.parallel.fsdp import FSDP
+    from dtc_tpu_torch.train.optimizer import create_optimizer
+    from dtc_tpu_torch.train.train_step import train_step
+
+    cfg = ModelConfig(vocab_size=97, d_model=64, n_layers=2, n_heads=4, d_ff=128,
+                      max_seq_len=64, dropout=0.0, compute_dtype="float32",
+                      attention="flash", collectives="overlapped")
+    opt_cfg = OptimConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batches = [torch.randint(0, 97, (8, 65), device=cuda, generator=g) for _ in range(3)]
+    losses = {}
+    for state in (None, FSDP(InProcessRing(4))):
+        model = GPT(cfg, device=cuda, seed=0)
+        opt = create_optimizer(model.parameters(), opt_cfg, 3)
+        a0, r0 = oc.ag_launches, oc.rs_launches
+        losses[state is None] = [float(train_step(model, opt, b[:, :-1], b[:, 1:], None, state))
+                                 for b in batches]
+        sites = 3 * cfg.n_layers * 6
+        assert (oc.ag_launches - a0, oc.rs_launches - r0) == (
+            (0, 0) if state is None else (sites * 32, sites * 16))
+    assert max(abs(a - b) for a, b in zip(losses[True], losses[False])) <= 1e-5

@@ -280,7 +280,8 @@ def test_trainer_without_a_card_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("over", [
-    dict(parallel="pp"), dict(parallel="fsdp"), dict(dataset="fineweb"),
+    dict(parallel="pp"), dict(parallel="fsdp", mesh=ts.MeshConfig(model=2)),
+    dict(dataset="fineweb"),
     dict(checkpoint_every=10), dict(eval_every=5), dict(obs=ts.ObsConfig()),
     dict(resilience=ts.ResilienceConfig(chaos=ts.ChaosConfig(enabled=True))),
     dict(multihost=True), dict(profile_start=1, profile_stop=2),
