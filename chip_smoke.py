@@ -10,7 +10,10 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. Device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device.
 2. Build: every kernel library with ``nvcc`` (one process per source, all
-   started together), with the compiler's register / shared-memory report.
+   started together), with the compiler's register / shared-memory report;
+   the FSDP ring library's tensor-core instances' dynamic shared memory,
+   and its ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) SASS counts
+   (``cuobjdump -sass``): a zero fails.
 3. Decode kernel vs plain, at the flagship decode shape (B 4, S 512, H 16,
    D 32) plus an S = 8192 case: the error against the plain version
    within its limit (float32 1e-5; bfloat16 a few ulps of each head's
@@ -150,19 +153,25 @@ Phases (each prints its own lines; any failure exits non-zero):
     dtype within ``parity.row_tolerance``; 2R² and R² launches a call;
     planted faults (the chunk order one ring step off, ``w_t`` ignored, the
     arriving accumulator not added, partials rounded to bf16 before they
-    accumulate) over the limit; device times of the forward and dw rings
-    at the four bf16 sites, the plain versions' and one ``torch.matmul``'s,
-    beside the bounds. The kernels line gives each row at the site where
-    it is slowest against its bound, and every site's ms.
+    accumulate) over the limit; every launch on the route its plan names
+    (bf16: the tensor cores by TMA at the four sites, the per-thread loader
+    among the ragged launches; float32: CUDA cores), each bf16 step's plan
+    (route, tile, cluster split, operand layouts, blocks) in the record;
+    device times of the forward and dw rings at the four bf16 sites, the
+    plain versions' and one ``torch.matmul``'s, beside the bounds. The
+    kernels line gives each row at the site where it is slowest against
+    its bound, and every site's ms.
 19. FSDP over 4 virtual ranks on one card: the flagship
     (``train_config_fsdp.yaml``, dropout 0) under ``collectives:
     overlapped``, every dense site through the ring's kernels: float32
     losses within 1e-4 of the unsharded run over 4 steps; bf16 35 steps,
     finite and falling, 576 all-gather-matmul and 288 reduce-scatter
-    launches a rank a step; step ms beside the unsharded step (one card
-    emulating 4 ranks, not a multi-card time); peak memory beside
+    launches a rank a step, every one on the TMA route; step ms beside the
+    unsharded step (one card emulating 4 ranks, not a multi-card time);
+    peak memory beside
     ``train_memory_bytes(parallel="fsdp")``. ``--profile`` adds a
-    torch.profiler window over 3 of its steps (device time by kernel).
+    torch.profiler window over 3 of its steps (device time by kernel, the
+    step kernels' time a step).
 20. The FSDP trainer over NCCL at world size 1: ``torchrun
     --nproc_per_node 1 -m dtc_tpu_torch.main --train_config_path
     configs/train_config_fsdp.yaml`` (torchrun's environment set in this
@@ -288,7 +297,7 @@ def ptxas_report(text: str):
                 seg = mangled.split(kname + "I", 1)[-1].split("Li", 1)[0]
                 args = ["f32" if tok == "f" else "bf16"
                         for tok in re.findall(r"13__nv_bfloat16|S\d*_|f", seg)]
-            args += re.findall(r"Li(\d+)E", mangled)
+            args += re.findall(r"L[ib](\d+)E", mangled)
             inst = f"{kname}<{', '.join(args)}>"
         elif "spill stores" in line:
             spill = line.strip()
@@ -544,6 +553,8 @@ def device_time_by_kernel(prof, wall: float) -> dict:
     return dict(
         wall_s=wall, device_busy_s=busy_s, busy_share=busy_s / wall,
         kernel_launches=sum(r[2] for r in rows),
+        # the FSDP ring's step kernels (TPU kernel rows 17-18), every instance
+        overlap_device_s=sum(r[1] for r in rows if "overlap_" in r[0]) / 1e6,
         top=[dict(name=k[:120], device_ms=us / 1e3, count=c) for k, us, c in rows[:15]],
     )
 
@@ -1403,6 +1414,19 @@ def train_nccl_world1(steps: int, out_dir: str, device: str | None = None):
     return res, alone, seen, launches, rows
 
 
+def sass_counts(lib_path, opcodes=("HGMMA", "UTMALDG")) -> dict:
+    """How many of each SASS opcode the built library holds (``cuobjdump
+    -sass``, from the toolkit beside ``nvcc``): HGMMA is a wgmma on the
+    tensor cores, UTMALDG a TMA tensor load."""
+    from dtc_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    return {op: len(re.findall(rf"\b{op}\b", out.stdout)) for op in opcodes}
+
+
 # ---------------------------------------------------------------------------
 # phase 18: the FSDP ring's kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -1460,8 +1484,43 @@ def overlap_faults(ring: int):
             "partials rounded to bf16 (reduce-scatter)": ("rs", rs_rounded)}
 
 
+def overlap_plans(x, w, dy, vring, shard_axis, sms: int):
+    """The plans of every step of the forward, dx and dw rings (the real
+    schedules, with steps that only plan): ``[{ring, m, n, k, plan...,
+    steps}]``, one entry per distinct (ring, shape, plan)."""
+    import dataclasses
+
+    import torch
+
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+
+    seen: dict = {}
+
+    def note(tag, m, n, k, plan):
+        key = (tag, m, n, k, plan)
+        seen[key] = seen.get(key, 0) + 1
+
+    def ag(tag):
+        def step(x, w, out, *, src, slice_x, slice_out, w_t, accumulate):
+            xs, ws = oc._ag_operands(x, w, src, slice_x, w_t)
+            note(tag, xs.shape[0], ws.shape[1], xs.shape[1],
+                 oc.ag_plan(x, w, src=src, slice_x=slice_x, w_t=w_t, sms=sms))
+        return step
+
+    def rs(a, b, acc, *, j, blk, slice_a):
+        a_j, b_j = oc._rs_operands(a, b, j, blk, slice_a)
+        note("dw", a_j.shape[1], b_j.shape[1], a_j.shape[0],
+             oc.rs_plan(a, b, j=j, blk=blk, slice_a=slice_a, sms=sms))
+        return torch.zeros(a_j.shape[1], b_j.shape[1], device=a.device)
+
+    oc.ring_ag_matmul(x, w, vring, shard_axis=shard_axis, step=ag("forward"))
+    oc.ring_backward(x, w, dy, vring, shard_axis=shard_axis, ag=ag("dx"), rs=rs)
+    return [dict(ring=tag, m=m, n=n, k=k, **dataclasses.asdict(plan), steps=c)
+            for (tag, m, n, k, plan), c in seen.items()]
+
+
 def overlap_case(name, b, t, k, n, shard_axis, dtype, seed, ring: int = 4, iters: int = 0,
-                 device: str = "cuda"):
+                 device: str = "cuda", route: str | None = None):
     """The FSDP ring's kernels against their plain versions over ``ring``
     virtual ranks of one card, at x (b, t, k), w (k, n) sharded along
     ``shard_axis``: the forward ring (row 17) and the backward rings (row 17
@@ -1469,9 +1528,12 @@ def overlap_case(name, b, t, k, n, shard_axis, dtype, seed, ring: int = 4, iters
     ``row_tolerance(float32)`` (bf16 products are exact in float32: the sums'
     order is the only difference), the op's outputs rounded to ``dtype``
     within ``row_tolerance(dtype)``; launch counts; the planted faults over
-    the float32 limit. With ``iters``: device times of the forward ring and
-    the dw ring (kernels, plain versions, one ``torch.matmul``) beside the
-    bounds."""
+    the float32 limit. ``route``: the route every launch must take ("tma",
+    "cuda_cores"), or "threads" for a ragged case, where the per-thread
+    loader must take some; the launches by route and, for bfloat16, every
+    step's plan go in the record. With ``iters``: device times of the
+    forward ring and the dw ring (kernels, plain versions, one
+    ``torch.matmul``) beside the bounds."""
     import torch
 
     from dtc_tpu_torch.ops import overlap_collectives as oc
@@ -1491,18 +1553,34 @@ def overlap_case(name, b, t, k, n, shard_axis, dtype, seed, ring: int = 4, iters
         return (y, *oc.ring_backward(x, w, dy, vring, shard_axis=shard_axis, ag=ag, rs=rs))
 
     oc.ag_launches = oc.rs_launches = 0
+    oc.route_launches.update(dict.fromkeys(oc.route_launches, 0))
     got = rings()
     launches = (oc.ag_launches, oc.rs_launches)
+    routes = dict(oc.route_launches)
     check(launches == (2 * ring * ring, ring * ring),
           f"overlap {name}: launches {launches} (want {2 * ring * ring} all-gather-matmul "
           f"and {ring * ring} reduce-scatter steps over {ring} ranks)")
+    if route == "threads":
+        check(routes["threads"] > 0 and routes["cuda_cores"] == 0,
+              f"overlap {name}: routes {routes}, want the per-thread loader among them")
+    elif route is not None:
+        check(routes[route] == sum(launches), f"overlap {name}: routes {routes}, want {route}")
     want = rings(oc.ag_step_reference, oc.rs_step_reference)
     xt, wt = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
     y_op = oc.overlap_dense_matmul(xt, wt, shard_axis=shard_axis, ring=vring)
     op = (y_op.detach(), *torch.autograd.grad(y_op, (xt, wt), dy))
     torch.cuda.synchronize()
     res = dict(case=name, b=b, t=t, k=k, n=n, shard_axis=shard_axis, dtype=dtype, ring=ring,
-               launches=launches, errors={}, fault_over_limit={})
+               launches=launches, routes=routes, errors={}, fault_over_limit={})
+    if dt == torch.bfloat16:
+        sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+               if dev.type == "cuda" else 132)  # 132: an H100's, for a CPU rehearsal
+        res["plans"] = overlap_plans(x, w, dy, vring, shard_axis, sms)
+        log(f"overlap {name}: launches by route {routes}; plans (ring, m x n, k: route, tile, "
+            f"split, A/B MN-major, blocks; steps) " + "; ".join(
+                f"{p['ring']} {p['m']}x{p['n']} k {p['k']}: {p['route']} {p['tile_m']}x"
+                f"{p['tile_n']} split {p['split']} {int(p['a_mn'])}/{int(p['b_mn'])} "
+                f"{p['blocks']}; {p['steps']}" for p in res["plans"]))
     names = ("y", "dx", "dw")
     for nm, a, ref in zip(names, got, want):
         check(a.dtype == f32 and bool(torch.isfinite(a).all()), f"overlap {name}: {nm} not finite")
@@ -1620,13 +1698,15 @@ def fsdp_virtual(seed: int, ring: int = 4, steps32: int = 4, steps: int = 35,
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     oc.ag_launches = oc.rs_launches = 0                     # the main path starts here
+    oc.route_launches.update(dict.fromkeys(oc.route_launches, 0))
     losses, step_ms = run(mcfg, steps, FSDP(InProcessRing(ring)))
     launches = (oc.ag_launches, oc.rs_launches)             # ...and ends here
+    routes = dict(oc.route_launches)
     peak = torch.cuda.max_memory_allocated() - base
     sites = mcfg.n_layers * 6
     want = (steps * ring * sites * 2 * ring, steps * ring * sites * ring)
     budget = train_memory_bytes(mcfg, tcfg.batch, mcfg.max_seq_len, ring, "fsdp")
-    rec.update(losses=losses, launches=launches, launches_per_rank_step=(
+    rec.update(losses=losses, launches=launches, routes=routes, launches_per_rank_step=(
         launches[0] // (steps * ring), launches[1] // (steps * ring)), step_ms=step_ms,
         step_ms_unsharded=plain_ms, peak_allocated=peak,
         train_memory_bytes_fsdp=budget["total"])
@@ -1639,6 +1719,9 @@ def fsdp_virtual(seed: int, ring: int = 4, steps32: int = 4, steps: int = 35,
     check(all(math.isfinite(v) for v in losses), f"fsdp bf16: non-finite losses {losses}")
     check(sum(losses[-5:]) / 5 < losses[0], f"fsdp bf16: losses do not fall {losses}")
     check(launches == want, f"fsdp bf16: launches {launches}, want {want}")
+    log(f"fsdp bf16: launches by route {routes}")
+    check(routes["tma"] == sum(launches), f"fsdp bf16: routes {routes}: every step must take "
+          f"TMA and the tensor cores")
     torch.cuda.empty_cache()
     if profile:
         pr = profile_train(mcfg, tcfg, ocfg, steps=3, device=device,
@@ -1646,7 +1729,8 @@ def fsdp_virtual(seed: int, ring: int = 4, steps32: int = 4, steps: int = 35,
         rec["profile"] = pr
         log(f"profile fsdp bf16 ({ring} virtual ranks): {pr['wall_s'] / 3 * 1e3:.3f} ms a step "
             f"wall, device busy {pr['device_busy_s'] / 3 * 1e3:.3f} ms a step (share "
-            f"{pr['busy_share']:.4f}), {pr['kernel_launches']} kernels")
+            f"{pr['busy_share']:.4f}), {pr['kernel_launches']} kernels; the ring's step "
+            f"kernels {pr['overlap_device_s'] / 3 * 1e3:.3f} ms a step")
         for row in pr["top"][:8]:
             log(f"  {row['device_ms']:.4f} ms x{row['count']} {row['name']}")
         torch.cuda.empty_cache()
@@ -2166,6 +2250,19 @@ def main() -> int:
             for inst, rep in ptxas_report(_build.log_path(name).read_text()):
                 log(f"  ptxas {inst}: {rep}")
         record["build_s"] = took
+        # the FSDP ring's bf16 instances: dynamic shared memory a block, and
+        # proof in the SASS that they run wgmma (HGMMA) on TMA loads (UTMALDG)
+        from dtc_tpu_torch.ops.overlap_collectives import TC_TILES
+
+        ovl = _build.load("overlap_collectives")
+        tc_smem = {f"{tm}x{tn}, {st} stages": ovl.dtc_overlap_tc_smem_bytes(tm, tn, st)
+                   for tm, tn in TC_TILES for st in (1, 2, 4)}
+        sass = sass_counts(_build.library_path("overlap_collectives"))
+        record["overlap_build"] = dict(tc_dynamic_smem=tc_smem, sass=sass)
+        log(f"overlap_collectives: tensor-core instances' dynamic shared memory a block "
+            f"{tc_smem} B; SASS {sass}")
+        check(all(v > 0 for v in sass.values()),
+              f"overlap_collectives: no tensor-core or TMA instruction in the SASS: {sass}")
 
         # 3. kernels vs plain
         from dtc_tpu_torch.ops import decode_attention as da
@@ -2742,7 +2839,9 @@ def main() -> int:
             ("bf16_ragged_out", 4, 100, 200, 300, 1, "bfloat16", 0),
             ("fp32_ragged", 4, 100, 200, 300, 0, "float32", 0),
         ]
-        overlap = [overlap_case(name, b, t, k, n, sa, dt, seed=args.seed + 180 + i, iters=it)
+        overlap = [overlap_case(name, b, t, k, n, sa, dt, seed=args.seed + 180 + i, iters=it,
+                                route="threads" if "ragged" in name and dt == "bfloat16"
+                                else "tma" if dt == "bfloat16" else "cuda_cores")
                    for i, (name, b, t, k, n, sa, dt, it) in enumerate(overlap_specs)]
         record["overlap_cases"] = overlap
 
@@ -2886,6 +2985,7 @@ def main() -> int:
                 bound_ms=worst[f"{kind}_bound_ms"], bound_by=worst[f"{kind}_bound_by"],
                 library_ms=worst[f"{kind}_library_ms"], site=worst["case"],
                 sites_ms={c["case"]: c[f"{kind}_ms"] for c in timed},
+                routes=record["fsdp_virtual"]["routes"],
             ))
         record["kernels"] = kernels
     except Exception:

@@ -41,8 +41,9 @@ _SIGNATURES = {
         "dtc_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     },
     "overlap_collectives": {
-        "dtc_overlap_ag_step": [_P, _L, _L, _P, _L, _L, _P, _L] + [_I] * 5 + [_P],
-        "dtc_overlap_rs_step": [_P, _L, _L, _P, _L, _L, _P, _P] + [_I] * 4 + [_P],
+        "dtc_overlap_ag_step": [_P, _L, _L, _P, _L, _L, _P, _L] + [_I] * 5 + [_I] * 6 + [_P],
+        "dtc_overlap_rs_step": [_P, _L, _L, _P, _L, _L, _P, _P] + [_I] * 4 + [_I] * 6 + [_P],
+        "dtc_overlap_tc_smem_bytes": [_I, _I, _I],
     },
 }
 

@@ -32,9 +32,15 @@ tensor (``csrc/overlap_collectives.cu``): :func:`ag_step` (TPU kernel row
 ``_overlap_rs_matmul_kernel``); on a CPU tensor their plain versions
 :func:`ag_step_reference` / :func:`rs_step_reference`, per-step PyTorch
 products with the JAX package's ``_decomposed_*`` schedules. There is no
-fallback from the one to the other. ``ag_launches`` / ``rs_launches`` count
-kernel launches. The TPU kernels copy chunks between chips from inside the
-kernel; here each exchange is a transport's point-to-point exchange,
+fallback from the one to the other. :func:`step_plan` decides, before each
+launch and from the operands' shapes, strides and alignment alone, how the
+kernel runs the step: bfloat16 on the tensor cores with operands staged by
+TMA (``"tma"``) or, for views TMA cannot take, by every thread of the block
+(``"threads"``); float32 on CUDA cores (``"cuda_cores"``); the output tile
+and the split of the contraction over the blocks of a cluster.
+``ag_launches`` / ``rs_launches`` count kernel launches, ``route_launches``
+the launches of both by route. The TPU kernels copy chunks between chips
+from inside the kernel; here each exchange is a transport's point-to-point exchange,
 started before the step's product and waited for after it (over NCCL the
 transfer runs on NCCL's stream while the product runs on the compute
 stream; see :class:`~dtc_tpu_torch.ops.ring_attention.Pending`).
@@ -52,17 +58,172 @@ VMEM budget does not apply: the kernels mask their ragged edges.
 
 from __future__ import annotations
 
-import ctypes
+import dataclasses
+import functools
 
 import torch
 
+from dtc_tpu_torch.ops import _build
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: The kernel's routes, by the code its entry points take.
+_ROUTE_CODES = {"cuda_cores": 0, "tma": 1, "threads": 2}
 
 #: Kernel launches since the last reset (the wrappers add one per launch,
 #: nowhere else): row 17's all-gather-matmul steps, row 18's
-#: matmul + reduce-scatter steps.
+#: matmul + reduce-scatter steps, and both by route.
 ag_launches = 0
 rs_launches = 0
+route_launches = dict.fromkeys(_ROUTE_CODES, 0)
+
+
+# ---------------------------------------------------------------------------
+# a step's launch plan
+# ---------------------------------------------------------------------------
+
+#: The bfloat16 kernel's output tiles, largest first, and its contraction
+#: splits (blocks of one thread-block cluster).
+TC_TILES = ((64, 128), (64, 64), (64, 32))
+TC_SPLITS = (1, 2, 4, 8)
+_STAGE_K = 64          # contraction depth of one shared-memory stage
+_SPLIT_MIN_K = 256     # shallower contractions are never split
+
+
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    """How one ring step launches: ``route`` "tma" or "threads" (bfloat16
+    on the tensor cores, operands staged by TMA or by every thread) or
+    "cuda_cores" (float32); the output tile; ``split``, the contraction's
+    split (the blocks of a cluster, or for float32 the thread groups of a
+    block); whether A (M x K) and B (K x N) are staged MN-major (their M or
+    N dim contiguous); ``blocks``, the blocks of the launch."""
+
+    route: str
+    tile_m: int
+    tile_n: int
+    split: int
+    a_mn: bool
+    b_mn: bool
+    blocks: int
+
+
+def _tiles(n: int, tile: int) -> int:
+    return -(-n // tile)
+
+
+def _tma_fits(mn_major: bool, s_mn: int, s_k: int, extent: int, aligned: bool) -> bool:
+    """What TMA takes: a unit stride along the staged rows, a row stride
+    that is a multiple of 16 bytes (8 bf16) and no smaller than a row
+    (``extent`` elements), a 16-byte-aligned base."""
+    unit, row = (s_mn, s_k) if mn_major else (s_k, s_mn)
+    return unit == 1 and row % 8 == 0 and row >= extent and row < 2 ** 39 and aligned
+
+
+@functools.lru_cache(maxsize=4096)
+def step_plan(m: int, n: int, k: int, a_strides, b_strides, dtype, sms: int,
+              aligned=(True, True)) -> StepPlan:
+    """The plan of one step's product ``A (m, k) @ B (k, n)``, chosen
+    before the launch from the shapes alone. ``a_strides``: A's strides
+    along m and k, ``b_strides``: B's along k and n (elements);
+    ``aligned``: whether each base is 16-byte aligned; ``sms``: the card's
+    SM count.
+
+    float32: CUDA-core tiles of 64 x 64, or 32 x 32 with the contraction
+    split over four thread groups where 64 x 64 would give fewer blocks
+    than SMs. bfloat16: the tensor cores, by TMA where both operands fit
+    it, else by the per-thread loader; each operand staged MN-major where
+    that dim, and not K, has the unit stride. The plan is the least split
+    of the contraction, and with it the largest tile of :data:`TC_TILES`,
+    that puts at least one block on every SM (at the flagship's steps a
+    split of 8 costs more in its reduction than a smaller tile does); a
+    contraction under 256 deep is never split (it is bound by the float32
+    accumulator's bytes), a deeper one at most to one 64-deep stage a
+    block; where nothing fills the card, the plan with the most blocks."""
+    if min(m, n, k) < 1 or _tiles(m, 32) > 65535 or sms < 1:
+        raise ValueError(f"step_plan: no plan for m {m}, n {n}, k {k} on {sms} SMs")
+    if dtype == torch.float32:
+        t, s = (32, 4) if _tiles(m, 64) * _tiles(n, 64) < sms else (64, 1)
+        return StepPlan("cuda_cores", t, t, s, False, False, _tiles(m, t) * _tiles(n, t))
+    if dtype != torch.bfloat16:
+        raise ValueError(f"step_plan: unsupported dtype {dtype}")
+    (sam, sak), (sbk, sbn) = a_strides, b_strides
+    a_mn, b_mn = sak != 1 and sam == 1, sbk != 1 and sbn == 1
+    tma = (_tma_fits(a_mn, sam, sak, m if a_mn else k, aligned[0])
+           and _tma_fits(b_mn, sbn, sbk, n if b_mn else k, aligned[1]))
+    route = "tma" if tma else "threads"
+    max_split = 1 if k < _SPLIT_MIN_K else min(TC_SPLITS[-1], _tiles(k, _STAGE_K))
+    splits = [s for s in TC_SPLITS if s <= max_split]
+    for s in splits:
+        for tm, tn in TC_TILES:
+            t = _tiles(m, tm) * _tiles(n, tn)
+            if t * s >= sms:
+                return StepPlan(route, tm, tn, s, a_mn, b_mn, t * s)
+    tm, tn = TC_TILES[-1]
+    t = _tiles(m, tm) * _tiles(n, tn)
+    return StepPlan(route, tm, tn, splits[-1], a_mn, b_mn, t * splits[-1])
+
+
+# The kernel path reads a step's operands as a pointer and two strides, with
+# no view made (a flagship FSDP step launches 3,456 ring steps, and a view
+# costs microseconds of host time): the geometry functions below give what
+# _ag_operands / _rs_operands would, and raise where a block does not fit.
+
+def _ag_geometry(x, w, src: int, slice_x: bool, w_t: bool):
+    """``(m, n, k, A, B)`` of the product ``x_s @ w_s`` (see
+    :func:`_ag_operands`), each operand as ``(address, strides)``."""
+    (k, n), sw = w.shape, w.stride()
+    if w_t:
+        k, n, sw = n, k, (sw[1], sw[0])
+    (m, width), sx = x.shape, x.stride()
+    fits = (src + 1) * k <= width if slice_x else width == k
+    if not fits:
+        raise ValueError(f"ag_step: x {tuple(x.shape)} has no block {src} of width {k}")
+    xp = x.data_ptr() + (src * k * sx[1] * x.element_size() if slice_x else 0)
+    return m, n, k, (xp, sx), (w.data_ptr(), sw)
+
+
+def _rs_geometry(a, b, j: int, blk: int, slice_a: bool):
+    """``(M, N, K, A, B)`` of the product ``a_jᵀ @ b_j`` (see
+    :func:`_rs_operands`), each operand as ``(address, strides)``: A is
+    ``a_jᵀ``, its strides swapped."""
+    (t, wa), (t2, wb) = a.shape, b.shape
+    if t != t2:
+        raise ValueError(f"rs_step: {t} and {t2} token rows")
+    if (j + 1) * blk > (wa if slice_a else wb):
+        raise ValueError(f"rs_step: no block {j} of width {blk} in {wa if slice_a else wb}")
+    (sa0, sa1), sb, es = a.stride(), b.stride(), a.element_size()
+    ap, bp = a.data_ptr(), b.data_ptr()
+    if slice_a:
+        return blk, wb, t, (ap + j * blk * sa1 * es, (sa1, sa0)), (bp, sb)
+    return wa, blk, t, (ap, (sa1, sa0)), (bp + j * blk * sb[1] * es, sb)
+
+
+def _plan_of(m, n, k, a, b, dtype, sms: int) -> StepPlan:
+    return step_plan(m, n, k, a[1], b[1], dtype, sms, (a[0] % 16 == 0, b[0] % 16 == 0))
+
+
+def ag_plan(x, w, *, src: int, slice_x: bool, w_t: bool, sms: int) -> StepPlan:
+    """The plan of the all-gather-matmul step :func:`ag_step` launches for
+    these operands (``x_s @ w_s``) on a card of ``sms`` SMs."""
+    return _plan_of(*_ag_geometry(x, w, src, slice_x, w_t), x.dtype, sms)
+
+
+def rs_plan(a, b, *, j: int, blk: int, slice_a: bool, sms: int) -> StepPlan:
+    """The plan of the matmul + reduce-scatter step :func:`rs_step`
+    launches for these operands (``a_jᵀ @ b_j``) on a card of ``sms``
+    SMs."""
+    return _plan_of(*_rs_geometry(a, b, j, blk, slice_a), a.dtype, sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_plan(m, n, k, a, b, dtype, device: int):
+    """:func:`_plan_of` on card ``device`` as its route and the plan
+    arguments of the C entry points, cached: one lookup a launch (the
+    operands' addresses enter the key only as their 16-byte alignment)."""
+    p = _plan_of(m, n, k, a, b, dtype,
+                 torch.cuda.get_device_properties(device).multi_processor_count)
+    return p.route, (_ROUTE_CODES[p.route], p.tile_m, p.tile_n, p.split, int(p.a_mn),
+                     int(p.b_mn))
 
 
 # ---------------------------------------------------------------------------
@@ -110,35 +271,36 @@ def rs_step_reference(a, b, acc, *, j: int, blk: int, slice_a: bool) -> torch.Te
     return part if acc is None else acc + part
 
 
+# The checks below run on every ring step (3,456 a flagship FSDP step), so
+# they compare device indices and sizes, not device objects.
+
 def _check_pair(p: torch.Tensor, q: torch.Tensor, what: str) -> None:
     if p.ndim != 2 or q.ndim != 2:
         raise ValueError(f"{what}: expected 2-D operands, got {tuple(p.shape)}, {tuple(q.shape)}")
     if p.dtype not in _DTYPE_CODES or q.dtype != p.dtype:
         raise ValueError(f"{what}: operands must both be float32 or both bfloat16, got "
                          f"{p.dtype}, {q.dtype}")
-    if p.device != q.device:
+    if p.get_device() != q.get_device() or p.is_cuda != q.is_cuda:
         raise ValueError(f"{what}: operands on {p.device} and {q.device}")
 
 
-def _check_f32(t: torch.Tensor, shape, device, what: str) -> None:
-    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or t.device != device:
-        raise ValueError(f"{what} must be float32 {tuple(shape)} on {device}, got "
+def _check_f32(t: torch.Tensor, shape, like: torch.Tensor, what: str) -> None:
+    """``t`` is float32 of ``shape`` on ``like``'s device."""
+    if (t.dtype != torch.float32 or t.shape != shape or t.get_device() != like.get_device()
+            or t.is_cuda != like.is_cuda):
+        raise ValueError(f"{what} must be float32 {tuple(shape)} on {like.device}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _lib_and_stream(t: torch.Tensor):
-    from dtc_tpu_torch.ops import _build
-
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"unsupported device {t.device}")
-    return _build.load("overlap_collectives"), ctypes.c_void_p(
-        torch.cuda.current_stream(t.device).cuda_stream)
+    return _build.load("overlap_collectives"), torch.cuda.current_stream(
+        t.get_device()).cuda_stream
 
 
 def _raise_on(lib, rc: int, what: str) -> None:
     if rc != 0:
-        from dtc_tpu_torch.ops import _build
-
         raise RuntimeError(f"overlap {what} launch failed: {_build.error_string(lib, rc)}")
 
 
@@ -151,27 +313,26 @@ def ag_step(x, w, out, *, src: int, slice_x: bool, slice_out: bool, w_t: bool,
     float32 matrix."""
     global ag_launches
     _check_pair(x, w, "ag_step")
-    xs, ws = _ag_operands(x, w, src, slice_x, w_t)
-    (m, k), (k2, n) = xs.shape, ws.shape
+    m, n, k, xa, wa = _ag_geometry(x, w, src, slice_x, w_t)
     fits = out.shape[1] >= (src + 1) * n if slice_out else out.shape[1] == n
-    if k != k2 or out.ndim != 2 or out.shape[0] != m or not fits:
-        raise ValueError(f"ag_step: x block {tuple(xs.shape)}, w chunk {tuple(ws.shape)}, "
-                         f"out {tuple(out.shape)} do not fit")
-    _check_f32(out, out.shape, x.device, "ag_step's out")
-    if x.device.type == "cpu":
+    if out.ndim != 2 or out.shape[0] != m or not fits:
+        raise ValueError(f"ag_step: x block ({m}, {k}), w chunk ({k}, {n}), out "
+                         f"{tuple(out.shape)} do not fit")
+    _check_f32(out, out.shape, x, "ag_step's out")
+    if x.is_cpu:
         return ag_step_reference(x, w, out, src=src, slice_x=slice_x, slice_out=slice_out,
                                  w_t=w_t, accumulate=accumulate)
     if out.stride(1) != 1:
         raise ValueError("ag_step: out must be row-major")
     lib, stream = _lib_and_stream(x)
-    o = _cols(out, n, src) if slice_out else out
+    route, plan = _launch_plan(m, n, k, (xa[0] % 16, xa[1]), (wa[0] % 16, wa[1]), x.dtype,
+                               x.get_device())
     rc = lib.dtc_overlap_ag_step(
-        ctypes.c_void_p(xs.data_ptr()), xs.stride(0), xs.stride(1),
-        ctypes.c_void_p(ws.data_ptr()), ws.stride(0), ws.stride(1),
-        ctypes.c_void_p(o.data_ptr()), o.stride(0), m, n, k, int(accumulate),
-        _DTYPE_CODES[x.dtype], stream)
+        xa[0], *xa[1], wa[0], *wa[1], out.data_ptr() + (src * n * 4 if slice_out else 0),
+        out.stride(0), m, n, k, int(accumulate), _DTYPE_CODES[x.dtype], *plan, stream)
     _raise_on(lib, rc, "all-gather-matmul step")
     ag_launches += 1
+    route_launches[route] += 1
 
 
 def rs_step(a, b, acc, *, j: int, blk: int, slice_a: bool) -> torch.Tensor:
@@ -181,25 +342,24 @@ def rs_step(a, b, acc, *, j: int, blk: int, slice_a: bool) -> torch.Tensor:
     kernel for CUDA tensors."""
     global rs_launches
     _check_pair(a, b, "rs_step")
-    a_j, b_j = _rs_operands(a, b, j, blk, slice_a)
-    if a_j.shape[0] != b_j.shape[0]:
-        raise ValueError(f"rs_step: {a_j.shape[0]} and {b_j.shape[0]} token rows")
-    shape = (a_j.shape[1], b_j.shape[1])
+    m, n, k, aa, ba = _rs_geometry(a, b, j, blk, slice_a)
     if acc is not None:
-        _check_f32(acc, shape, a.device, "rs_step acc")
-    if a.device.type == "cpu":
+        _check_f32(acc, (m, n), a, "rs_step acc")
+    if a.is_cpu:
         return rs_step_reference(a, b, acc, j=j, blk=blk, slice_a=slice_a)
     if acc is not None and not acc.is_contiguous():
         raise ValueError("rs_step: acc must be contiguous")
     lib, stream = _lib_and_stream(a)
-    out = torch.empty(shape, dtype=torch.float32, device=a.device)
+    route, plan = _launch_plan(m, n, k, (aa[0] % 16, aa[1]), (ba[0] % 16, ba[1]), a.dtype,
+                               a.get_device())
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    # the C entry takes a_j's own strides (token, column): A's swapped back
     rc = lib.dtc_overlap_rs_step(
-        ctypes.c_void_p(a_j.data_ptr()), a_j.stride(0), a_j.stride(1),
-        ctypes.c_void_p(b_j.data_ptr()), b_j.stride(0), b_j.stride(1),
-        ctypes.c_void_p(0 if acc is None else acc.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        shape[0], shape[1], a_j.shape[0], _DTYPE_CODES[a.dtype], stream)
+        aa[0], aa[1][1], aa[1][0], ba[0], *ba[1], 0 if acc is None else acc.data_ptr(),
+        out.data_ptr(), m, n, k, _DTYPE_CODES[a.dtype], *plan, stream)
     _raise_on(lib, rc, "matmul + reduce-scatter step")
     rs_launches += 1
+    route_launches[route] += 1
     return out
 
 

@@ -696,18 +696,33 @@ def _overlap_case(dev, m, k, n, dt, seed=0):
     return [torch.randn(*s, device=dev, generator=g).to(dt) for s in ((m, k), (k, n), (m, n))]
 
 
+#: Ring shapes whose views TMA can all take (rows of 16-byte multiples at
+#: 16-byte-aligned offsets), by (m, k, n, shard axis); the others mix in the
+#: per-thread loader (odd blocks of 300 or 20 columns start off 16 bytes;
+#: rows of 28 elements are 56 bytes).
+_TMA_ONLY = {(*shape, sa) for shape in ((64, 128, 256), (640, 64, 256), (1024, 128, 128),
+                                        (1024, 128, 512), (1024, 512, 128)) for sa in (0, 1)}
+_TMA_ONLY.add((100, 200, 300, 0))
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(64, 128, 256), (100, 200, 300), (33, 20, 7),
-                                   (640, 64, 256)])
+                                   (640, 64, 256), (1024, 128, 128), (1024, 128, 512),
+                                   (1024, 512, 128)])
 @pytest.mark.parametrize("shard_axis", [0, 1])
 @pytest.mark.parametrize("flip", [False, True])
 def test_overlap_steps_match_plain(cuda, dt, m, k, n, shard_axis, flip):
     """The FSDP ring's step kernels (TPU kernel rows 17-18) over a ring of 4
     virtual ranks, a weight held as it is or transposed (``Dense.weight``'s
     layout): the float32 ring outputs within 1e-5 of each row's largest
-    value (bf16 products are exact in float32), 2R² and R² launches. The
-    small grids take the 32 x 32 tiles with the split contraction; m 640
-    also the 64 x 64 tiles (160 of them in a contract-mode step)."""
+    value (bf16 products are exact in float32), 2R² and R² launches, each
+    on the route its plan names: float32 the CUDA-core tiles, bfloat16 the
+    tensor cores by TMA, or, where a block or row cannot be taken by TMA
+    (m 100 with the output sharded: blocks of 300 at 600-byte offsets; m
+    33: blocks of 20 and 7), by the per-thread loader. m 1024 are the
+    flagship's four sites at one rank's
+    size (x (1024, 512 or 2048) a rank: q/k/v and out_proj (128, 128) a
+    chunk, fc1 (128, 512), fc2 (512, 128))."""
     from dtc_tpu_torch.ops import overlap_collectives as oc
     from dtc_tpu_torch.ops.ring_attention import InProcessRing
     from dtc_tpu_torch.parity import row_tolerance
@@ -721,12 +736,72 @@ def test_overlap_steps_match_plain(cuda, dt, m, k, n, shard_axis, flip):
         return (y, *oc.ring_backward(x, w, dy, ring, shard_axis=shard_axis, ag=ag, rs=rs))
 
     a0, r0 = oc.ag_launches, oc.rs_launches
+    routes0 = dict(oc.route_launches)
     got = run()
     assert (oc.ag_launches - a0, oc.rs_launches - r0) == (32, 16)
+    routes = {r: oc.route_launches[r] - routes0[r] for r in routes0}
+    if dt == torch.float32:
+        assert routes == {"cuda_cores": 48, "tma": 0, "threads": 0}
+    elif (m, k, n, shard_axis) in _TMA_ONLY:
+        assert routes == {"cuda_cores": 0, "tma": 48, "threads": 0}
+    else:
+        assert routes["cuda_cores"] == 0 and routes["threads"] > 0
+        assert routes["tma"] + routes["threads"] == 48
     want = run(oc.ag_step_reference, oc.rs_step_reference)
     for a, b in zip(got, want):
         assert a.dtype == torch.float32
         assert ((a - b).abs() <= row_tolerance(b, torch.float32).to(cuda)).all()
+
+
+def _deep_steps(dev, seed=0):
+    """fc2's out-mode forward step (x (1024, 2048) @ a (2048, 128) chunk,
+    the transposed weight) and fc1's dw step (x (1024, 512)'s 128-column
+    block against dy (1024, 2048)) at one rank's size, bfloat16: contractions
+    of 2048 and 1024 that the plan splits over a cluster."""
+    x, dy = (t.to(torch.bfloat16) for t in _overlap_case(dev, 1024, 2048, 2048,
+                                                         torch.float32, seed)[::2])
+    w = torch.randn(512, 2048, device=dev, generator=torch.Generator(device=dev).manual_seed(
+        seed)).to(torch.bfloat16)[:128].t()
+    return x, w, dy
+
+
+def test_overlap_cluster_split_steps_are_bit_equal_run_to_run(cuda):
+    """A step whose contraction is split over the blocks of a cluster sums
+    the partials in cluster-rank order: two runs give the same bits."""
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+
+    x, w, dy = _deep_steps(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ag_plan = oc.ag_plan(x, w, src=0, slice_x=False, w_t=False, sms=sms)
+    rs_plan = oc.rs_plan(x[:, :512], dy, j=1, blk=128, slice_a=True, sms=sms)
+    assert ag_plan.route == rs_plan.route == "tma"
+    assert ag_plan.split > 1 and rs_plan.split > 1
+    outs = []
+    for _ in range(2):
+        out = torch.full((1024, 128), float("nan"), device=cuda)
+        oc.ag_step(x, w, out, src=0, slice_x=False, slice_out=True, w_t=False, accumulate=False)
+        acc = torch.ones(128, 2048, device=cuda)
+        outs.append((out, oc.rs_step(x[:, :512], dy, acc, j=1, blk=128, slice_a=True)))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+def test_overlap_tensor_core_step_at_k2048_within_the_float32_limit(cuda):
+    """bf16 products are exact in float32 and the kernel sums in float32, so
+    a tensor-core step over a contraction of 2048 stays within the float32
+    limit of the plain version (1e-5 of each row's largest value)."""
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+    from dtc_tpu_torch.parity import row_tolerance
+
+    x, w, _ = _deep_steps(cuda, seed=1)
+    r0 = dict(oc.route_launches)
+    out = torch.zeros(1024, 128, device=cuda)
+    oc.ag_step(x, w, out, src=0, slice_x=False, slice_out=True, w_t=False, accumulate=False)
+    assert oc.route_launches["tma"] == r0["tma"] + 1
+    want = torch.zeros_like(out)
+    oc.ag_step_reference(x, w, want, src=0, slice_x=False, slice_out=True, w_t=False,
+                         accumulate=False)
+    assert ((out - want).abs() <= row_tolerance(want, torch.float32).to(cuda)).all()
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])

@@ -23,6 +23,13 @@ same numpy inputs.
 - ``resolve_collectives`` routing and its pipeline rejection; the inert
   warning; FSDP training over an in-process ring of 4 against the
   unsharded run.
+- The step kernels' launch plans (``step_plan``, decided before each
+  launch from shapes and strides alone): every step of the flagship's four
+  dense sites (B 8, T 512, d_model 512, d_ff 2048, a ring of 4 ranks on a
+  132-SM card) in the forward, dx and dw rings takes TMA and the tensor
+  cores and fills the card unless it is a contract-mode step of K 128;
+  ragged blocks and rows TMA cannot take go to the per-thread loader;
+  float32 to the CUDA-core tiles; K 128 is never split; bad dims raise.
 """
 
 import dataclasses
@@ -365,3 +372,130 @@ def test_fsdp_over_an_in_process_ring_matches_the_unsharded_run(monkeypatch, tin
         sites = 3 * cfg.n_layers * 6
         assert counts == ([sites * 4 * 8, sites * 4 * 4] if state else [0, 0])
     np.testing.assert_allclose(losses["overlapped"], losses["xla"], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the step kernels' launch plans
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+#: The flagship's dense sites: (d_in, d_out, shard_axis), as models/gpt.py builds them.
+FLAGSHIP_SITES = {"qkv": (512, 512, 0), "fc1": (512, 2048, 0), "out_proj": (512, 512, 1),
+                  "fc2": (2048, 512, 1)}
+
+
+def _ring_plans(d_in, d_out, shard_axis, rows=4096, ring=4, dtype=torch.bfloat16):
+    """Every step's plan of one site's forward, dx and dw rings over
+    ``ring`` virtual ranks, by the real schedules, with ``Dense``'s
+    operands (x and dy contiguous, w the transposed ``(out, in)`` weight):
+    ``[(ring, k, plan)]``. The recorders compute nothing."""
+    x = torch.zeros(rows, d_in, dtype=dtype)
+    dy = torch.zeros(rows, d_out, dtype=dtype)
+    w = torch.zeros(d_out, d_in, dtype=dtype).t()
+    plans = []
+
+    def ag(tag):
+        def step(x, w, out, *, src, slice_x, slice_out, w_t, accumulate):
+            xs, _ = toc._ag_operands(x, w, src, slice_x, w_t)
+            plans.append((tag, xs.shape[1], toc.ag_plan(x, w, src=src, slice_x=slice_x,
+                                                        w_t=w_t, sms=H100_SMS)))
+        return step
+
+    def rs(a, b, acc, *, j, blk, slice_a):
+        a_j, b_j = toc._rs_operands(a, b, j, blk, slice_a)
+        plans.append(("dw", a_j.shape[0], toc.rs_plan(a, b, j=j, blk=blk, slice_a=slice_a,
+                                                      sms=H100_SMS)))
+        return torch.zeros(a_j.shape[1], b_j.shape[1])
+
+    vring = InProcessRing(ring)
+    toc.ring_ag_matmul(x, w, vring, shard_axis=shard_axis, step=ag("forward"))
+    toc.ring_backward(x, w, dy, vring, shard_axis=shard_axis, ag=ag("dx"), rs=rs)
+    return plans
+
+
+@pytest.mark.parametrize("site", sorted(FLAGSHIP_SITES))
+def test_flagship_steps_take_tma_and_fill_the_card(site):
+    plans = _ring_plans(*FLAGSHIP_SITES[site])
+    assert [tag for tag, _, _ in plans].count("forward") == 16
+    assert [tag for tag, _, _ in plans].count("dx") == 16
+    assert [tag for tag, _, _ in plans].count("dw") == 16
+    for tag, k, plan in plans:
+        assert plan.route == "tma", (tag, plan)
+        assert (plan.tile_m, plan.tile_n) in toc.TC_TILES, (tag, plan)
+        assert plan.blocks >= H100_SMS or (k == 128 and plan.split == 1), (tag, k, plan)
+        if k == 128:
+            assert plan.split == 1, (tag, plan)
+
+
+def test_flagship_operands_are_staged_as_they_lie():
+    """Forward: x and the transposed weight are both K-major; dx: the chunk
+    read untransposed is N-major; dw: a_jᵀ and dy's block are both
+    MN-major. Nothing is copied to change a layout."""
+    majors = {}
+    for site, spec in FLAGSHIP_SITES.items():
+        for tag, _, plan in _ring_plans(*spec):
+            majors.setdefault((tag, spec[2]), set()).add((plan.a_mn, plan.b_mn))
+    assert majors == {("forward", 0): {(False, False)}, ("forward", 1): {(False, False)},
+                      ("dx", 0): {(False, True)}, ("dx", 1): {(False, True)},
+                      ("dw", 0): {(True, True)}, ("dw", 1): {(True, True)}}
+
+
+def test_ragged_blocks_and_unaligned_rows_take_the_thread_loader():
+    bf = torch.bfloat16
+    # phase 18's ragged case: blocks of 50 (K 200 over 4) and of 75 (N 300 over 4)
+    x, w = torch.zeros(400, 200, dtype=bf), torch.zeros(200, 300, dtype=bf)
+    k_block = toc.ag_plan(x, w[50:100], src=1, slice_x=True, w_t=False, sms=H100_SMS)
+    n_block = toc.ag_plan(x, w[:, 75:150], src=1, slice_x=False, w_t=False, sms=H100_SMS)
+    dw_block = toc.rs_plan(x, torch.zeros(400, 300, dtype=bf), j=1, blk=75, slice_a=False,
+                           sms=H100_SMS)
+    # (33, 20, 7) a rank: K blocks of 20 at 40-byte offsets, rows of 7 (14 bytes)
+    x2, w2 = torch.zeros(132, 80, dtype=bf), torch.zeros(80, 28, dtype=bf)
+    small = toc.ag_plan(x2, w2[20:40], src=1, slice_x=True, w_t=False, sms=H100_SMS)
+    rows7 = toc.ag_plan(x2[:, :20], torch.zeros(20, 7, dtype=bf), src=0, slice_x=False,
+                        w_t=False, sms=H100_SMS)
+    # a row stride of 100 elements: 200 bytes, not a multiple of 16
+    strided = toc.ag_plan(torch.zeros(64, 100, dtype=bf)[:, :96], torch.zeros(96, 64, dtype=bf),
+                          src=0, slice_x=False, w_t=False, sms=H100_SMS)
+    for plan in (k_block, n_block, dw_block, small, rows7, strided):
+        assert plan.route == "threads", plan
+    # the same shapes at aligned offsets take TMA
+    assert toc.ag_plan(x, w[:50], src=0, slice_x=True, w_t=False,
+                       sms=H100_SMS).route == "threads"   # 50 columns: 100-byte rows
+    assert toc.ag_plan(torch.zeros(64, 96, dtype=bf), torch.zeros(96, 64, dtype=bf), src=0,
+                       slice_x=False, w_t=False, sms=H100_SMS).route == "tma"
+
+
+@pytest.mark.parametrize("m,n,k", [(1024, 128, 2048), (4096, 512, 512), (33, 7, 20),
+                                   (128, 512, 1024)])
+def test_float32_takes_the_cuda_core_tiles(m, n, k):
+    plan = toc.step_plan(m, n, k, (k, 1), (n, 1), torch.float32, H100_SMS)
+    small = -(-m // 64) * -(-n // 64) < H100_SMS
+    assert plan.route == "cuda_cores"
+    assert (plan.tile_m, plan.tile_n, plan.split) == ((32, 32, 4) if small else (64, 64, 1))
+    assert not (plan.a_mn or plan.b_mn)
+
+
+@pytest.mark.parametrize("m,n", [(1024, 128), (64, 32), (128, 512), (4096, 2048), (1, 1)])
+@pytest.mark.parametrize("k", [1, 64, 100, 128])
+def test_a_plan_never_splits_a_contraction_of_128_or_less(m, n, k):
+    for a_strides, b_strides in (((k, 1), (n, 1)), ((1, m), (1, k))):
+        plan = toc.step_plan(m, n, k, a_strides, b_strides, torch.bfloat16, H100_SMS)
+        assert plan.split == 1, plan
+
+
+def test_long_contractions_split_over_a_cluster():
+    plan = toc.step_plan(1024, 128, 2048, (2048, 1), (1, 2048), torch.bfloat16, H100_SMS)
+    assert plan.split in toc.TC_SPLITS and plan.split > 1 and plan.blocks >= H100_SMS
+    # never more blocks than 64-deep stages to share
+    assert toc.step_plan(64, 32, 256, (256, 1), (1, 256), torch.bfloat16, H100_SMS).split == 4
+
+
+@pytest.mark.parametrize("m,n,k,sms,dtype", [
+    (0, 8, 8, 132, torch.bfloat16), (8, 0, 8, 132, torch.bfloat16),
+    (8, 8, 0, 132, torch.bfloat16), (-1, 8, 8, 132, torch.float32),
+    (32 * 65536, 8, 8, 132, torch.bfloat16), (8, 8, 8, 0, torch.bfloat16),
+    (8, 8, 8, 132, torch.float16),
+])
+def test_step_plan_rejects_bad_dims(m, n, k, sms, dtype):
+    with pytest.raises(ValueError):
+        toc.step_plan(m, n, k, (k, 1), (n, 1), dtype, sms)
