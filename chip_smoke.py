@@ -279,26 +279,30 @@ def graph_ms(fn, iters: int) -> float:
     return s.elapsed_time(e) / iters
 
 
+def instance_name(mangled: str) -> str:
+    """A kernel's mangled name as its name and ``<type, int, ...>``
+    template arguments."""
+    found = re.search(r"\d+([a-z_]+_kernel)I", mangled)
+    kname = found.group(1) if found else mangled
+    args = []
+    if kname.startswith("flash"):
+        # the template's types: __nv_bfloat16, float, or a repeat (S..._) of
+        # the bfloat16 seen before
+        seg = mangled.split(kname + "I", 1)[-1].split("Li", 1)[0]
+        args = ["f32" if tok == "f" else "bf16"
+                for tok in re.findall(r"13__nv_bfloat16|S\d*_|f", seg)]
+    args += re.findall(r"L[ib](\d+)E", mangled)
+    return f"{kname}<{', '.join(args)}>"
+
+
 def ptxas_report(text: str):
     """(instance, "N registers, smem, spills") per compiled kernel from
-    ``nvcc -Xptxas -v`` output; a template instance reads as its kernel's
-    name and ``<type, int, ...>`` arguments."""
+    ``nvcc -Xptxas -v`` output (:func:`instance_name`)."""
     out, inst, spill = [], None, ""
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            mangled = m.group(1)
-            found = re.search(r"\d+([a-z_]+_kernel)I", mangled)
-            kname = found.group(1) if found else mangled
-            args = []
-            if kname.startswith("flash"):
-                # the template's types: __nv_bfloat16, float, or a repeat
-                # (S..._) of the bfloat16 seen before
-                seg = mangled.split(kname + "I", 1)[-1].split("Li", 1)[0]
-                args = ["f32" if tok == "f" else "bf16"
-                        for tok in re.findall(r"13__nv_bfloat16|S\d*_|f", seg)]
-            args += re.findall(r"L[ib](\d+)E", mangled)
-            inst = f"{kname}<{', '.join(args)}>"
+            inst = instance_name(m.group(1))
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and inst:
@@ -565,6 +569,33 @@ def percentile(xs, q):
     return xs[max(0, math.ceil(q * len(xs)) - 1)]
 
 
+def zero_flash_counts() -> None:
+    """Set every flash launch counter to 0, those by route too: the path
+    starts here."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    fa.fwd_launches = fa.bwd_launches = fa.block_fwd_launches = fa.block_bwd_launches = 0
+    for counts in (fa.fwd_route_launches, fa.dkv_route_launches):
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def check_flash_routes(what: str, dtype: str) -> dict:
+    """Every flash forward and dk/dv launch since :func:`zero_flash_counts`
+    (the causal wrappers' and the ring blocks') took the route of
+    ``dtype``'s plan: bfloat16 "tc" (tensor cores), float32 "fma" (CUDA
+    cores). Returns the launches by route."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    want = "tc" if dtype == "bfloat16" else "fma"
+    fwd = fa.fwd_launches + fa.block_fwd_launches
+    dkv = (fa.bwd_launches + fa.block_bwd_launches) // fa.BWD_KERNELS
+    got = {"fwd": dict(fa.fwd_route_launches), "dkv": dict(fa.dkv_route_launches)}
+    expect = {kind: {r: n if r == want else 0 for r in got[kind]}
+              for kind, n in (("fwd", fwd), ("dkv", dkv))}
+    check(got == expect, f"{what}: flash launches by route {got}, want {expect}")
+    return got
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the flash-attention kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -660,9 +691,11 @@ def flash_case(name, b, t, h, d, dtype, seed, iters, rows=None):
         diff = (got.float() - want.float()).abs()
         return diff.max().item(), (diff / limit.to(dev)).max().item()
 
+    zero_flash_counts()
     out, lse = fa.flash_attention_forward(q, k, v, h)
     want_out, want_lse = _by_rows(ref_fwd, rows, q, k, v)
     grads = fa.flash_attention_backward(q, k, v, want_out, want_lse, do, h)
+    routes = check_flash_routes(f"flash {name}", dtype)
     want_grads = _by_rows(ref_bwd, rows, q, k, v, want_out, want_lse, do)
     torch.cuda.synchronize()
     limits = {"out": attention_tolerance(want_out, h),
@@ -699,6 +732,11 @@ def flash_case(name, b, t, h, d, dtype, seed, iters, rows=None):
     fwd_ms = graph_ms(lambda: fa.flash_attention_forward(q, k, v, h), iters)
     bwd_ms = graph_ms(
         lambda: fa.flash_attention_backward(q, k, v, want_out, want_lse, do, h), iters)
+    _, delta = fa._dq_kernel(q, k, v, want_out, want_lse, do, h, True, dt)
+    dq_ms = graph_ms(lambda: fa._dq_kernel(q, k, v, want_out, want_lse, do, h, True, dt), iters)
+    dkv_ms = graph_ms(
+        lambda: fa._dkv_kernel(q, k, v, want_lse, delta, do, h, True, dt), iters)
+    del delta
     plain_timer = graph_ms if rows is None else functools.partial(cuda_ms, warmup=1)
     plain_fwd_ms = plain_timer(lambda: _by_rows(ref_fwd, rows, q, k, v), iters)
     plain_bwd_ms = plain_timer(
@@ -728,14 +766,17 @@ def flash_case(name, b, t, h, d, dtype, seed, iters, rows=None):
         bms, by, nbytes = bounds[kind]
         log(f"flash {name} {kind}: kernel_ms {ms:.6f} plain_ms {plain:.6f} library_ms "
             f"{lib:.6f} bound_ms {bms:.6f} ({by}, {nbytes} B)")
+    log(f"flash {name} bwd: dq kernel {dq_ms:.6f} ms (fma), dk/dv kernel {dkv_ms:.6f} ms "
+        f"({fa.flash_plan(dt, d, True).route})")
     log(f"flash {name}: kernels fwd + bwd {fwd_ms + bwd_ms:.6f} ms, SDPA fwd + bwd "
         f"{lib_fwd_bwd_ms:.6f} ms, bound {bounds['fwd_bwd'][0]:.6f} ms ({bounds['fwd_bwd'][1]})")
     return dict(
         case=name, b=b, t=t, h=h, d=d, dtype=dtype, errors=errs, fault_over_limit=fault_ratio,
-        plain_rows_at_a_time=rows,
+        plain_rows_at_a_time=rows, routes=routes,
         fwd_max_abs_err=max(errs["out"][0], errs["lse"][0]),
         bwd_max_abs_err=max(errs[n][0] for n in ("dq", "dk", "dv")),
-        fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+        fwd_ms=fwd_ms, bwd_ms=bwd_ms, dq_ms=dq_ms, dkv_ms=dkv_ms,
+        plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
         library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms, library_fwd_bwd_ms=lib_fwd_bwd_ms,
         fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
         bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1],
@@ -769,9 +810,10 @@ def train_flagship(steps: int, warmup: int, out_dir: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    fa.fwd_launches = fa.bwd_launches = 0        # the main path starts here
+    zero_flash_counts()                          # the main path starts here
     res = train(tcfg, mcfg, ocfg)
     launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+    check_flash_routes("flagship training", mcfg.compute_dtype)
     peak = torch.cuda.max_memory_allocated() - base
     return res, (tcfg, mcfg, ocfg), launches, peak
 
@@ -919,7 +961,7 @@ def train_long_context(out_dir: str, steps: int, t8192: bool = False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    fa.fwd_launches = fa.bwd_launches = 0        # the main path starts here
+    zero_flash_counts()                          # the main path starts here
     if t8192:
         res = train(tcfg, mcfg, ocfg)
     else:
@@ -927,6 +969,7 @@ def train_long_context(out_dir: str, steps: int, t8192: bool = False):
                         str(cfgs[1]), "--dataset", "synthetic", "--no-obs", "--steps",
                         str(steps), "--output_dir", out_dir])
     launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+    check_flash_routes(f"long context T {mcfg.max_seq_len}", mcfg.compute_dtype)
     peak = torch.cuda.max_memory_allocated() - base
     return res, (tcfg, mcfg, ocfg), launches, peak
 
@@ -962,9 +1005,10 @@ def remat_modes(warmup: int = 2, steps: int = 4, ce_rows: int | None = None):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-            fa.fwd_launches = fa.bwd_launches = 0    # the path starts here
+            zero_flash_counts()                      # the path starts here
             res = train(tcfg, cfg, ocfg)
             launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+            check_flash_routes(f"remat {mode}", cfg.compute_dtype)
             peak = torch.cuda.max_memory_allocated() - base
             out[mode] = (res.losses, launches, peak,
                          train_memory_bytes(cfg, tcfg.batch, cfg.max_seq_len),
@@ -1125,10 +1169,12 @@ def block_case(name, b, tc, h, d, dtype, seed, iters, device: str = "cuda"):
     errs, faults, given = {}, {}, {}
     for causal in (False, True):
         tag = "causal" if causal else "full"
+        zero_flash_counts()
         out, lse = fa.flash_block_forward(q, k, v, h, causal)
         want_out, want_lse = fa.flash_block_reference(q, k, v, h, causal)
         lse_g = want_lse + math.log(2.0)
         grads = fa.flash_block_backward(q, k, v, want_out, lse_g, do, h, causal)
+        check_flash_routes(f"block {name} {tag}", dtype)
         want_grads = fa.flash_block_backward_reference(q, k, v, want_out, lse_g, do, h, causal)
         torch.cuda.synchronize()
         limits = {"out": attention_tolerance(want_out, h),
@@ -1173,6 +1219,16 @@ def block_case(name, b, tc, h, d, dtype, seed, iters, device: str = "cuda"):
         times[f"{tag}_fwd"] = graph_ms(lambda: fa.flash_block_forward(q, k, v, h, causal), iters)
         times[f"{tag}_bwd"] = graph_ms(
             lambda: fa.flash_block_backward(q, k, v, o_g, l_g, do, h, causal), iters)
+        if device != "cpu":
+            f32 = torch.float32
+            _, delta = fa._dq_kernel(q, k, v, o_g, l_g, do, h, causal, f32)
+            times[f"{tag}_dq"] = graph_ms(
+                lambda: fa._dq_kernel(q, k, v, o_g, l_g, do, h, causal, f32), iters)
+            times[f"{tag}_dkv"] = graph_ms(
+                lambda: fa._dkv_kernel(q, k, v, l_g, delta, do, h, causal, f32), iters)
+            log(f"block {name} {tag} bwd: dq kernel {times[f'{tag}_dq']:.6f} ms, dk/dv kernel "
+                f"{times[f'{tag}_dkv']:.6f} ms")
+            del delta
         times[f"{tag}_plain_fwd"] = graph_ms(
             lambda: fa.flash_block_reference(q, k, v, h, causal), iters)
         times[f"{tag}_plain_bwd"] = graph_ms(
@@ -1238,9 +1294,10 @@ def ring_on_one_card(ring, b, t, h, d, dtype, seed, reps: int = 3, device: str =
         grads = torch.autograd.grad(out, xs, do)
         return out.detach(), grads
 
-    fa.block_fwd_launches = fa.block_bwd_launches = 0      # the path starts here
+    zero_flash_counts()                                    # the path starts here
     got = run(lambda *xs: ra.ring_causal_attention(*xs, vring))
     launches = (fa.block_fwd_launches, fa.block_bwd_launches)  # ...and ends here
+    check_flash_routes(f"ring {ring} {dtype}", dtype)
     want_calls = ring * (2 * ring + 1)
     check(launches == (want_calls, want_calls * fa.BWD_KERNELS),
           f"ring {ring} {dtype}: block launches {launches} for one call over {ring} ranks "
@@ -1320,17 +1377,18 @@ def ring_training_step(ring: int, seed: int, device: str = "cuda", t: int = 8192
     dev = torch.device(device)
     x, y = split_to_device(next(synthetic_batch_iterator(2, t + 1, mcfg.vocab_size,
                                                          seed=seed)), dev)
-    out = {}
+    out, routes = {}, {}
     for impl in ("ring", "flash"):
         model = GPT(dataclasses.replace(mcfg, attention=impl), device=dev, seed=seed)
         opt = create_optimizer(model.parameters(), ocfg, total_steps=1)
-        fa.block_fwd_launches = fa.block_bwd_launches = 0      # the path starts here
+        zero_flash_counts()                                    # the path starts here
         with ra.use_ring(ra.InProcessRing(ring)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             loss = float(train_step(model, opt, x, y, None))
             step_s = time.perf_counter() - t0
         out[impl] = (loss, (fa.block_fwd_launches, fa.block_bwd_launches), step_s)  # ...end
+        routes[impl] = check_flash_routes(f"ring training ({impl})", mcfg.compute_dtype)
         del model, opt
         torch.cuda.empty_cache()
     calls = mcfg.n_layers * ring * (2 * ring + 1)
@@ -1344,6 +1402,7 @@ def ring_training_step(ring: int, seed: int, device: str = "cuda", t: int = 8192
         f"{out['flash'][2] * 1e3:.1f} ms; first step of each, one card)")
     check(gap <= 1e-4, f"ring training loss {out['ring'][0]} vs flash {out['flash'][0]}")
     return dict(ring=ring, loss_ring=out["ring"][0], loss_flash=out["flash"][0], gap=gap,
+                flash_routes=routes["ring"],
                 block_launches=out["ring"][1], step_ms_ring=out["ring"][2] * 1e3,
                 step_ms_flash=out["flash"][2] * 1e3)
 
@@ -1414,17 +1473,32 @@ def train_nccl_world1(steps: int, out_dir: str, device: str | None = None):
     return res, alone, seen, launches, rows
 
 
-def sass_counts(lib_path, opcodes=("HGMMA", "UTMALDG")) -> dict:
-    """How many of each SASS opcode the built library holds (``cuobjdump
-    -sass``, from the toolkit beside ``nvcc``): HGMMA is a wgmma on the
-    tensor cores, UTMALDG a TMA tensor load."""
+def _sass(lib_path) -> str:
     from dtc_tpu_torch.ops import _build
 
     tool = Path(_build.nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
                          timeout=300)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
-    return {op: len(re.findall(rf"\b{op}\b", out.stdout)) for op in opcodes}
+    return out.stdout
+
+
+def sass_counts(lib_path, opcodes=("HGMMA", "UTMALDG")) -> dict:
+    """How many of each SASS opcode the built library holds (``cuobjdump
+    -sass``, from the toolkit beside ``nvcc``): HGMMA is a wgmma on the
+    tensor cores, UTMALDG a TMA tensor load."""
+    text = _sass(lib_path)
+    return {op: len(re.findall(rf"\b{op}\b", text)) for op in opcodes}
+
+
+def sass_counts_by_function(lib_path, opcodes=("HGMMA", "UTMALDG")) -> dict:
+    """:func:`sass_counts` for each kernel of the library, by
+    :func:`instance_name`."""
+    out = {}
+    for part in _sass(lib_path).split("Function : ")[1:]:
+        name = instance_name(part.split(None, 1)[0])
+        out[name] = {op: len(re.findall(rf"\b{op}\b", part)) for op in opcodes}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2263,6 +2337,22 @@ def main() -> int:
             f"{tc_smem} B; SASS {sass}")
         check(all(v > 0 for v in sass.values()),
               f"overlap_collectives: no tensor-core or TMA instruction in the SASS: {sass}")
+        # the flash library's bf16 instances: the same proof, kernel by kernel
+        from dtc_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
+
+        ftc = _build.load("flash_attention_tc")
+        ftc_smem = {f"{kind} D {d}": ftc.dtc_flash_tc_smem_bytes(i, d)
+                    for i, kind in enumerate(("fwd", "dkv")) for d in KERNEL_HEAD_DIMS}
+        fsass = sass_counts_by_function(_build.library_path("flash_attention_tc"))
+        record["flash_tc_build"] = dict(dynamic_smem=ftc_smem, sass=fsass)
+        log(f"flash_attention_tc: dynamic shared memory a block {ftc_smem} B")
+        for fn, counts in sorted(fsass.items()):
+            log(f"  SASS {fn}: {counts}")
+        for kern, n in (("flash_fwd_tc_kernel", 8), ("flash_dkv_tc_kernel", 16)):
+            insts = {fn: c for fn, c in fsass.items() if fn.startswith(kern + "<")}
+            check(len(insts) == n and all(min(c.values()) > 0 for c in insts.values()),
+                  f"flash_attention_tc: {kern} instances without a tensor-core or TMA "
+                  f"instruction in the SASS: {insts}")
 
         # 3. kernels vs plain
         from dtc_tpu_torch.ops import decode_attention as da
@@ -2412,6 +2502,8 @@ def main() -> int:
             peak_allocated=peak, flash_fwd_launches=fwd_n, flash_bwd_launches=bwd_n,
             total_time_s=res.total_time_s, card=smi,
         )
+        routes7 = {"fwd": dict(fa.fwd_route_launches), "dkv": dict(fa.dkv_route_launches)}
+        train_rec["flash_routes"] = routes7
         record["train_flagship"] = train_rec
         log(f"train flagship: {steps} steps after {warmup} warmup, loss {first:.4f} -> "
             f"{losses[-1]:.4f} (last-5 mean {last5:.4f}), log.csv {steps} rows, flash "
@@ -2472,7 +2564,7 @@ def main() -> int:
         mk_verify = megakernel_times(mk_models["bfloat16"], 4, 4, "bfloat16",
                                      [2, 37, 300, 508], args.seed + 921, iters=100)
         mk_grid, mk_smem = decode_fused.kernel_config(mk_models["bfloat16"].cfg, torch.bfloat16)
-        mk_ptxas = [rep for name in _build._VARIANTS
+        mk_ptxas = [rep for name in _build._MEGAKERNELS
                     for rep in ptxas_report(_build.log_path(name).read_text())]
         for tag, tm_ in (("t1", mk_flag), ("t4", mk_verify)):
             log(f"megakernel flagship {tag} (B 4, 12 layers, bf16, bf16 KV): kernel_ms "
@@ -2656,6 +2748,7 @@ def main() -> int:
             check(rows[0] == "step,elapsed_time,loss" and len(rows) == steps + 1,
                   f"long context {tag} log.csv: header {rows[:1]}, {len(rows) - 1} rows for "
                   f"{steps} steps")
+            routes_l = {"fwd": dict(fa.fwd_route_launches), "dkv": dict(fa.dkv_route_launches)}
             n_steps = steps + ltcfg.warmup_steps
             per_step = (fwd_l / n_steps, bwd_l / n_steps)
             check(per_step == (lmcfg.n_layers, lmcfg.n_layers * fa.BWD_KERNELS),
@@ -2675,7 +2768,7 @@ def main() -> int:
                 mfu=gpt_step_flops(lmcfg, ltcfg.batch, lmcfg.max_seq_len)
                 / (step_s * H100_BF16_PEAK_FLOPS),
                 peak_allocated=peak, train_memory_bytes=budget,
-                flash_fwd_launches=fwd_l, flash_bwd_launches=bwd_l,
+                flash_fwd_launches=fwd_l, flash_bwd_launches=bwd_l, flash_routes=routes_l,
                 total_time_s=res.total_time_s, card=smi,
             )
             log(f"long context {tag} (B {ltcfg.batch}, T {lmcfg.max_seq_len}, "
@@ -2887,8 +2980,13 @@ def main() -> int:
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
         )]
+        # The flash rows: the plan's route of the timed bf16 kernels ("tc":
+        # tensor cores; the dq kernel "fma") and the main path's launches by
+        # route; the backward's dq and dk/dv kernels apart.
         fl = flash[0]
-        for part, launched, row, multi in (("fwd", fwd_n, 506, 558), ("bwd", bwd_n, 527, 605)):
+        for part, launched, row, multi, routes in (
+                ("fwd", fwd_n, 506, 558, routes7["fwd"]),
+                ("bwd", bwd_n, 527, 605, routes7["dkv"])):
             kernels.append(dict(
                 name=f"flash_attention_{part}", route="cuda",
                 source="dtc_tpu_torch/csrc/flash_attention.cu",
@@ -2898,7 +2996,9 @@ def main() -> int:
                 max_abs_err=max(c[f"{part}_max_abs_err"] for c in flash[:3]),
                 ms=fl[f"{part}_ms"], plain_ms=fl[f"plain_{part}_ms"],
                 bound_ms=fl[f"{part}_bound_ms"], bound_by=fl[f"{part}_bound_by"],
-                library_ms=fl[f"library_{part}_ms"],
+                library_ms=fl[f"library_{part}_ms"], plan_route="tc", route_launches=routes,
+                **({"dq_ms": fl["dq_ms"], "dkv_ms": fl["dkv_ms"], "dq_route": "fma"}
+                   if part == "bwd" else {}),
             ))
         kernels.append(dict(
             name="decode_fused_layers", route="cuda",
@@ -2933,8 +3033,11 @@ def main() -> int:
             bound_ms=flash_8k["bwd_bound_ms"], bound_by=flash_8k["bwd_bound_by"],
             library_ms=flash_8k["library_bwd_ms"],
             fwd_ms=flash_8k["fwd_ms"], fwd_bound_ms=flash_8k["fwd_bound_ms"],
+            dq_ms=flash_8k["dq_ms"], dkv_ms=flash_8k["dkv_ms"], plan_route="tc", dq_route="fma",
+            route_launches=long_rec["t8192"]["flash_routes"],
         ))
         d48 = next(c for c in flash if c["case"] == "fp32_d48")  # phase 8's call
+        bf48 = next(c for c in flash if c["case"] == "bf16_d48")
         d48_launches = record["path_agreement"]["d48"]["flash_launches"]
         kernels.append(dict(
             name="flash_attention_fwd_bwd_d48", route="cuda",
@@ -2947,8 +3050,10 @@ def main() -> int:
             ms=d48["fwd_ms"] + d48["bwd_ms"], plain_ms=d48["plain_fwd_ms"] + d48["plain_bwd_ms"],
             bound_ms=d48["fwd_bwd_bound_ms"], bound_by=d48["fwd_bwd_bound_by"],
             library_ms=d48["library_fwd_bwd_ms"],
-            fwd_ms=d48["fwd_ms"], bwd_ms=d48["bwd_ms"],
-            fwd_launches=d48_launches[0], bwd_launches=d48_launches[1],
+            fwd_ms=d48["fwd_ms"], bwd_ms=d48["bwd_ms"], dq_ms=d48["dq_ms"], dkv_ms=d48["dkv_ms"],
+            fwd_launches=d48_launches[0], bwd_launches=d48_launches[1], plan_route="fma",
+            bf16_fwd_ms=bf48["fwd_ms"], bf16_dq_ms=bf48["dq_ms"], bf16_dkv_ms=bf48["dkv_ms"],
+            bf16_plan_route="tc",
         ))
         main_block = blocks[0]
         # The model's own run on the ring (phase 16's training step) counts
@@ -2966,7 +3071,10 @@ def main() -> int:
                 bound_ms=main_block[f"full_{part}_bound"],
                 bound_by=main_block[f"full_{part}_bound_by"],
                 library_ms=main_block[f"full_library_{part}"],
-                causal_ms=main_block[f"causal_{part}"],
+                causal_ms=main_block[f"causal_{part}"], plan_route="tc",
+                route_launches=record["ring_training"]["flash_routes"],
+                **({"dq_ms": main_block["full_dq"], "dkv_ms": main_block["full_dkv"],
+                    "dq_route": "fma"} if part == "bwd" else {}),
             ))
         # Rows 17-18: launches from phase 19's FSDP training (the model's
         # own run over 4 virtual ranks); times at the bf16 site where the

@@ -40,6 +40,11 @@ _SIGNATURES = {
         "dtc_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _F] + [_I] * 3 + [_P],
         "dtc_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     },
+    "flash_attention_tc": {
+        "dtc_flash_tc_fwd": [_P] * 5 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
+        "dtc_flash_tc_dkv": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
+        "dtc_flash_tc_smem_bytes": [_I, _I],
+    },
     "overlap_collectives": {
         "dtc_overlap_ag_step": [_P, _L, _L, _P, _L, _L, _P, _L] + [_I] * 5 + [_I] * 6 + [_P],
         "dtc_overlap_rs_step": [_P, _L, _L, _P, _L, _L, _P, _P] + [_I] * 4 + [_I] * 6 + [_P],
@@ -49,14 +54,16 @@ _SIGNATURES = {
 
 #: Libraries built from another name's source with preprocessor defines:
 #: {library: (source stem, defines)}. The decode megakernel builds one
-#: library per (compute, KV) dtype pair, so that its template instances
-#: compile in six processes at once.
-_VARIANTS = {
+#: library per (compute, KV) dtype pair, and the flash source one for its
+#: CUDA-core kernels and one for its tensor-core kernels, so that their
+#: template instances compile in separate processes at once.
+_MEGAKERNELS = {
     f"decode_fused_{c}_{k}": ("decode_fused", [f"-DDTC_CD={ci}", f"-DDTC_KV={ki}"])
     for ci, c in enumerate(("f32", "bf16"))
     for ki, k in enumerate(("f32", "bf16", "i8"))
 }
-for _name in _VARIANTS:
+_VARIANTS = {**_MEGAKERNELS, "flash_attention_tc": ("flash_attention", ["-DDTC_FLASH_TC=1"])}
+for _name in _MEGAKERNELS:
     _SIGNATURES[_name] = {
         "dtc_fused_layers": [_P] * 9 + [_I] * 9 + [_F] + [_I] * 2 + [_P] * 2 + [_I] * 3
         + [_F, _P],

@@ -43,11 +43,28 @@ are :func:`flash_block_reference` / :func:`flash_block_backward_reference`;
 ``block_fwd_launches`` / ``block_bwd_launches`` count their launches apart
 from the causal wrappers'. The JAX package keeps a block's lse as
 ``(B, H·D/128, tc, 128/D)``; the port keeps ``(B, H, tc)`` as everywhere.
+
+Routes. :func:`flash_plan` chooses, before each launch, the kernel a
+forward or dk/dv launch takes from the dtype and head dim alone: bfloat16
+goes to the tensor cores (route ``"tc"``: ``wgmma`` on tiles that TMA
+stages in shared memory, swizzled to the widest atom that divides D,
+library ``flash_attention_tc``), float32 to the CUDA cores (``"fma"``,
+library ``flash_attention``; TF32 would break float32's 1e-5 limit). The
+dq kernel runs on the CUDA cores in every dtype. ``fwd_route_launches``
+and ``dkv_route_launches`` count the forward and dk/dv launches by route.
+On a CUDA tensor a plan's kernel launches or the wrapper raises; nothing
+falls back to another kernel or to the plain version. The tensor-core
+forward takes the softmax in one pass with an online rescale, as JAX's
+``_fwd_kernel_packed_multi`` does; :func:`flash_forward_twin` is its eager
+twin for the tests, and the two-pass plain version holds it within the
+same limit as the CUDA-core kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -64,11 +81,52 @@ BWD_KERNELS = 2
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since the last reset (the wrappers add one per launch,
-#: nowhere else): the causal wrappers' and the ring blocks'.
+#: nowhere else): the causal wrappers' and the ring blocks', and the
+#: forward and dk/dv launches of both by their plan's route.
 fwd_launches = 0
 bwd_launches = 0
 block_fwd_launches = 0
 block_bwd_launches = 0
+fwd_route_launches = {"tc": 0, "fma": 0}
+dkv_route_launches = {"tc": 0, "fma": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """How a forward or dk/dv launch runs. ``route`` ``"tc"`` (bfloat16:
+    tensor cores, tiles staged by TMA) or ``"fma"`` (float32: CUDA cores);
+    ``tile``: the rows of a q and of a KV tile. For ``"tc"``: ``swizzle``,
+    the bytes of a staged box row (128, 64 or 32: the widest swizzle atom
+    whose width in bf16 divides D), ``boxes`` the boxes a 64 x D tile (TMA's
+    box may be no wider than its swizzle), ``stages`` the shared-memory
+    stages (as many two-tile stages as 64 KB holds, 2 to 4); 0 for
+    ``"fma"``."""
+
+    route: str
+    tile: int
+    swizzle: int
+    boxes: int
+    stages: int
+
+
+#: The kernels' tile: 64 query rows, 64 keys.
+TILE = 64
+
+
+@functools.lru_cache(maxsize=None)
+def flash_plan(dtype: torch.dtype, d: int, causal: bool) -> FlashPlan:
+    """The plan of a forward or dk/dv launch on inputs of ``dtype`` at head
+    dim ``d`` (the causal mask is a runtime flag of either route). Raises
+    ``ValueError`` for a head dim or dtype no kernel takes."""
+    check_head_dim(d)
+    if dtype == torch.float32:
+        return FlashPlan("fma", TILE, 0, 0, 0)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"flash kernels: unsupported dtype {dtype}")
+    width = 64 if d % 64 == 0 else 32 if d % 32 == 0 else 16
+    tile_bytes = TILE * d * 2
+    stages = max(2, min(4, 65536 // (2 * tile_bytes)))
+    return FlashPlan("tc", TILE, 2 * width, d // width, stages)
 
 
 def _scale_q(d: int, dtype: torch.dtype) -> float:
@@ -136,6 +194,41 @@ def flash_attention_backward_reference(q, k, v, out, lse, do, h: int, causal: bo
     )
 
 
+def flash_forward_twin(q, k, v, h: int, causal: bool = True, key_tile: int = TILE,
+                       rows: tuple[int, int] | None = None):
+    """Eager twin of the tensor-core forward's tiling, for the tests (the
+    port never calls it): one pass over key tiles of ``key_tile`` with an
+    online rescale, at the kernel's rounding points (q scaled in its dtype;
+    float32 scores; ``m``, ``l`` and ``acc`` rescaled by ``exp(m_old -
+    m_new)``; ``p = exp(s - m_new)`` summed unrounded into ``l`` and cast to
+    v's dtype for P·V; ``out = acc / l`` in q's dtype, ``lse = m + log l``).
+    ``rows``: only query rows ``[start, stop)`` (the keys up to ``stop``).
+    Returns ``(out (B, rows, H·D), lse (B, H, rows))``."""
+    b, t, hd = q.shape
+    d = hd // h
+    r0, r1 = rows or (0, t)
+    qs = (_heads(q[:, r0:r1], h) * _scale_q(d, q.dtype)).float()
+    kf, vf = _heads(k, h).float(), _heads(v, h)
+    row = torch.arange(r0, r1, device=q.device)[:, None]
+    m = torch.full((b, h, r1 - r0), -torch.inf, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, h, r1 - r0, d, device=q.device)
+    for k0 in range(0, r1 if causal else t, key_tile):
+        k1 = min(k0 + key_tile, t)
+        s = torch.einsum("bqhd,bkhd->bhqk", qs, kf[:, k0:k1])
+        key = torch.arange(k0, k1, device=q.device)[None, :]
+        s = torch.where(key <= row if causal else key < t, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf[:, k0:k1].float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = (acc / l[..., None]).to(q.dtype).permute(0, 2, 1, 3).reshape(b, r1 - r0, hd)
+    return out, m + torch.log(l)
+
+
 def flash_block_reference(q, k, v, h: int, causal: bool):
     """Plain version of the ring's block forward: attention of one chunk
     pair, causal (the diagonal pair) or not. ``(out, lse)`` as
@@ -201,22 +294,39 @@ def _raise_on(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"flash attention {what} launch failed: {_build.error_string(lib, rc)}")
 
 
+def _check_aligned(*xs: torch.Tensor) -> None:
+    """TMA's tensor maps need 16-byte-aligned bases."""
+    for x in xs:
+        if x.data_ptr() % 16:
+            raise ValueError("the tensor-core flash kernels need 16-byte-aligned tensors")
+
+
 def _forward_kernel(q, k, v, h: int, causal: bool):
-    """Launch the forward kernel on checked CUDA tensors."""
+    """Launch the forward kernel of the plan's route on checked CUDA tensors."""
     _check_cuda(h, q, k, v)
     from dtc_tpu_torch.ops import _build
 
-    lib = _build.load("flash_attention")
     b, t, hd = q.shape
     d = hd // h
+    plan = flash_plan(q.dtype, d, causal)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
-    rc = lib.dtc_flash_fwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), b, t, h, d,
-        _scale_q(d, q.dtype), _DTYPE_CODES[q.dtype], int(causal),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
-    )
+    if plan.route == "tc":
+        _check_aligned(q, k, v)
+        lib = _build.load("flash_attention_tc")
+        rc = lib.dtc_flash_tc_fwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), b, t, h, d,
+            _scale_q(d, q.dtype), int(causal), plan.swizzle, plan.boxes, plan.stages,
+            _stream(q),
+        )
+    else:
+        lib = _build.load("flash_attention")
+        rc = lib.dtc_flash_fwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse), b, t, h, d,
+            _scale_q(d, q.dtype), _DTYPE_CODES[q.dtype], int(causal), _stream(q),
+        )
     _raise_on(lib, rc, "forward")
+    fwd_route_launches[plan.route] += 1
     return out, lse
 
 
@@ -225,31 +335,68 @@ def _check_lse(lse, q, h: int) -> None:
         raise ValueError(f"lse must be (B, H, T), got {tuple(lse.shape)}")
 
 
+def _stream(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _dq_kernel(q, k, v, out, lse, do, h: int, causal: bool, grad_dtype):
+    """Launch the dq kernel (CUDA cores, every dtype) on checked CUDA
+    tensors: ``(dq in grad_dtype, delta)``, delta = rowsum(dO ⊙ O) (B, H,
+    T) float32 for the dk/dv kernel."""
+    from dtc_tpu_torch.ops import _build
+
+    b, t, hd = q.shape
+    d = hd // h
+    lib = _build.load("flash_attention")
+    delta = torch.empty_like(lse)
+    dq = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
+    rc = lib.dtc_flash_bwd_dq(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(do), _ptr(lse), _ptr(delta),
+        _ptr(dq), b, t, h, d, _scale_q(d, q.dtype), _scale(d), _DTYPE_CODES[q.dtype],
+        _DTYPE_CODES[grad_dtype], int(causal), _stream(q),
+    )
+    _raise_on(lib, rc, "backward (dq)")
+    return dq, delta
+
+
+def _dkv_kernel(q, k, v, lse, delta, do, h: int, causal: bool, grad_dtype):
+    """Launch the dk/dv kernel of the plan's route on checked CUDA tensors:
+    ``(dk, dv)`` in ``grad_dtype``."""
+    from dtc_tpu_torch.ops import _build
+
+    b, t, hd = q.shape
+    d = hd // h
+    plan = flash_plan(q.dtype, d, causal)
+    dk, dv = (torch.empty(q.shape, dtype=grad_dtype, device=q.device) for _ in range(2))
+    gcode, scale_q = _DTYPE_CODES[grad_dtype], _scale_q(d, q.dtype)
+    if plan.route == "tc":
+        _check_aligned(q, k, v, do)
+        lib = _build.load("flash_attention_tc")
+        rc = lib.dtc_flash_tc_dkv(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
+            _ptr(dv), b, t, h, d, scale_q, gcode, int(causal), plan.swizzle, plan.boxes,
+            plan.stages, _stream(q),
+        )
+    else:
+        lib = _build.load("flash_attention")
+        rc = lib.dtc_flash_bwd_dkv(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
+            _ptr(dv), b, t, h, d, scale_q, _DTYPE_CODES[q.dtype], gcode, int(causal),
+            _stream(q),
+        )
+    _raise_on(lib, rc, "backward (dk/dv)")
+    dkv_route_launches[plan.route] += 1
+    return dk, dv
+
+
 def _backward_kernels(q, k, v, out, lse, do, h: int, causal: bool, grad_dtype):
-    """Launch the dq and dk/dv kernels on checked CUDA tensors; the
-    gradients in ``grad_dtype``."""
+    """Launch the dq kernel, then the dk/dv kernel, on checked CUDA tensors;
+    the gradients in ``grad_dtype``."""
     _check_cuda(h, q, k, v, out, do)
     if lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous float32 tensor on q's device")
-    from dtc_tpu_torch.ops import _build
-
-    lib = _build.load("flash_attention")
-    b, t, hd = q.shape
-    d = hd // h
-    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    code, gcode, scale_q = _DTYPE_CODES[q.dtype], _DTYPE_CODES[grad_dtype], _scale_q(d, q.dtype)
-    delta = torch.empty_like(lse)
-    dq, dk, dv = (torch.empty(q.shape, dtype=grad_dtype, device=q.device) for _ in range(3))
-    rc = lib.dtc_flash_bwd_dq(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(do), _ptr(lse), _ptr(delta),
-        _ptr(dq), b, t, h, d, scale_q, _scale(d), code, gcode, int(causal), stream,
-    )
-    _raise_on(lib, rc, "backward (dq)")
-    rc = lib.dtc_flash_bwd_dkv(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
-        _ptr(dv), b, t, h, d, scale_q, code, gcode, int(causal), stream,
-    )
-    _raise_on(lib, rc, "backward (dk/dv)")
+    dq, delta = _dq_kernel(q, k, v, out, lse, do, h, causal, grad_dtype)
+    dk, dv = _dkv_kernel(q, k, v, lse, delta, do, h, causal, grad_dtype)
     return dq, dk, dv
 
 

@@ -11,6 +11,13 @@ T 256 takes JAX's packed split backward (rows 8 and 9, its route past T
 transpose-layout family (rows 10-14: ``_flash`` over (B, H, T, D), q
 pre-scaled outside the kernels).
 
+The bf16 kernels' launch plan (``flash_plan``: route, swizzle, boxes,
+stages per head dim) is checked here; the tensor-core forward's one-pass
+softmax is held through its eager tiling twin (``flash_forward_twin``)
+against JAX's interpret-mode multi-tile kernel at JAX's key tile (128) and
+against the two-pass plain version at the kernel's own (64), before the
+card holds the kernel against both (``tests/test_torch_gpu.py``).
+
 Tolerances (``dtc_tpu_torch.parity``):
 - float32: ``out`` and ``lse`` 1e-5 absolute, gradients 1e-5 × the tensor's
   largest |value| — the two packages sum in other orders, nothing more
@@ -220,3 +227,81 @@ def test_wrappers_reject_bad_inputs():
         tfa.flash_attention_backward(x, x, x, x, torch.zeros(1, 8, 2), x, 2)
     with pytest.raises(ValueError):  # not a CUDA tensor: no kernel for it
         tfa._check_cuda(2, x, x, x)
+
+
+# --- the tensor-core kernels' plan and the forward's tiling twin ----------
+
+#: The plan's swizzle (bytes a box row) and boxes a 64 x D tile, by head
+#: dim: the widest of 64 (128B), 32 (64B) and 16 (32B) bf16 that divides D.
+_TC_GEOMETRY = {16: (32, 1), 32: (64, 1), 48: (32, 3), 64: (128, 1), 80: (32, 5),
+                96: (64, 3), 112: (32, 7), 128: (128, 2)}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", tfa.KERNEL_HEAD_DIMS)
+def test_flash_plan_takes_bf16_to_the_tensor_cores(d, causal):
+    """bfloat16 plans the tensor-core route with the box geometry above, a
+    box no wider than its swizzle and 2-4 stages of at most 64 KB; float32
+    the CUDA cores."""
+    plan = tfa.flash_plan(torch.bfloat16, d, causal)
+    swizzle, boxes = _TC_GEOMETRY[d]
+    assert (plan.route, plan.tile, plan.swizzle, plan.boxes) == ("tc", 64, swizzle, boxes)
+    assert boxes * swizzle == 2 * d
+    tile_bytes = 64 * d * 2
+    assert 2 <= plan.stages <= 4 and plan.stages * 2 * tile_bytes <= 65536
+    assert plan.stages == 4 or (plan.stages + 1) * 2 * tile_bytes > 65536
+    assert tfa.flash_plan(torch.float32, d, causal) == tfa.FlashPlan("fma", 64, 0, 0, 0)
+
+
+def test_flash_plan_raises_on_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="not in the kernels"):
+        tfa.flash_plan(torch.bfloat16, 40, True)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        tfa.flash_plan(torch.bfloat16, 256, True)
+    with pytest.raises(ValueError, match="dtype"):
+        tfa.flash_plan(torch.float16, 32, True)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_forward_twin_is_jaxs_multi_tile_kernel(seed):
+    """Step (a) of the two-step rule for the tensor-core forward: its eager
+    tiling twin, at a key tile of 128 (JAX's ``supports`` wants
+    ``block_kv % 128 == 0``), against JAX's interpret-mode
+    ``_fwd_kernel_packed_multi`` (TPU kernel row 6) in blocks of 128: the
+    same online softmax, so out within 1 bf16 ulp of each (row, head)'s
+    largest value and at least 99.9% of it bit-equal (measured 99.97%;
+    float32 sums in another order may flip a rounding of p), lse 1e-5."""
+    from dtc_tpu_torch.parity import BF16_ULPS
+
+    b, t, h, d = 1, 512, 8, 32
+    q, k, v, _ = _inputs(b, t, h, d, seed)
+    jq, jk, jv = (jnp.asarray(x.reshape(b, t, h * d), jnp.bfloat16) for x in (q, k, v))
+    out, lse = jfa._packed_fwd_call(jq, jk, jv, 128, 128, jfa._packed_group(d, h), d,
+                                    float(d ** -0.5))
+    jout = torch.from_numpy(np.array(jnp.asarray(out, jnp.float32))).to(torch.bfloat16)
+    jlse = torch.from_numpy(np.array(lse).transpose(0, 1, 3, 2).reshape(b, h, t))
+    tq, tk, tv = (torch.from_numpy(x.reshape(b, t, h * d)).to(torch.bfloat16) for x in (q, k, v))
+    tout, tlse = tfa.flash_forward_twin(tq, tk, tv, h, True, key_tile=128)
+    _assert_within("out", tout, jout, attention_tolerance(jout, h) / BF16_ULPS)
+    assert (tout.float() == jout.float()).float().mean().item() >= 0.999
+    _assert_within("lse", tlse, jlse, torch.full(jlse.shape, FP32_ATOL))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,rows", [(1000, None), (4096, (3840, 4096))])
+def test_forward_twin_one_pass_fits_the_plain_limit(t, rows, causal, seed):
+    """The one-pass softmax at the kernel's own key tile (64) against the
+    two-pass plain version that holds the kernel on the card, within the
+    existing bf16 ``attention_tolerance`` (measured ≤ 0.28 of it): T 1000
+    (ragged: the last tile masked past T) and the last 256 query rows of T
+    4096 (64 key tiles of rescaling), causal and not, bfloat16."""
+    h, d = 2, 32
+    q, k, v = (torch.from_numpy(x.reshape(1, t, h * d)).to(torch.bfloat16)
+               for x in _inputs(1, t, h, d, seed)[:3])
+    r0, r1 = rows or (0, t)
+    out, lse = tfa.flash_forward_twin(q, k, v, h, causal, key_tile=tfa.TILE, rows=rows)
+    want_out, want_lse = tfa.flash_attention_reference(q, k, v, h, causal)
+    want_out, want_lse = want_out[:, r0:r1], want_lse[..., r0:r1]
+    _assert_within("out", out, want_out, attention_tolerance(want_out, h))
+    _assert_within("lse", lse, want_lse, torch.full(want_lse.shape, FP32_ATOL))

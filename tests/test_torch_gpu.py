@@ -200,6 +200,149 @@ def test_training_on_cuda_runs_the_flash_kernels_and_matches_dense(cuda):
     assert max(abs(a - b) for a, b in zip(auto, dense)) <= 1e-4
 
 
+# --- the tensor-core flash kernels (bf16 forward and dk/dv) ---------------
+
+
+def _routes():
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    return dict(fa.fwd_route_launches), dict(fa.dkv_route_launches)
+
+
+def _ratio(got, want, limit):
+    return ((got.float() - want.float()).abs() / limit.to(got.device)).max().item()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_tc_kernels_match_plain_at_a_ragged_t(cuda, d, causal):
+    """The bf16 forward and dk/dv kernels (route "tc": wgmma on TMA-staged
+    tiles) against their plain versions at T 1000, every head dim (each
+    swizzle and box count of ``flash_plan``), causal and not; dk/dv with
+    bf16 and with float32 gradients (the ring's blocks). Every launch on
+    the "tc" route; a second launch gives the same bits."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.parity import grad_tolerance
+
+    h = 3
+    q, k, v, do = _flash_case(cuda, 2, 1000, h, d, torch.bfloat16, seed=d + causal)
+    (f0, k0), runs = _routes(), []
+    for _ in range(2):
+        out, lse = fa._forward_kernel(q, k, v, h, causal)
+        grads = [fa._backward_kernels(q, k, v, out, lse, do, h, causal, gd)
+                 for gd in (torch.bfloat16, torch.float32)]
+        runs.append((out, lse, grads))
+    f1, k1 = _routes()
+    assert (f1["tc"] - f0["tc"], k1["tc"] - k0["tc"]) == (2, 4)
+    assert (f1["fma"], k1["fma"]) == (f0["fma"], k0["fma"])
+    (out, lse, grads), (out2, lse2, grads2) = runs
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for g1, g2 in zip(grads, grads2) for a, b in zip(g1, g2))
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, h, causal)
+    _assert_close(out, want_out, h)
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+    for gd, got in zip((torch.bfloat16, torch.float32), grads):
+        want = fa.flash_attention_backward_reference(q, k, v, out, lse, do, h, causal, gd)
+        for g_, w_ in zip(got, want):
+            assert g_.dtype == gd
+            assert _ratio(g_, w_, grad_tolerance(w_.to(torch.bfloat16), h)) <= 1.0
+
+
+def test_float32_flash_launches_take_the_cuda_cores(cuda):
+    """float32 keeps the CUDA-core kernels (route "fma"): TF32 would break
+    its 1e-5 limit."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_case(cuda, 1, 100, 2, 32, torch.float32)
+    f0, k0 = _routes()
+    out, lse = fa.flash_attention_forward(q, k, v, 2)
+    fa.flash_attention_backward(q, k, v, out, lse, do, 2)
+    f1, k1 = _routes()
+    assert (f1["fma"] - f0["fma"], k1["fma"] - k0["fma"]) == (1, 1)
+    assert (f1["tc"], k1["tc"]) == (f0["tc"], k0["tc"])
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_tc_forward_matches_its_tiling_twin(cuda, d):
+    """The kernel against ``flash_forward_twin`` at its own key tile (64):
+    the same one-pass softmax and rounding points, so the two differ only
+    where float32 sums in another order flip a rounding of p or of out
+    (limit ``attention_tolerance``)."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.parity import attention_tolerance
+
+    h = 2
+    q, k, v, _ = _flash_case(cuda, 2, 1000, h, d, torch.bfloat16, seed=d)
+    out, lse = fa.flash_attention_forward(q, k, v, h)
+    twin, twin_lse = fa.flash_forward_twin(q, k, v, h, True, fa.TILE)
+    assert _ratio(out, twin, attention_tolerance(twin, h)) <= 1.0
+    assert (lse - twin_lse).abs().max().item() <= 1e-5
+
+
+def _faulty_forward(q, k, v, h, shift=0, round_p=True, round_scale=True):
+    """The plain forward with a planted fault: the causal mask ``shift``
+    columns off; p not rounded to v's dtype before P·V; q scaled by the
+    float32 ``D**-0.5`` without rounding (scale or product) to q's dtype."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    b, t, hd = q.shape
+    d = hd // h
+    q4, k4, v4 = (x.reshape(b, t, h, d) for x in (q, k, v))
+    qs = (q4 * fa._scale_q(d, q.dtype)).float() if round_scale else q4.float() * d ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, k4.float())
+    ar = torch.arange(t, device=q.device)
+    s = torch.where(ar[None, :] <= ar[:, None] + shift, s, -torch.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float() if round_p else p, v4.float())
+    out = (acc / l).to(q.dtype).permute(0, 2, 1, 3).reshape(b, t, hd)
+    return out, (m + torch.log(l)).squeeze(-1)
+
+
+def test_tc_planted_faults_land_over_the_limit(cuda):
+    """The limits that hold the tensor-core kernels catch: a causal mask one
+    column off (out); the q scale applied unrounded (lse, float32 1e-5: on
+    random inputs it moves out by under the 4-ulp limit); delta dropped from
+    the backward (dk); p not rounded to bf16 before P·V (out). The last moves
+    each term by at most half a bf16 ulp of p, under the 4-ulp limit of a
+    row's largest output on random inputs (measured 0.25 of it); it shows
+    where a row's terms cancel: row 1 of the crafted case sees key 0 with
+    p 1 and key 1 with p exp(-0.70703125), which rounds to 0.4921875, and
+    v 31.5 and -64, so the rounded sum is exactly 0. The kernel stays within
+    every limit on the same inputs."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.parity import attention_tolerance, grad_tolerance
+
+    h = 3
+    q, k, v, do = _flash_case(cuda, 2, 1000, h, 32, torch.bfloat16, seed=5)
+    out, lse = fa.flash_attention_forward(q, k, v, h)
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, h)
+    limit = attention_tolerance(want_out, h)
+    assert _ratio(out, want_out, limit) <= 1.0 and (lse - want_lse).abs().max() <= 1e-5
+    shifted, _ = _faulty_forward(q, k, v, h, shift=1)
+    assert _ratio(shifted, want_out, limit) > 1.0
+    _, unrounded_lse = _faulty_forward(q, k, v, h, round_scale=False)
+    assert (unrounded_lse - want_lse).abs().max().item() > 1e-5
+    grads = fa.flash_attention_backward(q, k, v, want_out, want_lse, do, h)
+    want = fa.flash_attention_backward_reference(q, k, v, want_out, want_lse, do, h)
+    no_delta = fa.flash_attention_backward_reference(q, k, v, torch.zeros_like(out), want_lse,
+                                                     do, h)
+    dk_limit = grad_tolerance(want[1], h)
+    assert _ratio(grads[1], want[1], dk_limit) <= 1.0
+    assert _ratio(no_delta[1], want[1], dk_limit) > 1.0
+
+    q, k, v = (torch.zeros(1, 2, 32, device=cuda) for _ in range(3))
+    q[0, :, 0], k[0, 1, 0], v[0, 0], v[0, 1] = 1.0, -4.0, 31.5, -64.0
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    out, _ = fa.flash_attention_forward(q, k, v, 1)
+    want_out, _ = fa.flash_attention_reference(q, k, v, 1)
+    assert float(want_out[0, 1].abs().max()) == 0.0
+    limit = attention_tolerance(want_out, 1)
+    assert _ratio(out, want_out, limit) <= 1.0
+    assert _ratio(_faulty_forward(q, k, v, 1, round_p=False)[0], want_out, limit) > 1.0
+
+
 @pytest.mark.parametrize("mode", ["block", "block_save_flash", "mlp"])
 def test_remat_on_cuda_gives_the_bits_of_none(cuda, mode):
     """One bf16 training step with dropout 0.1 through the flash kernels:
