@@ -13,7 +13,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    started together), with the compiler's register / shared-memory report;
    the FSDP ring library's tensor-core instances' dynamic shared memory,
    and its ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) SASS counts
-   (``cuobjdump -sass``): a zero fails.
+   (``cuobjdump -sass``): a zero fails; the same for every tensor-core
+   flash instance (forward, dq, dk/dv), whose shared memory must be the
+   plan's (``flash_attention.tc_smem_bytes``).
 3. Decode kernel vs plain, at the flagship decode shape (B 4, S 512, H 16,
    D 32) plus an S = 8192 case: the error against the plain version
    within its limit (float32 1e-5; bfloat16 a few ulps of each head's
@@ -41,8 +43,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    float32): out,
    lse, dq, dk, dv within limits that scale with the values
    (``attention_tolerance`` / ``grad_tolerance``), planted faults (a causal
-   mask one column off; delta dropped from the backward) over them, and
-   device times of the kernels, the plain versions and the yardstick
+   mask one column off; delta dropped from the backward; delta read from
+   the next row in dq) over them; the dq kernel's planted faults on
+   crafted inputs (``dq_fault_cases``: dS not rounded to bf16 on a
+   cancelling row, q's scale unrounded, keys past a ragged T unmasked
+   without the causal mask) over the limit while the kernel stays within
+   it; and device times of the kernels (dq and dk/dv apart, dq beside its
+   own bound), the plain versions and the yardstick
    ``scaled_dot_product_attention(is_causal=True)`` (forward, backward
    alone, forward + backward) beside the bound.
 7. Train the flagship as ``python -m dtc_tpu_torch.main`` would
@@ -557,6 +564,8 @@ def device_time_by_kernel(prof, wall: float) -> dict:
     return dict(
         wall_s=wall, device_busy_s=busy_s, busy_share=busy_s / wall,
         kernel_launches=sum(r[2] for r in rows),
+        # the flash kernels (forward, dq, dk/dv), every instance
+        flash_device_s=sum(r[1] for r in rows if "flash_" in r[0]) / 1e6,
         # the FSDP ring's step kernels (TPU kernel rows 17-18), every instance
         overlap_device_s=sum(r[1] for r in rows if "overlap_" in r[0]) / 1e6,
         top=[dict(name=k[:120], device_ms=us / 1e3, count=c) for k, us, c in rows[:15]],
@@ -575,23 +584,31 @@ def zero_flash_counts() -> None:
     from dtc_tpu_torch.ops import flash_attention as fa
 
     fa.fwd_launches = fa.bwd_launches = fa.block_fwd_launches = fa.block_bwd_launches = 0
-    for counts in (fa.fwd_route_launches, fa.dkv_route_launches):
+    for counts in (fa.fwd_route_launches, fa.dq_route_launches, fa.dkv_route_launches):
         counts.update(dict.fromkeys(counts, 0))
 
 
+def flash_routes() -> dict:
+    """The flash launches by kind and route since :func:`zero_flash_counts`."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    return {"fwd": dict(fa.fwd_route_launches), "dq": dict(fa.dq_route_launches),
+            "dkv": dict(fa.dkv_route_launches)}
+
+
 def check_flash_routes(what: str, dtype: str) -> dict:
-    """Every flash forward and dk/dv launch since :func:`zero_flash_counts`
-    (the causal wrappers' and the ring blocks') took the route of
-    ``dtype``'s plan: bfloat16 "tc" (tensor cores), float32 "fma" (CUDA
-    cores). Returns the launches by route."""
+    """Every flash forward, dq and dk/dv launch since
+    :func:`zero_flash_counts` (the causal wrappers' and the ring blocks')
+    took the route of ``dtype``'s plan: bfloat16 "tc" (tensor cores),
+    float32 "fma" (CUDA cores). Returns the launches by route."""
     from dtc_tpu_torch.ops import flash_attention as fa
 
     want = "tc" if dtype == "bfloat16" else "fma"
     fwd = fa.fwd_launches + fa.block_fwd_launches
-    dkv = (fa.bwd_launches + fa.block_bwd_launches) // fa.BWD_KERNELS
-    got = {"fwd": dict(fa.fwd_route_launches), "dkv": dict(fa.dkv_route_launches)}
+    bwd = (fa.bwd_launches + fa.block_bwd_launches) // fa.BWD_KERNELS
+    got = flash_routes()
     expect = {kind: {r: n if r == want else 0 for r in got[kind]}
-              for kind, n in (("fwd", fwd), ("dkv", dkv))}
+              for kind, n in (("fwd", fwd), ("dq", bwd), ("dkv", bwd))}
     check(got == expect, f"{what}: flash launches by route {got}, want {expect}")
     return got
 
@@ -620,6 +637,115 @@ def flash_bounds(b, t, h, d, dtype):
         t_ops = 2 * products * pairs * d / PEAK_OPS[dtype] * 1e3
         out[kind] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes)
     return out
+
+
+def dq_bound(b, t, h, d, dtype, causal, grad_dtype):
+    """Least time of the dq kernel alone on these inputs: the bytes it must
+    move (q, k, v, out, dO and lse in, dq in ``grad_dtype`` and delta out)
+    over HBM bandwidth, against its three products (S, dP, dS·K) on the
+    visible (query, key) pairs over the dtype's peak rate. Returns (ms,
+    bound_by, bytes)."""
+    el, gel = ({"float32": 4, "bfloat16": 2}[x] for x in (dtype, grad_dtype))
+    tensor = b * t * h * d
+    stats = b * h * t * 4
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    nbytes = 5 * tensor * el + tensor * gel + 2 * stats
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * 3 * pairs * d / PEAK_OPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes
+
+
+def dq_plain(q, k, v, out, lse, do, h, causal, grad_dtype=None, *, round_ds=True,
+             round_scale=True, delta_shift=0, pad_keys=0):
+    """The plain dq (``flash_attention_backward_reference``'s arithmetic)
+    with a planted fault: dS not rounded to k's dtype (``round_ds``); q
+    scaled by the float32 ``D**-0.5`` with no rounding (``round_scale``);
+    delta read ``delta_shift`` rows on; K and V zero-padded by ``pad_keys``
+    rows that no mask keeps out (without ``causal``, as the last tile past
+    a ragged T is staged)."""
+    import torch
+
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    b, t, hd = q.shape
+    d = hd // h
+    q4, k4, v4, do4, o4 = (x.reshape(b, -1, h, d) for x in (q, k, v, do, out))
+    qs = (q4 * fa._scale_q(d, q.dtype)).float() if round_scale else q4.float() * d ** -0.5
+    if pad_keys:
+        k4, v4 = (torch.cat([x, x.new_zeros(b, pad_keys, h, d)], dim=1) for x in (k4, v4))
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qs, k4.float()) - lse[..., None])
+    if causal:
+        ar = torch.arange(t + pad_keys, device=q.device)
+        p = torch.where(ar[None, :t + pad_keys] <= ar[:t, None], p, 0.0)
+    delta = (do4.float() * o4.float()).sum(-1).permute(0, 2, 1).roll(-delta_shift, dims=-1)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do4.float(), v4.float()) - delta[..., None])
+    if round_ds:
+        ds = ds.to(k.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k4.float()) * fa._scale(d)
+    return dq.to(grad_dtype or q.dtype).reshape(b, t, hd)
+
+
+def dq_fault_cases(device: str = "cuda") -> dict:
+    """Planted faults of the dq kernel on crafted bf16 inputs (T 2, one
+    head of 32, given out and lse), each over ``grad_tolerance`` of the
+    true dq while the kernel stays within it (the plain version on the
+    CPU). A fault that makes dq non-finite counts as over the limit.
+
+    - dS not rounded to bf16: query 1 sees two keys, both e0, with dP
+      256.5 and -256 and delta 0, so dS rounds to 256 and -256 and dq's row
+      is 0; unrounded it is 0.5 D^-0.5.
+    - q's scale unrounded: q e0, key 0 5120 e0, lse the rounded score 905:
+      p 1; unrounded the score is 905.097 and p 1.10.
+    - keys past a ragged T unmasked, no causal mask: K and V are zeros
+      there, so a key past T adds p (0 - delta) times a zero row to dq,
+      nothing unless p overflows; with lse -100 it does (exp(100) is inf in
+      float32), and inf times a zero row is NaN. The real keys' scores are
+      -181 (p = exp(-81)), so the true dq is finite.
+
+    Returns {fault: (kernel's ratio, fault's ratio)}."""
+    import torch
+
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.parity import grad_tolerance
+
+    dev = torch.device(device)
+    bf = torch.bfloat16
+
+    def case():
+        return [torch.zeros(1, 2, 32, device=dev) for _ in range(5)] + [
+            torch.zeros(1, 1, 2, device=dev)]
+
+    q, k, v, out, do, lse = case()
+    k[0, :, 0], v[0, 0, 0], v[0, 0, 1], v[0, 1, 0], do[0, 1, :2] = 1, 256, 0.5, -256, 1
+    cancelling = (q, k, v, out, do, lse, True, dict(round_ds=False))
+    q, k, v, out, do, lse = case()
+    q[0, 1, 0], k[0, 0, 0], v[0, 0, 1], do[0, 1, 1], lse[0, 0, 1] = 1, 5120, 1, 1, 905
+    scale = (q, k, v, out, do, lse, True, dict(round_scale=False))
+    q, k, v, out, do, lse = case()
+    q[0, :, 0], k[0, :, 0], out[0, :, 1], do[0, :, 1], lse[:] = 16, -64, 1, 1, -100
+    tail = (q, k, v, out, do, lse, False, dict(pad_keys=62))
+
+    res = {}
+    for name, (q, k, v, out, do, lse, causal, fault) in (
+            ("dS not rounded to bf16 (cancelling row)", cancelling),
+            ("q's scale unrounded", scale),
+            ("keys past a ragged T unmasked, no causal mask", tail)):
+        q, k, v, out, do = (x.to(bf) for x in (q, k, v, out, do))
+        want = dq_plain(q, k, v, out, lse, do, 1, causal)
+        if device == "cpu":
+            got, _ = fa.flash_dq_twin(q, k, v, out, lse, do, 1, causal)
+        else:
+            got, _ = fa._dq_kernel(q, k, v, out, lse, do, 1, causal, bf)
+        bad = dq_plain(q, k, v, out, lse, do, 1, causal, **fault)
+        limit = grad_tolerance(want, 1).to(dev)
+        ratios = []
+        for x in (got, bad):
+            diff = (x.float() - want.float()).abs().nan_to_num(nan=math.inf)
+            ratios.append((diff / limit).max().item())
+        check(math.isfinite(want.float().abs().max().item()), f"dq fault case '{name}': "
+              "the true dq is not finite")
+        res[name] = tuple(ratios)
+    return res
 
 
 def _flash_faulty_forward(q, k, v, h):
@@ -720,6 +846,9 @@ def flash_case(name, b, t, h, d, dtype, seed, iters, rows=None):
                    q, k, v, want_out, want_lse, do)
     for n, gb, w in zip(("dq", "dk"), bad, want_grads):
         faults[f"delta dropped ({n})"] = (gb, w, limits[n])
+    faults["delta from the next row (dq)"] = (
+        _by_rows(lambda *xs: dq_plain(*xs, h, True, delta_shift=1), rows,
+                 q, k, v, want_out, want_lse, do), want_grads[0], limits["dq"])
     fault_ratio = {}
     for fname, (got, want, limit) in faults.items():
         fault_ratio[fname] = ratio(got, want, limit)[1]
@@ -766,8 +895,10 @@ def flash_case(name, b, t, h, d, dtype, seed, iters, rows=None):
         bms, by, nbytes = bounds[kind]
         log(f"flash {name} {kind}: kernel_ms {ms:.6f} plain_ms {plain:.6f} library_ms "
             f"{lib:.6f} bound_ms {bms:.6f} ({by}, {nbytes} B)")
-    log(f"flash {name} bwd: dq kernel {dq_ms:.6f} ms (fma), dk/dv kernel {dkv_ms:.6f} ms "
-        f"({fa.flash_plan(dt, d, True).route})")
+    dq_b = dq_bound(b, t, h, d, dtype, True, dtype)
+    route = fa.flash_plan(dt, d, True).route
+    log(f"flash {name} bwd: dq kernel {dq_ms:.6f} ms ({route}; bound {dq_b[0]:.6f} ms, "
+        f"{dq_b[1]}), dk/dv kernel {dkv_ms:.6f} ms ({route})")
     log(f"flash {name}: kernels fwd + bwd {fwd_ms + bwd_ms:.6f} ms, SDPA fwd + bwd "
         f"{lib_fwd_bwd_ms:.6f} ms, bound {bounds['fwd_bwd'][0]:.6f} ms ({bounds['fwd_bwd'][1]})")
     return dict(
@@ -776,6 +907,7 @@ def flash_case(name, b, t, h, d, dtype, seed, iters, rows=None):
         fwd_max_abs_err=max(errs["out"][0], errs["lse"][0]),
         bwd_max_abs_err=max(errs[n][0] for n in ("dq", "dk", "dv")),
         fwd_ms=fwd_ms, bwd_ms=bwd_ms, dq_ms=dq_ms, dkv_ms=dkv_ms,
+        dq_bound_ms=dq_b[0], dq_bound_by=dq_b[1],
         plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
         library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms, library_fwd_bwd_ms=lib_fwd_bwd_ms,
         fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
@@ -1226,8 +1358,9 @@ def block_case(name, b, tc, h, d, dtype, seed, iters, device: str = "cuda"):
                 lambda: fa._dq_kernel(q, k, v, o_g, l_g, do, h, causal, f32), iters)
             times[f"{tag}_dkv"] = graph_ms(
                 lambda: fa._dkv_kernel(q, k, v, l_g, delta, do, h, causal, f32), iters)
-            log(f"block {name} {tag} bwd: dq kernel {times[f'{tag}_dq']:.6f} ms, dk/dv kernel "
-                f"{times[f'{tag}_dkv']:.6f} ms")
+            times[f"{tag}_dq_bound"] = dq_bound(b, tc, h, d, dtype, causal, "float32")[0]
+            log(f"block {name} {tag} bwd: dq kernel {times[f'{tag}_dq']:.6f} ms (bound "
+                f"{times[f'{tag}_dq_bound']:.6f} ms), dk/dv kernel {times[f'{tag}_dkv']:.6f} ms")
             del delta
         times[f"{tag}_plain_fwd"] = graph_ms(
             lambda: fa.flash_block_reference(q, k, v, h, causal), iters)
@@ -2341,14 +2474,21 @@ def main() -> int:
         from dtc_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
 
         ftc = _build.load("flash_attention_tc")
+        from dtc_tpu_torch.ops.flash_attention import tc_smem_bytes
+
         ftc_smem = {f"{kind} D {d}": ftc.dtc_flash_tc_smem_bytes(i, d)
-                    for i, kind in enumerate(("fwd", "dkv")) for d in KERNEL_HEAD_DIMS}
+                    for i, kind in enumerate(("fwd", "dkv", "dq")) for d in KERNEL_HEAD_DIMS}
+        want_smem = {f"{kind} D {d}": tc_smem_bytes(kind, d)
+                     for kind in ("fwd", "dkv", "dq") for d in KERNEL_HEAD_DIMS}
+        check(ftc_smem == want_smem, f"flash_attention_tc: shared memory {ftc_smem} B, the "
+              f"plan's {want_smem} B")
         fsass = sass_counts_by_function(_build.library_path("flash_attention_tc"))
         record["flash_tc_build"] = dict(dynamic_smem=ftc_smem, sass=fsass)
         log(f"flash_attention_tc: dynamic shared memory a block {ftc_smem} B")
         for fn, counts in sorted(fsass.items()):
             log(f"  SASS {fn}: {counts}")
-        for kern, n in (("flash_fwd_tc_kernel", 8), ("flash_dkv_tc_kernel", 16)):
+        for kern, n in (("flash_fwd_tc_kernel", 8), ("flash_dkv_tc_kernel", 16),
+                        ("flash_dq_tc_kernel", 16)):
             insts = {fn: c for fn, c in fsass.items() if fn.startswith(kern + "<")}
             check(len(insts) == n and all(min(c.values()) > 0 for c in insts.values()),
                   f"flash_attention_tc: {kern} instances without a tensor-core or TMA "
@@ -2470,6 +2610,13 @@ def main() -> int:
         flash_8k = flash_case("bf16_t8192", 2, 8192, 16, 32, "bfloat16",
                               seed=args.seed + 110, iters=5, rows=1)
         record["flash_cases"] = flash + [flash_4k, flash_8k]
+        dq_faults = dq_fault_cases()
+        for fname, (kern_r, fault_r) in dq_faults.items():
+            log(f"flash dq planted fault '{fname}': {fault_r:.3f} of the limit; the kernel on "
+                f"the same inputs {kern_r:.3f}")
+            check(fault_r > 1.0 and kern_r <= 1.0,
+                  f"flash dq: the limit misses '{fname}' or the kernel is over it")
+        record["flash_dq_faults"] = dq_faults
         torch.cuda.empty_cache()
 
         # 7. train the flagship as the command line would
@@ -2502,7 +2649,7 @@ def main() -> int:
             peak_allocated=peak, flash_fwd_launches=fwd_n, flash_bwd_launches=bwd_n,
             total_time_s=res.total_time_s, card=smi,
         )
-        routes7 = {"fwd": dict(fa.fwd_route_launches), "dkv": dict(fa.dkv_route_launches)}
+        routes7 = flash_routes()
         train_rec["flash_routes"] = routes7
         record["train_flagship"] = train_rec
         log(f"train flagship: {steps} steps after {warmup} warmup, loss {first:.4f} -> "
@@ -2748,7 +2895,7 @@ def main() -> int:
             check(rows[0] == "step,elapsed_time,loss" and len(rows) == steps + 1,
                   f"long context {tag} log.csv: header {rows[:1]}, {len(rows) - 1} rows for "
                   f"{steps} steps")
-            routes_l = {"fwd": dict(fa.fwd_route_launches), "dkv": dict(fa.dkv_route_launches)}
+            routes_l = flash_routes()
             n_steps = steps + ltcfg.warmup_steps
             per_step = (fwd_l / n_steps, bwd_l / n_steps)
             check(per_step == (lmcfg.n_layers, lmcfg.n_layers * fa.BWD_KERNELS),
@@ -2981,8 +3128,8 @@ def main() -> int:
             bound_by=main["bound_by"], library_ms=main["library_ms"],
         )]
         # The flash rows: the plan's route of the timed bf16 kernels ("tc":
-        # tensor cores; the dq kernel "fma") and the main path's launches by
-        # route; the backward's dq and dk/dv kernels apart.
+        # tensor cores) and the main path's launches by kind and route; the
+        # backward's dq and dk/dv kernels apart, dq beside its own bound.
         fl = flash[0]
         for part, launched, row, multi, routes in (
                 ("fwd", fwd_n, 506, 558, routes7["fwd"]),
@@ -2997,7 +3144,8 @@ def main() -> int:
                 ms=fl[f"{part}_ms"], plain_ms=fl[f"plain_{part}_ms"],
                 bound_ms=fl[f"{part}_bound_ms"], bound_by=fl[f"{part}_bound_by"],
                 library_ms=fl[f"library_{part}_ms"], plan_route="tc", route_launches=routes,
-                **({"dq_ms": fl["dq_ms"], "dkv_ms": fl["dkv_ms"], "dq_route": "fma"}
+                **({"dq_ms": fl["dq_ms"], "dkv_ms": fl["dkv_ms"],
+                    "dq_bound_ms": fl["dq_bound_ms"], "dq_route_launches": routes7["dq"]}
                    if part == "bwd" else {}),
             ))
         kernels.append(dict(
@@ -3033,7 +3181,9 @@ def main() -> int:
             bound_ms=flash_8k["bwd_bound_ms"], bound_by=flash_8k["bwd_bound_by"],
             library_ms=flash_8k["library_bwd_ms"],
             fwd_ms=flash_8k["fwd_ms"], fwd_bound_ms=flash_8k["fwd_bound_ms"],
-            dq_ms=flash_8k["dq_ms"], dkv_ms=flash_8k["dkv_ms"], plan_route="tc", dq_route="fma",
+            dq_ms=flash_8k["dq_ms"], dkv_ms=flash_8k["dkv_ms"], plan_route="tc",
+            dq_bound_ms=flash_8k["dq_bound_ms"], dq_bound_by=flash_8k["dq_bound_by"],
+            dq_route_launches=long_rec["t8192"]["flash_routes"]["dq"],
             route_launches=long_rec["t8192"]["flash_routes"],
         ))
         d48 = next(c for c in flash if c["case"] == "fp32_d48")  # phase 8's call
@@ -3074,7 +3224,9 @@ def main() -> int:
                 causal_ms=main_block[f"causal_{part}"], plan_route="tc",
                 route_launches=record["ring_training"]["flash_routes"],
                 **({"dq_ms": main_block["full_dq"], "dkv_ms": main_block["full_dkv"],
-                    "dq_route": "fma"} if part == "bwd" else {}),
+                    "dq_bound_ms": main_block["full_dq_bound"],
+                    "dq_route_launches": record["ring_training"]["flash_routes"]["dq"]}
+                   if part == "bwd" else {}),
             ))
         # Rows 17-18: launches from phase 19's FSDP training (the model's
         # own run over 4 virtual ranks); times at the bf16 site where the

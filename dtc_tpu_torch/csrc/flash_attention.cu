@@ -42,12 +42,17 @@
 // 137 GFLOP forward (0.139 ms), 344 GFLOP backward (0.347 ms); at D 32 the
 // forward's 1.07 G exponentials of the causal score matrix (16 a clock an SM
 // on the special-function units, ~0.3 ms) weigh more than its products.
+// The dq kernel alone moves q, k, v, out, dO and lse in, dq and delta out,
+// and does three of the backward's five products (S, dP, dS K): 25,690,112
+// B (7.67 us) against 3.23 GFLOP (3.26 us) at the flagship, bound by bytes;
+// 206 GFLOP (0.208 ms) against 103 MB (0.031 ms) at T 8192, bound by
+// operations, with its 1.07 G exponentials ~0.3 ms on the SFUs.
 //
 // The source builds two libraries (ops/_build.py), so that their instances
 // compile at once:
 //
-// DTC_FLASH_TC 0 ("flash_attention"): CUDA cores. The float32 forward and
-// dk/dv, and the dq kernel in every dtype. One block of 128 threads per
+// DTC_FLASH_TC 0 ("flash_attention"): CUDA cores, float32: the forward,
+// the dq kernel and the dk/dv kernel. One block of 128 threads per
 // (64-row tile, head, batch row); blocks never share an output element, so
 // there are no atomics and two runs give the same bits. The forward takes two
 // passes over the KV tiles up to the diagonal (tiles above it are skipped;
@@ -64,8 +69,9 @@
 // 1e-5). The largest, the dk/dv kernel at D 128, takes 165,376 B of shared
 // memory.
 //
-// DTC_FLASH_TC 1 ("flash_attention_tc"): tensor cores, bfloat16. The forward
-// and the dk/dv kernel (bf16 or float32 gradients). A block is one consumer
+// DTC_FLASH_TC 1 ("flash_attention_tc"): tensor cores, bfloat16. The
+// forward, the dq kernel and the dk/dv kernel (the two backward kernels
+// with bf16 or float32 gradients). A block is one consumer
 // warpgroup (128 threads) and one producer warp. One thread of the producer
 // issues TMA loads (cp.async.bulk.tensor, 3-D tensor maps over (B, T, H*D)
 // encoded on the host for each launch; rows past T arrive as zeros) into a
@@ -107,6 +113,22 @@
 //   A fragments and the same staged dO and Q tiles read MN-major. dK and dV
 //   are written once from the float32 accumulators. No atomics: two runs give
 //   the same bits.
+// - dq: a block per (64-row q tile, head, batch row), the longest rows first,
+//   walking KV tiles up to the diagonal (all of them without the causal
+//   mask), launched before the dk/dv kernel, which reads the delta it writes.
+//   The producer loads Q, dO and O once, then keeps K and V stages in flight
+//   as the forward's does. The consumer scales q in place and forms its rows'
+//   delta = rowsum(dO * O) from the staged dO and O tiles (two threads a row,
+//   a chunk of 8 bf16 at a time; equal offsets of two tiles with one swizzle
+//   hold equal elements), writes it out and keeps its two rows' delta and lse
+//   (times log2 e) in registers. Each stage: S = Q_s K^T and dP = dO V^T (all
+//   K-major), P = exp(S - lse) masked on the diagonal tile (or the last tile
+//   past T: there K and V are zeros but p is not), dS = P (dP - delta) in
+//   registers, then dQ += dS K with dS as bf16 A fragments (k's dtype) and
+//   the same staged K tile read MN-major. dQ is scaled by D^-0.5 in float32
+//   and written once. No atomics (a fused backward summing dq over key tiles
+//   with atomics would give other bits run to run): two runs give the same
+//   bits.
 // A mbarrier wait that never completes traps (an error the launch's caller
 // sees) instead of holding the card. The caller's plan (ops/flash_attention.py
 // flash_plan) names the swizzle, box count and stage count, and a launch
@@ -158,17 +180,13 @@ inline dim3 grid(int B, int n, int H) { return dim3((n + kBQ - 1) / kBQ, H, B); 
 constexpr int kThreads = 128;
 constexpr int kPS = kBK + 1;  // padded row stride of the score tiles
 
+// The kernels keep the dtype-generic rounding points of the TPU kernels;
+// only float32 has instances here (bfloat16 takes the tensor-core library).
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Round to T and back (identity for float32).
 template <typename T> __device__ __forceinline__ float round_t(float x) {
@@ -546,8 +564,9 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
   CASE(__VA_ARGS__, 64) CASE(__VA_ARGS__, 80) CASE(__VA_ARGS__, 96)      \
   CASE(__VA_ARGS__, 112) CASE(__VA_ARGS__, 128)
 // (input, gradient) dtype pairs, code dtype * 2 + gdtype (0 float32, 1
-// bfloat16): float32 / float32 (0), bfloat16 / float32 (2, the ring's
-// blocks) and bfloat16 / bfloat16 (3).
+// bfloat16): only float32 / float32 (0) has instances here; bfloat16
+// inputs, with bf16 or (the ring's blocks) float32 gradients, take the
+// tensor-core library.
 #define DTC_GCASE(CALL, CODE, ELEM, GELEM, DIM)                     \
   case (CODE) * 1000 + (DIM): {                                    \
     using T = ELEM; using TG = GELEM; constexpr int kD = DIM; return CALL; }
@@ -563,19 +582,16 @@ cudaError_t fwd_any(const void* q, const void* k, const void* v, void* out, floa
   }
 }
 
+// float32 / float32 only: bfloat16 inputs take the tensor-core library.
 cudaError_t dq_any(const void* q, const void* k, const void* v, const void* out,
                    const void* dout, const float* lse, float* delta, void* dq, int B, int n,
                    int H, int D, float scale_q, float scale, int dtype, int gdtype, int causal,
                    cudaStream_t st) {
-#define DTC_DQ (bwd_dq<T, TG, kD>(q, k, v, out, dout, lse, delta, dq, B, n, H, scale_q, scale, \
-                                  causal, st))
   switch ((dtype * 2 + gdtype) * 1000 + D) {
-    DTC_DIMS(DTC_GCASE, DTC_DQ, 0, float, float)
-    DTC_DIMS(DTC_GCASE, DTC_DQ, 2, __nv_bfloat16, float)
-    DTC_DIMS(DTC_GCASE, DTC_DQ, 3, __nv_bfloat16, __nv_bfloat16)
+    DTC_DIMS(DTC_GCASE, (bwd_dq<T, TG, kD>(q, k, v, out, dout, lse, delta, dq, B, n, H, scale_q,
+                                           scale, causal, st)), 0, float, float)
     default: return cudaErrorInvalidValue;
   }
-#undef DTC_DQ
 }
 
 // float32 / float32 only: bfloat16 inputs take the tensor-core library.
@@ -654,6 +670,10 @@ struct TcGeo {
   // (landed, full, empty, K/V).
   static constexpr int kDkvStage = 2 * kTileBytes + 2 * kBQ * 4;
   static constexpr int kDkvSmem = 1024 + 2 * kTileBytes + kStages * kDkvStage + (3 * 4 + 1) * 8;
+  // Q, dO, O + stages of K and V, the rows' delta and lse (64 floats each),
+  // and the barriers (full, empty, Q).
+  static constexpr int kDqSmem =
+      1024 + 3 * kTileBytes + kStages * 2 * kTileBytes + 2 * kBQ * 4 + (2 * 4 + 1) * 8;
   static_assert(D % 16 == 0 && D <= 128, "head dims: multiples of 16 up to 128");
 };
 
@@ -1034,6 +1054,176 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// sum over one 16-byte chunk (8 bf16) of a * b, in float32, onto acc.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(x[e]), g = __bfloat1622float2(y[e]);
+    acc = fmaf(f.x, g.x, acc);
+    acc = fmaf(f.y, g.y, acc);
+  }
+  return acc;
+}
+
+// TG: the gradient's type, bf16 or (for the ring's blocks) float32.
+template <typename TG, int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_o,
+                   const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
+                   float* __restrict__ delta, TG* __restrict__ dq, int n, int H, float scale_q,
+                   float scale, int causal) {
+  using G = TcGeo<D>;
+  constexpr int S = G::kStages, W = G::kBoxW, NB = G::kBoxes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);
+  uint8_t* sDO = sQ + G::kTileBytes;
+  uint8_t* sO = sDO + G::kTileBytes;
+  uint8_t* sKV = sO + G::kTileBytes;  // stage s: K at s * 2 tiles, V one tile on
+  float* sStat = reinterpret_cast<float*>(sKV + S * 2 * G::kTileBytes);  // delta, lse log2 e
+  uint64_t* full = reinterpret_cast<uint64_t*>(sStat + 2 * kBQ);
+  uint64_t* empty = full + S;
+  uint64_t* qbar = empty + S;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest rows start first
+  const int kt_last = causal ? qt : gridDim.x - 1;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * kBQ;
+  const size_t sbase = (static_cast<size_t>(b) * H + h) * n;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // the producer: Q, dO and O, then up to S stages of K and V in flight
+    if (tid == 128) {
+      mbar_expect_tx(qbar, 3 * G::kTileBytes);
+      tma_tile<D>(sQ, &map_q, qbar, h, q0, b);
+      tma_tile<D>(sDO, &map_do, qbar, h, q0, b);
+      tma_tile<D>(sO, &map_o, qbar, h, q0, b);
+      for (int i = 0; i <= kt_last; ++i) {
+        const int s = i % S;
+        if (i >= S) mbar_wait(&empty[s], (i / S - 1) & 1);
+        uint8_t* st = sKV + s * 2 * G::kTileBytes;
+        mbar_expect_tx(&full[s], 2 * G::kTileBytes);
+        tma_tile<D>(st, &map_k, &full[s], h, i * kBK, b);
+        tma_tile<D>(st + G::kTileBytes, &map_v, &full[s], h, i * kBK, b);
+      }
+    }
+    return;
+  }
+
+  mbar_wait(qbar, 0);
+  scale_tile<D, 128>(sQ, scale_q, tid);
+  {
+    // delta = rowsum(dO * O) of row tid / 2 by two threads, each over every
+    // other 16-byte chunk of the row. Both tiles carry the same swizzle
+    // (a permutation of a box row's chunks), so equal offsets pair equal
+    // elements and a box row's chunks are the row's.
+    constexpr int kRowChunks = D / 8, kBoxChunks = W / 8;
+    const int r = tid >> 1;
+    float part = 0.f;
+#pragma unroll
+    for (int c = tid & 1; c < kRowChunks; c += 2) {
+      const int at = (c / kBoxChunks) * G::kBoxBytes + r * G::kSwz + (c % kBoxChunks) * 16;
+      part = dot8(*reinterpret_cast<const uint4*>(sDO + at),
+                  *reinterpret_cast<const uint4*>(sO + at), part);
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if ((tid & 1) == 0) {
+      const int t = q0 + r;
+      sStat[r] = part;
+      sStat[kBQ + r] = t < n ? lse[sbase + t] * kLog2e : 0.f;
+      if (t < n) delta[sbase + t] = part;
+    }
+  }
+  fence_proxy_async();  // the scaled q, for wgmma
+  consumer_sync();
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4, c2 = (lane % 4) * 2;
+  const float dl[2] = {sStat[r0], sStat[r0 + 8]};
+  const float ls[2] = {sStat[kBQ + r0], sStat[kBQ + r0 + 8]};
+  const uint32_t q_addr = smem_u32(sQ), do_addr = smem_u32(sDO);
+
+  float acc[NB][W / 2];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int x = 0; x < W / 2; ++x) acc[j][x] = 0.f;
+
+  for (int i = 0; i <= kt_last; ++i) {
+    const int s = i % S;
+    const uint32_t k_addr = smem_u32(sKV + s * 2 * G::kTileBytes);
+    const uint32_t v_addr = k_addr + G::kTileBytes;
+    mbar_wait(&full[s], (i / S) & 1);
+    float sc[32], dp[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sc[x] = dp[x] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc, kmajor_desc<D>(q_addr, kk), kmajor_desc<D>(k_addr, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, kmajor_desc<D>(do_addr, kk), kmajor_desc<D>(v_addr, kk), kk > 0);
+    wg_commit();
+    wg_wait0();  // these, and the last tile's dQ product
+    fence_regs(sc);
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) fence_regs(acc[j]);
+    if (i > 0) mbar_arrive(&empty[(i - 1) % S]);  // the last tile's K and V are read
+
+    // The masked axis is the columns (keys): the diagonal tile under the
+    // causal mask, the last tile's keys past n without it (there K and V are
+    // zeros, but p = exp(0 - lse) is not).
+    const int k0 = i * kBK;
+    const bool edge = causal ? i == qt : k0 + kBK > n;
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int r = (x >> 1) & 1, row = acc_row(r0, x), col = acc_col(c2, x);
+      const bool valid = !edge || (causal ? col <= row : k0 + col < n);
+      const float p = valid ? exp2f(fmaf(sc[x], kLog2e, -ls[r])) : 0.f;
+      dp[x] = p * (dp[x] - dl[r]);  // ds, rounded to k's dtype below
+    }
+    uint32_t da[4][4];
+    to_a_frags(dp, da);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < NB; ++j) wgmma_rs(acc[j], da[kk], mnmajor_desc<D>(k_addr, j, kk));
+    wg_commit();
+  }
+  wg_wait0();
+#pragma unroll
+  for (int j = 0; j < NB; ++j) fence_regs(acc[j]);
+
+  const int HD = H * D;
+  const size_t base = static_cast<size_t>(b) * n * HD + static_cast<size_t>(h) * D;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int x = 0; x < W / 2; x += 2) {
+      const int row = q0 + acc_row(r0, x);
+      if (row >= n) continue;
+      store2<TG>(dq + base + static_cast<size_t>(row) * HD + j * W + acc_col(c2, x),
+                 acc[j][x] * scale, acc[j][x + 1] * scale);
+    }
+}
+
 // TG: the gradients' type, bf16 or (for the ring's blocks) float32.
 template <typename TG, int D>
 __global__ void __launch_bounds__(kTcThreads)
@@ -1211,20 +1401,36 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
+// A cu* entry point of the CUDA library by name (CUDA 12 ABI), or nullptr.
+void* cu_fn(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q{};
 #if CUDART_VERSION >= 12050
-    const cudaError_t rc =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+  const cudaError_t rc = cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &q);
 #else
-    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+  const cudaError_t rc = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
 #endif
-    return (rc == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
-                                                                   : nullptr;
-  }();
+  return (rc == cudaSuccess && q == cudaDriverEntryPointSuccess) ? p : nullptr;
+}
+
+EncodeTiled encode_fn() {
+  static const EncodeTiled fn = reinterpret_cast<EncodeTiled>(cu_fn("cuTensorMapEncodeTiled"));
   return fn;
+}
+
+// cuTensorMapEncodeTiled, a cu* (not cuda*) call, fails without a context current
+// on the calling thread. A runtime launch binds the device's primary context
+// only when it runs, so on a thread whose first CUDA work is one of these
+// launches (autograd's backward thread when the dq kernel is the backward's
+// first op) none is current yet; then cudaSetDevice binds it (CUDA 12).
+cudaError_t bind_context() {
+  using CtxGetCurrent = CUresult (*)(CUcontext*);
+  static const CtxGetCurrent get = reinterpret_cast<CtxGetCurrent>(cu_fn("cuCtxGetCurrent"));
+  CUcontext ctx = nullptr;
+  if (get != nullptr && get(&ctx) == CUDA_SUCCESS && ctx != nullptr) return cudaSuccess;
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  return e == cudaSuccess ? cudaSetDevice(dev) : e;
 }
 
 // The tensor map of a packed (B, n, H * D) bf16 tensor for boxes of 64 rows
@@ -1264,11 +1470,13 @@ cudaError_t tc_fwd(const void* q, const void* k, const void* v, void* out, float
   using G = TcGeo<D>;
   if (!plan_is<D>(swizzle, boxes, stages)) return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
+  cudaError_t e = bind_context();
+  if (e != cudaSuccess) return e;
   if (!(encode<D>(&mq, q, B, n, H) && encode<D>(&mk, k, B, n, H) && encode<D>(&mv, v, B, n, H)))
     return cudaErrorInvalidValue;
   auto kern = flash_fwd_tc_kernel<D>;
   static unsigned long long done = 0;  // one bit per device
-  cudaError_t e = allow_smem(kern, G::kFwdSmem, done);
+  e = allow_smem(kern, G::kFwdSmem, done);
   if (e != cudaSuccess) return e;
   kern<<<grid(B, n, H), kTcThreads, G::kFwdSmem, st>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, n, H, scale_q, causal);
@@ -1283,16 +1491,40 @@ cudaError_t tc_dkv(const void* q, const void* k, const void* v, const void* dout
   using G = TcGeo<D>;
   if (!plan_is<D>(swizzle, boxes, stages)) return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e = bind_context();
+  if (e != cudaSuccess) return e;
   if (!(encode<D>(&mq, q, B, n, H) && encode<D>(&mk, k, B, n, H) &&
         encode<D>(&mv, v, B, n, H) && encode<D>(&mdo, dout, B, n, H)))
     return cudaErrorInvalidValue;
   auto kern = flash_dkv_tc_kernel<TG, D>;
   static unsigned long long done = 0;  // one bit per device
-  cudaError_t e = allow_smem(kern, G::kDkvSmem, done);
+  e = allow_smem(kern, G::kDkvSmem, done);
   if (e != cudaSuccess) return e;
   kern<<<grid(B, n, H), kTcThreads, G::kDkvSmem, st>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<TG*>(dk), static_cast<TG*>(dv), n, H, scale_q,
       causal);
+  return cudaGetLastError();
+}
+
+template <typename TG, int D>
+cudaError_t tc_dq(const void* q, const void* k, const void* v, const void* out, const void* dout,
+                  const float* lse, float* delta, void* dq, int B, int n, int H, float scale_q,
+                  float scale, int causal, int swizzle, int boxes, int stages, cudaStream_t st) {
+  using G = TcGeo<D>;
+  if (!plan_is<D>(swizzle, boxes, stages)) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mo, mdo;
+  cudaError_t e = bind_context();
+  if (e != cudaSuccess) return e;
+  if (!(encode<D>(&mq, q, B, n, H) && encode<D>(&mk, k, B, n, H) &&
+        encode<D>(&mv, v, B, n, H) && encode<D>(&mo, out, B, n, H) &&
+        encode<D>(&mdo, dout, B, n, H)))
+    return cudaErrorInvalidValue;
+  auto kern = flash_dq_tc_kernel<TG, D>;
+  static unsigned long long done = 0;  // one bit per device
+  e = allow_smem(kern, G::kDqSmem, done);
+  if (e != cudaSuccess) return e;
+  kern<<<grid(B, n, H), kTcThreads, G::kDqSmem, st>>>(
+      mq, mk, mv, mo, mdo, lse, delta, static_cast<TG*>(dq), n, H, scale_q, scale, causal);
   return cudaGetLastError();
 }
 
@@ -1337,10 +1569,29 @@ extern "C" int dtc_flash_tc_dkv(const void* q, const void* k, const void* v, con
 #undef DTC_DKV
 }
 
-// Dynamic shared memory of a block of the forward (kernel 0) or dk/dv
-// (kernel 1) instance at head dim D; 0: no such instance.
+extern "C" int dtc_flash_tc_dq(const void* q, const void* k, const void* v, const void* out,
+                               const void* dout, const float* lse, float* delta, void* dq, int B,
+                               int T, int H, int D, float scale_q, float scale, int gdtype,
+                               int causal, int swizzle, int boxes, int stages, void* stream) {
+  if (bad_shape(B, T, H)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DTC_DQ (static_cast<int>(tc_dq<TG, kD>(q, k, v, out, dout, lse, delta, dq, B, T, H, \
+                                               scale_q, scale, causal, swizzle, boxes, stages, \
+                                               st)))
+  switch (gdtype * 1000 + D) {
+    DTC_DIMS(DTC_TCASE, DTC_DQ, 0, float)
+    DTC_DIMS(DTC_TCASE, DTC_DQ, 1, __nv_bfloat16)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef DTC_DQ
+}
+
+// Dynamic shared memory of a block of the forward (kernel 0), dk/dv
+// (kernel 1) or dq (kernel 2) instance at head dim D; 0: no such instance.
 extern "C" int dtc_flash_tc_smem_bytes(int kernel, int D) {
-#define DTC_SMEM (kernel == 0 ? TcGeo<kD>::kFwdSmem : TcGeo<kD>::kDkvSmem)
+#define DTC_SMEM                                                 \
+  (kernel == 0 ? TcGeo<kD>::kFwdSmem : kernel == 1 ? TcGeo<kD>::kDkvSmem \
+   : kernel == 2 ? TcGeo<kD>::kDqSmem : 0)
   switch (1000 + D) {
     DTC_DIMS(DTC_TCASE, DTC_SMEM, 1, void)
     default: return 0;

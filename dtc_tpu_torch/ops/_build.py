@@ -43,6 +43,7 @@ _SIGNATURES = {
     "flash_attention_tc": {
         "dtc_flash_tc_fwd": [_P] * 5 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
         "dtc_flash_tc_dkv": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
+        "dtc_flash_tc_dq": [_P] * 8 + [_I] * 4 + [_F, _F] + [_I] * 5 + [_P],
         "dtc_flash_tc_smem_bytes": [_I, _I],
     },
     "overlap_collectives": {

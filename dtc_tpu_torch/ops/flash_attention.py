@@ -45,19 +45,21 @@ from the causal wrappers'. The JAX package keeps a block's lse as
 ``(B, H·D/128, tc, 128/D)``; the port keeps ``(B, H, tc)`` as everywhere.
 
 Routes. :func:`flash_plan` chooses, before each launch, the kernel a
-forward or dk/dv launch takes from the dtype and head dim alone: bfloat16
-goes to the tensor cores (route ``"tc"``: ``wgmma`` on tiles that TMA
-stages in shared memory, swizzled to the widest atom that divides D,
+forward, dq or dk/dv launch takes from the dtype and head dim alone:
+bfloat16 goes to the tensor cores (route ``"tc"``: ``wgmma`` on tiles that
+TMA stages in shared memory, swizzled to the widest atom that divides D,
 library ``flash_attention_tc``), float32 to the CUDA cores (``"fma"``,
-library ``flash_attention``; TF32 would break float32's 1e-5 limit). The
-dq kernel runs on the CUDA cores in every dtype. ``fwd_route_launches``
-and ``dkv_route_launches`` count the forward and dk/dv launches by route.
-On a CUDA tensor a plan's kernel launches or the wrapper raises; nothing
-falls back to another kernel or to the plain version. The tensor-core
-forward takes the softmax in one pass with an online rescale, as JAX's
-``_fwd_kernel_packed_multi`` does; :func:`flash_forward_twin` is its eager
-twin for the tests, and the two-pass plain version holds it within the
-same limit as the CUDA-core kernels.
+library ``flash_attention``; TF32 would break float32's 1e-5 limit).
+``fwd_route_launches``, ``dq_route_launches`` and ``dkv_route_launches``
+count the three kinds of launch by route. On a CUDA tensor a plan's
+kernel launches or the wrapper raises; nothing falls back to another
+kernel or to the plain version. The tensor-core forward takes the softmax
+in one pass with an online rescale, as JAX's ``_fwd_kernel_packed_multi``
+does; :func:`flash_forward_twin` is its eager twin for the tests, and the
+two-pass plain version holds it within the same limit as the CUDA-core
+kernels. The tensor-core dq kernel sums dQ over 64-key tiles in float32,
+dS rounded to k's dtype a tile at a time; :func:`flash_dq_twin` is its
+eager twin.
 """
 
 from __future__ import annotations
@@ -82,18 +84,19 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since the last reset (the wrappers add one per launch,
 #: nowhere else): the causal wrappers' and the ring blocks', and the
-#: forward and dk/dv launches of both by their plan's route.
+#: forward, dq and dk/dv launches of both by their plan's route.
 fwd_launches = 0
 bwd_launches = 0
 block_fwd_launches = 0
 block_bwd_launches = 0
 fwd_route_launches = {"tc": 0, "fma": 0}
+dq_route_launches = {"tc": 0, "fma": 0}
 dkv_route_launches = {"tc": 0, "fma": 0}
 
 
 @dataclasses.dataclass(frozen=True)
 class FlashPlan:
-    """How a forward or dk/dv launch runs. ``route`` ``"tc"`` (bfloat16:
+    """How a forward, dq or dk/dv launch runs. ``route`` ``"tc"`` (bfloat16:
     tensor cores, tiles staged by TMA) or ``"fma"`` (float32: CUDA cores);
     ``tile``: the rows of a q and of a KV tile. For ``"tc"``: ``swizzle``,
     the bytes of a staged box row (128, 64 or 32: the widest swizzle atom
@@ -115,8 +118,9 @@ TILE = 64
 
 @functools.lru_cache(maxsize=None)
 def flash_plan(dtype: torch.dtype, d: int, causal: bool) -> FlashPlan:
-    """The plan of a forward or dk/dv launch on inputs of ``dtype`` at head
-    dim ``d`` (the causal mask is a runtime flag of either route). Raises
+    """The plan of a forward, dq or dk/dv launch on inputs of ``dtype`` at
+    head dim ``d`` (the causal mask is a runtime flag of either route; the
+    three kernels share a route's box geometry and stage count). Raises
     ``ValueError`` for a head dim or dtype no kernel takes."""
     check_head_dim(d)
     if dtype == torch.float32:
@@ -127,6 +131,24 @@ def flash_plan(dtype: torch.dtype, d: int, causal: bool) -> FlashPlan:
     tile_bytes = TILE * d * 2
     stages = max(2, min(4, 65536 // (2 * tile_bytes)))
     return FlashPlan("tc", TILE, 2 * width, d // width, stages)
+
+
+#: The tensor-core kernels' dynamic shared memory a block, by kind: the
+#: C library's ``TcGeo`` (1 KB of alignment slack; Q, or K and V, or Q, dO
+#: and O loaded once; the plan's stages; per-row statistics; barriers).
+_TC_SMEM = {
+    "fwd": lambda tile, st: 1024 + tile + st * 2 * tile + 9 * 8,
+    "dkv": lambda tile, st: 1024 + 2 * tile + st * (2 * tile + 2 * TILE * 4) + 13 * 8,
+    "dq": lambda tile, st: 1024 + 3 * tile + st * 2 * tile + 2 * TILE * 4 + 9 * 8,
+}
+
+
+def tc_smem_bytes(kind: str, d: int) -> int:
+    """Dynamic shared memory a block of the tensor-core ``kind`` kernel
+    (``"fwd"``, ``"dkv"`` or ``"dq"``) takes at head dim ``d`` under its
+    plan; the card's library reports the same (``dtc_flash_tc_smem_bytes``)."""
+    plan = flash_plan(torch.bfloat16, d, True)
+    return _TC_SMEM[kind](TILE * d * 2, plan.stages)
 
 
 def _scale_q(d: int, dtype: torch.dtype) -> float:
@@ -227,6 +249,37 @@ def flash_forward_twin(q, k, v, h: int, causal: bool = True, key_tile: int = TIL
         m = m_new
     out = (acc / l[..., None]).to(q.dtype).permute(0, 2, 1, 3).reshape(b, r1 - r0, hd)
     return out, m + torch.log(l)
+
+
+def flash_dq_twin(q, k, v, out, lse, do, h: int, causal: bool = True, key_tile: int = TILE,
+                  grad_dtype: torch.dtype | None = None):
+    """Eager twin of the tensor-core dq kernel's tiling, for the tests (the
+    port never calls it): delta = rowsum(dO ⊙ O) in float32 from the rows
+    as staged; then, over key tiles of ``key_tile``, p = exp(s - lse)
+    (masked to key <= query under ``causal``; keys past T never exist
+    here), dS = p·(dP - delta) rounded to k's dtype, dQ += dS·K summed a
+    tile at a time in float32; dq = dQ × the float32 ``D**-0.5`` in
+    ``grad_dtype`` (q's dtype when None). Returns ``(dq (B, T, H·D),
+    delta (B, H, T))``."""
+    b, t, hd = q.shape
+    d = hd // h
+    qs = (_heads(q, h) * _scale_q(d, q.dtype)).float()
+    do4 = _heads(do, h).float()
+    delta = (do4 * _heads(out, h).float()).sum(-1).permute(0, 2, 1)
+    kf, vf = _heads(k, h).float(), _heads(v, h).float()
+    row = torch.arange(t, device=q.device)[:, None]
+    acc = torch.zeros(b, h, t, d, device=q.device)
+    for k0 in range(0, t, key_tile):
+        k1 = min(k0 + key_tile, t)
+        s = torch.einsum("bqhd,bkhd->bhqk", qs, kf[:, k0:k1])
+        p = torch.exp(s - lse[..., None])
+        if causal:
+            p = torch.where(torch.arange(k0, k1, device=q.device)[None, :] <= row, p, 0.0)
+        dp = torch.einsum("bqhd,bkhd->bhqk", do4, vf[:, k0:k1])
+        ds = (p * (dp - delta[..., None])).to(k.dtype).float()
+        acc = acc + torch.einsum("bhqk,bkhd->bhqd", ds, kf[:, k0:k1])
+    dq = (acc * _scale(d)).to(grad_dtype or q.dtype)
+    return dq.permute(0, 2, 1, 3).reshape(b, t, hd), delta
 
 
 def flash_block_reference(q, k, v, h: int, causal: bool):
@@ -340,22 +393,32 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
 
 
 def _dq_kernel(q, k, v, out, lse, do, h: int, causal: bool, grad_dtype):
-    """Launch the dq kernel (CUDA cores, every dtype) on checked CUDA
-    tensors: ``(dq in grad_dtype, delta)``, delta = rowsum(dO ⊙ O) (B, H,
-    T) float32 for the dk/dv kernel."""
+    """Launch the dq kernel of the plan's route on checked CUDA tensors:
+    ``(dq in grad_dtype, delta)``, delta = rowsum(dO ⊙ O) (B, H, T) float32
+    for the dk/dv kernel."""
     from dtc_tpu_torch.ops import _build
 
     b, t, hd = q.shape
     d = hd // h
-    lib = _build.load("flash_attention")
+    plan = flash_plan(q.dtype, d, causal)
     delta = torch.empty_like(lse)
     dq = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
-    rc = lib.dtc_flash_bwd_dq(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(do), _ptr(lse), _ptr(delta),
-        _ptr(dq), b, t, h, d, _scale_q(d, q.dtype), _scale(d), _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[grad_dtype], int(causal), _stream(q),
-    )
+    args = (_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
+            b, t, h, d, _scale_q(d, q.dtype), _scale(d))
+    if plan.route == "tc":
+        _check_aligned(q, k, v, out, do)
+        lib = _build.load("flash_attention_tc")
+        rc = lib.dtc_flash_tc_dq(
+            *args, _DTYPE_CODES[grad_dtype], int(causal), plan.swizzle, plan.boxes,
+            plan.stages, _stream(q),
+        )
+    else:
+        lib = _build.load("flash_attention")
+        rc = lib.dtc_flash_bwd_dq(
+            *args, _DTYPE_CODES[q.dtype], _DTYPE_CODES[grad_dtype], int(causal), _stream(q),
+        )
     _raise_on(lib, rc, "backward (dq)")
+    dq_route_launches[plan.route] += 1
     return dq, delta
 
 

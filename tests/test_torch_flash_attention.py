@@ -12,11 +12,16 @@ transpose-layout family (rows 10-14: ``_flash`` over (B, H, T, D), q
 pre-scaled outside the kernels).
 
 The bf16 kernels' launch plan (``flash_plan``: route, swizzle, boxes,
-stages per head dim) is checked here; the tensor-core forward's one-pass
-softmax is held through its eager tiling twin (``flash_forward_twin``)
-against JAX's interpret-mode multi-tile kernel at JAX's key tile (128) and
-against the two-pass plain version at the kernel's own (64), before the
-card holds the kernel against both (``tests/test_torch_gpu.py``).
+stages per head dim, for the forward, dq and dk/dv launches alike) is
+checked here; the tensor-core forward's one-pass softmax is held through
+its eager tiling twin (``flash_forward_twin``) against JAX's
+interpret-mode multi-tile kernel at JAX's key tile (128) and against the
+two-pass plain version at the kernel's own (64), before the card holds the
+kernel against both (``tests/test_torch_gpu.py``). The tensor-core dq
+kernel's tiling twin (``flash_dq_twin``: dS rounded and dQ summed a key
+tile at a time) is held the same way against JAX's ``_dq_kernel_packed``
+(row 8), ``_dq_kernel`` (row 13) and the dq of ``_block_bwd_kernel`` (row
+16), and against the plain version at a ragged T.
 
 Tolerances (``dtc_tpu_torch.parity``):
 - float32: ``out`` and ``lse`` 1e-5 absolute, gradients 1e-5 × the tensor's
@@ -209,12 +214,19 @@ def test_ragged_length_matches_dense_attention():
         torch.testing.assert_close(a, b, atol=2e-5, rtol=0)
 
 
+def _route_counts():
+    return [dict(c) for c in (tfa.fwd_route_launches, tfa.dq_route_launches,
+                              tfa.dkv_route_launches)]
+
+
 def test_cpu_tensors_take_the_plain_version_without_counting():
-    q, k, v, do = (torch.from_numpy(x) for x in _inputs(1, 64, 2, 16, seed=1))
-    f0, b0 = tfa.fwd_launches, tfa.bwd_launches
-    xs = [x.requires_grad_(True) for x in (q, k, v)]
-    tfa.flash_causal_attention(*xs).backward(do)
-    assert (tfa.fwd_launches, tfa.bwd_launches) == (f0, b0)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.from_numpy(x).to(dtype) for x in _inputs(1, 64, 2, 16, seed=1))
+        f0, b0, routes0 = tfa.fwd_launches, tfa.bwd_launches, _route_counts()
+        xs = [x.requires_grad_(True) for x in (q, k, v)]
+        tfa.flash_causal_attention(*xs).backward(do)
+        assert (tfa.fwd_launches, tfa.bwd_launches) == (f0, b0)
+        assert _route_counts() == routes0
 
 
 def test_wrappers_reject_bad_inputs():
@@ -251,6 +263,80 @@ def test_flash_plan_takes_bf16_to_the_tensor_cores(d, causal):
     assert 2 <= plan.stages <= 4 and plan.stages * 2 * tile_bytes <= 65536
     assert plan.stages == 4 or (plan.stages + 1) * 2 * tile_bytes > 65536
     assert tfa.flash_plan(torch.float32, d, causal) == tfa.FlashPlan("fma", 64, 0, 0, 0)
+    # The dq kernel stages Q, dO and O once and the plan's K/V stages: it
+    # fits a block's 227 KB at every D, with more than the forward's bytes.
+    smem = {kind: tfa.tc_smem_bytes(kind, d) for kind in ("fwd", "dkv", "dq")}
+    assert smem["dq"] == smem["fwd"] + 2 * tile_bytes + 2 * 64 * 4 <= 232448
+
+
+class _FakeLib:
+    """Stands in for a kernel library: records each entry point's call."""
+
+    def __init__(self, rc=0):
+        self.rc, self.calls = rc, []
+
+    def __getattr__(self, name):
+        if name == "dtc_error_string":
+            return lambda code: b"refused"
+        return lambda *args: self.calls.append((name, args)) or self.rc
+
+
+@pytest.fixture
+def fake_libs(monkeypatch):
+    """``_build.load`` returns fake libraries and no stream is asked for, so
+    the launchers' routing runs on CPU tensors without a card."""
+    from dtc_tpu_torch.ops import _build
+
+    libs = {}
+    monkeypatch.setattr(_build, "load", lambda name: libs.setdefault(name, _FakeLib()))
+    monkeypatch.setattr(tfa, "_stream", lambda x: None)
+    return libs
+
+
+@pytest.mark.parametrize("dtype,grad_dtype", [(torch.bfloat16, torch.bfloat16),
+                                              (torch.bfloat16, torch.float32),
+                                              (torch.float32, torch.float32)])
+def test_dq_launch_takes_its_plans_route(fake_libs, dtype, grad_dtype):
+    """A dq launch takes the plan's route: bfloat16 the tensor-core entry
+    point with the plan's swizzle, boxes and stages (bf16 or float32
+    gradients), float32 the CUDA-core one; the route's counter adds one."""
+    b, t, h, d = 1, 100, 2, 48
+    q, k, v, out, do = (torch.zeros(b, t, h * d, dtype=dtype) for _ in range(5))
+    lse = torch.zeros(b, h, t)
+    before = dict(tfa.dq_route_launches)
+    dq, delta = tfa._dq_kernel(q, k, v, out, lse, do, h, True, grad_dtype)
+    plan = tfa.flash_plan(dtype, d, True)
+    assert dq.dtype == grad_dtype and delta.shape == lse.shape
+    assert {r: tfa.dq_route_launches[r] - before[r] for r in before} == {
+        r: int(r == plan.route) for r in before}
+    if plan.route == "tc":
+        (name, args), = fake_libs["flash_attention_tc"].calls
+        assert name == "dtc_flash_tc_dq" and "flash_attention" not in fake_libs
+        assert args[8:12] == (b, t, h, d) and args[-5:-1] == (
+            1, plan.swizzle, plan.boxes, plan.stages)
+        assert args[-6] == int(grad_dtype == torch.bfloat16)
+    else:
+        (name, args), = fake_libs["flash_attention"].calls
+        assert name == "dtc_flash_bwd_dq" and "flash_attention_tc" not in fake_libs
+
+
+def test_dq_launch_raises_and_never_falls_back(fake_libs):
+    """A bf16 dq launch the tensor-core kernel refuses raises: no other
+    kernel and no plain version runs, and nothing is counted. A base off
+    16-byte alignment (TMA's) is refused before any launch."""
+    b, t, h, d = 1, 64, 2, 32
+    q = torch.zeros(b, t, h * d, dtype=torch.bfloat16)
+    lse = torch.zeros(b, h, t)
+    before = dict(tfa.dq_route_launches)
+    fake_libs["flash_attention_tc"] = _FakeLib(rc=1)
+    with pytest.raises(RuntimeError, match="dq"):
+        tfa._dq_kernel(q, q, q, q, lse, q, h, True, torch.bfloat16)
+    assert "flash_attention" not in fake_libs and tfa.dq_route_launches == before
+    off = torch.zeros(b * t * h * d + 1, dtype=torch.bfloat16)[1:].view(b, t, h * d)
+    fake_libs["flash_attention_tc"] = _FakeLib()
+    with pytest.raises(ValueError, match="aligned"):
+        tfa._dq_kernel(q, q, q, off, lse, q, h, True, torch.bfloat16)
+    assert fake_libs["flash_attention_tc"].calls == [] and tfa.dq_route_launches == before
 
 
 def test_flash_plan_raises_on_what_no_kernel_takes():
@@ -305,3 +391,107 @@ def test_forward_twin_one_pass_fits_the_plain_limit(t, rows, causal, seed):
     want_out, want_lse = want_out[:, r0:r1], want_lse[..., r0:r1]
     _assert_within("out", out, want_out, attention_tolerance(want_out, h))
     _assert_within("lse", lse, want_lse, torch.full(want_lse.shape, FP32_ATOL))
+
+
+# --- the tensor-core dq kernel's tiling twin -------------------------------
+
+
+def _share_equal(got, want) -> float:
+    return (got.float() == want.float()).float().mean().item()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dq_twin_is_jaxs_packed_split_dq_kernel(monkeypatch, dtype):
+    """Row 8 (``_dq_kernel_packed``, JAX's split backward past
+    ``_PACKED_MAX_T``, lowered to 128): the twin at JAX's key tile (128)
+    on the inputs JAX's ``_packed_split_bwd_call`` got (its forward's out
+    and lse) against the dq it returned, within ``grad_tolerance``. JAX
+    scales each tile's dS·K by D^-0.5 before summing; the twin scales the
+    sum, so a float32 rounding may flip a bf16 one: at least 99% of the bf16
+    values bit-equal (measured 99.9%), float32 within its 1e-5 limit."""
+    monkeypatch.setattr(jfa, "_PACKED_MAX_T", 128)
+    seen = []
+    real = jfa._packed_split_bwd_call
+
+    def spy(*args):
+        seen.append((args, real(*args)))
+        return seen[-1][1]
+
+    monkeypatch.setattr(jfa, "_packed_split_bwd_call", spy)
+    b, t, h, d = 1, 256, 4, 32
+    q, k, v, do = _inputs(b, t, h, d, seed=13)
+    _jax(q, k, v, do, 128, dtype)
+    (args, (jdq, _, _)), = seen
+    jq, jk, jv, jdo, jout, jlse = args[:6]
+    g = args[8]
+    tq, tk, tv, tdo, tout = (torch.from_numpy(np.array(jnp.asarray(x, jnp.float32)))
+                             .to(getattr(torch, dtype)) for x in (jq, jk, jv, jdo, jout))
+    lse = torch.from_numpy(np.array(jlse)).permute(0, 1, 3, 2).reshape(b, h, t)
+    assert g == 128 // d
+    dq, _ = tfa.flash_dq_twin(tq, tk, tv, tout, lse, tdo, h, True, key_tile=128)
+    want = torch.from_numpy(np.array(jnp.asarray(jdq, jnp.float32))).to(dq.dtype)
+    _assert_within("dq", dq, want, grad_tolerance(want, h))
+    if dtype == "bfloat16":
+        assert _share_equal(dq, want) >= 0.99
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dq_twin_matches_jaxs_transposed_dq_kernel(dtype):
+    """Row 13 (``_dq_kernel``, the transpose-layout family, 2 heads of 48
+    at T 256 in two tiles): the twin on JAX's own out and lse against
+    JAX's dq (through the VJP of ``q * scale``, rounded to q's dtype twice)
+    within ``grad_tolerance``."""
+    b, t, h, d = 1, 256, 2, 48
+    q, k, v, do = _inputs(b, t, h, d, seed=17)
+    jout, jlse, jgrads = _jax_transposed(q, k, v, do, t // 2, dtype)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(x.reshape(b, t, h * d)).to(tdt) for x in (q, k, v, do))
+    dq, _ = tfa.flash_dq_twin(tq, tk, tv, jout.to(tdt), jlse, tdo, h, True)
+    want = jgrads[0].to(tdt)
+    _assert_within("dq", dq, want, grad_tolerance(want, h))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dq_twin_matches_jaxs_block_bwd_dq(dtype):
+    """Row 16 (``_block_bwd_kernel``, the ring's block backward): no mask,
+    float32 gradients from a given out and lse, tc 72 (a full key tile and
+    a ragged one): the twin against JAX's float32 dq, within 4 bf16 ulps of
+    each head's largest value for bf16 inputs (``grad_tolerance`` of the
+    rounded gradient, the ring tests' limit), 1e-5 for float32."""
+    b, tc, h, d = 2, 72, 4, 32
+    g = jfa._packed_group(d, h)
+    rng = np.random.RandomState(19)
+    q, k, v, do = (rng.randn(b, tc, h * d).astype(np.float32) for _ in range(4))
+    jq, jk, jv, jdo = (jnp.asarray(x, _JDT[dtype]) for x in (q, k, v, do))
+    scale = float(d ** -0.5)
+    jout, jlse = jfa._block_call(jq, jk, jv, scale, False, g, d)
+    jlse = jlse + 0.5  # as if the ring had merged more mass
+    jdq, _, _ = jfa._block_call(jq, jk, jv, scale, False, g, d, do=jdo, o=jout, lse=jlse)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(tdt) for x in (q, k, v, do))
+    tout = torch.from_numpy(np.array(jnp.asarray(jout, jnp.float32))).to(tdt)
+    lse = torch.from_numpy(np.array(jlse)).permute(0, 1, 3, 2).reshape(b, h, tc)
+    dq, _ = tfa.flash_dq_twin(tq, tk, tv, tout, lse, tdo, h, False, grad_dtype=torch.float32)
+    want = torch.from_numpy(np.array(jdq))
+    assert dq.dtype == torch.float32
+    _assert_within("dq", dq, want, grad_tolerance(want.to(tdt), h))
+
+
+@pytest.mark.parametrize("grad_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_twin_fits_the_plain_limit_at_a_ragged_t(causal, grad_dtype):
+    """The twin's per-tile sums at the kernel's key tile (64) against the
+    plain version's one sum, bfloat16 inputs, T 100 (two tiles, the last
+    ragged), causal and not: dq within ``grad_tolerance`` (of the bf16
+    rounding for float32 gradients), delta the plain rowsum(dO ⊙ O)."""
+    b, t, h, d = 2, 100, 2, 32
+    q, k, v, do = (torch.from_numpy(x.reshape(b, t, h * d)).to(torch.bfloat16)
+                   for x in _inputs(b, t, h, d, seed=23))
+    out, lse = tfa.flash_attention_reference(q, k, v, h, causal)
+    dq, delta = tfa.flash_dq_twin(q, k, v, out, lse, do, h, causal, grad_dtype=grad_dtype)
+    want = tfa.flash_attention_backward_reference(q, k, v, out, lse, do, h, causal,
+                                                  grad_dtype)[0]
+    assert dq.dtype == grad_dtype
+    _assert_within("dq", dq, want, grad_tolerance(want.to(torch.bfloat16), h))
+    want_delta = (do.float() * out.float()).view(b, t, h, d).sum(-1).permute(0, 2, 1)
+    assert torch.equal(delta, want_delta)

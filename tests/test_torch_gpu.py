@@ -200,13 +200,19 @@ def test_training_on_cuda_runs_the_flash_kernels_and_matches_dense(cuda):
     assert max(abs(a - b) for a, b in zip(auto, dense)) <= 1e-4
 
 
-# --- the tensor-core flash kernels (bf16 forward and dk/dv) ---------------
+# --- the tensor-core flash kernels (bf16 forward, dq and dk/dv) -----------
 
 
 def _routes():
     from dtc_tpu_torch.ops import flash_attention as fa
 
     return dict(fa.fwd_route_launches), dict(fa.dkv_route_launches)
+
+
+def _dq_routes():
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    return dict(fa.dq_route_launches)
 
 
 def _ratio(got, want, limit):
@@ -216,25 +222,25 @@ def _ratio(got, want, limit):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
 def test_tc_kernels_match_plain_at_a_ragged_t(cuda, d, causal):
-    """The bf16 forward and dk/dv kernels (route "tc": wgmma on TMA-staged
-    tiles) against their plain versions at T 1000, every head dim (each
-    swizzle and box count of ``flash_plan``), causal and not; dk/dv with
-    bf16 and with float32 gradients (the ring's blocks). Every launch on
-    the "tc" route; a second launch gives the same bits."""
+    """The bf16 forward, dq and dk/dv kernels (route "tc": wgmma on
+    TMA-staged tiles) against their plain versions at T 1000, every head dim
+    (each swizzle and box count of ``flash_plan``), causal and not; the
+    backward with bf16 and with float32 gradients (the ring's blocks).
+    Every launch on the "tc" route; a second launch gives the same bits."""
     from dtc_tpu_torch.ops import flash_attention as fa
     from dtc_tpu_torch.parity import grad_tolerance
 
     h = 3
     q, k, v, do = _flash_case(cuda, 2, 1000, h, d, torch.bfloat16, seed=d + causal)
-    (f0, k0), runs = _routes(), []
+    (f0, k0), q0, runs = _routes(), _dq_routes(), []
     for _ in range(2):
         out, lse = fa._forward_kernel(q, k, v, h, causal)
         grads = [fa._backward_kernels(q, k, v, out, lse, do, h, causal, gd)
                  for gd in (torch.bfloat16, torch.float32)]
         runs.append((out, lse, grads))
-    f1, k1 = _routes()
-    assert (f1["tc"] - f0["tc"], k1["tc"] - k0["tc"]) == (2, 4)
-    assert (f1["fma"], k1["fma"]) == (f0["fma"], k0["fma"])
+    (f1, k1), q1 = _routes(), _dq_routes()
+    assert (f1["tc"] - f0["tc"], q1["tc"] - q0["tc"], k1["tc"] - k0["tc"]) == (2, 4, 4)
+    assert (f1["fma"], q1["fma"], k1["fma"]) == (f0["fma"], q0["fma"], k0["fma"])
     (out, lse, grads), (out2, lse2, grads2) = runs
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
     assert all(torch.equal(a, b) for g1, g2 in zip(grads, grads2) for a, b in zip(g1, g2))
@@ -254,12 +260,126 @@ def test_float32_flash_launches_take_the_cuda_cores(cuda):
     from dtc_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = _flash_case(cuda, 1, 100, 2, 32, torch.float32)
-    f0, k0 = _routes()
+    (f0, k0), q0 = _routes(), _dq_routes()
     out, lse = fa.flash_attention_forward(q, k, v, 2)
     fa.flash_attention_backward(q, k, v, out, lse, do, 2)
-    f1, k1 = _routes()
-    assert (f1["fma"] - f0["fma"], k1["fma"] - k0["fma"]) == (1, 1)
-    assert (f1["tc"], k1["tc"]) == (f0["tc"], k0["tc"])
+    (f1, k1), q1 = _routes(), _dq_routes()
+    assert (f1["fma"] - f0["fma"], q1["fma"] - q0["fma"], k1["fma"] - k0["fma"]) == (1, 1, 1)
+    assert (f1["tc"], q1["tc"], k1["tc"]) == (f0["tc"], q0["tc"], k0["tc"])
+
+
+def _dq_limit(want, h):
+    """4 bf16 ulps of each head's largest dq (``grad_tolerance`` of the
+    bf16-rounded gradient, for float32 gradients too)."""
+    from dtc_tpu_torch.parity import grad_tolerance
+
+    return grad_tolerance(want.to(torch.bfloat16), h)
+
+
+def _dq_check(dev, b, t, h, d, causal, gd, seed):
+    """The tensor-core dq kernel against the plain dq and its tiling twin,
+    delta against the plain rowsum(dO ⊙ O) within float32's 1e-5 of its
+    largest value, and two launches bit-equal, all on the "tc" route."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_case(dev, b, t, h, d, torch.bfloat16, seed=seed)
+    out, lse = fa.flash_attention_reference(q, k, v, h, causal)
+    q0 = _dq_routes()
+    (dq, delta), (dq2, delta2) = (fa._dq_kernel(q, k, v, out, lse, do, h, causal, gd)
+                                  for _ in range(2))
+    q1 = _dq_routes()
+    assert (q1["tc"] - q0["tc"], q1["fma"] - q0["fma"]) == (2, 0)
+    assert dq.dtype == gd and torch.equal(dq, dq2) and torch.equal(delta, delta2)
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, do, h, causal, gd)[0]
+    assert _ratio(dq, want, _dq_limit(want, h)) <= 1.0
+    twin, twin_delta = fa.flash_dq_twin(q, k, v, out, lse, do, h, causal, grad_dtype=gd)
+    assert _ratio(dq, twin, _dq_limit(twin, h)) <= 1.0
+    assert (delta - twin_delta).abs().max().item() <= 1e-5 * twin_delta.abs().max().item()
+
+
+@pytest.mark.parametrize("gd", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_tc_dq_kernel_matches_plain_at_a_ragged_t(cuda, d, causal, gd):
+    """The bf16 dq kernel (``flash_dq_tc_kernel``) at T 1000 (the last key
+    tile ragged: masked past T without the causal mask), every head dim
+    (the MN-major K operand in one, three, five or seven boxes), causal
+    and not, bf16 and float32 (the ring's blocks) gradients."""
+    _dq_check(cuda, 2, 1000, 3, d, causal, gd, seed=d + 2 * causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_dq_kernel_matches_plain_at_t8192(cuda, causal):
+    """T 8192 (128 key tiles: the K/V stage ring wraps 32 times), float32
+    gradients, causal and not."""
+    _dq_check(cuda, 1, 8192, 2, 32, causal, torch.float32, seed=81)
+
+
+def test_tc_dq_planted_faults_land_over_the_limit(cuda):
+    """chip_smoke's crafted dq faults (dS not rounded to bf16 on a
+    cancelling row; q's scale unrounded; keys past a ragged T unmasked
+    without the causal mask, shown where p overflows) land over the limit
+    while the kernel stays within it; and delta read from the next row
+    lands over it on random inputs."""
+    import chip_smoke
+
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    for name, (kern, fault) in chip_smoke.dq_fault_cases().items():
+        assert kern <= 1.0 < fault, name
+    h = 3
+    q, k, v, do = _flash_case(cuda, 2, 1000, h, 32, torch.bfloat16, seed=7)
+    out, lse = fa.flash_attention_reference(q, k, v, h)
+    dq, _ = fa._dq_kernel(q, k, v, out, lse, do, h, True, torch.bfloat16)
+    want = chip_smoke.dq_plain(q, k, v, out, lse, do, h, True)
+    shifted = chip_smoke.dq_plain(q, k, v, out, lse, do, h, True, delta_shift=1)
+    limit = _dq_limit(want, h)
+    assert _ratio(dq, want, limit) <= 1.0 < _ratio(shifted, want, limit)
+
+
+def test_tc_kernels_launch_from_a_thread_without_cuda_work(cuda):
+    """The tensor-core launchers encode TMA maps with cuTensorMapEncodeTiled,
+    which needs the device's context current on the calling thread: each
+    kernel launches as the first CUDA work of a fresh thread (as the dq
+    kernel does on autograd's backward thread) and gives the main thread's
+    bits."""
+    import threading
+
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    h = 2
+    q, k, v, do = _flash_case(cuda, 1, 200, h, 32, torch.bfloat16, seed=4)
+    out, lse = fa._forward_kernel(q, k, v, h, True)
+    _, delta = fa._dq_kernel(q, k, v, out, lse, do, h, True, torch.bfloat16)
+    calls = {
+        "fwd": lambda: fa._forward_kernel(q, k, v, h, True),
+        "dq": lambda: fa._dq_kernel(q, k, v, out, lse, do, h, True, torch.bfloat16),
+        "dkv": lambda: fa._dkv_kernel(q, k, v, lse, delta, do, h, True, torch.bfloat16),
+    }
+    for name, call in calls.items():
+        got = {}
+        th = threading.Thread(target=lambda: got.update(res=call()))
+        th.start()
+        th.join()
+        torch.cuda.synchronize()
+        assert "res" in got, f"{name}: the launch raised on a fresh thread"
+        assert all(torch.equal(a, b) for a, b in zip(got["res"], call())), name
+
+
+def test_tc_dq_kernel_rejects_a_misaligned_tensor(cuda):
+    """TMA needs 16-byte-aligned bases: a bf16 dq launch on a tensor 2 bytes
+    off raises before any launch, and nothing falls back."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    h, t, d = 2, 64, 32
+    q, k, v, do = _flash_case(cuda, 1, t, h, d, torch.bfloat16)
+    out, lse = fa.flash_attention_reference(q, k, v, h)
+    off = torch.empty(t * h * d + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, t, h * d)
+    off.copy_(out)
+    q0 = _dq_routes()
+    with pytest.raises(ValueError, match="aligned"):
+        fa._dq_kernel(q, k, v, off, lse, do, h, True, torch.bfloat16)
+    assert _dq_routes() == q0
 
 
 @pytest.mark.parametrize("d", [32, 128])

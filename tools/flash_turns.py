@@ -6,9 +6,10 @@ parent.
     git archive <parent> | tar -x -C build/parent
     python3 tools/flash_turns.py --parent build/parent [--out FILE]
 
-Builds the other checkout's ``csrc/flash_attention.cu`` with this
-checkout's ``nvcc`` flags beside this checkout's libraries (all at once),
-then times, at the shapes the port's paths launch (bfloat16): the forward,
+Builds the other checkout's ``csrc/flash_attention.cu`` (its CUDA-core and
+its tensor-core library) with this checkout's ``nvcc`` flags beside this
+checkout's libraries (all at once), then times, at the shapes the port's
+paths launch (bfloat16): the forward,
 the dq kernel alone and the dk/dv kernel alone, each from one CUDA graph of
 many launches (``chip_smoke.graph_ms``); then training steps with the
 wrappers' launchers swapped for the other checkout's (T 8192, B 2 and the
@@ -46,36 +47,54 @@ CASES = (
 )
 
 
-def build_other(src_root: Path) -> ctypes.CDLL:
-    """The other checkout's flash library, built while this checkout's
-    libraries build."""
+#: The other checkout's entry points: its CUDA-core library takes a bf16
+#: dq launch (every dtype), its tensor-core library the bf16 forward and
+#: dk/dv launches.
+_OTHER = {
+    "flash_attention": ("", {"dtc_flash_bwd_dq"}),
+    "flash_attention_tc": ("-DDTC_FLASH_TC=1", {"dtc_flash_tc_fwd", "dtc_flash_tc_dkv"}),
+}
+
+
+def build_other(src_root: Path) -> dict:
+    """The other checkout's two flash libraries, built while this
+    checkout's libraries build: {library: CDLL}."""
     from dtc_tpu_torch.ops import _build
 
     src = src_root / "dtc_tpu_torch" / "csrc" / "flash_attention.cu"
-    lib = _build.BUILD_DIR / "other_flash_attention.so"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    procs = {}
+    for name, (define, _) in _OTHER.items():
+        lib = _build.BUILD_DIR / f"other_{name}.so"
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, *([define] if define else []), "-o", str(lib),
+               str(src)]
+        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
     _build.build_all()
-    out, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{out}")
-    other = ctypes.CDLL(str(lib))
-    for fn, argtypes in _build._SIGNATURES["flash_attention"].items():
-        getattr(other, fn).argtypes = argtypes
-        getattr(other, fn).restype = ctypes.c_int
-    return other
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src} ({name}):\n{out}")
+        libs[name] = ctypes.CDLL(str(lib))
+        for fn in _OTHER[name][1]:
+            getattr(libs[name], fn).argtypes = _build._SIGNATURES[name][fn]
+            getattr(libs[name], fn).restype = ctypes.c_int
+    return libs
 
 
-def other_launchers(lib):
+def other_launchers(libs):
     """The wrapper's three launchers (``_forward_kernel``, ``_dq_kernel``,
-    ``_dkv_kernel``) on the other checkout's library, whose entry points
-    take every dtype on the CUDA cores."""
+    ``_dkv_kernel``) on the other checkout's libraries, for bfloat16
+    inputs: the forward and dk/dv kernels of its tensor-core library (this
+    checkout's plan: the geometry is the same), the dq kernel of its
+    CUDA-core library."""
     import torch
 
     from dtc_tpu_torch.ops import flash_attention as fa
 
     codes = fa._DTYPE_CODES
+    lib, tc = libs["flash_attention"], libs["flash_attention_tc"]
 
     def check(rc, what):
         if rc != 0:
@@ -84,11 +103,13 @@ def other_launchers(lib):
     def forward(q, k, v, h, causal):
         b, t, hd = q.shape
         d = hd // h
+        plan = fa.flash_plan(q.dtype, d, causal)
         out = torch.empty_like(q)
         lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
-        check(lib.dtc_flash_fwd(fa._ptr(q), fa._ptr(k), fa._ptr(v), fa._ptr(out), fa._ptr(lse),
-                                b, t, h, d, fa._scale_q(d, q.dtype), codes[q.dtype],
-                                int(causal), fa._stream(q)), "forward")
+        check(tc.dtc_flash_tc_fwd(fa._ptr(q), fa._ptr(k), fa._ptr(v), fa._ptr(out),
+                                  fa._ptr(lse), b, t, h, d, fa._scale_q(d, q.dtype), int(causal),
+                                  plan.swizzle, plan.boxes, plan.stages, fa._stream(q)),
+              "forward")
         return out, lse
 
     def dq_kernel(q, k, v, out, lse, do, h, causal, grad_dtype):
@@ -105,11 +126,12 @@ def other_launchers(lib):
     def dkv_kernel(q, k, v, lse, delta, do, h, causal, grad_dtype):
         b, t, hd = q.shape
         d = hd // h
+        plan = fa.flash_plan(q.dtype, d, causal)
         dk, dv = (torch.empty(q.shape, dtype=grad_dtype, device=q.device) for _ in range(2))
-        check(lib.dtc_flash_bwd_dkv(fa._ptr(q), fa._ptr(k), fa._ptr(v), fa._ptr(do),
-                                    fa._ptr(lse), fa._ptr(delta), fa._ptr(dk), fa._ptr(dv), b,
-                                    t, h, d, fa._scale_q(d, q.dtype), codes[q.dtype],
-                                    codes[grad_dtype], int(causal), fa._stream(q)), "dk/dv")
+        check(tc.dtc_flash_tc_dkv(fa._ptr(q), fa._ptr(k), fa._ptr(v), fa._ptr(do),
+                                  fa._ptr(lse), fa._ptr(delta), fa._ptr(dk), fa._ptr(dv), b, t,
+                                  h, d, fa._scale_q(d, q.dtype), codes[grad_dtype], int(causal),
+                                  plan.swizzle, plan.boxes, plan.stages, fa._stream(q)), "dk/dv")
         return dk, dv
 
     return forward, dq_kernel, dkv_kernel
@@ -162,7 +184,8 @@ def kernel_times(case, other, iters):
     if not causal:  # a chunk pair without the mask: every (query, key) pair
         bounds = cs.block_bounds(b, t, h, d, "bfloat16", False)
     return dict(case=name, b=b, t=t, h=h, d=d, causal=causal, grad_dtype=gname,
-                bound_fwd_ms=bounds["fwd"][0], bound_bwd_ms=bounds["bwd"][0], **times)
+                bound_fwd_ms=bounds["fwd"][0], bound_bwd_ms=bounds["bwd"][0],
+                bound_dq_ms=cs.dq_bound(b, t, h, d, "bfloat16", causal, gname)[0], **times)
 
 
 def configs(long: bool, steps: int, warmup: int):
@@ -222,7 +245,8 @@ def main() -> int:
         for part in ("fwd", "dq", "dkv"):
             print(f"{r['case']} {part}: parent {r[f'parent_{part}']} this {r[f'this_{part}']} ms "
                   f"[{smi}]", flush=True)
-        print(f"{r['case']}: bound fwd {r['bound_fwd_ms']:.6f} bwd {r['bound_bwd_ms']:.6f} ms",
+        print(f"{r['case']}: bound fwd {r['bound_fwd_ms']:.6f} bwd {r['bound_bwd_ms']:.6f} "
+              f"dq {r['bound_dq_ms']:.6f} ms",
               flush=True)
     torch.cuda.empty_cache()
     for tag, long, steps, warmup in (("t8192", True, 6, 2), ("flagship", False, 20, 5)):
