@@ -17,12 +17,16 @@ Phases (each prints its own lines; any failure exits non-zero):
    flash instance (forward, dq, dk/dv), whose shared memory must be the
    plan's (``flash_attention.tc_smem_bytes``).
 3. Decode kernel vs plain, at the flagship decode shape (B 4, S 512, H 16,
-   D 32) plus an S = 8192 case: the error against the plain version
-   within its limit (float32 1e-5; bfloat16 a few ulps of each head's
-   largest output, ``dtc_tpu_torch.parity.attention_tolerance``), planted
-   faults in the plain version landing over that limit, and device times
-   of the kernel, the plain version and the library yardstick (each from
-   many calls replayed as one CUDA graph between CUDA events) beside the
+   D 32) plus S 8192, S 4096, 8 heads of 128 and 8 heads of 48: the error
+   against the plain version and against the split twin within its limit
+   (float32 1e-5; bfloat16 a few ulps of each head's largest output,
+   ``dtc_tpu_torch.parity.attention_tolerance``), planted faults in the
+   plain version and in the twin (one split's partials dropped; partials
+   combined without their rescale) landing over that limit, each case's
+   instance with its registers, shared memory and spills, split length
+   (the library's against the twin's) and grid, and device times of the
+   kernel, the plain version and the library yardstick (each from many
+   calls replayed as one CUDA graph between CUDA events) beside the
    byte/operation bound; the wrapper's time per Python call besides.
 4. Serve the flagship as configured (``configs/serve_config.yaml`` +
    ``configs/model_config.yaml``, random weights from ``--seed``): six
@@ -342,10 +346,32 @@ def decode_bound(b, s, h, d, starts, qdtype, kvdtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
-def kernel_case(name, b, s, h, d, qdtype, kvdtype, starts, per_row, seed, iters):
+def decode_split_faults(q, k, v, start, h, d, kw) -> dict:
+    """The kernel's split twin with a planted fault, on any device: one
+    split's partials dropped (the first of every row that has more than
+    one), and the partials combined without their rescale (every weight
+    exp(m_j - M) taken as 1). Empty where no row has two splits."""
+    from dtc_tpu_torch.ops import decode_attention as da
+
+    m, l, acc, live = da.split_partials(q, k, v, start, h=h, d=d, **kw)
+    multi = live.sum(dim=1) > 1
+    if not bool(multi.any()):
+        return {}
+    dropped = live.clone()
+    dropped[:, 0] &= ~multi
+    return {
+        "one split dropped": da.combine_splits(m, l, acc, dropped, q.dtype),
+        "partials not rescaled": da.combine_splits(m.new_zeros(m.shape), l, acc, live, q.dtype),
+    }
+
+
+def kernel_case(name, b, s, h, d, qdtype, kvdtype, starts, per_row, seed, iters, ptxas=None):
+    """One phase-3 case: the kernel against its plain version and its split
+    twin, planted faults, times. ``ptxas``: {instance: compiler report}."""
     import torch
     import torch.nn.functional as F
 
+    from dtc_tpu_torch.ops import _build
     from dtc_tpu_torch.ops import decode_attention as da
     from dtc_tpu_torch.parity import BF16_ULPS, FP32_ATOL, attention_tolerance
 
@@ -367,6 +393,24 @@ def kernel_case(name, b, s, h, d, qdtype, kvdtype, starts, per_row, seed, iters)
     start = torch.tensor(starts if per_row else starts[0], dtype=torch.int32, device=dev)
     row_starts = starts if per_row else [starts[0]] * b
 
+    # The instances, the split length (the library's against the twin's) and
+    # the grids: a block per (split, head, row), splits past a row's
+    # frontier exiting at once; past one split, the combine's block per
+    # (head, row).
+    codes = da._DTYPE_CODES
+    inst = f"decode_split_kernel<{codes[q.dtype]}, {codes[k.dtype]}, {d}>"
+    combine = inst.replace("split", "combine")
+    split = da.split_len(d, k.dtype)
+    lib_split = _build.load("decode_attention").dtc_decode_split_len(codes[k.dtype], d)
+    check(lib_split == split, f"{name}: the library's split length {lib_split}, the twin's {split}")
+    splits = -(-s // split)
+    live = h * sum(-(-min(max(x + 1, 1), s) // split) for x in row_starts)
+    log(f"kernel {name}: {inst}: {(ptxas or {}).get(inst, 'no ptxas report')}; split {split} "
+        f"positions, grid ({splits}, {h}, {b}), {live} live blocks")
+    if splits > 1:
+        log(f"kernel {name}: {combine}: {(ptxas or {}).get(combine, 'no ptxas report')}; "
+            f"grid ({h}, {b})")
+
     got = da.fused_decode_attention(q, k, v, start, h=h, d=d, **kw)
     want = da.decode_attention_reference(q, k, v, start, h=h, d=d, **kw)
     torch.cuda.synchronize()
@@ -378,17 +422,29 @@ def kernel_case(name, b, s, h, d, qdtype, kvdtype, starts, per_row, seed, iters)
     log(f"kernel {name}: max_abs_err {err:.3e}, {ratio:.3f} of its limit "
         f"({limit.min().item():.3e}..{limit.max().item():.3e}; {rule})")
     check(ratio <= 1.0, f"{name}: error {err} over its limit")
+    twin = da.decode_split_twin(q, k, v, start, h=h, d=d, **kw)
+    tdiff = (got.float() - twin.float()).abs()
+    twin_ratio = (tdiff / attention_tolerance(twin, h).to(dev)).max().item()
+    log(f"kernel {name}: against its split twin: max_abs_err {tdiff.max().item():.3e}, "
+        f"{twin_ratio:.3f} of the limit")
+    check(twin_ratio <= 1.0, f"{name}: the kernel is over the limit from its split twin")
 
     # What the limit can see: the plain version with a planted fault, on
     # the same inputs, must land over it. Faults: every row one visible
-    # column short; past one 4096-position chunk, the later chunks dropped.
+    # column short; past 4096 positions, the columns after them dropped;
+    # the split twin with one split's partials dropped or combined without
+    # their rescale (where some row has two splits).
     faults = {"one column short": [max(x - 1, 0) for x in row_starts]}
     if s > 4096:
         faults["chunks after the first dropped"] = [min(x, 4095) for x in row_starts]
-    fault_ratio = {}
-    for fname, fstarts in faults.items():
-        bad = da.decode_attention_reference(
+    faults = {
+        fname: da.decode_attention_reference(
             q, k, v, torch.tensor(fstarts, dtype=torch.int32, device=dev), h=h, d=d, **kw)
+        for fname, fstarts in faults.items()
+    }
+    faults.update(decode_split_faults(q, k, v, start, h, d, kw))
+    fault_ratio = {}
+    for fname, bad in faults.items():
         fdiff = (bad.float() - want.float()).abs()
         fault_ratio[fname] = (fdiff / limit).max().item()
         log(f"kernel {name}: planted fault '{fname}': max_abs_err "
@@ -419,7 +475,9 @@ def kernel_case(name, b, s, h, d, qdtype, kvdtype, starts, per_row, seed, iters)
     return dict(
         case=name, b=b, s=s, h=h, d=d, q_dtype=qdtype, kv_dtype=kvdtype,
         starts=starts, per_row=per_row, max_abs_err=err, err_over_limit=ratio,
-        limit=rule, fault_over_limit=fault_ratio,
+        twin_over_limit=twin_ratio, limit=rule, fault_over_limit=fault_ratio,
+        instance=inst, ptxas=(ptxas or {}).get(inst), split=split, grid=[splits, h, b],
+        live_blocks=live, combine_ptxas=(ptxas or {}).get(combine) if splits > 1 else None,
         ms=kernel_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
         bytes=nbytes,
@@ -2504,9 +2562,16 @@ def main() -> int:
             ("fp32_per_row", *flagship, "float32", "float32", [0, 37, 511, 600], True),
             ("int8_per_row", *flagship, "bfloat16", "int8", [0, 37, 511, 600], True),
             ("bf16_s8192", 4, 8192, 16, 32, "bfloat16", "bfloat16", [0, 4095, 5000, 9000], True),
+            # the cache model_config_longctx.yaml serves at; model_ladder_350m's
+            # head width; row 10's flash shape (a head dim the earlier kernel refused)
+            ("bf16_s4096", 4, 4096, 16, 32, "bfloat16", "bfloat16", [0, 1000, 2047, 4095], True),
+            ("bf16_d128", 4, 1024, 8, 128, "bfloat16", "bfloat16", [0, 300, 1023, 1100], True),
+            ("bf16_d48", 4, 1024, 8, 48, "bfloat16", "bfloat16", [0, 300, 1023, 1100], True),
         ]
+        decode_ptxas = dict(ptxas_report(_build.log_path("decode_attention").read_text()))
         results = [
-            kernel_case(name, b, s, h, d, qd, kd, st, pr, seed=args.seed + i, iters=200)
+            kernel_case(name, b, s, h, d, qd, kd, st, pr, seed=args.seed + i, iters=200,
+                        ptxas=decode_ptxas)
             for i, (name, b, s, h, d, qd, kd, st, pr) in enumerate(cases)
         ]
         record["kernel_cases"] = results

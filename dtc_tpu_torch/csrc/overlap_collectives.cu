@@ -670,6 +670,33 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled, a cu* (not cuda*) call, fails without a context
+// current on the calling thread. A runtime launch binds the device's primary
+// context only when it runs, so on a thread whose first CUDA work is a ring
+// step (autograd's backward thread, where a ring step can be the backward's
+// first op) none is current yet; then cudaSetDevice binds it (CUDA 12). Where
+// a context is current, nothing changes.
+cudaError_t bind_context() {
+  using CtxGetCurrent = CUresult (*)(CUcontext*);
+  static const CtxGetCurrent get = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc =
+        cudaGetDriverEntryPointByVersion("cuCtxGetCurrent", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint("cuCtxGetCurrent", &p, cudaEnableDefault, &q);
+#endif
+    return (rc == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<CtxGetCurrent>(p)
+                                                                   : nullptr;
+  }();
+  CUcontext ctx = nullptr;
+  if (get != nullptr && get(&ctx) == CUDA_SUCCESS && ctx != nullptr) return cudaSuccess;
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  return e == cudaSuccess ? cudaSetDevice(dev) : e;
+}
+
 // What TMA takes: a unit stride along the staged rows, a row stride that is a
 // multiple of 16 bytes and no smaller than a row, a 16-byte-aligned base.
 bool tma_fits(const Operand& o, bool mn_major, int n_mn, int K) {
@@ -708,8 +735,12 @@ cudaError_t launch_tc(const Operand& a, const Operand& b, const Epilogue& ep, in
   const int per_block = tiles(tiles(K, kBK), split);
   const int stages = per_block < (TMA ? kMaxStages : 2) ? per_block : (TMA ? kMaxStages : 2);
   CUtensorMap ma{}, mb{};
-  if (TMA && !(encode(&ma, a, A_MN, M, K, kTM) && encode(&mb, b, B_MN, N, K, TN)))
-    return cudaErrorInvalidValue;
+  if (TMA) {
+    const cudaError_t bound = bind_context();
+    if (bound != cudaSuccess) return bound;
+    if (!(encode(&ma, a, A_MN, M, K, kTM) && encode(&mb, b, B_MN, N, K, TN)))
+      return cudaErrorInvalidValue;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles(N, TN) * split, tiles(M, kTM));
   cfg.blockDim = dim3(S::kThreads);

@@ -33,7 +33,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 #: The C signatures of each library's entry points: {function: argtypes}.
 _SIGNATURES = {
     "decode_attention": {
-        "dtc_decode_attention": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
+        "dtc_decode_attention": [_P] * 8 + [_L] + [_I] * 5 + [_F] + [_I] * 2 + [_P],
+        "dtc_decode_split_len": [_I, _I],
     },
     "flash_attention": {
         "dtc_flash_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],

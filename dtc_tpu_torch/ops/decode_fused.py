@@ -53,11 +53,14 @@ from dtc_tpu_torch.adapters.lora import site_dims
 from dtc_tpu_torch.models.gpt import DTYPES, gather_slot_lora, layer_lora, lora_scale
 from dtc_tpu_torch.ops.attention import NEG_INF
 from dtc_tpu_torch.ops.decode_attention import (
-    KERNEL_HEAD_DIMS,
     _frontier,
     dequantize_kv,
     quantize_kv,
 )
+
+#: Head dims the megakernel is instantiated for (the decode-attention
+#: kernel's own set is wider; this one's growth is ROADMAP §B1).
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 #: Widest speculative verify window served as one launch.
 SPEC_MAX_K = 8

@@ -146,7 +146,8 @@ def test_port_imports_no_jax_flax_or_dtc_tpu():
 
 def test_port_source_has_no_forbidden_imports():
     forbidden = ("jax", "jaxlib", "flax", "optax", "click", "yaml", "dtc_tpu")
-    files = list((ROOT / "dtc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (list((ROOT / "dtc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + list((ROOT / "tools").glob("*.py")))
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -51,7 +51,7 @@ def _case(dev, b, s, h, d, qdt, kv, seed=0):
     return q, k.to(kvdt), v.to(kvdt), {}
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kv", ["same", "int8", "float32", "bfloat16"])
 def test_kernel_matches_plain(cuda, d, qdt, kv):
@@ -65,8 +65,76 @@ def test_kernel_matches_plain(cuda, d, qdt, kv):
         _assert_close(got, want, h)
 
 
+@pytest.mark.parametrize("d", [32, 48, 112, 128])
+@pytest.mark.parametrize("qdt,kv", [(torch.bfloat16, "same"), (torch.float32, "same"),
+                                    (torch.bfloat16, "int8"), (torch.bfloat16, "float32")])
+def test_kernel_matches_its_split_twin(cuda, d, qdt, kv):
+    """The kernel against the eager twin of its own schedule (the same
+    splits, p rounded against each split's max, the partials combined in
+    split order): rows of one split, of many, ragged, past the cache."""
+    b, s, h = 4, 2000, 3
+    q, k, v, kw = _case(cuda, b, s, h, d, qdt, kv, seed=d)
+    st = torch.tensor([0, 700, 1999, 2500], dtype=torch.int32, device=cuda)
+    got = da.fused_decode_attention(q, k, v, st, h=h, d=d, **kw)
+    want = da.decode_split_twin(q, k, v, st, h=h, d=d, **kw)
+    torch.cuda.synchronize()
+    _assert_close(got, want, h)
+
+
+@pytest.mark.parametrize("d", [32, 48, 128])
+@pytest.mark.parametrize("kv", ["same", "int8"])
+def test_kernel_is_deterministic_and_rows_are_batch_invariant(cuda, d, kv):
+    """Two launches give the same bits (the partials are combined in split
+    order, never in arrival order), and each row of a B 4 per-row call
+    bit-equals the same row run alone at B 1 with a scalar frontier (split
+    boundaries depend on position alone)."""
+    b, s, h = 4, 3000, 4
+    q, k, v, kw = _case(cuda, b, s, h, d, torch.bfloat16, kv, seed=5)
+    starts = [0, 300, 2047, 4000]
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    first = da.fused_decode_attention(q, k, v, st, h=h, d=d, **kw)
+    second = da.fused_decode_attention(q, k, v, st, h=h, d=d, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    for row, start in enumerate(starts):
+        one = {n: t[row:row + 1].contiguous() for n, t in kw.items()}
+        alone = da.fused_decode_attention(q[row:row + 1].contiguous(), k[row:row + 1].contiguous(),
+                                          v[row:row + 1].contiguous(), start, h=h, d=d, **one)
+        torch.cuda.synchronize()
+        assert torch.equal(alone, first[row:row + 1]), row
+
+
+def test_kernel_calls_stand_alone_across_streams(cuda):
+    """A call carries no state from another (its partials sit in its own
+    scratch, and the combine is a second kernel, not an arrival count): a
+    graph captured on one stream and replayed on another while the first
+    stream's eager calls still run gives the eager calls' bits, and so do
+    they."""
+    q, k, v, kw = _case(cuda, 4, 4096, 16, 32, torch.bfloat16, "same", seed=7)
+    st = torch.tensor([0, 1000, 2047, 4095], dtype=torch.int32, device=cuda)
+
+    def call():
+        return da.fused_decode_attention(q, k, v, st, h=16, d=32, **kw)
+
+    want = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        replayed = call()
+    with torch.cuda.stream(side):
+        eager = [call() for _ in range(20)]
+    graph.replay()  # on the current stream, beside the side stream's calls
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, want)
+    assert all(torch.equal(x, want) for x in eager)
+
+
 def test_kernel_long_cache_walks_chunks(cuda):
-    """Past 4096 positions the kernel's online softmax spans chunks."""
+    """A cache of 9000 positions: rows of 16 to 36 splits (256 positions
+    each at bf16 D 32), the last one ragged."""
     q, k, v, kw = _case(cuda, 4, 9000, 2, 32, torch.bfloat16, "same", seed=1)
     st = torch.tensor([4095, 4096, 8191, 8999], dtype=torch.int32, device=cuda)
     got = da.fused_decode_attention(q, k, v, st, h=2, d=32)
@@ -695,6 +763,23 @@ def test_megakernel_rejects_bad_input(cuda):
         decode_fused.fused_layers(x.repeat(1, 9, 1), model.stage.blocks, cache, idx)
 
 
+def test_megakernel_refuses_a_head_dim_only_the_decode_kernel_has(cuda):
+    """Head dim 48: the decode-attention kernel takes it, the megakernel
+    has no instance and says so with its ValueError (its own tuple), before
+    any launch."""
+    from dtc_tpu_torch.ops import decode_fused
+
+    model = _mk_model(cuda, 48, "bfloat16", "auto")
+    x, cache = _mk_inputs(model, 2, 1, seed=2)
+    idx = torch.tensor(3, dtype=torch.int32, device=cuda)
+    before = decode_fused.launches
+    with pytest.raises(ValueError, match="head_dim 48"):
+        decode_fused.fused_layers(x, model.stage.blocks, cache, idx)
+    assert decode_fused.launches == before
+    q, k, v, _ = _case(cuda, 2, 64, 4, 48, torch.bfloat16, "same")
+    da.fused_decode_attention(q, k, v, 5, h=4, d=48)
+
+
 # --- the megakernel's LoRA sites (adapter serving) -------------------------
 
 def _lora_stack(model, n_slots, seed, scale=0.3):
@@ -1026,6 +1111,42 @@ def _deep_steps(dev, seed=0):
     w = torch.randn(512, 2048, device=dev, generator=torch.Generator(device=dev).manual_seed(
         seed)).to(torch.bfloat16)[:128].t()
     return x, w, dy
+
+
+def test_overlap_tma_step_launches_from_a_thread_without_cuda_work(cuda):
+    """The ring's "tma" route encodes its tensor maps with
+    cuTensorMapEncodeTiled, which needs the device's context current on the
+    calling thread: a step launched as the first CUDA work of a fresh thread
+    (as a ring step would be on autograd's backward thread) gives the main
+    thread's bits."""
+    import threading
+
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+
+    x, w, _ = _deep_steps(cuda, seed=3)
+    outs = [torch.zeros(1024, 128, device=cuda) for _ in range(2)]
+    r0 = oc.route_launches["tma"]
+
+    def step(out):
+        oc.ag_step(x, w, out, src=0, slice_x=False, slice_out=True, w_t=False, accumulate=False)
+
+    step(outs[0])
+    torch.cuda.synchronize()
+    err = []
+
+    def fresh():
+        try:
+            step(outs[1])
+        except RuntimeError as e:
+            err.append(e)
+
+    th = threading.Thread(target=fresh)
+    th.start()
+    th.join(timeout=120)
+    torch.cuda.synchronize()
+    assert not th.is_alive() and not err, f"the launch raised on a fresh thread: {err}"
+    assert oc.route_launches["tma"] == r0 + 2
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_overlap_cluster_split_steps_are_bit_equal_run_to_run(cuda):
