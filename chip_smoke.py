@@ -73,7 +73,9 @@ Phases (each prints its own lines; any failure exits non-zero):
 9. Decode megakernel vs plain (``csrc/decode_fused.cu``) at the flagship
    widths and depth (B 4, S 512, per-row frontiers from 2 to past S;
    bfloat16 and float32 compute; bfloat16, int8 and float32 KV; t 1 and a
-   t 4 verify window), random biases included: over one layer and over
+   t 4 verify window), random biases included, and at head dims 48, 80,
+   96 and 112 (8 heads of D, d_ff 4 d_model, the flagship's depth and
+   cache): over one layer and over
    all 12 within ``MK_*`` limits; at one layer two planted faults in the
    plain version (the cache mask one column short; with bf16 compute over
    a bf16 cache, the bias added before the product is rounded) land over
@@ -84,7 +86,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    output in float32 before it is rounded, the scale left unrounded, the
    rows' slot ids permuted) land over them. Device times of the kernel (with and without adapters),
    the plain version and the per-layer ``fused`` yardstick (CUDA graph
-   replay) beside the bound; launch geometry.
+   replay) beside the bound, at the flagship and at the ladder configs
+   (``model_ladder_350m.yaml``, ``model_ladder_1b.yaml``; B 4, t 1);
+   launch geometry (grid, threads, shared memory) and each
+   instance's bulk-copy (``UBLKCP``), ``UTMALDG`` and mbarrier (``SYNCS``)
+   counts in the SASS: an instance without a bulk copy fails.
 10. Serve the flagship under ``decode_attention: fused_layers`` with phase
     4's requests: one megakernel launch per decode iteration and no
     decode-attention launch; TTFT, ms/token, tokens/s (``--profile``:
@@ -199,6 +205,7 @@ without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -2088,6 +2095,38 @@ def fsdp_nccl_world1(steps: int, out_dir: str, device: str | None = None):
 MK_ULPS_ONE, MK_SHARE, MK_ULPS_ALL = 2, 0.10, 16
 
 
+@contextlib.contextmanager
+def exact_products():
+    """The plain version's dense products as float32 GEMMs of the operands
+    rounded to the compute dtype (TF32 off): exact products and float32
+    sums, the rounding its docstring states. cuBLAS's bf16 GEMM departs from
+    float32 sums at some shapes (15-23% of one layer's outputs differ from
+    this at d_model 640, 768 and 896, B 4, where the kernel's differ in
+    0.3%), which phase 9's share limit would charge to the kernel; phase 9
+    uses it for its cases at those widths."""
+    import torch.nn.functional as F
+
+    from dtc_tpu_torch.models import gpt
+
+    real = gpt.Dense.forward
+
+    def forward(self, z, lora=None):
+        cd = self.cdtype
+        y = F.linear(z.to(cd).float(), self.weight.to(cd).float()).to(cd)
+        y = y + self.bias.to(cd)
+        return y if lora is None else gpt.apply_lora(y, z, lora, self.lora_scale)
+
+    gpt.Dense.forward = forward
+    try:
+        yield
+    finally:
+        gpt.Dense.forward = real
+
+#: The megakernel's SASS opcodes phase 9 counts: 1-D bulk copies (its
+#: weight ring), tensor-map TMA loads, and mbarrier operations.
+MK_SASS_OPCODES = ("UBLKCP", "UTMALDG", "SYNCS")
+
+
 def megakernel_bound(cfg, b, t, starts, cdtype, kvdtype, lora_ids=None):
     """Least time for one launch on these inputs: the bytes it must move
     (every layer's float32 parameters, the cached K/V (and int8 scales)
@@ -2219,14 +2258,14 @@ def lora_stack(model, tenants):
     return stack
 
 
-def megakernel_case(name, model, b, t, kvdtype, starts, seed, lora=None, ids=None):
+def megakernel_case(name, model, b, t, kvdtype, starts, seed, lora=None, ids=None,
+                    exact=False):
     """The megakernel against its plain version on the same inputs, over
     one layer and over the whole stack; at one layer, the plain version
     with each planted fault must land over the limit. With ``lora`` (a
     stack) and ``ids`` (per-row slots) the LoRA sites are on, and the
-    faults are the LoRA sites' own."""
-    import contextlib
-
+    faults are the LoRA sites' own. ``exact``: the plain version's products
+    by :func:`exact_products` (the faults' too)."""
     import torch
     import torch.nn.functional as F
 
@@ -2241,9 +2280,13 @@ def megakernel_case(name, model, b, t, kvdtype, starts, seed, lora=None, ids=Non
 
     def run(fn, depth, frontier=idx, slots=lids):
         c = {k: v[:depth].clone() for k, v in cache.items()}
-        out = fn(x, model.stage.blocks[:depth], c, frontier, lora, slots)
+        plain = fn is decode_fused.fused_layers_reference and gpt.Dense.forward is real_dense
+        with exact_products() if exact and plain else contextlib.nullcontext():
+            out = fn(x, model.stage.blocks[:depth], c, frontier, lora, slots)
         torch.cuda.synchronize()
         return out, c
+
+    real_dense = gpt.Dense.forward
 
     real_lora = gpt.apply_lora
 
@@ -2269,8 +2312,13 @@ def megakernel_case(name, model, b, t, kvdtype, starts, seed, lora=None, ids=Non
     @contextlib.contextmanager
     def bias_before_rounding():
         real = gpt.Dense.forward
-        gpt.Dense.forward = lambda self, z, lora=None: F.linear(
-            z.to(self.cdtype), self.weight.to(self.cdtype), self.bias.to(self.cdtype))
+        if exact:
+            gpt.Dense.forward = lambda self, z, lora=None: F.linear(
+                z.to(self.cdtype).float(), self.weight.to(self.cdtype).float(),
+                self.bias.to(self.cdtype).float()).to(self.cdtype)
+        else:
+            gpt.Dense.forward = lambda self, z, lora=None: F.linear(
+                z.to(self.cdtype), self.weight.to(self.cdtype), self.bias.to(self.cdtype))
         try:
             yield
         finally:
@@ -2306,10 +2354,10 @@ def megakernel_case(name, model, b, t, kvdtype, starts, seed, lora=None, ids=Non
                 with patched_lora(delta_unrounded):
                     return run(ref, 1)[0]
             faults["delta added before it is rounded"] = unrounded_delta
-            exact = model.cfg.adapter.scale
-            if gpt.lora_scale(model.cfg) != exact:
+            exact_scale = model.cfg.adapter.scale
+            if gpt.lora_scale(model.cfg) != exact_scale:
                 def unrounded_scale():
-                    with patched_lora(lambda y, z, f, _s: real_lora(y, z, f, exact)):
+                    with patched_lora(lambda y, z, f, _s: real_lora(y, z, f, exact_scale)):
                         return run(ref, 1)[0]
                 faults["scale left unrounded"] = unrounded_scale
     want, _ = run(decode_fused.fused_layers_reference, 1)
@@ -2350,7 +2398,11 @@ def megakernel_times(model, b, t, kvdtype, starts, seed, iters, lora=None, ids=N
     if lora is not None:
         out["base_ms"] = graph_ms(lambda: decode_fused.fused_layers(x, blocks, cache, idx), iters)
     if t == 1:
+        @torch.no_grad()
         def stage():
+            # No autograd: the cache's in-place writes would chain each
+            # call's graph to the last (4 GB of weight copies a call at the
+            # 1b ladder).
             return model.stage(x, cache=cache, idx=idx, lora=lora, lora_ids=lids)
         out["per_layer_ms"] = graph_ms(stage, iters)
         out["per_layer_wrapper_ms"] = cuda_ms(stage, iters)
@@ -2756,38 +2808,77 @@ def main() -> int:
         from dtc_tpu_torch.ops import decode_fused
 
         mk_cases, mk_models = [], {}
-        for i, (name, compute, t, kvd) in enumerate((
-            ("bf16_bf16kv_t1", "bfloat16", 1, "bfloat16"),
-            ("bf16_bf16kv_t4", "bfloat16", 4, "bfloat16"),
-            ("bf16_int8_t1", "bfloat16", 1, "int8"),
-            ("bf16_int8_t4", "bfloat16", 4, "int8"),
-            ("fp32_fp32kv_t1", "float32", 1, "float32"),
-            ("fp32_fp32kv_t4", "float32", 4, "float32"),
-            ("fp32_bf16kv_t1", "float32", 1, "bfloat16"),
-            ("fp32_int8_t4", "float32", 4, "int8"),
+        for i, (name, compute, t, kvd, d) in enumerate((
+            ("bf16_bf16kv_t1", "bfloat16", 1, "bfloat16", 32),
+            ("bf16_bf16kv_t4", "bfloat16", 4, "bfloat16", 32),
+            ("bf16_int8_t1", "bfloat16", 1, "int8", 32),
+            ("bf16_int8_t4", "bfloat16", 4, "int8", 32),
+            ("fp32_fp32kv_t1", "float32", 1, "float32", 32),
+            ("fp32_fp32kv_t4", "float32", 4, "float32", 32),
+            ("fp32_bf16kv_t1", "float32", 1, "bfloat16", 32),
+            ("fp32_int8_t4", "float32", 4, "int8", 32),
+            # head dims whose position groups leave lanes idle: 8 heads of D,
+            # d_ff 4 * d_model, the flagship's depth and cache; the plain
+            # version's products exact there (exact_products)
+            ("bf16_bf16kv_t1_d48", "bfloat16", 1, "bfloat16", 48),
+            ("bf16_int8_t4_d80", "bfloat16", 4, "int8", 80),
+            ("fp32_fp32kv_t1_d96", "float32", 1, "float32", 96),
+            ("bf16_bf16kv_t4_d112", "bfloat16", 4, "bfloat16", 112),
         )):
-            if compute not in mk_models:
-                mk_models[compute] = megakernel_model(mcfg, compute, args.seed + 900)
+            if (compute, d) not in mk_models:
+                cfg_d = mcfg if d == mcfg.head_dim else dataclasses.replace(
+                    mcfg, n_heads=8, d_model=8 * d, d_ff=32 * d)
+                mk_models[compute, d] = megakernel_model(cfg_d, compute, args.seed + 900)
             starts = [2, 37, mcfg.max_seq_len - t, mcfg.max_seq_len + 88]
-            mk_cases.append(megakernel_case(name, mk_models[compute], 4, t, kvd, starts,
-                                            seed=args.seed + 910 + i))
-        mk_flag = megakernel_times(mk_models["bfloat16"], 4, 1, "bfloat16",
+            mk_cases.append(megakernel_case(name, mk_models[compute, d], 4, t, kvd, starts,
+                                            seed=args.seed + 910 + i, exact=d != mcfg.head_dim))
+        mk_flag = megakernel_times(mk_models["bfloat16", 32], 4, 1, "bfloat16",
                                    [2, 37, 300, 511], args.seed + 920, iters=100)
-        mk_verify = megakernel_times(mk_models["bfloat16"], 4, 4, "bfloat16",
+        mk_verify = megakernel_times(mk_models["bfloat16", 32], 4, 4, "bfloat16",
                                      [2, 37, 300, 508], args.seed + 921, iters=100)
-        mk_grid, mk_smem = decode_fused.kernel_config(mk_models["bfloat16"].cfg, torch.bfloat16)
+        mk_grid, mk_smem = decode_fused.kernel_config(mk_models["bfloat16", 32].cfg,
+                                                      torch.bfloat16)
         mk_ptxas = [rep for name in _build._MEGAKERNELS
                     for rep in ptxas_report(_build.log_path(name).read_text())]
-        for tag, tm_ in (("t1", mk_flag), ("t4", mk_verify)):
-            log(f"megakernel flagship {tag} (B 4, 12 layers, bf16, bf16 KV): kernel_ms "
+        mk_sass = sass_counts_by_function(_build.library_path("decode_fused_bf16_bf16"),
+                                          MK_SASS_OPCODES)
+        del mk_models
+        torch.cuda.empty_cache()
+        # the ladder configs at B 4, t 1: the bound is bytes (1.21 and 4.03 GB
+        # of float32 weights)
+        mk_ladder = {}
+        for tag in ("350m", "1b"):
+            from dtc_tpu_torch.config.loader import load_yaml_dataclass
+            from dtc_tpu_torch.config.schema import ModelConfig
+
+            lcfg = load_yaml_dataclass(ROOT / "configs" / f"model_ladder_{tag}.yaml", ModelConfig)
+            lmodel = megakernel_model(lcfg, "bfloat16", args.seed + 900)
+            starts = [2, 37, 300, lcfg.max_seq_len - 1]
+            mk_ladder[tag] = dict(megakernel_times(lmodel, 4, 1, "bfloat16", starts,
+                                                   args.seed + 925, iters=20),
+                                  starts=starts, n_layers=lcfg.n_layers, d_model=lcfg.d_model,
+                                  d_ff=lcfg.d_ff, head_dim=lcfg.head_dim, card=smi)
+            del lmodel
+            torch.cuda.empty_cache()
+        for tag, tm_ in (("flagship t1", mk_flag), ("flagship t4", mk_verify),
+                         ("ladder_350m t1", mk_ladder["350m"]), ("ladder_1b t1", mk_ladder["1b"])):
+            log(f"megakernel {tag} (B 4, bf16, bf16 KV): kernel_ms "
                 f"{tm_['ms']:.6f} wrapper_ms {tm_['wrapper_ms']:.6f} plain_ms {tm_['plain_ms']:.6f}"
                 + (f" per_layer_ms {tm_['per_layer_ms']:.6f} per_layer_wrapper_ms "
                    f"{tm_['per_layer_wrapper_ms']:.6f}" if "per_layer_ms" in tm_ else "")
-                + f" bound_ms {tm_['bound_ms']:.6f} ({tm_['bound_by']}, {tm_['bytes']} B) [{smi}]")
-        log(f"megakernel launch: {mk_grid} blocks of 256 threads, {mk_smem} B dynamic shared "
-            f"memory per block; library_ms null (no single PyTorch call computes a layer stack)")
-        del mk_models
-        torch.cuda.empty_cache()
+                + f" bound_ms {tm_['bound_ms']:.6f} ({tm_['bound_by']}, {tm_['bytes']} B; kernel "
+                f"{tm_['ms'] / tm_['bound_ms']:.2f}x the bound) [{smi}]")
+        log(f"megakernel launch: {mk_grid} blocks (one an SM) of 384 threads (8 consumer warps "
+            f"with 232 registers and a producer warpgroup with 40, by setmaxnreg), {mk_smem} B "
+            f"dynamic shared memory per block; library_ms null (no single PyTorch call computes "
+            f"a layer stack)")
+        for fn, counts in sorted(mk_sass.items()):
+            log(f"  SASS {fn}: {counts}")
+        mk_insts = [fn for fn in mk_sass if fn.startswith("fused_layers_kernel<")]
+        check(len(mk_insts) == len(decode_fused.KERNEL_HEAD_DIMS)
+              and sum(c["UBLKCP"] + c["UTMALDG"] for c in mk_sass.values()) > 0,
+              f"decode_fused: {len(mk_insts)} kernel instances, or no bulk copy in the SASS: "
+              f"{mk_sass}")
 
         # 9b. the megakernel's LoRA sites: rank 8 on all six sites (the adapter
         # block of finetune_lora.yaml), slots [0, 1, 2, 1] of a stack whose slot
@@ -2825,7 +2916,8 @@ def main() -> int:
             f"{mk_lora_t1['bytes']} B) [{smi}]")
         record["megakernel"] = dict(cases=mk_cases, flagship_t1=mk_flag, flagship_t4=mk_verify,
                                     lora_cases=mk_lora, flagship_t1_lora=mk_lora_t1,
-                                    grid=mk_grid, smem=mk_smem, ptxas=mk_ptxas, card=smi)
+                                    ladder=mk_ladder, grid=mk_grid, smem=mk_smem,
+                                    ptxas=mk_ptxas, sass=mk_sass, card=smi)
         del lora_models, model_l, stack
         torch.cuda.empty_cache()
 
@@ -3221,7 +3313,9 @@ def main() -> int:
             max_abs_err=max(c["max_abs_err"] for c in mk_cases),
             ms=mk_flag["ms"], plain_ms=mk_flag["plain_ms"], bound_ms=mk_flag["bound_ms"],
             bound_by=mk_flag["bound_by"], library_ms=None,
-            yardstick_per_layer_ms=mk_flag["per_layer_ms"],
+            yardstick_per_layer_ms=mk_flag["per_layer_ms"], t4_ms=mk_verify["ms"],
+            ladder_ms={tag: r["ms"] for tag, r in mk_ladder.items()},
+            ladder_bound_ms={tag: r["bound_ms"] for tag, r in mk_ladder.items()},
         ))
         kernels.append(dict(
             name="decode_fused_layers_lora", route="cuda",

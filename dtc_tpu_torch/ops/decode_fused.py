@@ -58,9 +58,9 @@ from dtc_tpu_torch.ops.decode_attention import (
     quantize_kv,
 )
 
-#: Head dims the megakernel is instantiated for (the decode-attention
-#: kernel's own set is wider; this one's growth is ROADMAP §B1).
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: Head dims the megakernel is instantiated for: the decode-attention and
+#: flash kernels' set.
+KERNEL_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 
 #: Widest speculative verify window served as one launch.
 SPEC_MAX_K = 8
@@ -344,17 +344,42 @@ def fused_layers(x: torch.Tensor, blocks, cache: dict, idx, lora: dict | None = 
         raise ValueError("lora_ids must be contiguous int32")
     if lora is not None and cfg.adapter.rank > LORA_MAX_RANK:
         raise ValueError(f"adapter rank {cfg.adapter.rank} above the kernel's {LORA_MAX_RANK}")
+    out = _launch(_library(cd, k.dtype), x, blocks, cache, idx, lora, lora_ids)
+    launches += 1
+    return out
+
+
+def scratch_floats(lib, cfg, b: int, t: int, cd: torch.dtype, kv: torch.dtype) -> int:
+    """Floats of scratch one launch of ``lib`` at these shapes needs (its
+    ``dtc_fused_layers_scratch_floats``); 0 at a head dim it has no
+    instance for."""
+    fn = lib.dtc_fused_layers_scratch_floats
+    fn.argtypes, fn.restype = [ctypes.c_int] * 9, ctypes.c_longlong
+    return fn(b, t, cfg.max_seq_len, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
+              _DTYPE_CODES[cd], _DTYPE_CODES[kv])
+
+
+def _launch(lib, x: torch.Tensor, blocks, cache: dict, idx, lora: dict | None = None,
+            lora_ids: torch.Tensor | None = None, n_scratch: int | None = None) -> torch.Tensor:
+    """One launch of ``lib``'s ``dtc_fused_layers`` on the current stream
+    (the arguments checked by :func:`fused_layers`): its scratch
+    (:func:`scratch_floats`, or ``n_scratch`` floats), the weight and LoRA
+    tables, the scales rounded to the compute dtype. Returns the output;
+    raises if the launch fails."""
     from dtc_tpu_torch.ops import _build
 
-    lib = _library(cd, k.dtype)
-    table = _weight_table(blocks, x.device)
+    cfg = blocks[0].cfg
+    cd = DTYPES[cfg.compute_dtype]
+    k, v, ks, vs = _split_cache(cache)
     b, t, dm = x.shape
-    start, per_row = _frontier(idx, b, x.device)
-    r = b * t
-    scratch = torch.empty(
-        64 + r * (dm + 3 * dm + dm + cfg.d_ff), dtype=torch.float32, device=x.device
-    )
+    if n_scratch is None:
+        n_scratch = scratch_floats(lib, cfg, b, t, cd, k.dtype)
+    if n_scratch <= 0:
+        raise ValueError(f"the megakernel library has no instance at head_dim {cfg.head_dim}")
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
+    table = _weight_table(blocks, x.device)
+    start, per_row = _frontier(idx, b, x.device)
     # The scales are rounded to the compute dtype first, as the reference's are.
     scale = float(torch.tensor(cfg.head_dim ** -0.5, dtype=cd))
     null = ctypes.c_void_p(0)
@@ -379,13 +404,13 @@ def fused_layers(x: torch.Tensor, blocks, cache: dict, idx, lora: dict | None = 
     )
     if rc != 0:
         raise RuntimeError(f"fused layers kernel launch failed: {_build.error_string(lib, rc)}")
-    launches += 1
     return out
 
 
 def kernel_config(cfg, kv_dtype: torch.dtype) -> tuple[int, int]:
-    """(blocks in the grid, dynamic shared memory bytes per block) that the
-    kernel takes for ``cfg``'s widths on the current CUDA device."""
+    """(blocks in the grid: one a streaming multiprocessor, dynamic shared
+    memory bytes per block) that the kernel takes for ``cfg`` on the
+    current CUDA device."""
     from dtc_tpu_torch.ops import _build
 
     cd = DTYPES[cfg.compute_dtype]

@@ -251,11 +251,11 @@ def test_split_faults_land_over_the_limit():
 
 
 def test_megakernel_keeps_its_own_head_dims():
-    """The decode-attention kernel takes the flash kernels' eight head dims;
-    the megakernel still has instances at four only, and its wrapper checks
-    its own tuple (on a CUDA tensor it raises ValueError at D 48: the GPU
+    """The decode-attention kernel and the megakernel both take the flash
+    kernels' eight head dims; the megakernel's wrapper checks its own tuple
+    (on a CUDA tensor it raises ValueError at any other head dim: the GPU
     tests hold that)."""
     from dtc_tpu_torch.ops import decode_fused
 
     assert tda.KERNEL_HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)
-    assert decode_fused.KERNEL_HEAD_DIMS == (16, 32, 64, 128)
+    assert decode_fused.KERNEL_HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)

@@ -45,11 +45,13 @@ TINY = dict(vocab_size=VOCAB, d_model=64, n_layers=4, n_heads=4, d_ff=128,
 _PAIRS = {}
 
 
-def _pair(compute="float32", kv="auto", backend="fused_layers"):
-    """The JAX and port models on the tiny config, same weights (cached)."""
-    key = (compute, kv, backend)
+def _pair(compute="float32", kv="auto", backend="fused_layers", dims=None):
+    """The JAX and port models on the tiny config (``dims`` overriding its
+    widths), same weights (cached)."""
+    key = (compute, kv, backend, tuple(sorted((dims or {}).items())))
     if key not in _PAIRS:
-        kw = dict(TINY, compute_dtype=compute, kv_cache_dtype=kv, decode_attention=backend)
+        kw = dict(TINY, compute_dtype=compute, kv_cache_dtype=kv, decode_attention=backend,
+                  **(dims or {}))
         jm = JGPT(JCfg(**kw))
         params = jm.init(
             {"params": jax.random.PRNGKey(0)}, jnp.ones((1, 1), jnp.int32), train=False
@@ -153,6 +155,46 @@ def test_fused_step_matches_jax_megakernel(compute, kv, t, start):
     else:
         for name in ("k", "v"):
             _assert_close(tc2[name].float().numpy(), _jax_kv(jc2, name), compute, heads=h)
+
+
+# (head dim, KV dtype, window t, frontier): bfloat16 compute over a bf16
+# and an int8 cache, t 1 and t 4, at two head dims the kernel's position
+# groups leave lanes idle at.
+_HEAD_DIM_CASES = [
+    (48, "int8", 1, [5, 31]),
+    (48, "auto", 4, [28, 3]),
+    (112, "auto", 1, [0, 17]),
+    (112, "int8", 4, [9, 28]),
+]
+
+
+@pytest.mark.parametrize("d,kv,t,start", _HEAD_DIM_CASES)
+def test_fused_step_matches_jax_megakernel_at_new_head_dims(d, kv, t, start):
+    """Head dims 48 and 112, the smallest model that takes the megakernel
+    there (2 heads, 2 layers, S 32), bfloat16: the plain version's logits
+    and caches against JAX's ``fused_decode_step`` (interpret mode), as
+    :func:`test_fused_step_matches_jax_megakernel`."""
+    dims = dict(d_model=2 * d, n_heads=2, n_layers=2, d_ff=4 * d)
+    jm, params, tm = _pair("bfloat16", kv, dims=dims)
+    assert jdecode_fused.supports_fused_layers(jm.cfg, t)
+    b = 2
+    rng = np.random.RandomState(d + t)
+    jc, tc = _filled_caches(jm, tm, b, rng)
+    idx = np.asarray(start, np.int32)
+    jc["index"] = jnp.asarray(idx)
+    tc["index"] = torch.from_numpy(idx.copy())
+    tok = rng.randint(0, VOCAB, size=(b, t)).astype(np.int32)
+    jc2, jl = jdecode_step(jm, params, jc, jnp.asarray(tok), spec_verify=t > 1)
+    tc2, tl = decode_step(tm, tc, torch.from_numpy(tok), spec_verify=t > 1)
+    jl = np.asarray(jl.astype(jnp.float32))
+    _assert_close(tl.float().numpy()[..., :VOCAB], jl[..., :VOCAB], "bfloat16")
+    for name in ("k", "v"):
+        if kv == "int8":
+            got = tc2[name].float() * tc2[f"{name}_scale"].repeat_interleave(d, dim=-1)
+            want = _jax_kv(jc2, name) * np.repeat(_jax_kv(jc2, f"{name}_scale"), d, axis=-1)
+            _assert_close(got.numpy(), want, "bfloat16", heads=2)
+        else:
+            _assert_close(tc2[name].float().numpy(), _jax_kv(jc2, name), "bfloat16", heads=2)
 
 
 @pytest.mark.parametrize("t", [1, 4])

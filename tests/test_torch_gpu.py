@@ -31,8 +31,18 @@ def _assert_close(got, want, h):
     assert ((got.float() - want.float()).abs() <= limit).all()
 
 
+@pytest.fixture(scope="session")
+def kernels_built():
+    """Every kernel library built once, all ``nvcc``s started together
+    (through ``load()`` each would build alone when a test first needs it)."""
+    if torch.cuda.is_available():
+        from dtc_tpu_torch.ops import _build
+
+        _build.build_all()
+
+
 @pytest.fixture
-def cuda():
+def cuda(kernels_built):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (and nvcc to build the kernel)")
     return torch.device("cuda")
@@ -763,21 +773,109 @@ def test_megakernel_rejects_bad_input(cuda):
         decode_fused.fused_layers(x.repeat(1, 9, 1), model.stage.blocks, cache, idx)
 
 
-def test_megakernel_refuses_a_head_dim_only_the_decode_kernel_has(cuda):
-    """Head dim 48: the decode-attention kernel takes it, the megakernel
-    has no instance and says so with its ValueError (its own tuple), before
-    any launch."""
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [48, 80, 96, 112])
+def test_megakernel_matches_plain_at_the_new_head_dims(cuda, d, compute, kv):
+    """Head dims 48, 80, 96 and 112 (a head row of 3, 5, 6, 7, 10, 12, 14,
+    20, 24 or 28 16-byte chunks leaves a position group's last lanes idle):
+    one launch, the residual and every cache entry against the plain
+    version, t 1 and a t 4 window, per-row frontiers from 0 to past S."""
     from dtc_tpu_torch.ops import decode_fused
 
-    model = _mk_model(cuda, 48, "bfloat16", "auto")
+    model = _mk_model(cuda, d, compute, kv)
+    s = model.cfg.max_seq_len
+    for t in (1, 4):
+        x, cache = _mk_inputs(model, 4, t, seed=d + t)
+        idx = torch.tensor([0, s - t, s + 5, 17], dtype=torch.int32, device=cuda)
+        before = decode_fused.launches
+        got, c_got = _mk_run(model, x, cache, idx, kernel=True)
+        assert decode_fused.launches == before + 1
+        want, c_want = _mk_run(model, x, cache, idx, kernel=False)
+        assert torch.isfinite(got.float()).all()
+        if compute == "float32" and kv != "float32":
+            # As test_megakernel_float32_compute_over_narrow_caches: a k or v
+            # within the sums' error of a rounding boundary of the narrow
+            # cache dtype rounds the other way.
+            diff = (got - want).abs().max().item()
+            assert diff <= 1e-3 * max(want.abs().max().item(), 1.0), diff
+            _mk_check_cache(c_got, c_want, "bfloat16", 4)
+        else:
+            _mk_assert_close(got, want, compute, f"out at t {t}")
+            _mk_check_cache(c_got, c_want, compute, 4)
+
+
+def test_megakernel_raises_at_a_head_dim_without_an_instance(cuda):
+    """Head dim 8 (no flash or decode kernel has it either): ValueError
+    before any launch."""
+    from dtc_tpu_torch.ops import decode_fused
+
+    model = _mk_model(cuda, 8, "bfloat16", "auto")
     x, cache = _mk_inputs(model, 2, 1, seed=2)
-    idx = torch.tensor(3, dtype=torch.int32, device=cuda)
     before = decode_fused.launches
-    with pytest.raises(ValueError, match="head_dim 48"):
-        decode_fused.fused_layers(x, model.stage.blocks, cache, idx)
+    with pytest.raises(ValueError, match="head_dim 8"):
+        decode_fused.fused_layers(x, model.stage.blocks, cache,
+                                  torch.tensor(3, dtype=torch.int32, device=cuda))
     assert decode_fused.launches == before
-    q, k, v, _ = _case(cuda, 2, 64, 4, 48, torch.bfloat16, "same")
-    da.fused_decode_attention(q, k, v, 5, h=4, d=48)
+
+
+@pytest.mark.parametrize("b,t", [(4, 8), (8, 8)])
+def test_megakernel_at_the_1b_ladders_d_ff(cuda, b, t):
+    """d_ff 8192 (the 1b ladder's: fc2 reads 16 K chunks, fc1's columns
+    fill several tiles a block) at R = B * t = 32 rows (one row block:
+    every weight byte read once) and 64 (two row blocks): the residual
+    and the caches against the plain version."""
+    import dataclasses
+
+    from dtc_tpu_torch.models.gpt import GPT
+
+    base = _mk_model(cuda, 64, "bfloat16", "auto")
+    model = GPT(dataclasses.replace(base.cfg, d_model=128, n_heads=2, d_ff=8192), device=cuda,
+                seed=12)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.ndim == 1:
+                p.add_(0.2 * torch.randn(p.shape, device=cuda, generator=g))
+    s = model.cfg.max_seq_len
+    x, cache = _mk_inputs(model, b, t, seed=14)
+    idx = torch.tensor(([0, s - t, s + 5, 17] * 2)[:b], dtype=torch.int32, device=cuda)
+    got, c_got = _mk_run(model, x, cache, idx, kernel=True)
+    want, c_want = _mk_run(model, x, cache, idx, kernel=False)
+    _mk_assert_close(got, want, "bfloat16", "out")
+    _mk_check_cache(c_got, c_want, "bfloat16", 2)
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_megakernel_graph_replay_equals_eager(cuda, kv):
+    """The kernel captured in a CUDA graph (its counter memset a node of
+    it) and replayed, also on another stream, gives the eager launch's bits,
+    residual and caches, at frontiers of one and of several splits."""
+    from dtc_tpu_torch.ops import decode_fused
+
+    model = _mk_model(cuda, 32, "bfloat16", kv, s=1024)
+    blocks = model.stage.blocks
+    x, cache = _mk_inputs(model, 4, 4, seed=21)
+    idx = torch.tensor([3, 300, 700, 1020], dtype=torch.int32, device=cuda)
+    eager, c_eager = _mk_run(model, x, cache, idx, kernel=True)
+    c_graph = {k: v.clone() for k, v in cache.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_fused.fused_layers(x, blocks, {k: v.clone() for k, v in cache.items()}, idx)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = decode_fused.fused_layers(x, blocks, c_graph, idx)
+    for stream in (torch.cuda.current_stream(), torch.cuda.Stream()):
+        for k, v in cache.items():
+            c_graph[k].copy_(v)
+        torch.cuda.synchronize()
+        with torch.cuda.stream(stream):
+            graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert all(torch.equal(c_graph[k], c_eager[k]) for k in c_eager)
 
 
 # --- the megakernel's LoRA sites (adapter serving) -------------------------
