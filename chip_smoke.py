@@ -44,7 +44,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    and 4.3 GB a row) and at shapes where the JAX package takes its
    transpose-layout kernels (rows 10-14: B 4, T 1024, 8 heads of 48, the
    call phase 8 trains with; B 2, T 1000, 3 heads of 32; bfloat16 and
-   float32): out,
+   float32) and at the calls of phases 21-22 (a TP 2 rank's: B 8, 8 heads
+   of 32; a PP 2 microbatch: B 4, 16 heads of 32; bfloat16): out,
    lse, dq, dk, dv within limits that scale with the values
    (``attention_tolerance`` / ``grad_tolerance``), planted faults (a causal
    mask one column off; delta dropped from the backward; delta read from
@@ -196,6 +197,28 @@ Phases (each prints its own lines; any failure exits non-zero):
     ``overlapped`` (a copy of the config adding it) inert: JAX's warning,
     no ring launch, the xla losses; ``log.csv`` from rank 0 in a fresh
     ``--output_dir``.
+21. Megatron tensor parallelism over 2 gloo ranks sharing the card
+    (``spawn_ranks``: ``chip_smoke.py --rank-worker DIR`` per rank with
+    torchrun's environment; NCCL refuses two ranks on one device): a
+    float32 dropout-0 run of 4 steps on ``train_config_tp.yaml`` within
+    1e-4 of one process (:func:`one_process_fp32`), then ``python -m
+    dtc_tpu_torch.main --train_config_path configs/train_config_tp.yaml
+    --dataset synthetic --no-obs --steps 30 --backend gloo --device cuda:0``
+    (8 heads of 32 a rank at B 8, 5 warmup steps): finite, falling bf16
+    losses, ``log.csv`` from rank 0, 12 forward and 24 backward flash
+    launches a rank a step, all "tc", the replicated parameters bit-equal
+    across the two ranks; step ms and peak memory a rank beside
+    ``train_memory_bytes(model 2)``, and the time of one float32
+    all-reduce of the activations over gloo.
+22. Pipeline parallelism over 2 gloo ranks sharing the card on
+    ``train_config_pp.yaml`` (2 microbatches of B 4, 6 layers a stage):
+    GPipe, 1F1B and 1F1B at V 2, each a float32 run within 1e-4 of one
+    process and a bf16 run of 5 + 30 steps through the CLI (finite and
+    falling, ``log.csv``); each stage's flash launches are the schedule's
+    forward slots from its table times its chunk's layers (twice that
+    backward), all "tc"; then PP 2 x TP 2 in float32 over 4 ranks. Every
+    time of phases 21-22 is of ranks sharing one card, not a multi-card
+    time.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -1977,7 +2000,7 @@ def fsdp_virtual(seed: int, ring: int = 4, steps32: int = 4, steps: int = 35,
     peak = torch.cuda.max_memory_allocated() - base
     sites = mcfg.n_layers * 6
     want = (steps * ring * sites * 2 * ring, steps * ring * sites * ring)
-    budget = train_memory_bytes(mcfg, tcfg.batch, mcfg.max_seq_len, ring, "fsdp")
+    budget = train_memory_bytes(mcfg, tcfg.batch, mcfg.max_seq_len, {"data": ring}, "fsdp")
     rec.update(losses=losses, launches=launches, routes=routes, launches_per_rank_step=(
         launches[0] // (steps * ring), launches[1] // (steps * ring)), step_ms=step_ms,
         step_ms_unsharded=plain_ms, peak_allocated=peak,
@@ -2074,6 +2097,339 @@ def fsdp_nccl_world1(steps: int, out_dir: str, device: str | None = None):
     alone = cli.main(["--train_config_path", str(configs["xla"]), *argv,
                       "--output_dir", str(base / "alone")])
     return runs, seen["backend"], alone
+
+
+# ---------------------------------------------------------------------------
+# phases 21-22: tensor and pipeline parallelism, ranks sharing one card
+# ---------------------------------------------------------------------------
+
+SHARED_CARD = "ranks sharing one card, not a multi-card time"
+
+
+def rank_worker(run_dir: str) -> int:
+    """One rank of phase 21 or 22 (``chip_smoke.py --rank-worker DIR``, run
+    by :func:`spawn_ranks` with torchrun's environment): joins the gloo
+    process group on the device ``DIR/spec.json`` names and runs its runs
+    in order, each either through ``python -m dtc_tpu_torch.main``'s
+    ``main(argv)`` (``argv``) or through ``train()`` on the named train
+    config and its siblings with fields replaced (``train_over``,
+    ``model_over``; synthetic data, no telemetry). The flash launch
+    counters are set to 0 just before each run and read just after. Writes
+    ``DIR/rank<RANK>.json``: per run the losses, elapsed times, launches
+    by kind and route, peak memory and whether the replicated parameters
+    are bit-equal across the model group; with ``allreduce_probe`` (a
+    shape) also the mean ms of one float32 all-reduce of that shape over
+    the world, as tensor parallelism's reductions run it."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from dtc_tpu_torch import main as cli
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.config.schema import MeshConfig
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.train.train_step import replicas_equal
+    from dtc_tpu_torch.train.trainer import train
+    from dtc_tpu_torch.utils import dist as dist_utils
+
+    out = Path(run_dir)
+    spec = json.loads((out / "spec.json").read_text())
+    dev = spec["device"]
+    cuda = dev.startswith("cuda")
+    dist_utils.initialize(dev, "gloo")
+    rank = dist_utils.rank()
+    records = []
+    for run in spec["runs"]:
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        zero_flash_counts()                          # this run's path starts here
+        if "argv" in run:
+            res = cli.main(run["argv"])
+        else:
+            tcfg, mcfg, ocfg = load_config(ROOT / run["train_config"])
+            over = dict(run.get("train_over", {}))
+            if "mesh" in over:
+                over["mesh"] = MeshConfig(**over["mesh"])
+            tcfg = dataclasses.replace(
+                tcfg, dataset="synthetic", obs=dataclasses.replace(tcfg.obs, enabled=False),
+                **over)
+            mcfg = dataclasses.replace(mcfg, **run.get("model_over", {}))
+            res = train(tcfg, mcfg, ocfg, device=dev, backend="gloo")
+        if cuda:
+            torch.cuda.synchronize()
+        launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+        routes = flash_routes()
+        tp = res.model.tp
+        records.append(dict(
+            name=run["name"], losses=res.losses, elapsed=res.elapsed_times,
+            launches=launches, routes=routes,
+            peak=(torch.cuda.max_memory_allocated() - base) if cuda else None,
+            replicas_equal=None if tp is None else replicas_equal(res.model, tp)))
+    probe = None
+    if spec.get("allreduce_probe"):
+        import torch.distributed as dist
+
+        x = torch.ones(spec["allreduce_probe"], device=dev)
+        for i in range(23):                           # 3 untimed, 20 timed
+            if i == 3:
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            dist.all_reduce(x)
+        if cuda:
+            torch.cuda.synchronize()
+        probe = (time.perf_counter() - t0) / 20 * 1e3
+    (out / f"rank{rank}.json").write_text(json.dumps(dict(
+        rank=rank, pid=os.getpid(), records=records, allreduce_ms=probe)))
+    dist_utils.teardown()
+    return 0
+
+
+def spawn_ranks(world: int, run_dir: Path, spec: dict, timeout: float = 900.0) -> list[dict]:
+    """Write ``spec`` into ``run_dir`` and run :func:`rank_worker` in
+    ``world`` processes (torchrun's environment: a free local port, every
+    rank on the spec's device). Every process is stopped before this
+    returns; a rank that fails fails the phase with the end of its log.
+    Returns each rank's record, in rank order."""
+    import os
+    import shutil
+
+    shutil.rmtree(run_dir, ignore_errors=True)  # an earlier run's log.csv is refused
+    run_dir.mkdir(parents=True)
+    (run_dir / "spec.json").write_text(json.dumps(spec))
+    port = str(_free_port())
+    procs, logs = [], []
+    try:
+        for rank in range(world):
+            logs.append(open(run_dir / f"rank{rank}.log", "w"))
+            env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                       LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=port,
+                       OMP_NUM_THREADS="2")
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-worker", str(run_dir)],
+                cwd=ROOT, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for rank, p in enumerate(procs):
+        tail = (run_dir / f"rank{rank}.log").read_text()[-4000:]
+        check(p.returncode == 0, f"{run_dir.name}: rank {rank} of {world} exited "
+              f"{p.returncode}:\n{tail}")
+    return [json.loads((run_dir / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def one_process_fp32(steps: int, device: str = "cuda") -> list[float]:
+    """The flagship (``train_config_dp.yaml``'s batch 8 and seed 0) trained
+    in this process, float32 at dropout 0, ``steps`` steps without warmup:
+    the losses phases 21-22 hold their float32 runs to."""
+    import dataclasses
+
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.train.trainer import train
+
+    tcfg, mcfg, ocfg = load_config(ROOT / "configs" / "train_config_dp.yaml")
+    tcfg = dataclasses.replace(tcfg, **FP32_TRAIN, dataset="synthetic", steps=steps,
+                               obs=dataclasses.replace(tcfg.obs, enabled=False))
+    return train(tcfg, dataclasses.replace(mcfg, **FP32_MODEL), ocfg, device=device).losses
+
+
+#: The float32 comparison runs of phases 21-22: no warmup, a loss a step,
+#: no log.csv; float32 compute at dropout 0.
+FP32_TRAIN = dict(warmup_steps=0, log_every=1, output_dir="")
+FP32_MODEL = dict(dropout=0.0, compute_dtype="float32")
+
+
+def step_ms(elapsed) -> float:
+    """Median of the differences of a run's cumulative elapsed times."""
+    steps = sorted(b - a for a, b in zip([0.0] + list(elapsed[:-1]), elapsed))
+    return steps[len(steps) // 2] * 1e3
+
+
+def check_parallel_run(what: str, ranks: list[dict], name: str, want_losses, n_steps: int,
+                       fwd_per_step: list[int], dtype: str, rows_dir: Path | None):
+    """Phase 21-22's gates on one run of every rank: the same losses on
+    every rank; float32 within 1e-4 of ``want_losses``, bf16 finite with
+    the last-5 mean below the first-5; each rank's flash launches
+    ``fwd_per_step[rank] x n_steps`` forward and twice that backward (dq,
+    dk/dv), all on ``dtype``'s route; ``log.csv`` (bf16) from rank 0 with
+    one row per timed step; the replicated parameters bit-equal across
+    each model group. Returns the launches and routes by rank."""
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    recs = [next(r for r in rank["records"] if r["name"] == name) for rank in ranks]
+    losses = recs[0]["losses"]
+    check(all(r["losses"] == losses for r in recs), f"{what}: ranks logged different losses "
+          f"{[r['losses'] for r in recs]}")
+    if want_losses is not None:
+        gap = max(abs(a - b) for a, b in zip(losses, want_losses))
+        log(f"{what}: float32 losses {losses} vs one process {want_losses} (gap {gap:.3e}, "
+            f"limit 1e-4)")
+        check(len(losses) == len(want_losses) and gap <= 1e-4,
+              f"{what}: losses {losses} vs one process {want_losses}")
+    else:
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        check(all(math.isfinite(v) for v in losses) and last < first,
+              f"{what}: losses not finite or not falling {losses}")
+    route = "tc" if dtype == "bfloat16" else "fma"
+    for rank, r in enumerate(recs):
+        want = fwd_per_step[rank] * n_steps
+        check(tuple(r["launches"]) == (want, want * fa.BWD_KERNELS),
+              f"{what}: rank {rank} flash launches {r['launches']}, want "
+              f"({want}, {want * fa.BWD_KERNELS})")
+        for kind in ("fwd", "dq", "dkv"):
+            check(r["routes"][kind].get(route, 0) == want and sum(r["routes"][kind].values())
+                  == want, f"{what}: rank {rank} {kind} launches by route {r['routes'][kind]}")
+        check(r["replicas_equal"] in (None, True),
+              f"{what}: rank {rank}'s replicated parameters differ across its model group")
+    if rows_dir is not None:
+        rows = (rows_dir / "log.csv").read_text().splitlines()
+        check(rows[0] == "step,elapsed_time,loss" and len(rows) == len(losses) + 1,
+              f"{what}: log.csv {rows[:3]}... ({len(rows)} lines)")
+    return dict(losses=losses, launches=[r["launches"] for r in recs],
+                routes=[r["routes"] for r in recs], peak=[r["peak"] for r in recs],
+                step_ms=[step_ms(r["elapsed"]) for r in recs],
+                replicas_equal=[r["replicas_equal"] for r in recs])
+
+
+def tensor_parallel_phase(ref32, smi: str, device: str = "cuda", bf16_steps: int = 30):
+    """Phase 21: ``python -m dtc_tpu_torch.main --train_config_path
+    configs/train_config_tp.yaml --dataset synthetic --no-obs --backend
+    gloo --device cuda:0`` over 2 ranks on one card (TP 2: 8 heads of 32 a
+    rank at B 8), after a float32 dropout-0 run of 4 steps held to one
+    process. Returns the phase's record."""
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.utils.metrics import train_memory_bytes
+
+    run_dir = ROOT / "build" / "chip_smoke_tp"
+    dev = "cuda:0" if device == "cuda" else device
+    tcfg, mcfg, _ = load_config(ROOT / "configs" / "train_config_tp.yaml")
+    runs = [
+        dict(name="fp32", train_config="configs/train_config_tp.yaml",
+             train_over=dict(FP32_TRAIN, steps=len(ref32)), model_over=FP32_MODEL),
+        dict(name="bf16", argv=[
+            "--train_config_path", str(ROOT / "configs" / "train_config_tp.yaml"),
+            "--dataset", "synthetic", "--no-obs", "--steps", str(bf16_steps),
+            "--output_dir", str(run_dir / "bf16"), "--backend", "gloo", "--device", dev]),
+    ]
+    ranks = spawn_ranks(2, run_dir, {"device": dev, "runs": runs, "allreduce_probe": [
+        tcfg.batch, mcfg.max_seq_len, mcfg.d_model]})
+    per_step = [mcfg.n_layers] * 2
+    rec = dict(ranks=2, mesh=dict(pipe=1, data=1, model=2), card=smi)
+    rec["fp32"] = check_parallel_run("phase 21 TP 2 float32", ranks, "fp32", ref32, len(ref32),
+                                     per_step, "float32", None)
+    n = bf16_steps + tcfg.warmup_steps
+    rec["bf16"] = check_parallel_run("phase 21 TP 2 bf16", ranks, "bf16", None, n, per_step,
+                                     mcfg.compute_dtype, run_dir / "bf16")
+    budget = train_memory_bytes(mcfg, tcfg.batch, mcfg.max_seq_len, {"model": 2}, "dp")
+    rec["train_memory_bytes"] = budget["total"]
+    rec["allreduce_ms"] = [r["allreduce_ms"] for r in ranks]
+    b = rec["bf16"]
+    log(f"phase 21 TP 2 (train_config_tp.yaml, {mcfg.n_heads // 2} heads of {mcfg.head_dim} a "
+        f"rank, B {tcfg.batch}): bf16 "
+        f"losses {b['losses'][0]:.4f} -> {b['losses'][-1]:.4f} over {bf16_steps} steps after "
+        f"{tcfg.warmup_steps} warmup; flash launches a rank {b['launches']} (12 forward and 24 "
+        f"backward a step, all tc); replicated parameters bit-equal {b['replicas_equal']}; "
+        f"step_ms median by rank {[round(v, 3) for v in b['step_ms']]}; peak allocated by "
+        f"rank {b['peak']} B, train_memory_bytes(model 2) {budget['total']:.0f} B a rank; one "
+        f"float32 all-reduce of the ({tcfg.batch}, {mcfg.max_seq_len}, {mcfg.d_model}) "
+        f"activations over gloo {[round(v, 3) for v in rec['allreduce_ms']]} ms by rank "
+        f"({4 * mcfg.n_layers} of them a step) [{smi}; {SHARED_CARD}]")
+    return rec
+
+
+def pipeline_phase(ref32, smi: str, device: str = "cuda", bf16_steps: int = 30):
+    """Phase 22: ``configs/train_config_pp.yaml`` (2 stages, 2 microbatches
+    of B 4, 6 layers a stage) over 2 ranks on one card under GPipe (as
+    ``python -m dtc_tpu_torch.main --train_config_path ... --backend gloo``
+    runs it), 1F1B and interleaved 1F1B (V 2; the config with
+    ``pp_schedule`` / ``pp_virtual_stages`` appended), each after a float32
+    dropout-0 run of 4 steps held to one process; then PP 2 x TP 2 in
+    float32 over 4 ranks. Each stage's flash launches are the schedule's
+    forward slots (from its table) x its chunk's layers. Returns the
+    phase's record."""
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.parallel.pipeline import forward_slots, schedule_rows
+    from dtc_tpu_torch.utils.metrics import train_memory_bytes
+
+    run_dir = ROOT / "build" / "chip_smoke_pp"
+    dev = "cuda:0" if device == "cuda" else device
+    cfg_path = ROOT / "configs" / "train_config_pp.yaml"
+    tcfg, mcfg, _ = load_config(cfg_path)
+    schedules = (("gpipe", {}), ("1f1b", dict(pp_schedule="1f1b")),
+                 ("1f1b_v2", dict(pp_schedule="1f1b", pp_virtual_stages=2)))
+    copies = ROOT / "build" / "chip_smoke_pp_configs"
+    copies.mkdir(parents=True, exist_ok=True)
+    runs = []
+    for name, over in schedules:
+        path = cfg_path
+        if over:
+            path = copies / f"train_config_pp_{name}.yaml"
+            path.write_text(cfg_path.read_text() + "".join(
+                f"\n{k}: {v}" for k, v in over.items()) + "\n")
+        runs.append(dict(name=f"{name}_fp32", train_config="configs/train_config_pp.yaml",
+                         train_over=dict(FP32_TRAIN, steps=len(ref32), **over),
+                         model_over=FP32_MODEL))
+        runs.append(dict(name=f"{name}_bf16", argv=[
+            "--train_config_path", str(path),
+            "--model_config_path", str(ROOT / "configs" / "model_config.yaml"),
+            "--optim_config_path", str(ROOT / "configs" / "optim_config.yaml"),
+            "--dataset", "synthetic", "--no-obs", "--steps", str(bf16_steps),
+            "--output_dir", str(run_dir / name), "--backend", "gloo", "--device", dev]))
+    ranks = spawn_ranks(2, run_dir, {"device": dev, "runs": runs})
+    rec = dict(ranks=2, mesh=dict(pipe=2, data=1, model=1), card=smi)
+    budget = train_memory_bytes(mcfg, tcfg.batch, mcfg.max_seq_len, {"pipe": 2}, "pp")
+    rec["train_memory_bytes"] = budget["total"]
+    for name, over in schedules:
+        virtual = over.get("pp_virtual_stages", 1)
+        rows = schedule_rows(over.get("pp_schedule", "gpipe"), tcfg.pp_microbatches, 2, virtual)
+        layers = mcfg.n_layers // (2 * virtual)
+        per_step = [forward_slots(rows, s) * layers for s in range(2)]
+        what = f"phase 22 PP 2 {name}"
+        r32 = check_parallel_run(f"{what} float32", ranks, f"{name}_fp32", ref32, len(ref32),
+                                 per_step, "float32", None)
+        n = bf16_steps + tcfg.warmup_steps
+        r16 = check_parallel_run(f"{what} bf16", ranks, f"{name}_bf16", None, n, per_step,
+                                 mcfg.compute_dtype, run_dir / name)
+        rec[name] = dict(fp32=r32, bf16=r16, ticks=len(rows), launches_per_stage_step=per_step)
+        log(f"{what} (2 microbatches of B {tcfg.batch // tcfg.pp_microbatches}, "
+            f"{mcfg.n_layers // 2} layers a stage, {virtual} chunk(s) a stage, {len(rows)} "
+            f"ticks): bf16 losses {r16['losses'][0]:.4f} -> {r16['losses'][-1]:.4f} over "
+            f"{bf16_steps} steps; flash forward launches a stage a step {per_step} (the "
+            f"table's), totals by stage {r16['launches']}, all tc; step_ms median by stage "
+            f"{[round(v, 3) for v in r16['step_ms']]}; peak allocated by stage {r16['peak']} B, "
+            f"train_memory_bytes(pipe 2) {budget['total']:.0f} B a stage [{smi}; {SHARED_CARD}]")
+    # PP 2 x TP 2: four ranks, float32
+    both_dir = ROOT / "build" / "chip_smoke_pp_tp"
+    mesh = dict(pipe=2, data=1, model=2)
+    spec = {"device": dev, "runs": [dict(
+        name="fp32", train_config="configs/train_config_pp.yaml",
+        train_over=dict(FP32_TRAIN, steps=len(ref32), parallel="3d", mesh=mesh),
+        model_over=FP32_MODEL)]}
+    ranks4 = spawn_ranks(4, both_dir, spec)
+    rows = schedule_rows("gpipe", tcfg.pp_microbatches, 2)
+    per_step = [forward_slots(rows, r // 2) * (mcfg.n_layers // 2) for r in range(4)]
+    rec["pp_tp"] = check_parallel_run("phase 22 PP 2 x TP 2 float32", ranks4, "fp32", ref32,
+                                      len(ref32), per_step, "float32", None)
+    rec["pp_tp"].update(mesh=mesh, train_memory_bytes=train_memory_bytes(
+        mcfg, tcfg.batch, mcfg.max_seq_len, mesh, "3d")["total"])
+    log(f"phase 22 PP 2 x TP 2 (4 ranks, {mcfg.n_heads // 2} heads of {mcfg.head_dim} a rank, "
+        f"{mcfg.n_layers // 2} layers a stage): float32 "
+        f"losses equal one process's within 1e-4; flash launches by rank "
+        f"{rec['pp_tp']['launches']}; step_ms median by rank "
+        f"{[round(v, 3) for v in rec['pp_tp']['step_ms']]}; peak allocated by rank "
+        f"{rec['pp_tp']['peak']} B, train_memory_bytes(pipe 2, model 2) "
+        f"{rec['pp_tp']['train_memory_bytes']:.0f} B a rank [{smi}; {SHARED_CARD}]")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2532,7 +2888,12 @@ def main() -> int:
                         "training steps (device busy share), the latter alone, "
                         "over NCCL at world size 1 and under FSDP over 4 virtual "
                         "ranks as well")
+    p.add_argument("--rank-worker", default="", metavar="DIR",
+                   help=argparse.SUPPRESS)  # one rank of phases 21-22 (spawn_ranks)
     args = p.parse_args()
+    if args.rank_worker:
+        sys.path.insert(0, str(ROOT))
+        return rank_worker(args.rank_worker)
 
     try:
         import torch
@@ -2714,6 +3075,10 @@ def main() -> int:
             ("fp32_d48", 4, 1024, 8, 48, "float32"),
             ("bf16_h3", 2, 1000, 3, 32, "bfloat16"),
             ("fp32_h3", 2, 1000, 3, 32, "float32"),
+            # a rank's call under TP 2 (phase 21) and a stage's microbatch
+            # under PP 2 (phase 22)
+            ("bf16_tp2", 8, 512, 8, 32, "bfloat16"),
+            ("bf16_pp2", 4, 512, 16, 32, "bfloat16"),
         ]
         flash = [
             flash_case(name, b, t, h, d, dt, seed=args.seed + 100 + i, iters=50)
@@ -3274,6 +3639,13 @@ def main() -> int:
             f"This proves the process group, the gathers and reduce-scatters and rank-0 "
             f"logging on one card, not several cards [{smi}]")
 
+        # 21-22. tensor and pipeline parallelism over gloo ranks sharing the
+        # card, each rank's flash kernels on its heads / its stage's layers
+        ref32 = one_process_fp32(4)
+        record["one_process_fp32"] = ref32
+        record["tp"] = tensor_parallel_phase(ref32, smi)
+        record["pp"] = pipeline_phase(ref32, smi)
+
         main = results[0]
         kernels = [dict(
             name="decode_attention", route="cuda",
@@ -3301,6 +3673,14 @@ def main() -> int:
                 ms=fl[f"{part}_ms"], plain_ms=fl[f"plain_{part}_ms"],
                 bound_ms=fl[f"{part}_bound_ms"], bound_by=fl[f"{part}_bound_by"],
                 library_ms=fl[f"library_{part}_ms"], plan_route="tc", route_launches=routes,
+                launches_tp2=[n[part == "bwd"] for n in record["tp"]["bf16"]["launches"]],
+                **{f"{c['case'][5:]}_{key}": c[src] for c in flash
+                   if c["case"] in ("bf16_tp2", "bf16_pp2")
+                   for key, src in (("ms", f"{part}_ms"), ("bound_ms", f"{part}_bound_ms"),
+                                    ("plain_ms", f"plain_{part}_ms"),
+                                    ("library_ms", f"library_{part}_ms"))},
+                launches_pp2={name: [n[part == "bwd"] for n in record["pp"][name]["bf16"][
+                    "launches"]] for name in ("gpipe", "1f1b", "1f1b_v2")},
                 **({"dq_ms": fl["dq_ms"], "dkv_ms": fl["dkv_ms"],
                     "dq_bound_ms": fl["dq_bound_ms"], "dq_route_launches": routes7["dq"]}
                    if part == "bwd" else {}),

@@ -10,6 +10,10 @@ gloo with ``--device cpu``)::
     torchrun --nproc_per_node N -m dtc_tpu_torch.main --train_config_path ... \
         --dataset synthetic --no-obs --output_dir DIR
 
+``--backend gloo --device cuda:0`` runs every rank on one card (NCCL refuses
+two ranks on one device); the mesh (``parallel``, ``mesh``) picks data,
+tensor or pipeline parallelism as in the JAX package.
+
 The model and optim configs default to the train config's siblings. Runs on
 ``cuda`` unless ``--device`` names another device. ``--output_dir``
 overrides the config's: the trainer refuses to overwrite an existing
@@ -42,6 +46,9 @@ def main(argv: list[str] | None = None):
                    help="force the telemetry subsystem off")
     p.add_argument("--output_dir", default=None, help="override output_dir (log.csv)")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend under torchrun (default: nccl on cards, "
+                        "gloo on the CPU; gloo runs several ranks on one card)")
     args = p.parse_args(argv)
 
     train_cfg, model_cfg, opt_cfg = load_config(
@@ -57,7 +64,7 @@ def main(argv: list[str] | None = None):
         train_cfg = replace(train_cfg, obs=replace(train_cfg.obs, enabled=args.obs))
     if os.environ.get("RANK", "0") == "0":
         print(f"Running `{train_cfg.parallel}` on {args.device or 'cuda'}.")
-    return train(train_cfg, model_cfg, opt_cfg, device=args.device)
+    return train(train_cfg, model_cfg, opt_cfg, device=args.device, backend=args.backend)
 
 
 if __name__ == "__main__":

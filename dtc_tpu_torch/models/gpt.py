@@ -35,6 +35,22 @@ residual ops but neither the flash forward nor the q/k/v projections;
 the forward's dropout masks and leaves the generator where the forward
 left it: a remat mode gives the same bits as ``none``.
 
+Tensor parallelism (``tp``, a
+:class:`~dtc_tpu_torch.parallel.tensor.TensorParallel` over the mesh's
+model group): a rank holds its slice of every column-parallel site (q, k,
+v and fc1: ``n_heads / model`` heads, ``d_ff / model`` hidden units),
+row-parallel site (out_proj and fc2: the same slice of their contraction,
+the whole bias) and of the vocab-parallel head, and the rest whole. The
+attention and MLP take their input through ``copy_to_model``, a
+row-parallel product is reduced over the group before its bias, and the
+flash kernels run on the rank's heads. Pipeline parallelism (``stage``, a
+:class:`~dtc_tpu_torch.parallel.pipeline.StageLayout`): the model holds the
+layers of its stage's chunks (chunk ``c = v·S + s`` on stage ``s``), the
+embedding only on the first stage and the head only on the last, and the
+pipeline step drives :meth:`GPT.embed`, :meth:`GPT.run_chunk` and
+:meth:`GPT.head` itself. Either way the parameters are the one-process
+model's, drawn whole from the seed and sliced.
+
 FSDP (``parallel: fsdp``, :mod:`dtc_tpu_torch.parallel.fsdp`): under an
 FSDP state a rank's parameters may be shards; every module reads a
 parameter through ``fsdp.full`` where it uses it, and the dense sites
@@ -74,6 +90,7 @@ from dtc_tpu_torch.ops.attention import causal_attention, decode_attention
 from dtc_tpu_torch.ops.fused_ce import fused_head_ce, head_logits
 from dtc_tpu_torch.ops.overlap_collectives import overlap_dense_matmul
 from dtc_tpu_torch.parallel import fsdp
+from dtc_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 DTYPES = {
     "float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -216,16 +233,27 @@ class Dense(nn.Module):
     ``collectives: overlapped`` with an FSDP ring in scope
     (:func:`~dtc_tpu_torch.parallel.fsdp.overlap_ring`) the product runs
     through :func:`overlap_dense_matmul` on this rank's shard of the
-    weight; otherwise the weight is used whole (all-gathered under FSDP)."""
+    weight; otherwise the weight is used whole (all-gathered under FSDP).
+
+    ``tp``: under tensor parallelism the site holds its slice over the
+    model group. The sites of ``shard_axis`` 0 are column-parallel (a
+    slice of the outputs and of the bias), those of 1 row-parallel (a
+    slice of the contraction; the partial product is reduced over the
+    group before the whole bias is added)."""
 
     def __init__(self, d_in: int, d_out: int, cfg: ModelConfig, device=None,
-                 shard_axis: int = 0):
+                 shard_axis: int = 0, tp=None):
         super().__init__()
         pdt = DTYPES[cfg.param_dtype]
         self.cdtype = DTYPES[cfg.compute_dtype]
         self.lora_scale = lora_scale(cfg)
         self.shard_axis = shard_axis
         self.overlapped = cfg.collectives == "overlapped"
+        self.tp = tp
+        if tp is not None and shard_axis == 0:
+            d_out = tp.part(d_out, "a column-parallel site's outputs")
+        elif tp is not None:
+            d_in = tp.part(d_in, "a row-parallel site's inputs")
         self.weight = nn.Parameter(torch.empty(d_out, d_in, dtype=pdt, device=device))
         self.bias = nn.Parameter(torch.zeros(d_out, dtype=pdt, device=device))
 
@@ -237,6 +265,8 @@ class Dense(nn.Module):
         else:
             y = overlap_dense_matmul(x.to(cd), self.weight.to(cd).t(),
                                      shard_axis=self.shard_axis, ring=ring)
+        if self.shard_axis == 1:
+            y = reduce_from_model(y, self.tp)
         y = y + fsdp.full(self.bias).to(cd)
         return y if lora is None else apply_lora(y, x, lora, self.lora_scale)
 
@@ -259,14 +289,16 @@ def _cache_write(buf: torch.Tensor, update: torch.Tensor, idx: torch.Tensor) -> 
 
 
 class CausalSelfAttention(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
+        self.n_heads = cfg.n_heads if tp is None else tp.part(cfg.n_heads, "n_heads")
         d = cfg.d_model
-        self.q_proj = Dense(d, d, cfg, device)
-        self.k_proj = Dense(d, d, cfg, device)
-        self.v_proj = Dense(d, d, cfg, device)
-        self.out_proj = Dense(d, d, cfg, device, shard_axis=1)
+        self.q_proj = Dense(d, d, cfg, device, tp=tp)
+        self.k_proj = Dense(d, d, cfg, device, tp=tp)
+        self.v_proj = Dense(d, d, cfg, device, tp=tp)
+        self.out_proj = Dense(d, d, cfg, device, shard_axis=1, tp=tp)
 
     def forward(self, x: torch.Tensor, cache: dict | None = None,
                 layer: int = 0, idx: torch.Tensor | None = None,
@@ -277,8 +309,9 @@ class CausalSelfAttention(nn.Module):
         cfg = self.cfg
         lora = lora or {}
         b, t, _ = x.shape
-        h, dh = cfg.n_heads, cfg.head_dim
+        h, dh = self.n_heads, cfg.head_dim
         hd = h * dh
+        x = copy_to_model(x, self.tp)
         q = self.q_proj(x, lora.get("q_proj"))
         k = self.k_proj(x, lora.get("k_proj"))
         v = self.v_proj(x, lora.get("v_proj"))
@@ -319,17 +352,19 @@ class CausalSelfAttention(nn.Module):
                     q.view(b, t, h, dh), k_full.view(b, s, h, dh),
                     v_full.view(b, s, h, dh), idx,
                 )
-        return out.reshape(b, t, cfg.d_model)
+        return out.reshape(b, t, hd)
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, tp=None):
         super().__init__()
-        self.fc1 = Dense(cfg.d_model, cfg.d_ff, cfg, device)
-        self.fc2 = Dense(cfg.d_ff, cfg.d_model, cfg, device, shard_axis=1)
+        self.tp = tp
+        self.fc1 = Dense(cfg.d_model, cfg.d_ff, cfg, device, tp=tp)
+        self.fc2 = Dense(cfg.d_ff, cfg.d_model, cfg, device, shard_axis=1, tp=tp)
 
     def forward(self, x: torch.Tensor, lora: dict | None = None) -> torch.Tensor:
         lora = lora or {}
+        x = copy_to_model(x, self.tp)
         h = F.gelu(self.fc1(x, lora.get("fc1")), approximate="tanh")
         return self.fc2(h, lora.get("fc2"))
 
@@ -339,14 +374,14 @@ class Block(nn.Module):
     In training with gradients, ``cfg.remat_mode`` picks what is recomputed
     in the backward (see the module docstring)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, tp=None):
         super().__init__()
         self.cfg = cfg
         self.cdtype = DTYPES[cfg.compute_dtype]
         self.ln_1 = LayerNorm(cfg.d_model, device)
-        self.attn = CausalSelfAttention(cfg, device)
+        self.attn = CausalSelfAttention(cfg, device, tp)
         self.ln_2 = LayerNorm(cfg.d_model, device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MLP(cfg, device, tp)
 
     def forward(self, x, *, train: bool = False, gen=None, cache=None, layer: int = 0,
                 idx=None, lora: dict | None = None):
@@ -416,9 +451,9 @@ class GPTEmbed(nn.Module):
 
 
 class GPTStage(nn.Module):
-    def __init__(self, cfg: ModelConfig, n_layers: int, device=None):
+    def __init__(self, cfg: ModelConfig, n_layers: int, device=None, tp=None):
         super().__init__()
-        self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, device, tp) for _ in range(n_layers))
 
     def forward(self, h, *, train: bool = False, gen=None, cache=None, idx=None,
                 lora: dict | None = None, lora_ids: torch.Tensor | None = None):
@@ -430,28 +465,35 @@ class GPTStage(nn.Module):
 
 
 class GPTHead(nn.Module):
-    """Final LayerNorm + LM head; weight ``(V_padded, d)``. With targets it
+    """Final LayerNorm + LM head; weight ``(V_padded, d)`` (under ``tp``
+    this rank's ``V_padded / model`` rows: vocab-parallel). With targets it
     returns the mean cross entropy through :func:`fused_head_ce`."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         pdt = DTYPES[cfg.param_dtype]
+        v = cfg.padded_vocab_size
+        if tp is not None:
+            v = tp.part(v, "the padded vocab")
         self.ln_f = LayerNorm(cfg.d_model, device)
         self.lm_head = nn.Module()
         self.lm_head.weight = nn.Parameter(
-            torch.empty(cfg.padded_vocab_size, cfg.d_model, dtype=pdt, device=device)
+            torch.empty(v, cfg.d_model, dtype=pdt, device=device)
         )
-        self.lm_head.bias = nn.Parameter(
-            torch.zeros(cfg.padded_vocab_size, dtype=pdt, device=device)
-        )
+        self.lm_head.bias = nn.Parameter(torch.zeros(v, dtype=pdt, device=device))
 
     def forward(self, h: torch.Tensor, targets: torch.Tensor | None = None) -> torch.Tensor:
         hc = self.ln_f(h).to(DTYPES[self.cfg.compute_dtype])
         w, b = fsdp.full(self.lm_head.weight), fsdp.full(self.lm_head.bias)
         v = self.cfg.vocab_size
         if targets is not None:
-            return fused_head_ce(hc, w, b, targets, v)
+            return fused_head_ce(copy_to_model(hc, self.tp), w, b, targets, v, self.tp)
+        if self.tp is not None:
+            raise NotImplementedError(
+                "logits under tensor parallelism (the vocab-parallel head serves the "
+                "training loss only)")
         return head_logits(hc, w, b, v)
 
 
@@ -461,28 +503,60 @@ class GPT(nn.Module):
     generator seeded by ``seed``. With ``adapter.rank > 0`` it serves LoRA
     factors passed per call (the adapter parameters are not part of the
     module). Mixture-of-experts is not ported yet and raises
-    ``NotImplementedError``."""
+    ``NotImplementedError``. ``tp`` / ``stage``: this rank's slice under
+    tensor parallelism and its stage under pipeline parallelism (see the
+    module docstring); the parameters are the whole model's for ``seed``,
+    sliced."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0, tp=None,
+                 stage=None):
         super().__init__()
         if cfg.moe_experts > 0:
             raise NotImplementedError("mixture-of-experts is not ported yet")
         dev = resolve_device(device)
         self.cfg = cfg
-        self.embed = GPTEmbed(cfg, dev)
-        self.stage = GPTStage(cfg, cfg.n_layers, dev)
-        self.head = GPTHead(cfg, dev)
+        self.tp = tp
+        self.layout = stage
+        n_local = cfg.n_layers if stage is None else len(stage.layers(cfg.n_layers))
+        self.embed = GPTEmbed(cfg, dev) if stage is None or stage.first else None
+        self.stage = GPTStage(cfg, n_local, dev, tp)
+        self.head = GPTHead(cfg, dev, tp) if stage is None or stage.last else None
         self.reset_parameters(seed)
 
     @property
     def device(self) -> torch.device:
-        return self.head.lm_head.weight.device
+        return self.stage.blocks[0].ln_1.weight.device
+
+    @property
+    def sharded(self) -> bool:
+        """Does this model hold a slice of the whole (a tensor-parallel
+        rank's, or a pipeline stage's)?"""
+        return self.tp is not None or self.layout is not None
+
+    def local_state(self, state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """This model's part of a whole model's ``state_dict``: its stage's
+        layers (renumbered), the embedding and head where it holds them,
+        each tensor-parallel parameter's slice."""
+        from dtc_tpu_torch import parity
+
+        if self.layout is not None:
+            lay = self.layout
+            state = parity.pp_stage(state, lay.stage, lay.stages, lay.virtual)
+        if self.tp is not None:
+            state = parity.tp_shards(state, self.tp.index, self.tp.size)
+        return state
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
         """flax's initializers: Dense kernels ``lecun_normal``, biases and
         LayerNorm biases zero, LayerNorm scales one, embeddings normal
-        with std 1/sqrt(d_model)."""
+        with std 1/sqrt(d_model). A sharded model draws the whole model on
+        its device and keeps its slice, so it starts from the one-process
+        model's weights bit for bit."""
+        if self.sharded:
+            whole = GPT(self.cfg, device=self.device, seed=seed)
+            self.load_state_dict(self.local_state(whole.state_dict()))
+            return
         gen = torch.Generator(device=self.device).manual_seed(seed)
         std = 1.0 / math.sqrt(self.cfg.d_model)
         for emb in (self.embed.wte, self.embed.wpe):
@@ -512,6 +586,11 @@ class GPT(nn.Module):
         inference only."""
         if lora is not None and train:
             raise NotImplementedError("LoRA finetuning is not ported yet")
+        if self.layout is not None:
+            raise ValueError("a pipeline stage runs through the pipeline step "
+                             "(dtc_tpu_torch.parallel.pipeline), not GPT.forward")
+        if self.tp is not None and (cache is not None or lora is not None):
+            raise NotImplementedError("decode and LoRA under tensor parallelism")
         if cache is None:
             # Under ring attention a rank holds one sequence shard.
             ring = self.cfg.attention == "ring"
@@ -523,6 +602,18 @@ class GPT(nn.Module):
         h = self.embed(x, train=False, pos_offset=idx)
         h = self.stage(h, cache=cache, idx=idx, lora=lora, lora_ids=lora_ids)
         return self.head(h), idx + x.shape[1]
+
+    def run_chunk(self, v: int, h: torch.Tensor, *, train: bool = False,
+                  gen: torch.Generator | None = None) -> torch.Tensor:
+        """The layers of this stage's ``v``-th chunk (all of them without a
+        pipeline layout) on the residual stream ``h``."""
+        blocks = self.stage.blocks
+        if self.layout is not None:
+            per = len(blocks) // self.layout.virtual
+            blocks = blocks[v * per:(v + 1) * per]
+        for blk in blocks:
+            h = blk(h, train=train, gen=gen)
+        return h
 
 
 def param_count(cfg: ModelConfig) -> int:

@@ -4,13 +4,17 @@ port's counterpart of the JAX package's ``parallel/mesh.py``.
 :func:`resolve_mesh_shape` is the JAX package's, with its validation and
 messages. :class:`Mesh` places the ranks in the JAX mesh's device order,
 row-major over ``(pipe, data, model)`` (model innermost), and holds the
-``model`` group (the ring of ``attention: ring``) of the ranks that share
-every coordinate but that one. :func:`check_fsdp` refuses the meshes FSDP
-does not run on yet; on the others FSDP's ring is the whole world.
+process groups of the ranks that share every coordinate but one: the
+``model`` group (Megatron tensor parallelism, or the ring of ``attention:
+ring``), the ``data`` group (the gradient average) and the ``pipe`` group
+(the stages of one pipeline), with this rank's previous and next stage.
+:func:`check_fsdp` refuses the meshes FSDP does not run on yet; on the
+others FSDP's ring is the whole world.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 
 from dtc_tpu_torch.config.schema import MeshConfig
@@ -108,33 +112,52 @@ def check_fsdp(shape: tuple[int, int, int], attention: str) -> None:
                 else "a model axis (Megatron tensor parallelism)")
         raise NotImplementedError(
             f"the PyTorch port does not train parallel: fsdp with {what} yet "
-            "(DP×FSDP×TP and FSDP with ring attention wait for TP, ROADMAP.md §A1)")
+            "(DP×FSDP×TP and FSDP with ring attention wait for the FSDP ring's TP axis, "
+            "ROADMAP.md §A1 and §A8)")
     if p > 1:
         raise NotImplementedError(
             "the PyTorch port does not train parallel: fsdp with a pipe axis yet "
-            "(pipeline parallelism, ROADMAP.md §A1)")
+            "(FSDP under pipeline parallelism, ROADMAP.md §A1)")
+
+
+def rank_of(coord: tuple[int, int, int], shape: tuple[int, int, int]) -> int:
+    """The rank at ``(pipe, data, model)``: the inverse of :func:`coords`."""
+    _, d, m = shape
+    return (coord[0] * d + coord[1]) * m + coord[2]
 
 
 class Mesh:
     """This rank's place in a ``shape`` mesh over the ranks of the world
-    process group. ``model_ranks``: the global ranks of its model (ring)
-    group, in axis order; ``model_group``: that group's process group
-    (every rank creates every model group, in one order, as
-    ``torch.distributed.new_group`` requires). The gradient average runs
-    over the whole world, so no data group is made."""
+    process group. For each axis, ``<axis>_ranks`` are the global ranks
+    that differ from this one only along it, in axis order, and
+    ``<axis>_group`` their process group (None when the axis has one
+    rank). Every rank creates every group of every axis, in one order, as
+    ``torch.distributed.new_group`` requires. ``prev_stage`` /
+    ``next_stage``: the ranks one stage before and after this one on the
+    pipe axis (cyclically: the interleaved schedule wraps the last stage
+    round to the first)."""
 
     def __init__(self, shape: tuple[int, int, int], rank: int):
         import torch.distributed as dist
 
         self.shape = shape
         self.rank = rank
-        self.pipe_idx, self.data_idx, self.model_idx = coords(rank, shape)
-        p, d, m = shape
-        self.model_ranks, self.model_group = (rank,), None
-        if m == 1:
-            return
-        for first in range(0, p * d * m, m):
-            members = list(range(first, first + m))
-            group = dist.new_group(members)
-            if rank in members:
-                self.model_ranks, self.model_group = tuple(members), group
+        self.pipe_idx, self.data_idx, self.model_idx = here = coords(rank, shape)
+        for axis, size in zip(AXIS_NAMES, shape):
+            setattr(self, f"{axis}_ranks", (rank,))
+            setattr(self, f"{axis}_group", None)
+            if size == 1:
+                continue
+            k = AXIS_NAMES.index(axis)
+            others = [range(n) for n in shape]
+            others[k] = range(1)
+            for fixed in itertools.product(*others):
+                members = [rank_of(fixed[:k] + (i,) + fixed[k + 1:], shape)
+                           for i in range(size)]
+                group = dist.new_group(members)
+                if rank in members:
+                    setattr(self, f"{axis}_ranks", tuple(members))
+                    setattr(self, f"{axis}_group", group)
+        p = shape[0]
+        self.prev_stage = rank_of(((here[0] - 1) % p,) + here[1:], shape)
+        self.next_stage = rank_of(((here[0] + 1) % p,) + here[1:], shape)

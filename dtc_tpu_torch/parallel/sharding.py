@@ -1,6 +1,6 @@
-"""Which parameters FSDP shards, and along which dim: the port's copy of
-the JAX package's logical-axis rule table (``parallel/sharding.py``),
-restricted to the dense model.
+"""Which parameters FSDP and Megatron tensor parallelism shard, and along
+which dim: the port's copy of the JAX package's logical-axis rule table
+(``parallel/sharding.py``), restricted to the dense model.
 
 The JAX model names every axis of every parameter logically
 (:data:`PARAM_AXES_TABLE`) and a rule table maps logical axes to mesh axes.
@@ -17,6 +17,15 @@ layouts differ: a flax Dense kernel is ``(in, out)`` and the port's
 one module per layer where flax stacks the layers on a leading axis. So
 flax's ``embed_p`` on axis 0 of the q/k/v/fc1 kernels is dim 1 of the
 port's weight.
+
+:data:`DEFAULT_RULES` is also the Megatron table: ``qkv`` and ``mlp``
+(the q/k/v and fc1 outputs: column-parallel, weight and bias) and
+``vocab_out`` (the head's columns: vocab-parallel, weight and bias) map to
+``model``; out_proj and fc2 contract over ``qkv`` / ``mlp`` (row-parallel)
+and their biases, on ``embed_p``, stay whole, as do ``wte``, ``wpe`` and
+the LayerNorms. :func:`tp_shard_dim` gives the dim of the port's
+parameter that shards over ``model``, :data:`TP_ROLES` the role each site
+plays.
 
 :func:`fsdp_axis` is the rule behind the JAX package's
 ``fsdp_axis_in_scope``: the mesh axis FSDP shards over, or None when the
@@ -128,12 +137,33 @@ def port_logical_axes(name: str) -> tuple[str | None, ...]:
     return axes[::-1] if transposed else axes
 
 
+def _shard_dim(name: str, rules, axis: str) -> int | None:
+    table = dict(rules)
+    dims = [i for i, a in enumerate(port_logical_axes(name)) if table[a] == axis]
+    return dims[0] if dims else None
+
+
 def param_shard_dim(name: str) -> int | None:
     """The dim of the port's parameter ``name`` that :data:`FSDP_RULES`
     shard over ``data``, or None when the parameter stays whole."""
-    table = dict(FSDP_RULES)
-    dims = [i for i, a in enumerate(port_logical_axes(name)) if table[a] == "data"]
-    return dims[0] if dims else None
+    return _shard_dim(name, FSDP_RULES, "data")
+
+
+def tp_shard_dim(name: str) -> int | None:
+    """The dim of the port's parameter ``name`` that Megatron tensor
+    parallelism (:data:`DEFAULT_RULES`) shards over ``model``, or None
+    when every rank of the model group holds it whole (replicated)."""
+    return _shard_dim(name, DEFAULT_RULES, "model")
+
+
+#: The dense sites under Megatron tensor parallelism, as
+#: :func:`tp_shard_dim` derives them from the rule table: column-parallel
+#: sites hold a slice of the outputs (and of the bias), row-parallel ones a
+#: slice of the contraction (their products are partial sums, reduced over
+#: the model group before the whole bias is added once), the vocab-parallel
+#: head a slice of the padded vocab's columns.
+TP_ROLES = {"q_proj": "column", "k_proj": "column", "v_proj": "column", "fc1": "column",
+            "out_proj": "row", "fc2": "row", "lm_head": "vocab"}
 
 
 def fsdp_axis(rules, mesh_sizes: dict[str, int]) -> str | None:

@@ -8,7 +8,12 @@ Takes numpy arrays (``jax.tree.map(np.asarray, params)``), so this module
 needs neither jax nor flax. :func:`lora_from_flax` carries a flax
 ``"lora"`` collection (adapter factors) the same way. :func:`fsdp_shards`
 cuts such a parameter set into one rank's FSDP shards and
-:func:`gather_shards` puts every rank's shards back together.
+:func:`gather_shards` puts every rank's shards back together;
+:func:`tp_shards` / :func:`gather_tp` do the same for Megatron tensor
+parallelism, and :func:`pp_stage` / :func:`gather_stages` cut a parameter
+set into a pipeline stage's part (its chunks' layers, renumbered, with the
+embedding on the first stage and the head on the last) and back. Composed
+with :func:`from_flax` they take a flax tree to each rank's parameters.
 
 :func:`attention_tolerance` is the limit attention outputs are held to
 when two implementations are compared (kernel vs plain version, port vs
@@ -17,6 +22,8 @@ JAX package); :func:`grad_tolerance` the limit on attention gradients;
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -143,6 +150,83 @@ def gather_shards(shards: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tens
     for name, x in shards[0].items():
         d = param_shard_dim(name)
         out[name] = x if d is None else torch.cat([s[name] for s in shards], d)
+    return out
+
+
+def tp_shards(state: dict[str, torch.Tensor], rank: int, size: int) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s parameters of a whole ``state_dict`` under Megatron
+    tensor parallelism over ``size`` ranks: each parameter the rule table
+    shards over ``model`` cut into ``size`` equal chunks along its dim
+    (:func:`~dtc_tpu_torch.parallel.sharding.tp_shard_dim`), the others
+    whole."""
+    from dtc_tpu_torch.parallel.sharding import tp_shard_dim
+
+    out = {}
+    for name, x in state.items():
+        d = tp_shard_dim(name)
+        if d is not None and x.shape[d] % size:
+            raise ValueError(f"{name}: dim {d} of {tuple(x.shape)} does not divide by {size}")
+        out[name] = x if d is None else x.chunk(size, d)[rank].clone()
+    return out
+
+
+def gather_tp(shards: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+    """The whole ``state_dict`` from every model rank's :func:`tp_shards`,
+    in rank order (the replicated parameters from rank 0)."""
+    from dtc_tpu_torch.parallel.sharding import tp_shard_dim
+
+    out = {}
+    for name, x in shards[0].items():
+        d = tp_shard_dim(name)
+        out[name] = x if d is None else torch.cat([s[name] for s in shards], d)
+    return out
+
+
+_BLOCK = re.compile(r"stage\.blocks\.(\d+)\.(.+)")
+
+
+def _n_layers(state) -> int:
+    return 1 + max(int(m.group(1)) for m in map(_BLOCK.match, state) if m)
+
+
+def pp_stage(state: dict[str, torch.Tensor], stage: int, stages: int,
+             virtual: int = 1) -> dict[str, torch.Tensor]:
+    """Stage ``stage``'s parameters of a whole ``state_dict`` over
+    ``stages`` stages of ``virtual`` chunks each: the layers of its chunks
+    (``c = v·stages + stage``, the JAX package's ``pp_stack_params``) in
+    chunk order, renumbered from 0; ``embed.*`` on stage 0 and ``head.*``
+    on the last stage."""
+    from dtc_tpu_torch.parallel.pipeline import StageLayout
+
+    layers = StageLayout(stage, stages, virtual).layers(_n_layers(state))
+    out = {}
+    for name, x in state.items():
+        m = _BLOCK.match(name)
+        if m is not None:
+            if int(m.group(1)) in layers:
+                out[f"stage.blocks.{layers.index(int(m.group(1)))}.{m.group(2)}"] = x
+        elif (name.startswith("embed.") and stage == 0
+              or name.startswith("head.") and stage == stages - 1):
+            out[name] = x
+    return out
+
+
+def gather_stages(parts: list[dict[str, torch.Tensor]], virtual: int = 1) -> dict[str, torch.Tensor]:
+    """The whole ``state_dict`` from every stage's :func:`pp_stage`, in
+    stage order."""
+    from dtc_tpu_torch.parallel.pipeline import StageLayout
+
+    n = sum(_n_layers(p) for p in parts)
+    blocks, out = {}, {}
+    for stage, part in enumerate(parts):
+        layers = StageLayout(stage, len(parts), virtual).layers(n)
+        for name, x in part.items():
+            m = _BLOCK.match(name)
+            if m is None:
+                out[name] = x
+            else:
+                blocks[(layers[int(m.group(1))], m.group(2))] = x
+    out.update({f"stage.blocks.{i}.{rest}": x for (i, rest), x in sorted(blocks.items())})
     return out
 
 

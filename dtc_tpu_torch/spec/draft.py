@@ -52,6 +52,7 @@ def extract_draft(model, draft_layers: int) -> GPT:
     draft = GPT.__new__(GPT)
     nn.Module.__init__(draft)
     draft.cfg = dcfg
+    draft.tp = draft.layout = None
     draft.embed = model.embed
     stage = GPTStage.__new__(GPTStage)
     nn.Module.__init__(stage)

@@ -22,11 +22,20 @@ over a ``DistRing``) a rank holds shards of the sharded parameters and
 whole copies of the rest: the clip's global norm sums the sharded
 gradients' squared norms over the data group and counts the whole ones
 once. AdamW is elementwise and runs on the shards as they are.
+
+Under Megatron tensor and pipeline parallelism (``norm_groups``, a
+:class:`NormGroups`) a rank holds its slices of the tensor-parallel
+parameters, whole copies of the rest, and only its stage's parameters: the
+clip's global norm sums the squared norms of the sharded gradients over
+the model group, counts the replicated ones once, and sums each stage's
+total over the pipe group (``optax.clip_by_global_norm`` over the whole
+tree of the one-process model).
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -57,10 +66,23 @@ def lr_schedule(cfg: OptimConfig, total_steps: int):
     return lr
 
 
+@dataclass
+class NormGroups:
+    """Where the parameters of a tensor- and pipeline-parallel rank lie:
+    ``sharded`` per parameter (in the optimizer's order), whether it is a
+    tensor-parallel slice; ``model`` / ``pipe`` the process groups the
+    squared norms sum over (None for an axis of one rank)."""
+
+    sharded: list[bool]
+    model: object = None
+    pipe: object = None
+
+
 class ClippedAdamW:
     """Clip by global norm, then AdamW, over ``params`` (their ``.grad``)."""
 
-    def __init__(self, params, cfg: OptimConfig, total_steps: int = 0, fsdp=None):
+    def __init__(self, params, cfg: OptimConfig, total_steps: int = 0, fsdp=None,
+                 norm_groups: NormGroups | None = None):
         if cfg.precision != "fp32":
             raise NotImplementedError(
                 "precision: bf16_mixed (fp32 master weights) is not ported "
@@ -71,6 +93,9 @@ class ClippedAdamW:
         self.fsdp = fsdp if fsdp is not None and fsdp.distributed else None
         self._sharded = (None if self.fsdp is None else
                          [self.fsdp.sharded(p) for p in self.params])
+        self.norm_groups = norm_groups
+        if norm_groups is not None and len(norm_groups.sharded) != len(self.params):
+            raise ValueError("norm_groups.sharded needs one flag per parameter")
         self.lr = lr_schedule(cfg, total_steps)
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -113,11 +138,23 @@ class ClippedAdamW:
         """Each parameter's gradient norm; under FSDP a sharded one's is the
         norm over every rank's shard (the squares summed over the data
         group; at one rank ``sqrt(x²)`` gives x back, so the single-process
-        bits)."""
+        bits). Under ``norm_groups`` one norm: the whole model's."""
         norms = torch.stack(torch._foreach_norm(grads))
+        import torch.distributed as dist
+
+        if self.norm_groups is not None:
+            ng = self.norm_groups
+            mask = torch.tensor(ng.sharded, device=norms.device)
+            sq = norms * norms
+            sharded = torch.where(mask, sq, torch.zeros_like(sq)).sum().reshape(1)
+            if ng.model is not None:
+                dist.all_reduce(sharded, group=ng.model)
+            total = sharded + torch.where(mask, torch.zeros_like(sq), sq).sum()
+            if ng.pipe is not None:
+                dist.all_reduce(total, group=ng.pipe)
+            return torch.sqrt(total)
         if self.fsdp is None:
             return norms
-        import torch.distributed as dist
 
         mask = torch.tensor(self._sharded, device=norms.device)
         sq = torch.where(mask, norms * norms, torch.zeros_like(norms))
@@ -126,5 +163,5 @@ class ClippedAdamW:
 
 
 def create_optimizer(params, cfg: OptimConfig, total_steps: int = 0,
-                     fsdp=None) -> ClippedAdamW:
-    return ClippedAdamW(params, cfg, total_steps, fsdp)
+                     fsdp=None, norm_groups: NormGroups | None = None) -> ClippedAdamW:
+    return ClippedAdamW(params, cfg, total_steps, fsdp, norm_groups)

@@ -1,6 +1,15 @@
-"""One eager training step, the gradient average over the ranks of a
-process group, the routing of ``collectives``, and the cross-entropy of
-the evaluation (logits) path."""
+"""One eager training step (and the pipeline's), the gradient average over
+the ranks of a process group, the routing of ``collectives``, the check
+that tensor parallelism's replicated parameters stay equal, and the
+cross-entropy of the evaluation (logits) path.
+
+Under Megatron tensor parallelism a rank's gradients of its slices are
+its own, and those of the replicated parameters (LayerNorms, embeddings,
+the row-parallel biases) are the same on every rank of the model group
+(each forms them from the same replicated activations and reduced
+gradients), so nothing is reduced over the model group: the gradients and
+the loss are averaged over the data group alone. :func:`replicas_equal`
+holds the replicated parameters bit-equal across the model group."""
 
 from __future__ import annotations
 
@@ -44,10 +53,12 @@ def average_over_ranks(params, loss: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def train_step(model, opt, x: torch.Tensor, y: torch.Tensor,
-               gen: torch.Generator | None, fsdp=None) -> torch.Tensor:
+               gen: torch.Generator | None, fsdp=None, group=None,
+               average: bool = True) -> torch.Tensor:
     """Forward with targets (dropout masks from ``gen``), backward, clip,
     AdamW. Inside a process group the gradients and the loss are averaged
-    over the world's ranks before the clip (:func:`average_over_ranks`), so
+    over the ranks of ``group`` (the world when None; nothing when
+    ``average`` is false) before the clip (:func:`average_over_ranks`), so
     the clip sees the global norm. Under ``fsdp`` (a
     :class:`~dtc_tpu_torch.parallel.fsdp.FSDP` state) the model computes
     with it in scope and, over a ``DistRing``, the state reduces the
@@ -61,10 +72,53 @@ def train_step(model, opt, x: torch.Tensor, y: torch.Tensor,
         loss.backward()
     if fsdp is not None and fsdp.distributed:
         loss = fsdp.reduce_gradients(opt.params, loss)
-    elif torch.distributed.is_initialized():
-        loss = average_over_ranks(opt.params, loss)
+    elif average and torch.distributed.is_initialized():
+        loss = average_over_ranks(opt.params, loss, group)
     opt.step()
     return loss.detach()
+
+
+def pipeline_step(model, opt, x: torch.Tensor, y: torch.Tensor,
+                  gen: torch.Generator | None, mesh, rows, group=None,
+                  average: bool = True) -> torch.Tensor:
+    """:func:`train_step` for a pipeline stage: ``x`` / ``y`` this rank's
+    rows, cut into the table's microbatches; the stage's forwards and
+    backwards run by :func:`~dtc_tpu_torch.parallel.pipeline.run_schedule`
+    under ``rows``; the gradients (and the last stage's loss) averaged over
+    ``group`` as :func:`train_step` does; the loss broadcast from the last
+    stage over the pipe group, so every rank returns it."""
+    import torch.distributed as dist
+
+    from dtc_tpu_torch.parallel.pipeline import run_schedule
+
+    m = 1 + max(j for frow, _ in rows for j, _ in frow)
+    opt.zero_grad()
+    loss = run_schedule(model, rows, x.chunk(m), y.chunk(m), gen, mesh)
+    if average:
+        loss = average_over_ranks(opt.params, loss, group)
+    loss = loss.reshape(1).clone()
+    dist.broadcast(loss, mesh.pipe_ranks[-1], group=mesh.pipe_group)
+    opt.step()
+    return loss[0]
+
+
+def replicas_equal(model, tp) -> bool:
+    """Do the parameters that tensor parallelism replicates hold the same
+    bits on every rank of the model group ``tp``? One broadcast from the
+    group's first rank of all of them flattened, compared here, and the
+    verdict agreed over the group."""
+    import torch.distributed as dist
+
+    from dtc_tpu_torch.parallel.sharding import tp_shard_dim
+
+    mine = [p.detach().reshape(-1) for n, p in model.named_parameters()
+            if tp_shard_dim(n) is None]
+    flat = torch.cat(mine)
+    first = flat.clone()
+    dist.broadcast(first, tp.ranks[0], group=tp.group)
+    same = torch.tensor([float(torch.equal(first, flat))], device=flat.device)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN, group=tp.group)
+    return bool(same.item())
 
 
 def resolve_collectives(train_cfg, model_cfg):

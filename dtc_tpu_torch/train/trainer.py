@@ -1,7 +1,22 @@
 """The training loop: the port's counterpart of the JAX package's
-``train/trainer.py`` for a data-parallel or FSDP run, on one device or over
-the processes ``torchrun`` starts (:mod:`dtc_tpu_torch.utils.dist`), with
-``attention: ring`` sequence parallelism over the mesh's ``model`` axis.
+``train/trainer.py`` for a data-parallel, tensor-parallel, pipelined or
+FSDP run, on one device or over the processes ``torchrun`` starts
+(:mod:`dtc_tpu_torch.utils.dist`), with ``attention: ring`` sequence
+parallelism over the mesh's ``model`` axis.
+
+On a ``(pipe, data, model)`` mesh without FSDP: a ``model`` axis without
+ring attention is Megatron tensor parallelism (each rank holds its slice
+of the heads, the MLP and the vocab, :mod:`dtc_tpu_torch.parallel.tensor`);
+a ``pipe`` axis is pipeline parallelism (each rank holds its stage's
+chunks, :mod:`dtc_tpu_torch.parallel.pipeline`), stepped by the table of
+``pp_schedule`` over ``pp_microbatches`` (GPipe, or 1F1B with
+``pp_virtual_stages`` chunks a stage); with ``pipe`` 1 the step is the
+plain one, as in the JAX package. Every rank starts from the one-process
+model's weights, sliced. The gradients and the loss are averaged over the
+data group only; the clip's norm is the whole model's
+(:class:`~dtc_tpu_torch.train.optimizer.NormGroups`); after the last step
+the parameters tensor parallelism replicates must be bit-equal across the
+model group (:func:`~dtc_tpu_torch.train.train_step.replicas_equal`).
 
 Under ``parallel: fsdp`` in a process group each rank keeps its shard of
 every parameter FSDP shards (cut from the full ``GPT(seed)`` init or from
@@ -21,7 +36,14 @@ under ring attention, its sequence shard (its ``model`` coordinate); the
 gradients and the loss are averaged over all ranks after the backward, so
 the clip sees the global norm. Rank 0 alone prints and writes ``log.csv``;
 tokens/s and MFU count the global batch over every rank's card. Dropout
-masks come from a generator seeded ``seed + rank``.
+masks come from a generator seeded ``seed`` plus the rank's index over the
+``(pipe, data)`` axes, the same on every rank of a model group (the
+activations dropout acts on are replicated there), or plus the rank under
+ring attention (whose model axis holds sequence shards). Under a pipeline
+rank ``d`` of the data axis takes a ``1/data`` slice of each of the global
+batch's ``pp_microbatches`` microbatches (the JAX package's
+``(microbatch, batch)`` split); the first stage reads the inputs and the
+last the targets.
 
 Measurement protocol as in the JAX package (and its reference):
 ``warmup_steps`` untimed steps that are real updates on the first batches,
@@ -55,10 +77,14 @@ from dtc_tpu_torch.ops.ring_attention import DistRing, use_ring
 from dtc_tpu_torch.parallel import sharding
 from dtc_tpu_torch.parallel.fsdp import FSDP
 from dtc_tpu_torch.parallel.mesh import AXIS_NAMES, Mesh, check_fsdp, resolve_mesh_shape
+from dtc_tpu_torch.parallel.pipeline import StageLayout, schedule_rows
+from dtc_tpu_torch.parallel.tensor import TensorParallel
 from dtc_tpu_torch.resilience.guard import AnomalyGuard
 from dtc_tpu_torch.resilience.watchdog import StepWatchdog
-from dtc_tpu_torch.train.optimizer import create_optimizer
-from dtc_tpu_torch.train.train_step import resolve_collectives, train_step
+from dtc_tpu_torch.train.optimizer import NormGroups, create_optimizer
+from dtc_tpu_torch.train.train_step import (
+    pipeline_step, replicas_equal, resolve_collectives, train_step,
+)
 from dtc_tpu_torch.utils import dist as dist_utils
 from dtc_tpu_torch.utils.logging import CSVLogger
 from dtc_tpu_torch.utils.metrics import mfu, peak_flops
@@ -67,8 +93,9 @@ from dtc_tpu_torch.utils.metrics import mfu, peak_flops
 @dataclass
 class TrainResult:
     """``model``: the trained model, whole (under FSDP the shards
-    gathered); ``optimizer``: its optimizer (under FSDP over this rank's
-    shards)."""
+    gathered; under tensor or pipeline parallelism this rank's slice,
+    which ``parity.gather_tp`` / ``gather_stages`` put together);
+    ``optimizer``: its optimizer (under FSDP over this rank's shards)."""
 
     model: GPT
     optimizer: object
@@ -91,13 +118,7 @@ def refuse_unported(train_cfg: TrainConfig, model_cfg: ModelConfig) -> None:
             "composes with the data axis) or attention='ulysses'"
         )
     refusals = [
-        (train_cfg.parallel in ("pp", "none"),
-         f"parallel: {train_cfg.parallel} (tensor and pipeline parallelism come after "
-         "DP, ring attention and FSDP)"),
-        (m.pipe > 1 or train_cfg.pp_microbatches > 1,
-         "a pipe axis or pp_microbatches > 1 (pipeline parallelism)"),
-        (not ring and (train_cfg.parallel == "tp" or m.model > 1),
-         "a model axis without attention: ring (Megatron tensor parallelism)"),
+        (train_cfg.parallel == "none", "parallel: none"),
         ((m.dcn_pipe, m.dcn_data, m.dcn_model) != (1, 1, 1),
          "dcn mesh factors (multi-host)"),
         (train_cfg.dataset == "fineweb",
@@ -121,6 +142,8 @@ def refuse_unported(train_cfg: TrainConfig, model_cfg: ModelConfig) -> None:
     for refused, what in refusals:
         if refused:
             raise NotImplementedError(f"the PyTorch port does not train with {what} yet")
+    if train_cfg.parallel == "fsdp":
+        check_fsdp((max(m.pipe, 1), 1, max(m.model, 1)), model_cfg.attention)
 
 
 def train(
@@ -130,20 +153,23 @@ def train(
     *,
     device=None,
     params=None,
+    backend: str | None = None,
 ) -> TrainResult:
     """Train ``model_cfg`` on ``device`` (``cuda`` unless named; raises
     without a card). The weights come from ``GPT(model_cfg,
     seed=train_cfg.seed)``, or from ``params``, a flax parameter tree of
-    numpy arrays carried across by :func:`dtc_tpu_torch.parity.from_flax`.
-    Dropout masks come from a generator seeded with ``train_cfg.seed`` plus
-    the rank; the synthetic stream from seed ``seed·1000`` (the JAX
-    trainer's seed for process 0). Under torchrun's environment the
-    process group is joined first (and left at the end, if this call
-    joined it) and the mesh spans its ranks."""
+    numpy arrays carried across by :func:`dtc_tpu_torch.parity.from_flax`
+    (each rank keeps its slice). Dropout masks come from a generator seeded
+    with ``train_cfg.seed`` plus the rank's ``(pipe, data)`` index (see the
+    module docstring); the synthetic stream from seed ``seed·1000`` (the
+    JAX trainer's seed for process 0). Under torchrun's environment the
+    process group is joined first, over ``backend`` (NCCL on cards and gloo
+    on the CPU unless named; gloo runs several ranks on one card), and left
+    at the end if this call joined it; the mesh spans its ranks."""
     model_cfg = resolve_collectives(train_cfg, model_cfg)
     refuse_unported(train_cfg, model_cfg)
     joined = dist_utils.launched() and not torch.distributed.is_initialized()
-    dev = dist_utils.initialize(device) or resolve_device(device)
+    dev = dist_utils.initialize(device, backend) or resolve_device(device)
     try:
         return _train(train_cfg, model_cfg, opt_cfg, resolve_device(dev), params)
     finally:
@@ -151,11 +177,24 @@ def train(
             dist_utils.teardown()
 
 
-def _shard(batches, rows: slice, cols: slice):
-    """This rank's rows and sequence columns of each ``(B, T+1)`` batch;
-    ``cols`` covers its tokens and the next one, the last target."""
+def _shard(batches, rows, cols: slice):
+    """This rank's rows (a slice or an index list) and sequence columns of
+    each ``(B, T+1)`` batch; ``cols`` covers its tokens and the next one,
+    the last target."""
     for batch in batches:
         yield batch[rows, cols]
+
+
+def _rows(batch: int, n_data: int, data_idx: int, microbatches: int):
+    """This data rank's rows of the global batch: a contiguous ``1/data``
+    of it, or under a pipeline that slice of each microbatch (microbatch
+    ``j`` being the global rows ``[j·B/M, (j+1)·B/M)``), in microbatch
+    order."""
+    per = batch // (n_data * microbatches)
+    if microbatches == 1:
+        return slice(data_idx * per, (data_idx + 1) * per)
+    mb = batch // microbatches
+    return [j * mb + data_idx * per + i for j in range(microbatches) for i in range(per)]
 
 
 def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
@@ -166,25 +205,54 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
     if train_cfg.parallel == "fsdp":
         check_fsdp(shape, model_cfg.attention)
     mesh = Mesh(shape, rank) if world > 1 else None
-    _, n_data, n_model = shape
+    n_pipe, n_data, n_model = shape
     seq = model_cfg.max_seq_len
-    if train_cfg.batch % n_data or seq % n_model:
+    ring_attn = model_cfg.attention == "ring"
+    micro = train_cfg.pp_microbatches if n_pipe > 1 else 1
+    if train_cfg.batch % (n_data * micro) or ring_attn and seq % n_model:
         raise ValueError(
-            f"global batch {train_cfg.batch} and seq len {seq} must divide by the data "
-            f"axis {n_data} and the model axis {n_model}"
+            f"global batch {train_cfg.batch} must divide by the data axis {n_data} x "
+            f"{micro} microbatches, and under ring attention seq len {seq} by the model "
+            f"axis {n_model}"
         )
     lead = dist_utils.is_lead_process()
-    model = GPT(model_cfg, device=dev, seed=train_cfg.seed)
+    tp = (TensorParallel(mesh.model_ranks, mesh.model_group)
+          if n_model > 1 and not ring_attn else None)
+    layout = (StageLayout(mesh.pipe_idx, n_pipe, train_cfg.pp_virtual_stages)
+              if n_pipe > 1 else None)
+    model = GPT(model_cfg, device=dev, seed=train_cfg.seed, tp=tp, stage=layout)
     if params is not None:
         from dtc_tpu_torch.parity import from_flax
 
-        model.load_state_dict(from_flax(params, model_cfg))
+        model.load_state_dict(model.local_state(from_flax(params, model_cfg)))
     fsdp = None
     if train_cfg.parallel == "fsdp" and torch.distributed.is_initialized():
         fsdp = FSDP(DistRing(range(world))).shard_(model)
+    norm_groups = None
+    if model.sharded:
+        norm_groups = NormGroups(
+            [tp is not None and sharding.tp_shard_dim(n) is not None
+             for n, p in model.named_parameters() if p.requires_grad],
+            model=None if tp is None else tp.group, pipe=mesh.pipe_group)
     opt = create_optimizer(model.parameters(), opt_cfg, total_steps=train_cfg.steps,
-                           fsdp=fsdp)
-    gen = torch.Generator(device=dev).manual_seed(train_cfg.seed + rank)
+                           fsdp=fsdp, norm_groups=norm_groups)
+    seed_idx = rank if mesh is None or ring_attn else mesh.pipe_idx * n_data + mesh.data_idx
+    gen = torch.Generator(device=dev).manual_seed(train_cfg.seed + seed_idx)
+    # The gradient average: over the world for DP and ring attention (whose
+    # model axis shards the sequence), over the data group once a model or
+    # pipe axis holds slices of the model, and none with one data rank.
+    group, average = None, True
+    if model.sharded:
+        group, average = mesh.data_group, n_data > 1
+    if layout is not None:
+        rows_table = schedule_rows(train_cfg.pp_schedule, micro, n_pipe,
+                                   train_cfg.pp_virtual_stages)
+
+        def step_fn(x, y):
+            return pipeline_step(model, opt, x, y, gen, mesh, rows_table, group, average)
+    else:
+        def step_fn(x, y):
+            return train_step(model, opt, x, y, gen, fsdp, group, average)
 
     log_path = os.path.join(train_cfg.output_dir, "log.csv")
     if (lead and train_cfg.output_dir and not train_cfg.overwrite
@@ -198,10 +266,11 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
     )
     ring = contextlib.nullcontext()
     if mesh is not None:
-        rows, t_local = train_cfg.batch // n_data, seq // n_model
-        host_it = _shard(host_it, slice(mesh.data_idx * rows, (mesh.data_idx + 1) * rows),
-                         slice(mesh.model_idx * t_local, (mesh.model_idx + 1) * t_local + 1))
-        if n_model > 1:
+        t_local = seq // n_model if ring_attn else seq
+        t_idx = mesh.model_idx if ring_attn else 0
+        host_it = _shard(host_it, _rows(train_cfg.batch, n_data, mesh.data_idx, micro),
+                         slice(t_idx * t_local, (t_idx + 1) * t_local + 1))
+        if n_model > 1 and ring_attn:
             ring = use_ring(DistRing(mesh.model_ranks, mesh.model_group))
     data_it = PrefetchIterator(host_it, dev, depth=train_cfg.prefetch)
     csv = CSVLogger(log_path) if train_cfg.output_dir and lead else None
@@ -240,7 +309,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
                 say("Warmup")
             for _ in range(train_cfg.warmup_steps):
                 x, y = next(data_it)
-                loss = train_step(model, opt, x, y, gen, fsdp)
+                loss = step_fn(x, y)
             if train_cfg.warmup_steps:
                 float(loss)  # wait for the warmup updates
 
@@ -255,7 +324,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
                 if wd is not None:
                     wd.arm(step)
                 x, y = next(data_it)
-                device_losses.append(train_step(model, opt, x, y, gen, fsdp))
+                device_losses.append(step_fn(x, y))
                 if sync_every_step:
                     sync()
                 now = time.perf_counter()
@@ -303,6 +372,10 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
     result.total_time_s = time.perf_counter() - start
     if fsdp is not None:
         result.model = fsdp.gathered(model)
+    if tp is not None and not replicas_equal(model, tp):
+        raise RuntimeError(
+            "the parameters tensor parallelism replicates drifted apart across the model "
+            f"group {tp.ranks}")
     say(f"Total time: {result.total_time_s}")
     say("End")
     return result

@@ -223,8 +223,9 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawn(world: int, case: str, out_dir: Path) -> None:
-    """Run the worker in ``world`` processes with torchrun's environment."""
+def _spawn(world: int, case: str, out_dir: Path, script: str = __file__) -> None:
+    """Run the worker of ``script`` (this file's by default) in ``world``
+    processes with torchrun's environment."""
     port = str(_free_port())
     procs = []
     for rank in range(world):
@@ -232,7 +233,7 @@ def _spawn(world: int, case: str, out_dir: Path) -> None:
                    MASTER_ADDR="localhost", MASTER_PORT=port, OMP_NUM_THREADS="1",
                    PYTHONPATH=str(ROOT))
         procs.append(subprocess.Popen(
-            [sys.executable, __file__, case, str(out_dir)], cwd=ROOT, env=env,
+            [sys.executable, script, case, str(out_dir)], cwd=ROOT, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = []
     try:
@@ -452,6 +453,21 @@ def test_failed_rendezvous_raises(monkeypatch):
         dist_utils.initialize("cpu")
     assert not torch.distributed.is_initialized()
     assert dist_utils.world_size() == 1 and dist_utils.is_lead_process()
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0"])
+def test_nccl_with_two_ranks_on_one_card_raises(monkeypatch, device):
+    """Two ranks of one host and one card: NCCL refuses two ranks on one
+    device, so asking for it raises and names gloo, before any rendezvous."""
+    from dtc_tpu_torch.utils import dist as dist_utils
+
+    for key, value in dict(WORLD_SIZE="2", RANK="0", LOCAL_RANK="0", LOCAL_WORLD_SIZE="2",
+                           MASTER_ADDR="localhost", MASTER_PORT=str(_free_port())).items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        dist_utils.initialize(device, "nccl")
+    assert not torch.distributed.is_initialized()
 
 
 if __name__ == "__main__":

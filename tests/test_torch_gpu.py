@@ -1351,3 +1351,160 @@ def test_fsdp_overlapped_training_on_cuda_matches_unsharded(cuda):
         assert (oc.ag_launches - a0, oc.rs_launches - r0) == (
             (0, 0) if state is None else (sites * 32, sites * 16))
     assert max(abs(a - b) for a, b in zip(losses[True], losses[False])) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism on the card: two gloo ranks sharing it
+# ---------------------------------------------------------------------------
+
+def _tp_worker(out_dir: str) -> None:
+    """One of two ranks (this file run as a script, torchrun's environment
+    set by ``tp_pair``), every tensor on ``cuda:0``: the vocab-parallel head
+    + CE over the model group of 2 and one tensor-parallel block, forward
+    and gradients, in float32 and bf16; rank 0 also computes the whole
+    versions (one-rank ``fused_head_ce``, the whole block) on the same
+    inputs. Writes ``tp_r<rank>.pt``."""
+    from pathlib import Path
+
+    from dtc_tpu_torch.models.gpt import Block
+    from dtc_tpu_torch.ops.fused_ce import fused_head_ce
+    from dtc_tpu_torch.parallel.tensor import TensorParallel, copy_to_model
+    from dtc_tpu_torch.parity import tp_shards
+    from dtc_tpu_torch.utils import dist as dist_utils
+
+    dev = dist_utils.initialize("cuda:0", "gloo")
+    rank = dist_utils.rank()
+    tp = TensorParallel((0, 1), None)
+    out = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        g = torch.Generator(device=dev).manual_seed(7)
+        n, d, vocab = 4096 + 300, 512, 1000            # two CE chunks; padded 1024
+        h = torch.randn(n, d, device=dev, generator=g).to(dt)
+        w = 0.05 * torch.randn(1024, d, device=dev, generator=g)
+        b = 0.1 * torch.randn(1024, device=dev, generator=g)
+        y = torch.randint(0, vocab, (n,), device=dev, generator=g)
+        y[:3] = torch.tensor([3, 700, 999])              # both ranks' columns, the pad's rank
+
+        def ce(h, w, b, group):
+            h = h.clone().requires_grad_(True)
+            w, b = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+            src = h if group is None else copy_to_model(h, group)
+            loss = fused_head_ce(src, w, b, y, vocab, group)
+            loss.backward()
+            return [loss.detach(), h.grad, w.grad, b.grad]
+
+        cols = slice(rank * 512, (rank + 1) * 512)
+        out[f"ce_{name}"] = ce(h, w[cols], b[cols], tp)
+        if rank == 0:
+            out[f"ce_{name}_whole"] = ce(h, w, b, None)
+
+        cfg = ModelConfig(vocab_size=vocab, d_model=512, n_layers=1, n_heads=16, d_ff=2048,
+                          max_seq_len=512, dropout=0.0, compute_dtype=name, attention="auto")
+        whole = Block(cfg, dev)
+        with torch.no_grad():
+            for p in whole.parameters():
+                p.copy_(0.05 * torch.randn(p.shape, device=dev, generator=g))
+        part = Block(cfg, dev, tp)
+        part.load_state_dict(tp_shards(whole.state_dict(), rank, 2))
+        x = torch.randn(4, 512, 512, device=dev, generator=g).to(dt)
+        dy = torch.randn(4, 512, 512, device=dev, generator=g).to(dt)
+        for tag, blk in (("part", part), ("whole", whole)) if rank == 0 else (("part", part),):
+            xi = x.clone().requires_grad_(True)
+            y_ = blk(xi, train=True)
+            y_.backward(dy)
+            out[f"block_{name}_{tag}"] = [y_.detach(), xi.grad] + [
+                p.grad for _, p in sorted(blk.named_parameters())]
+        out[f"block_{name}_names"] = [n_ for n_, _ in sorted(part.named_parameters())]
+    torch.save({k: [t.cpu() if torch.is_tensor(t) else t for t in v] for k, v in out.items()},
+               Path(out_dir) / f"tp_r{rank}.pt")
+    dist_utils.teardown()
+
+
+@pytest.fixture(scope="module")
+def tp_pair(kernels_built, tmp_path_factory):
+    """The two ranks of :func:`_tp_worker`, run once; their results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernel)")
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    out = tmp_path_factory.mktemp("tp_pair")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    root = Path(__file__).resolve().parent.parent
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, str(out)], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r),
+                 LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=port,
+                 PYTHONPATH=str(root)))
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+    return [torch.load(out / f"tp_r{r}.pt") for r in range(2)]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_vocab_parallel_ce_on_cuda_matches_one_rank(tp_pair, dt):
+    """Over 2 gloo ranks on the card: the loss and dh equal one rank's
+    ``fused_head_ce``, each rank's dW / db columns the whole one's
+    (float32 1e-5; bf16 ``parity.row_tolerance``)."""
+    from dtc_tpu_torch.parity import row_tolerance
+
+    want = tp_pair[0][f"ce_{dt}_whole"]
+    dtype = getattr(torch, dt)
+    for rank in range(2):
+        got = tp_pair[rank][f"ce_{dt}"]
+        assert abs(float(got[0]) - float(want[0])) <= 1e-5 * max(1.0, abs(float(want[0])))
+        cols = slice(rank * 512, (rank + 1) * 512)
+        for g, w in ((got[1], want[1]), (got[2], want[2][cols]),
+                     (got[3][None], want[3][cols][None])):
+            assert ((g.float() - w.float()).abs() <= row_tolerance(w, dtype)).all()
+    assert float(tp_pair[1][f"ce_{dt}"][3][1000 - 512:].abs().max()) == 0.0  # the pad
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_tp_block_on_cuda_matches_the_whole_block(tp_pair, dt):
+    """A block split over 2 gloo ranks on the card (8 heads of 32 a rank on
+    the flash kernels, d_ff 1024 a rank): its output and input gradient
+    equal the whole block's (``parity.attention_tolerance`` /
+    ``grad_tolerance``), each parameter gradient the whole one's slice
+    within ``parity.row_tolerance`` of the largest value of its site's
+    weight and bias gradients together: each entry is a sum over every
+    token, so its error follows the size of the terms, not of the entry
+    (as ``grad_tolerance`` argues; the k bias's terms cancel exactly)."""
+    from dtc_tpu_torch.parallel.sharding import tp_shard_dim
+    from dtc_tpu_torch.parity import grad_tolerance, row_tolerance
+
+    dtype = getattr(torch, dt)
+    want = tp_pair[0][f"block_{dt}_whole"]
+    names = tp_pair[0][f"block_{dt}_names"]
+    for rank in range(2):
+        got = tp_pair[rank][f"block_{dt}_part"]
+        assert ((got[0].float() - want[0].float()).abs()
+                <= attention_tolerance(want[0], 16)).all()
+        assert ((got[1].float() - want[1].float()).abs() <= grad_tolerance(want[1], 16)).all()
+        wants = {}
+        for name, w in zip(names, want[2:]):
+            dim = tp_shard_dim("stage.blocks.0." + name)
+            wants[name] = w if dim is None else w.chunk(2, dim)[rank]
+        for name, g in zip(names, got[2:]):
+            site = torch.cat([wants[name.rsplit(".", 1)[0] + "." + leaf].reshape(-1)
+                              for leaf in ("weight", "bias")])
+            limit = row_tolerance(site[None], dtype)[0, 0]
+            assert ((g.float() - wants[name].float()).abs() <= limit).all(), name
+
+
+if __name__ == "__main__":
+    import sys
+
+    _tp_worker(sys.argv[1])

@@ -285,7 +285,7 @@ def test_train_memory_bytes_under_fsdp_matches_jax(tiny_model_cfg, mesh_shape):
                                                     remat="block")):
         for parallel in ("fsdp", "dp"):
             want = jmem(cfg, 8, cfg.max_seq_len, mesh_shape, parallel)
-            got = train_memory_bytes(_model_cfg(cfg), 8, cfg.max_seq_len, mesh_shape["data"],
+            got = train_memory_bytes(_model_cfg(cfg), 8, cfg.max_seq_len, mesh_shape,
                                      parallel)
             for key, value in got.items():
                 assert value == pytest.approx(want[key], rel=1e-12), (parallel, key)

@@ -13,6 +13,7 @@ Tolerances: float32 compute throughout. Loss and gradients of one forward
 import csv
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -280,17 +281,48 @@ def test_trainer_without_a_card_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("over", [
-    dict(parallel="pp"), dict(parallel="fsdp", mesh=ts.MeshConfig(model=2)),
+    dict(parallel="fsdp", mesh=ts.MeshConfig(model=2)),
     dict(dataset="fineweb"),
     dict(checkpoint_every=10), dict(eval_every=5), dict(obs=ts.ObsConfig()),
     dict(resilience=ts.ResilienceConfig(chaos=ts.ChaosConfig(enabled=True))),
     dict(multihost=True), dict(profile_start=1, profile_stop=2),
-    dict(mesh=ts.MeshConfig(pipe=2)), dict(parallel="tp", mesh=ts.MeshConfig(model=2)),
 ])
 def test_unported_training_features_raise(tmp_path, over):
     with pytest.raises(NotImplementedError):
         train(_tiny_train_cfg(tmp_path, **over), _tiny_model_cfg(),
               ts.OptimConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0), device="cpu")
+
+
+@pytest.mark.parametrize("over", [
+    dict(parallel="pp", mesh=ts.MeshConfig(pipe=2)), dict(mesh=ts.MeshConfig(pipe=2)),
+    dict(parallel="tp", mesh=ts.MeshConfig(model=2)),
+])
+def test_tp_and_pp_meshes_wider_than_one_process_raise(tmp_path, over):
+    """Tensor and pipeline parallelism train now; in one process a mesh
+    that asks for two ranks raises JAX's ``resolve_mesh_shape`` error,
+    which names the device count."""
+    from dtc_tpu.config.schema import MeshConfig as JMesh
+    from dtc_tpu.parallel.mesh import resolve_mesh_shape as jresolve
+
+    cfg = _tiny_train_cfg(tmp_path, **over)
+    m = cfg.mesh
+    with pytest.raises(ValueError, match="device count 1") as want:
+        jresolve(cfg.parallel, 1, JMesh(m.pipe, m.data, m.model), n_layers=2)
+    with pytest.raises(ValueError, match=re.escape(str(want.value))):
+        train(cfg, dataclasses.replace(_tiny_model_cfg(), n_layers=2),
+              ts.OptimConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0), device="cpu")
+
+
+def test_pp_on_one_process_is_the_plain_step(tmp_path):
+    """``parallel: pp`` on one process resolves to a pipe of 1 and trains
+    the plain step (as the JAX package's trainer does): the losses equal
+    ``parallel: dp``'s bit for bit."""
+    ocfg = ts.OptimConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0)
+    runs = [train(_tiny_train_cfg(tmp_path / par, parallel=par, pp_microbatches=2),
+                  dataclasses.replace(_tiny_model_cfg(), n_layers=2), ocfg,
+                  device="cpu").losses
+            for par in ("pp", "dp")]
+    assert runs[0] == runs[1]
 
 
 @pytest.mark.parametrize("over", [dict(moe_experts=2), dict(attention="ulysses")])
