@@ -164,7 +164,10 @@ Phases (each prints its own lines; any failure exits non-zero):
     step and the matmul + reduce-scatter step) against their plain versions
     over 4 virtual ranks (the in-process transport) at the flagship's
     dense sites (x (4096, 512 or 2048) bf16 and float32; q/k/v and fc1 with
-    the contraction sharded, out_proj and fc2 with the output sharded) and
+    the contraction sharded, out_proj and fc2 with the output sharded), at
+    the DP×FSDP×TP sites of ``train_config_3d.yaml`` (a model rank's
+    Megatron widths: x (8192, K), w q/k/v (512, 256), fc1 (512, 1024),
+    out_proj (256, 512), fc2 (1024, 512)) and
     ragged shapes (m 100, blocks of 50 and 75): the forward ring and both
     backward rings in float32 within 1e-5 of each row's largest value (bf16
     products are exact in float32), the op's outputs rounded to the compute
@@ -217,8 +220,25 @@ Phases (each prints its own lines; any failure exits non-zero):
     falling, ``log.csv``); each stage's flash launches are the schedule's
     forward slots from its table times its chunk's layers (twice that
     backward), all "tc"; then PP 2 x TP 2 in float32 over 4 ranks. Every
-    time of phases 21-22 is of ranks sharing one card, not a multi-card
+    time of phases 21-23 is of ranks sharing one card, not a multi-card
     time.
+23. FSDP on a (data, model) mesh as gloo ranks sharing the card: (a)
+    DP×FSDP×TP on ``train_config_3d.yaml`` (data 4 × model 2, 8 ranks; the
+    FSDP ring of TPU kernel rows 17-18 over each model index's data group
+    on its Megatron slices): float32 dropout-0 runs of 4 steps under
+    ``xla`` and ``overlapped`` within 1e-4 of one process on the config's
+    batch (B 16), then ``python -m dtc_tpu_torch.main --train_config_path
+    configs/train_config_3d.yaml --dataset synthetic --no-obs --steps 10
+    --backend gloo --device cuda:0`` in bf16 (5 warmup steps): finite,
+    falling losses, ``log.csv`` from rank 0, each rank's ring launches
+    2R x 72 and R x 72 a step (R 4: 576 and 288), every one "tma" (float32:
+    the CUDA cores; ``xla``: none), 12 forward and 24 backward flash
+    launches a rank a step ("tc"), the replicated parameters bit-equal
+    across each model group; step ms and peak memory a rank beside
+    ``train_memory_bytes(fsdp, data 4, model 2)``. (b) FSDP with
+    ``attention: ring`` on ``train_config_fsdp.yaml``, data 2 × model 2,
+    float32, 4 steps within 1e-4 of one process; each rank's ring block
+    launches 12 x (2R+1) forward calls a step (R 2), on the CUDA cores.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -2107,19 +2127,25 @@ SHARED_CARD = "ranks sharing one card, not a multi-card time"
 
 
 def rank_worker(run_dir: str) -> int:
-    """One rank of phase 21 or 22 (``chip_smoke.py --rank-worker DIR``, run
+    """One rank of phases 21-23 (``chip_smoke.py --rank-worker DIR``, run
     by :func:`spawn_ranks` with torchrun's environment): joins the gloo
     process group on the device ``DIR/spec.json`` names and runs its runs
     in order, each either through ``python -m dtc_tpu_torch.main``'s
     ``main(argv)`` (``argv``) or through ``train()`` on the named train
     config and its siblings with fields replaced (``train_over``,
-    ``model_over``; synthetic data, no telemetry). The flash launch
-    counters are set to 0 just before each run and read just after. Writes
-    ``DIR/rank<RANK>.json``: per run the losses, elapsed times, launches
-    by kind and route, peak memory and whether the replicated parameters
-    are bit-equal across the model group; with ``allreduce_probe`` (a
+    ``model_over``; synthetic data, no telemetry). The flash and FSDP ring
+    launch counters are set to 0 just before each run and read just after.
+    Writes ``DIR/rank<RANK>.json``: per run the losses, elapsed times,
+    flash launches by kind and route, the ring blocks' launches, the FSDP
+    ring's launches and their routes, peak memory and whether the
+    replicated parameters are bit-equal across the model group; with
+    ``allreduce_probe`` (a
     shape) also the mean ms of one float32 all-reduce of that shape over
-    the world, as tensor parallelism's reductions run it."""
+    the world, as tensor parallelism's reductions run it. A run named in
+    the spec's ``profile`` runs inside a torch.profiler window (CUDA
+    activity) on every rank of a card: its record gains the rank's device
+    time by kernel over the whole run (:func:`device_time_by_kernel`)."""
+    import contextlib
     import dataclasses
     import os
 
@@ -2129,6 +2155,7 @@ def rank_worker(run_dir: str) -> int:
     from dtc_tpu_torch.config.loader import load_config
     from dtc_tpu_torch.config.schema import MeshConfig
     from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.ops import overlap_collectives as oc
     from dtc_tpu_torch.train.train_step import replicas_equal
     from dtc_tpu_torch.train.trainer import train
     from dtc_tpu_torch.utils import dist as dist_utils
@@ -2146,28 +2173,43 @@ def rank_worker(run_dir: str) -> int:
             torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated() if cuda else 0
         zero_flash_counts()                          # this run's path starts here
-        if "argv" in run:
-            res = cli.main(run["argv"])
-        else:
-            tcfg, mcfg, ocfg = load_config(ROOT / run["train_config"])
-            over = dict(run.get("train_over", {}))
-            if "mesh" in over:
-                over["mesh"] = MeshConfig(**over["mesh"])
-            tcfg = dataclasses.replace(
-                tcfg, dataset="synthetic", obs=dataclasses.replace(tcfg.obs, enabled=False),
-                **over)
-            mcfg = dataclasses.replace(mcfg, **run.get("model_over", {}))
-            res = train(tcfg, mcfg, ocfg, device=dev, backend="gloo")
-        if cuda:
-            torch.cuda.synchronize()
+        oc.ag_launches = oc.rs_launches = 0
+        oc.route_launches.update(dict.fromkeys(oc.route_launches, 0))
+        profiled = cuda and run["name"] in spec.get("profile", ())
+        window = contextlib.nullcontext()
+        if profiled:
+            from torch.profiler import ProfilerActivity, profile
+
+            window = profile(activities=[ProfilerActivity.CUDA])
+        with window as prof:
+            t0 = time.perf_counter()
+            if "argv" in run:
+                res = cli.main(run["argv"])
+            else:
+                tcfg, mcfg, ocfg = load_config(ROOT / run["train_config"])
+                over = dict(run.get("train_over", {}))
+                if "mesh" in over:
+                    over["mesh"] = MeshConfig(**over["mesh"])
+                tcfg = dataclasses.replace(
+                    tcfg, dataset="synthetic", obs=dataclasses.replace(tcfg.obs, enabled=False),
+                    **over)
+                mcfg = dataclasses.replace(mcfg, **run.get("model_over", {}))
+                res = train(tcfg, mcfg, ocfg, device=dev, backend="gloo")
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+        blocks = (fa.block_fwd_launches, fa.block_bwd_launches)
+        ring = ((oc.ag_launches, oc.rs_launches), dict(oc.route_launches))
         routes = flash_routes()
         tp = res.model.tp
         records.append(dict(
             name=run["name"], losses=res.losses, elapsed=res.elapsed_times,
-            launches=launches, routes=routes,
+            launches=launches, routes=routes, block_launches=blocks, ring_launches=ring[0],
+            ring_routes=ring[1],
             peak=(torch.cuda.max_memory_allocated() - base) if cuda else None,
-            replicas_equal=None if tp is None else replicas_equal(res.model, tp)))
+            replicas_equal=None if tp is None else replicas_equal(res.model, tp),
+            profile=device_time_by_kernel(prof, wall) if profiled else None))
     probe = None
     if spec.get("allreduce_probe"):
         import torch.distributed as dist
@@ -2228,17 +2270,21 @@ def spawn_ranks(world: int, run_dir: Path, spec: dict, timeout: float = 900.0) -
     return [json.loads((run_dir / f"rank{r}.json").read_text()) for r in range(world)]
 
 
-def one_process_fp32(steps: int, device: str = "cuda") -> list[float]:
-    """The flagship (``train_config_dp.yaml``'s batch 8 and seed 0) trained
-    in this process, float32 at dropout 0, ``steps`` steps without warmup:
-    the losses phases 21-22 hold their float32 runs to."""
+def one_process_fp32(steps: int, device: str = "cuda",
+                     config: str = "configs/train_config_dp.yaml") -> list[float]:
+    """The flagship trained in this process on ``config``'s batch and seed
+    (``train_config_dp.yaml``'s: B 8, seed 0), float32 at dropout 0,
+    ``steps`` steps without warmup: the losses phases 21-23 hold their
+    float32 runs to."""
     import dataclasses
 
     from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.config.schema import MeshConfig
     from dtc_tpu_torch.train.trainer import train
 
-    tcfg, mcfg, ocfg = load_config(ROOT / "configs" / "train_config_dp.yaml")
+    tcfg, mcfg, ocfg = load_config(ROOT / config)
     tcfg = dataclasses.replace(tcfg, **FP32_TRAIN, dataset="synthetic", steps=steps,
+                               parallel="dp", mesh=MeshConfig(), collectives="xla",
                                obs=dataclasses.replace(tcfg.obs, enabled=False))
     return train(tcfg, dataclasses.replace(mcfg, **FP32_MODEL), ocfg, device=device).losses
 
@@ -2429,6 +2475,178 @@ def pipeline_phase(ref32, smi: str, device: str = "cuda", bf16_steps: int = 30):
         f"{[round(v, 3) for v in rec['pp_tp']['step_ms']]}; peak allocated by rank "
         f"{rec['pp_tp']['peak']} B, train_memory_bytes(pipe 2, model 2) "
         f"{rec['pp_tp']['train_memory_bytes']:.0f} B a rank [{smi}; {SHARED_CARD}]")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 23: DP×FSDP×TP and FSDP with ring attention, ranks sharing one card
+# ---------------------------------------------------------------------------
+
+def check_ring_launches(what: str, ranks: list[dict], name: str, per_step, n_steps: int,
+                        route: str | None) -> list:
+    """Each rank's FSDP ring launches over run ``name``: ``per_step``
+    (all-gather-matmul, reduce-scatter steps) a step for ``n_steps`` steps,
+    every one on ``route``. Returns the launches by rank."""
+    want = (per_step[0] * n_steps, per_step[1] * n_steps)
+    recs = [next(r for r in rank["records"] if r["name"] == name) for rank in ranks]
+    for rank, r in enumerate(recs):
+        check(tuple(r["ring_launches"]) == want,
+              f"{what}: rank {rank} ring launches {r['ring_launches']}, want {want}")
+        if route is not None:
+            check(r["ring_routes"][route] == sum(want) == sum(r["ring_routes"].values()),
+                  f"{what}: rank {rank} ring launches by route {r['ring_routes']}, want all "
+                  f"{sum(want)} on {route}")
+    return [r["ring_launches"] for r in recs]
+
+
+def fsdp_mesh_phase(ref32, smi: str, device: str = "cuda", bf16_steps: int = 10,
+                    ring_bf16_steps: int = 3):
+    """Phase 23: (a) ``configs/train_config_3d.yaml`` (DP×FSDP×TP,
+    ``collectives: overlapped``, data 4 × model 2: 8 gloo ranks sharing the
+    card) in float32 at dropout 0 under ``xla`` and under
+    ``overlapped``, 4 steps each, held to one process on the config's batch
+    within 1e-4; then ``python -m dtc_tpu_torch.main --train_config_path
+    configs/train_config_3d.yaml --dataset synthetic --no-obs --backend gloo
+    --device cuda:0`` in bf16, every rank inside a torch.profiler window on
+    a card (the ring kernels' device time a step, each rank's busy time).
+    (b) ``train_config_fsdp.yaml`` with ``attention: ring`` on data 2 ×
+    model 2 (4 ranks), float32, 4 steps, held to ``ref32`` (one process on
+    the same batch and seed), then bf16 for ``ring_bf16_steps`` steps
+    (finite, every block launch on the tensor-core route). Returns the
+    phase's record."""
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.utils.metrics import train_memory_bytes
+
+    cfg = "configs/train_config_3d.yaml"
+    dev = "cuda:0" if device == "cuda" else device
+    tcfg, mcfg, _ = load_config(ROOT / cfg)
+    mesh = dict(pipe=1, data=tcfg.mesh.data, model=tcfg.mesh.model)
+    world, ring = mesh["data"] * mesh["model"], mesh["data"]
+    sites = mcfg.n_layers * 6
+    per_step = (sites * 2 * ring, sites * ring)       # the gate: a rank's ring steps a step
+    run_dir = ROOT / "build" / "chip_smoke_3d"
+    ref3d = one_process_fp32(len(ref32), device, cfg)
+    runs = [dict(name=f"{mode}_fp32", train_config=cfg, model_over=FP32_MODEL,
+                 train_over=dict(FP32_TRAIN, steps=len(ref3d), collectives=mode))
+            for mode in ("xla", "overlapped")]
+    runs.append(dict(name="bf16", argv=[
+        "--train_config_path", str(ROOT / cfg), "--dataset", "synthetic", "--no-obs",
+        "--steps", str(bf16_steps), "--output_dir", str(run_dir / "bf16"), "--backend", "gloo",
+        "--device", dev]))
+    ranks = spawn_ranks(world, run_dir, {"device": dev, "runs": runs, "profile": ["bf16"]},
+                        timeout=700.0)
+    flash = [mcfg.n_layers] * world                   # TP: each rank's heads, every layer
+    rec = dict(ranks=world, mesh=mesh, card=smi, one_process_fp32=ref3d)
+    for mode in ("xla", "overlapped"):
+        what = f"phase 23 3D {mode} float32"
+        rec[f"{mode}_fp32"] = check_parallel_run(what, ranks, f"{mode}_fp32", ref3d, len(ref3d),
+                                                 flash, "float32", None)
+        rec[f"{mode}_fp32"]["ring_launches"] = check_ring_launches(
+            what, ranks, f"{mode}_fp32", per_step if mode == "overlapped" else (0, 0),
+            len(ref3d), "cuda_cores" if mode == "overlapped" else None)
+    n = bf16_steps + tcfg.warmup_steps
+    b = rec["bf16"] = check_parallel_run("phase 23 3D overlapped bf16", ranks, "bf16", None, n,
+                                         flash, mcfg.compute_dtype, run_dir / "bf16")
+    b["ring_launches"] = check_ring_launches("phase 23 3D overlapped bf16", ranks, "bf16",
+                                             per_step, n, "tma")
+    # what each rank launched a step in this run (the gate above held it to per_step)
+    rec["ring_launches_per_rank_step"] = [(a // n, r // n) for a, r in b["ring_launches"]]
+    budget = train_memory_bytes(mcfg, tcfg.batch, mcfg.max_seq_len,
+                                {"data": mesh["data"], "model": mesh["model"]}, "fsdp")
+    rec["train_memory_bytes"] = budget["total"]
+    log(f"phase 23 DP×FSDP×TP (train_config_3d.yaml, {world} ranks, data {mesh['data']} x "
+        f"model {mesh['model']}, {mcfg.n_heads // mesh['model']} heads of {mcfg.head_dim} a "
+        f"rank, B {tcfg.batch // mesh['data']} a rank): float32 xla and overlapped losses "
+        f"within 1e-4 of one process ({ref3d}); bf16 overlapped losses {b['losses'][0]:.4f} -> "
+        f"{b['losses'][-1]:.4f} over {bf16_steps} steps after {tcfg.warmup_steps} warmup; "
+        f"ring launches a rank a step {rec['ring_launches_per_rank_step']} (all tma), "
+        f"flash launches a rank "
+        f"{b['launches'][0]} ({mcfg.n_layers} forward and {2 * mcfg.n_layers} backward a step, "
+        f"all tc); replicated parameters bit-equal {b['replicas_equal']}; step_ms median by "
+        f"rank {[round(v, 3) for v in b['step_ms']]}; peak allocated by rank {b['peak']} B, "
+        f"train_memory_bytes(fsdp, data {mesh['data']}, model {mesh['model']}) "
+        f"{budget['total']:.0f} B a rank [{smi}; {SHARED_CARD}]")
+    if device == "cuda":                              # the ranks profile only on a card
+        prof = [next(r for r in rank["records"] if r["name"] == "bf16")["profile"]
+                for rank in ranks]
+        wall = max(p["wall_s"] for p in prof)
+        pr = b["profile"] = dict(
+            steps=n, wall_s=[p["wall_s"] for p in prof],
+            device_busy_s=[p["device_busy_s"] for p in prof],
+            ring_kernel_ms_a_step=[p["overlap_device_s"] * 1e3 / n for p in prof],
+            flash_ms_a_step=[p["flash_device_s"] * 1e3 / n for p in prof],
+            card_busy_share=sum(p["device_busy_s"] for p in prof) / wall,
+            top_rank0=prof[0]["top"][:8])
+        log(f"phase 23 3D bf16 under torch.profiler (CUDA activity, every rank, the whole run of "
+            f"{n} steps): ring kernels {[round(v, 3) for v in pr['ring_kernel_ms_a_step']]} ms a "
+            f"step by rank, flash {[round(v, 3) for v in pr['flash_ms_a_step']]} ms a step, device "
+            f"busy {[round(v, 3) for v in pr['device_busy_s']]} s of walls "
+            f"{[round(v, 3) for v in pr['wall_s']]} s; the ranks' busy time summed "
+            f"{pr['card_busy_share']:.4f} of the longest wall; rank 0's largest kernels "
+            f"{[(t['name'][:60], round(t['device_ms'], 3), t['count']) for t in pr['top_rank0']]} "
+            f"[{smi}; {SHARED_CARD}]")
+        check(all(p["overlap_device_s"] > 0 for p in prof),
+              f"phase 23 3D bf16: the profiler saw no ring kernel on some rank "
+              f"{[p['overlap_device_s'] for p in prof]}")
+
+    # (b) FSDP with ring attention over the model axis
+    ring_mesh = dict(pipe=1, data=2, model=2)
+    ring_dir = ROOT / "build" / "chip_smoke_fsdp_ring"
+    spec = {"device": dev, "runs": [
+        dict(name="fp32", train_config="configs/train_config_fsdp.yaml",
+             train_over=dict(FP32_TRAIN, steps=len(ref32), mesh=ring_mesh),
+             model_over=dict(FP32_MODEL, attention="ring")),
+        dict(name="bf16", train_config="configs/train_config_fsdp.yaml",
+             train_over=dict(FP32_TRAIN, steps=ring_bf16_steps, mesh=ring_mesh),
+             model_over=dict(attention="ring"))]}
+    spawned = spawn_ranks(4, ring_dir, spec, timeout=400.0)
+    recs = [r["records"][0] for r in spawned]
+    losses = recs[0]["losses"]
+    gap = max(abs(a - b_) for a, b_ in zip(losses, ref32))
+    calls = mcfg.n_layers * (2 * ring_mesh["model"] + 1) * len(ref32)  # 2R+1 blocks a layer
+    log(f"phase 23 FSDP x ring attention (train_config_fsdp.yaml, data 2 x model 2, T "
+        f"{mcfg.max_seq_len // 2} a rank, float32): losses {losses} vs one process {ref32} "
+        f"(gap {gap:.3e}, limit 1e-4); block launches by rank "
+        f"{[r['block_launches'] for r in recs]}; step_ms median by rank "
+        f"{[round(step_ms(r['elapsed']), 3) for r in recs]} [{smi}; {SHARED_CARD}]")
+    check(all(r["losses"] == losses for r in recs), f"phase 23 ring: ranks logged different "
+          f"losses {[r['losses'] for r in recs]}")
+    check(len(losses) == len(ref32) and gap <= 1e-4,
+          f"phase 23 ring: losses {losses} vs one process {ref32}")
+    for rank, r in enumerate(recs):
+        check(tuple(r["block_launches"]) == (calls, calls * fa.BWD_KERNELS)
+              and tuple(r["launches"]) == (0, 0) and tuple(r["ring_launches"]) == (0, 0),
+              f"phase 23 ring: rank {rank} block launches {r['block_launches']} (want "
+              f"{calls} forward calls), flash {r['launches']}, FSDP ring {r['ring_launches']}")
+        check(r["routes"]["fwd"] == {"tc": 0, "fma": calls}
+              and r["routes"]["dq"] == r["routes"]["dkv"] == {"tc": 0, "fma": calls},
+              f"phase 23 ring: rank {rank} block launches by route {r['routes']}")
+    # bf16, the configs' compute dtype: every block launch on the tensor cores
+    r16 = [r["records"][1] for r in spawned]
+    calls16 = mcfg.n_layers * (2 * ring_mesh["model"] + 1) * ring_bf16_steps
+    log(f"phase 23 FSDP x ring attention bf16: losses {r16[0]['losses']} over "
+        f"{ring_bf16_steps} steps; block launches by rank {[r['block_launches'] for r in r16]} "
+        f"by route {r16[0]['routes']}; step_ms median by rank "
+        f"{[round(step_ms(r['elapsed']), 3) for r in r16]} [{smi}; {SHARED_CARD}]")
+    check(all(r["losses"] == r16[0]["losses"] for r in r16)
+          and len(r16[0]["losses"]) == ring_bf16_steps
+          and all(math.isfinite(v) for v in r16[0]["losses"]),
+          f"phase 23 ring bf16: losses by rank {[r['losses'] for r in r16]}")
+    for rank, r in enumerate(r16):
+        check(tuple(r["block_launches"]) == (calls16, calls16 * fa.BWD_KERNELS)
+              and tuple(r["launches"]) == (0, 0) and tuple(r["ring_launches"]) == (0, 0)
+              and all(r["routes"][k] == {"tc": calls16, "fma": 0} for k in ("fwd", "dq", "dkv")),
+              f"phase 23 ring bf16: rank {rank} block launches {r['block_launches']} by route "
+              f"{r['routes']} (want {calls16} forward calls, all tc), flash {r['launches']}, "
+              f"FSDP ring {r['ring_launches']}")
+    rec["fsdp_ring"] = dict(mesh=ring_mesh, losses=losses, gap=gap,
+                            block_launches=[r["block_launches"] for r in recs],
+                            step_ms=[step_ms(r["elapsed"]) for r in recs],
+                            peak=[r["peak"] for r in recs],
+                            bf16=dict(losses=r16[0]["losses"],
+                                      block_launches=[r["block_launches"] for r in r16],
+                                      step_ms=[step_ms(r["elapsed"]) for r in r16]))
     return rec
 
 
@@ -2889,7 +3107,7 @@ def main() -> int:
                         "over NCCL at world size 1 and under FSDP over 4 virtual "
                         "ranks as well")
     p.add_argument("--rank-worker", default="", metavar="DIR",
-                   help=argparse.SUPPRESS)  # one rank of phases 21-22 (spawn_ranks)
+                   help=argparse.SUPPRESS)  # one rank of phases 21-23 (spawn_ranks)
     args = p.parse_args()
     if args.rank_worker:
         sys.path.insert(0, str(ROOT))
@@ -3597,6 +3815,16 @@ def main() -> int:
             ("fp32_fc1", 8, 512, 512, 2048, 0, "float32", 0),
             ("fp32_out_proj", 8, 512, 512, 512, 1, "float32", 0),
             ("fp32_fc2", 8, 512, 2048, 512, 1, "float32", 0),
+            # the DP×FSDP×TP sites of train_config_3d.yaml (a model rank's
+            # Megatron widths, 4 ranks of 2,048 rows)
+            ("bf16_3d_qkv", 16, 512, 512, 256, 0, "bfloat16", 20),
+            ("bf16_3d_fc1", 16, 512, 512, 1024, 0, "bfloat16", 20),
+            ("bf16_3d_out_proj", 16, 512, 256, 512, 1, "bfloat16", 20),
+            ("bf16_3d_fc2", 16, 512, 1024, 512, 1, "bfloat16", 20),
+            ("fp32_3d_qkv", 16, 512, 512, 256, 0, "float32", 0),
+            ("fp32_3d_fc1", 16, 512, 512, 1024, 0, "float32", 0),
+            ("fp32_3d_out_proj", 16, 512, 256, 512, 1, "float32", 0),
+            ("fp32_3d_fc2", 16, 512, 1024, 512, 1, "float32", 0),
             ("bf16_ragged", 4, 100, 200, 300, 0, "bfloat16", 0),   # m 100, blocks 50 / 75
             ("bf16_ragged_out", 4, 100, 200, 300, 1, "bfloat16", 0),
             ("fp32_ragged", 4, 100, 200, 300, 0, "float32", 0),
@@ -3645,6 +3873,11 @@ def main() -> int:
         record["one_process_fp32"] = ref32
         record["tp"] = tensor_parallel_phase(ref32, smi)
         record["pp"] = pipeline_phase(ref32, smi)
+
+        # 23. DP×FSDP×TP (train_config_3d.yaml) and FSDP with ring attention
+        # over gloo ranks sharing the card: the FSDP ring's kernels over each
+        # model index's data group, on the Megatron slices
+        record["fsdp_mesh"] = fsdp_mesh_phase(ref32, smi)
 
         main = results[0]
         kernels = [dict(
@@ -3761,6 +3994,8 @@ def main() -> int:
                 bound_by=main_block[f"full_{part}_bound_by"],
                 library_ms=main_block[f"full_library_{part}"],
                 causal_ms=main_block[f"causal_{part}"], plan_route="tc",
+                launches_fsdp_ring=[n[part == "bwd"] for n in
+                                    record["fsdp_mesh"]["fsdp_ring"]["block_launches"]],
                 route_launches=record["ring_training"]["flash_routes"],
                 **({"dq_ms": main_block["full_dq"], "dkv_ms": main_block["full_dkv"],
                     "dq_bound_ms": main_block["full_dq_bound"],
@@ -3784,7 +4019,12 @@ def main() -> int:
                 bound_ms=worst[f"{kind}_bound_ms"], bound_by=worst[f"{kind}_bound_by"],
                 library_ms=worst[f"{kind}_library_ms"], site=worst["case"],
                 sites_ms={c["case"]: c[f"{kind}_ms"] for c in timed},
+                sites_bound_ms={c["case"]: c[f"{kind}_bound_ms"] for c in timed},
                 routes=record["fsdp_virtual"]["routes"],
+                launches_3d=[n[kind == "rs"] for n in
+                             record["fsdp_mesh"]["bf16"]["ring_launches"]],
+                launches_3d_per_rank_step=[n[kind == "rs"] for n in
+                                           record["fsdp_mesh"]["ring_launches_per_rank_step"]],
             ))
         record["kernels"] = kernels
     except Exception:

@@ -239,7 +239,10 @@ class Dense(nn.Module):
     model group. The sites of ``shard_axis`` 0 are column-parallel (a
     slice of the outputs and of the bias), those of 1 row-parallel (a
     slice of the contraction; the partial product is reduced over the
-    group before the whole bias is added)."""
+    group before the whole bias is added). Under both (DP×FSDP×TP) the
+    FSDP shard is one of the slice, the ring runs over the data group on
+    the slice's widths, and the Megatron reductions stay here, outside
+    the ring."""
 
     def __init__(self, d_in: int, d_out: int, cfg: ModelConfig, device=None,
                  shard_axis: int = 0, tp=None):

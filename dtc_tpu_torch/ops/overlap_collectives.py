@@ -46,7 +46,10 @@ transfer runs on NCCL's stream while the product runs on the compute
 stream; see :class:`~dtc_tpu_torch.ops.ring_attention.Pending`).
 
 Transports (``ring``): a :class:`~dtc_tpu_torch.ops.ring_attention.DistRing`
-over the data ranks (x and w are this rank's rows and chunk), or an
+over the data ranks of this rank's model index (x and w are this rank's
+rows and chunk; under Megatron tensor parallelism the chunk of its slice,
+so every width here is the slice's: DP×FSDP×TP, the JAX package's manual
+region over both axes with the ring on the local widths), or an
 :class:`~dtc_tpu_torch.ops.ring_attention.InProcessRing` of R virtual ranks
 on one device (x and w are the whole batch and weight, rank i's rows being
 batch rows ``i·B/R`` on). The JAX package's applicability ladder is copied
@@ -497,7 +500,13 @@ def overlap_dense_matmul(x: torch.Tensor, w: torch.Tensor, *, shard_axis: int,
     ``x``: (B, ..., K) activations in the compute dtype, the batch axis
     over the ring's ranks; ``w``: (K, N) in x's dtype, its ``shard_axis``
     (0: the contraction, q/k/v/fc1; 1: the output, out_proj/fc2) over the
-    ring's ranks; under a ``DistRing`` both are this rank's share. Returns
+    ring's ranks; under a ``DistRing`` both are this rank's share. Under
+    tensor parallelism ``w`` is this rank's Megatron slice and the widths
+    are the slice's (the JAX package's ``k_loc`` / ``n_loc``); the Megatron
+    reductions stay outside: the caller's ``copy_to_model`` before a
+    column-parallel site and ``reduce_from_model`` after a row-parallel
+    one, so the ring's backward neither sums dx over the model group nor
+    reduces the row-parallel output (either would count it twice). Returns
     (B, ..., N) in x's dtype. The plain ``x @ w`` where the JAX package's
     ladder says so (module docstring)."""
     if shard_axis not in (0, 1):

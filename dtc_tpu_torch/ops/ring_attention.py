@@ -37,10 +37,11 @@ where rank i's tensor goes; every perm is a permutation) and receive the
 tensors that arrive. Two transports run them:
 
 - :class:`DistRing`: this process's place in a ring of ``torch.distributed``
-  processes (gloo on CPU, NCCL on cards), with point-to-point exchanges.
-  A chunk whose perm keeps it home (the zigzag conversion's self-pairs)
-  is copied locally: gloo refuses a send to one's own rank. The exchange
-  is differentiable; its backward is the inverse exchange.
+  processes (gloo on CPU, NCCL on cards, gloo ranks sharing a card), with
+  point-to-point exchanges; under gloo a CUDA tensor travels through host
+  buffers. A chunk whose perm keeps it home (the zigzag conversion's
+  self-pairs) is copied locally: gloo refuses a send to one's own rank.
+  The exchange is differentiable; its backward is the inverse exchange.
 - :class:`InProcessRing`: R virtual ranks stepped in lockstep in one
   thread, over the global ``(B, T, H, D)`` tensors; an exchange hands each
   rank's tensor to its destination. It is the counterpart of the JAX
@@ -92,15 +93,20 @@ class Pending:
     they have arrived. Over NCCL the wait orders the current stream after
     the transfer (the host does not block); over gloo it blocks the host.
     Holds the sent tensors until then, so no buffer of the transfer is
-    freed and reused while it is in flight."""
+    freed and reused while it is in flight. ``staged``: ``(i, device)``
+    for each tensor that arrives in a host buffer and is copied to
+    ``device`` once it is there."""
 
-    def __init__(self, tensors, works=(), sent=()):
+    def __init__(self, tensors, works=(), sent=(), staged=()):
         self._tensors, self._works, self._sent = tensors, list(works), list(sent)
+        self._staged = list(staged)
 
     def wait(self) -> list[torch.Tensor]:
         for work in self._works:
             work.wait()
-        self._works, self._sent = [], []
+        for i, device in self._staged:
+            self._tensors[i] = self._tensors[i].to(device)
+        self._works, self._sent, self._staged = [], [], []
         return self._tensors
 
 
@@ -169,24 +175,34 @@ class DistRing:
 
     def start(self, perms, xs) -> Pending:
         """:meth:`exchange`, started: the transfers are in flight when this
-        returns."""
+        returns. Gloo moves CUDA tensors only in collectives, so under gloo
+        a CUDA tensor travels through host buffers
+        (``utils.dist._host_staged``): copied to the host before its send
+        starts, and what arrives copied to the device in
+        :meth:`Pending.wait`."""
         import torch.distributed as dist
 
+        from dtc_tpu_torch.utils.dist import _host_staged
+
         me = self.ranks[0]
-        ops, out, sent = [], [], []
+        ops, out, sent, staged = [], [], [], []
         for j, (perm, x) in enumerate(zip(perms, xs)):
             dst, src = perm[me], perm.index(me)
             if dst == me:
                 out.append(x.clone())
                 continue
-            buf = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-            sent.append(x.contiguous())
+            host = _host_staged(x, self.group)
+            sent.append(x.detach().to("cpu", memory_format=torch.contiguous_format) if host
+                        else x.contiguous())
+            buf = torch.empty(x.shape, dtype=x.dtype, device="cpu" if host else x.device)
             ops.append(dist.P2POp(dist.isend, sent[-1], self.global_ranks[dst],
                                   self.group, j))
             ops.append(dist.P2POp(dist.irecv, buf, self.global_ranks[src], self.group, j))
+            if host:
+                staged.append((len(out), x.device))
             out.append(buf)
         works = dist.batch_isend_irecv(ops) if ops else []
-        return Pending(out, works, sent)
+        return Pending(out, works, sent, staged)
 
     def run(self, programs, overlap: bool = False) -> list:
         (program,) = programs

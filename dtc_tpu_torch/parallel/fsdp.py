@@ -15,11 +15,22 @@ Two ways to compute with the shards, as in the JAX package:
   on its shard over :func:`overlap_ring` (TPU kernel rows 17-18). The other
   parameters (biases, LayerNorms, embeddings, the head) gather as above.
 
-The gradient a rank ends its backward with is the sum of every rank's
-local-mean gradient, for a sharded parameter (the reduce-scatter and the
-ring's dw both sum), and its own local-mean gradient for a whole one:
-:meth:`FSDP.reduce_gradients` scales the first by 1/R once and averages the
-second over the ranks.
+On a ``(data, model)`` mesh the ring is the data group of this rank's
+model index. Under Megatron tensor parallelism (DP×FSDP×TP, the JAX
+package's "3d" mode) a rank's shards are cut from its Megatron slices
+(``parity.mesh_shards``): the FSDP ring gathers and reduce-scatters a
+slice, and the Megatron reductions stay with the model (``copy_to_model``
+/ ``reduce_from_model``), outside the ring. Under ring attention the model
+axis holds sequence shards (``seq_group``): every gradient and the loss are
+averaged over it too, and the dense sites keep the serialized path, as
+the JAX package's sequence-parallel rules make them
+(``sharding.fsdp_axis``; :func:`overlap_ring` gives no ring).
+
+The gradient a rank ends its backward with is the sum of every data
+rank's local-mean gradient, for a sharded parameter (the reduce-scatter
+and the ring's dw both sum), and its own local-mean gradient for a whole
+one: :meth:`FSDP.reduce_gradients` scales the first by 1/R once and
+averages the second over the data ranks.
 
 An :class:`FSDP` is a rank's state; :func:`use_fsdp` puts it in scope for
 the model, as ``ring_attention.use_ring`` does a ring. Over an
@@ -64,11 +75,15 @@ class _AllGather(torch.autograd.Function):
 
 class FSDP:
     """One rank's FSDP state over ``ring``: a ``DistRing`` over the data
-    ranks (``shard_`` then cuts the model's parameters to this rank's
-    shards) or an ``InProcessRing``."""
+    ranks of this rank's model index (``shard_`` then cuts the model's
+    parameters, a tensor-parallel rank's slices among them, to this rank's
+    shards) or an ``InProcessRing``. ``seq_group``: the process group of
+    the ranks that hold the other sequence shards (ring attention's model
+    group of more than one rank), or None."""
 
-    def __init__(self, ring):
+    def __init__(self, ring, seq_group=None):
         self.ring = ring
+        self.seq_group = seq_group
         self.dims: dict[int, int] = {}        # id(parameter) -> sharded dim
 
     @property
@@ -77,8 +92,9 @@ class FSDP:
 
     def shard_(self, model: torch.nn.Module) -> "FSDP":
         """Cut every parameter of ``model`` that FSDP shards to this rank's
-        equal shard along its sharded dim, in place. Raises where a dim
-        does not divide by the ring."""
+        equal shard along its sharded dim, in place, by its index in the
+        ring (its data index). Raises where a dim does not divide by the
+        ring."""
         from dtc_tpu_torch.parity import fsdp_shards
 
         if not self.distributed:
@@ -103,13 +119,17 @@ class FSDP:
 
     def reduce_gradients(self, params, loss: torch.Tensor) -> torch.Tensor:
         """After the backward: the sharded parameters' gradients scaled by
-        1/R, the whole ones' and the loss averaged over the ranks (one
-        all-reduce of a flat buffer). Returns the averaged loss."""
+        1/R, the whole ones' and the loss averaged over the data ranks (one
+        all-reduce of a flat buffer); under ring attention every gradient
+        and the loss then averaged over ``seq_group`` as well. Returns the
+        averaged loss."""
         from dtc_tpu_torch.train.train_step import average_over_ranks
 
         params = list(params)
         whole = [p for p in params if not self.sharded(p)]
         loss = average_over_ranks(whole, loss, group=self.ring.group)
+        if self.seq_group is not None:
+            loss = average_over_ranks(params, loss, group=self.seq_group)
         shards = [p.grad for p in params if self.sharded(p)]
         if shards:
             torch._foreach_mul_(shards, 1.0 / self.ring.size)
@@ -117,9 +137,12 @@ class FSDP:
 
     @torch.no_grad()
     def gathered(self, model: torch.nn.Module) -> torch.nn.Module:
-        """A copy of ``model`` with every shard all-gathered and no
-        gradients: the whole model, equal on every rank."""
-        full = copy.deepcopy(model)
+        """A copy of ``model`` with every shard all-gathered over the data
+        ranks and no gradients: the whole model (under tensor parallelism
+        this rank's whole Megatron slice), equal on every data rank."""
+        # the process groups a tensor-parallel model holds are shared, not copied
+        memo = {id(m.tp): m.tp for m in model.modules() if getattr(m, "tp", None) is not None}
+        full = copy.deepcopy(model, memo)
         for p, q in zip(model.parameters(), full.parameters()):
             q.grad = None
             if self.sharded(p):
@@ -158,8 +181,9 @@ def full(p: torch.Tensor) -> torch.Tensor:
 def overlap_ring():
     """The ring a dense site of a ``collectives: overlapped`` model runs
     the overlapped matmul over: the FSDP state's ring when it has more than
-    one rank, else None (the site keeps its plain product)."""
+    one rank and no sequence shards own the activations, else None (the
+    site keeps its plain product)."""
     state = current()
-    if state is None or state.ring.size <= 1:
+    if state is None or state.ring.size <= 1 or state.seq_group is not None:
         return None
     return state.ring

@@ -8,8 +8,9 @@ process groups of the ranks that share every coordinate but one: the
 ``model`` group (Megatron tensor parallelism, or the ring of ``attention:
 ring``), the ``data`` group (the gradient average) and the ``pipe`` group
 (the stages of one pipeline), with this rank's previous and next stage.
-:func:`check_fsdp` refuses the meshes FSDP does not run on yet; on the
-others FSDP's ring is the whole world.
+:func:`check_fsdp` refuses the meshes FSDP does not run on yet (a pipe
+axis); on the others FSDP's ring is the data group of this rank's model
+index (``Mesh.data_ranks``).
 """
 
 from __future__ import annotations
@@ -102,19 +103,12 @@ def coords(rank: int, shape: tuple[int, int, int]) -> tuple[int, int, int]:
     return rank // (d * m), (rank // m) % d, rank % m
 
 
-def check_fsdp(shape: tuple[int, int, int], attention: str) -> None:
+def check_fsdp(shape: tuple[int, int, int]) -> None:
     """Raise ``NotImplementedError`` for a ``parallel: fsdp`` mesh the port
-    does not train on yet: FSDP runs over the data axis with ``model`` 1
-    and ``pipe`` 1."""
-    p, _, m = shape
-    if m > 1:
-        what = ("ring attention over a model axis" if attention == "ring"
-                else "a model axis (Megatron tensor parallelism)")
-        raise NotImplementedError(
-            f"the PyTorch port does not train parallel: fsdp with {what} yet "
-            "(DP×FSDP×TP and FSDP with ring attention wait for the FSDP ring's TP axis, "
-            "ROADMAP.md §A1 and §A8)")
-    if p > 1:
+    does not train on yet: one with a pipe axis. FSDP runs over the data
+    axis, with Megatron tensor parallelism or ring attention on the model
+    axis, each model index's data group its own ring."""
+    if shape[0] > 1:
         raise NotImplementedError(
             "the PyTorch port does not train parallel: fsdp with a pipe axis yet "
             "(FSDP under pipeline parallelism, ROADMAP.md §A1)")

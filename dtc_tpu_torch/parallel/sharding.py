@@ -11,7 +11,10 @@ only axis is ``qkv`` / ``mlp``, and ``lm_head``'s bias, ``vocab_out``)
 stays whole on every rank.
 
 :func:`param_shard_dim` maps a parameter of the port's ``GPT`` (its
-``named_parameters`` name) to the dim that shards over ``data``. The
+``named_parameters`` name) to the dim that shards over ``data``;
+:func:`param_spec` gives every dim's mesh axis under a rule table, so a
+parameter on a ``(data, model)`` mesh under :data:`FSDP_RULES` shows both
+its FSDP dim and its Megatron dim. The
 layouts differ: a flax Dense kernel is ``(in, out)`` and the port's
 ``Dense.weight`` / ``lm_head.weight`` are ``(out, in)``, and the port keeps
 one module per layer where flax stacks the layers on a leading axis. So
@@ -137,10 +140,21 @@ def port_logical_axes(name: str) -> tuple[str | None, ...]:
     return axes[::-1] if transposed else axes
 
 
-def _shard_dim(name: str, rules, axis: str) -> int | None:
+def param_spec(name: str, rules) -> tuple[str | None, ...]:
+    """The mesh axis each dim of the port's parameter ``name`` shards over
+    under ``rules`` (None: whole), in the port's layout: the counterpart of
+    the JAX package's ``param_specs`` for one parameter, its ``layers`` axis
+    dropped and a Dense kernel's axes reversed. Under :data:`FSDP_RULES` a
+    parameter may shard two dims, over ``data`` (its FSDP dim) and over
+    ``model`` (its Megatron dim); under ``ring_rules_from(FSDP_RULES)``
+    only the FSDP dim stays."""
     table = dict(rules)
-    dims = [i for i, a in enumerate(port_logical_axes(name)) if table[a] == axis]
-    return dims[0] if dims else None
+    return tuple(table[a] for a in port_logical_axes(name))
+
+
+def _shard_dim(name: str, rules, axis: str) -> int | None:
+    spec = param_spec(name, rules)
+    return spec.index(axis) if axis in spec else None
 
 
 def param_shard_dim(name: str) -> int | None:

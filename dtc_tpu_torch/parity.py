@@ -10,10 +10,12 @@ needs neither jax nor flax. :func:`lora_from_flax` carries a flax
 cuts such a parameter set into one rank's FSDP shards and
 :func:`gather_shards` puts every rank's shards back together;
 :func:`tp_shards` / :func:`gather_tp` do the same for Megatron tensor
-parallelism, and :func:`pp_stage` / :func:`gather_stages` cut a parameter
-set into a pipeline stage's part (its chunks' layers, renumbered, with the
-embedding on the first stage and the head on the last) and back. Composed
-with :func:`from_flax` they take a flax tree to each rank's parameters.
+parallelism, :func:`mesh_shards` / :func:`gather_mesh` for both at once on
+a ``(data, model)`` mesh, and :func:`pp_stage` / :func:`gather_stages`
+cut a parameter set into a pipeline stage's part (its chunks' layers,
+renumbered, with the embedding on the first stage and the head on the
+last) and back. Composed with :func:`from_flax` they take a flax tree to
+each rank's parameters.
 
 :func:`attention_tolerance` is the limit attention outputs are held to
 when two implementations are compared (kernel vs plain version, port vs
@@ -180,6 +182,26 @@ def gather_tp(shards: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
         d = tp_shard_dim(name)
         out[name] = x if d is None else torch.cat([s[name] for s in shards], d)
     return out
+
+
+def mesh_shards(state: dict[str, torch.Tensor], data_idx: int, n_data: int,
+                model_idx: int, n_model: int) -> dict[str, torch.Tensor]:
+    """The parameters of the rank at ``(data_idx, model_idx)`` of a
+    ``(data, model)`` mesh under FSDP with Megatron tensor parallelism, from
+    a whole ``state_dict``: its model index's :func:`tp_shards` slice, then
+    that slice's :func:`fsdp_shards` shard for its **data** index (the FSDP
+    ring is the data group, not the world). With ``n_model`` 1 (ring
+    attention's model axis holds sequence shards, no parameter slices) the
+    FSDP shard alone."""
+    return fsdp_shards(tp_shards(state, model_idx, n_model), data_idx, n_data)
+
+
+def gather_mesh(grid: list[list[dict[str, torch.Tensor]]]) -> dict[str, torch.Tensor]:
+    """The whole ``state_dict`` from every rank's :func:`mesh_shards`,
+    ``grid[d][m]`` the rank at data index d and model index m (the global
+    rank ``d·model + m``): each model index's FSDP shards gathered over the
+    data axis, then the Megatron slices over the model axis."""
+    return gather_tp([gather_shards([row[m] for row in grid]) for m in range(len(grid[0]))])
 
 
 _BLOCK = re.compile(r"stage\.blocks\.(\d+)\.(.+)")

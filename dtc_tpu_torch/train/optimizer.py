@@ -29,7 +29,11 @@ parameters, whole copies of the rest, and only its stage's parameters: the
 clip's global norm sums the squared norms of the sharded gradients over
 the model group, counts the replicated ones once, and sums each stage's
 total over the pipe group (``optax.clip_by_global_norm`` over the whole
-tree of the one-process model).
+tree of the one-process model). Under both FSDP and tensor parallelism
+(DP×FSDP×TP) a squared norm sums over the data group where the parameter
+is an FSDP shard and then over the model group where it is a Megatron
+slice: a parameter that is both sums over both, and one replicated on an
+axis counts once on it.
 """
 
 from __future__ import annotations
@@ -142,24 +146,25 @@ class ClippedAdamW:
         norms = torch.stack(torch._foreach_norm(grads))
         import torch.distributed as dist
 
-        if self.norm_groups is not None:
-            ng = self.norm_groups
-            mask = torch.tensor(ng.sharded, device=norms.device)
-            sq = norms * norms
-            sharded = torch.where(mask, sq, torch.zeros_like(sq)).sum().reshape(1)
-            if ng.model is not None:
-                dist.all_reduce(sharded, group=ng.model)
-            total = sharded + torch.where(mask, torch.zeros_like(sq), sq).sum()
-            if ng.pipe is not None:
-                dist.all_reduce(total, group=ng.pipe)
-            return torch.sqrt(total)
-        if self.fsdp is None:
-            return norms
-
-        mask = torch.tensor(self._sharded, device=norms.device)
-        sq = torch.where(mask, norms * norms, torch.zeros_like(norms))
-        dist.all_reduce(sq, group=self.fsdp.ring.group)
-        return torch.where(mask, torch.sqrt(sq), norms)
+        sq = norms * norms
+        if self.fsdp is not None:
+            # FSDP shards (of a Megatron slice or of a replicated
+            # parameter): their squares summed over the data group
+            mask = torch.tensor(self._sharded, device=norms.device)
+            part = torch.where(mask, sq, torch.zeros_like(sq))
+            dist.all_reduce(part, group=self.fsdp.ring.group)
+            sq = torch.where(mask, part, sq)
+        ng = self.norm_groups
+        if ng is None:
+            return norms if self.fsdp is None else torch.where(mask, torch.sqrt(sq), norms)
+        mask = torch.tensor(ng.sharded, device=norms.device)
+        sharded = torch.where(mask, sq, torch.zeros_like(sq)).sum().reshape(1)
+        if ng.model is not None:
+            dist.all_reduce(sharded, group=ng.model)
+        total = sharded + torch.where(mask, torch.zeros_like(sq), sq).sum()
+        if ng.pipe is not None:
+            dist.all_reduce(total, group=ng.pipe)
+        return torch.sqrt(total)
 
 
 def create_optimizer(params, cfg: OptimConfig, total_steps: int = 0,

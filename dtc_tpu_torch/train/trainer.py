@@ -21,13 +21,17 @@ model group (:func:`~dtc_tpu_torch.train.train_step.replicas_equal`).
 Under ``parallel: fsdp`` in a process group each rank keeps its shard of
 every parameter FSDP shards (cut from the full ``GPT(seed)`` init or from
 ``params``, so the start equals the unsharded run) and trains with the
-:class:`~dtc_tpu_torch.parallel.fsdp.FSDP` state over every rank (FSDP
-runs with ``model`` and ``pipe`` 1, so the data axis is the world);
+:class:`~dtc_tpu_torch.parallel.fsdp.FSDP` state over the data group of
+its model index (``pipe`` 1). A ``model`` axis is Megatron tensor
+parallelism (DP×FSDP×TP, the JAX package's "3d" mode: the shards are cut
+from the rank's Megatron slices) or, under ``attention: ring``, the ring's
+sequence shards (the gradients and the loss averaged over it as well, the
+dense sites on the serialized path as the ring's rules say);
 ``collectives`` (either config; ``train_step.resolve_collectives``) picks
 the gathered path or the overlapped ring. ``TrainResult.model`` then holds
-the gathered weights. Under ``overlapped`` without a usable FSDP ring the
-JAX package's inert warning is printed and every matmul keeps its plain
-product.
+the gathered weights (under TP this rank's slice). Under ``overlapped``
+without a usable FSDP ring the JAX package's inert warning is printed and
+every matmul keeps its plain product.
 
 Under DP every rank holds the whole model. Each draws the
 global batch of the JAX package's process 0 (``synthetic_batch_iterator``
@@ -143,7 +147,7 @@ def refuse_unported(train_cfg: TrainConfig, model_cfg: ModelConfig) -> None:
         if refused:
             raise NotImplementedError(f"the PyTorch port does not train with {what} yet")
     if train_cfg.parallel == "fsdp":
-        check_fsdp((max(m.pipe, 1), 1, max(m.model, 1)), model_cfg.attention)
+        check_fsdp((max(m.pipe, 1), 1, max(m.model, 1)))
 
 
 def train(
@@ -203,7 +207,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
     shape = resolve_mesh_shape(train_cfg.parallel, world, train_cfg.mesh,
                                n_layers=model_cfg.n_layers)
     if train_cfg.parallel == "fsdp":
-        check_fsdp(shape, model_cfg.attention)
+        check_fsdp(shape)
     mesh = Mesh(shape, rank) if world > 1 else None
     n_pipe, n_data, n_model = shape
     seq = model_cfg.max_seq_len
@@ -226,8 +230,14 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
 
         model.load_state_dict(model.local_state(from_flax(params, model_cfg)))
     fsdp = None
-    if train_cfg.parallel == "fsdp" and torch.distributed.is_initialized():
-        fsdp = FSDP(DistRing(range(world))).shard_(model)
+    if (train_cfg.parallel == "fsdp" and torch.distributed.is_initialized()
+            and (mesh is None or n_data > 1)):
+        # The FSDP ring: the data group of this rank's model index (the
+        # world of one process without a mesh).
+        ring = (DistRing(range(world)) if mesh is None
+                else DistRing(mesh.data_ranks, mesh.data_group))
+        seq_group = mesh.model_group if ring_attn and n_model > 1 else None
+        fsdp = FSDP(ring, seq_group).shard_(model)
     norm_groups = None
     if model.sharded:
         norm_groups = NormGroups(

@@ -13,10 +13,11 @@ silent fallback the port forbids. Without that environment nothing is
 initialized and the trainer is the single-process trainer.
 
 :func:`isend` / :func:`recv` carry a tensor between two ranks (the
-pipeline's activations and cotangents). Gloo moves CUDA tensors in its
-collectives (``all_reduce``, ``broadcast``) but not point to point, so
-under gloo a CUDA tensor goes through a host buffer, copied explicitly on
-both sides.
+pipeline's activations and cotangents), and the ring's exchanges
+(``ops/ring_attention.DistRing``) stage theirs the same way. Gloo moves
+CUDA tensors in its collectives (``all_reduce``, ``broadcast``) but not
+point to point, so under gloo a CUDA tensor goes through a host buffer,
+copied explicitly on both sides (:func:`_host_staged`).
 """
 
 from __future__ import annotations
@@ -101,10 +102,10 @@ def is_lead_process() -> bool:
     return rank() == 0
 
 
-def _host_staged(t: torch.Tensor) -> bool:
+def _host_staged(t: torch.Tensor, group=None) -> bool:
     """Does ``t`` travel point to point through a host buffer (a CUDA
-    tensor under gloo)?"""
-    return t.is_cuda and dist.get_backend() == "gloo"
+    tensor under gloo, in ``group``: the world when None)?"""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
 def isend(t: torch.Tensor, dst: int):

@@ -1,7 +1,9 @@
 """The port on a CUDA card: the decode-attention, flash-attention, decode
 megakernel (with its LoRA sites) and FSDP ring kernels against their plain
-versions, and the kernels on the model's decode and training paths
-(rematerialisation and the FSDP ring over virtual ranks included).
+versions (the ring's at the flagship's and the DP×FSDP×TP sites), and the
+kernels on the model's decode and training paths (rematerialisation and
+the FSDP ring over virtual ranks included); two gloo ranks sharing the
+card for tensor parallelism and the FSDP ring's transport.
 Needs an NVIDIA GPU with ``nvcc``; elsewhere every test skips with the
 reason.
 
@@ -1199,6 +1201,48 @@ def test_overlap_steps_match_plain(cuda, dt, m, k, n, shard_axis, flip):
         assert ((a - b).abs() <= row_tolerance(b, torch.float32).to(cuda)).all()
 
 
+#: The dense sites of ``train_config_3d.yaml`` (data 4 × model 2) at one
+#: model rank's Megatron widths, over a ring of 4: (site, token rows of
+#: the 4 ranks, K, N, shard axis). A rank's x is (4·512, K); its chunk a
+#: ring step q/k/v (128, 256), fc1 (128, 1024), out_proj (256, 128), fc2
+#: (1024, 128).
+SITES_3D = (("qkv", 8192, 512, 256, 0), ("fc1", 8192, 512, 1024, 0),
+            ("out_proj", 8192, 256, 512, 1), ("fc2", 8192, 1024, 512, 1))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site,m,k,n,shard_axis", SITES_3D)
+def test_overlap_steps_match_plain_at_the_3d_sites(cuda, dt, site, m, k, n, shard_axis):
+    """The ring's step kernels at the DP×FSDP×TP sites over 4 virtual
+    ranks, the weight in ``Dense.weight``'s layout (the TP slice
+    transposed): float32 ring outputs within 1e-5 of each row's largest
+    value, 2R² and R² launches, bf16 every launch on the tensor cores by
+    TMA, float32 on the CUDA cores."""
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+    from dtc_tpu_torch.ops.ring_attention import InProcessRing
+    from dtc_tpu_torch.parity import row_tolerance
+
+    x, w, dy = _overlap_case(cuda, m, k, n, dt, seed=k + n)
+    w = w.t().contiguous().t()
+    ring = InProcessRing(4)
+
+    def run(ag=None, rs=None):
+        y = oc.ring_ag_matmul(x, w, ring, shard_axis=shard_axis, step=ag)
+        return (y, *oc.ring_backward(x, w, dy, ring, shard_axis=shard_axis, ag=ag, rs=rs))
+
+    a0, r0 = oc.ag_launches, oc.rs_launches
+    routes0 = dict(oc.route_launches)
+    got = run()
+    assert (oc.ag_launches - a0, oc.rs_launches - r0) == (32, 16)
+    routes = {r: oc.route_launches[r] - routes0[r] for r in routes0}
+    route = "cuda_cores" if dt == torch.float32 else "tma"
+    assert routes == dict({"cuda_cores": 0, "tma": 0, "threads": 0}, **{route: 48})
+    want = run(oc.ag_step_reference, oc.rs_step_reference)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        assert ((a - b).abs() <= row_tolerance(b, torch.float32).to(cuda)).all()
+
+
 def _deep_steps(dev, seed=0):
     """fc2's out-mode forward step (x (1024, 2048) @ a (2048, 128) chunk,
     the transposed weight) and fc1's dw step (x (1024, 512)'s 128-column
@@ -1415,9 +1459,38 @@ def _tp_worker(out_dir: str) -> None:
             out[f"block_{name}_{tag}"] = [y_.detach(), xi.grad] + [
                 p.grad for _, p in sorted(blk.named_parameters())]
         out[f"block_{name}_names"] = [n_ for n_, _ in sorted(part.named_parameters())]
+    out.update(_fsdp_ring_pair(dev, rank))
     torch.save({k: [t.cpu() if torch.is_tensor(t) else t for t in v] for k, v in out.items()},
                Path(out_dir) / f"tp_r{rank}.pt")
     dist_utils.teardown()
+
+
+def _fsdp_ring_pair(dev, rank: int) -> dict:
+    """The FSDP ring's transport between the two ranks on the card: one
+    ``DistRing`` exchange of CUDA tensors under gloo (a chunk sent to the
+    other rank, a transposed view kept home), and the overlapped op over
+    the two ranks (this rank's rows and weight chunk, forward and
+    gradients) beside the same op over 2 virtual ranks of the whole."""
+    from dtc_tpu_torch.ops import overlap_collectives as oc
+    from dtc_tpu_torch.ops.ring_attention import DistRing, InProcessRing
+
+    ring = DistRing((0, 1))
+    x = torch.arange(120.0, device=dev).reshape(3, 40) + 1000 * rank
+    res = {"ring_exchange": [x, *ring.exchange(((1, 0), (0, 1)), [x, x.t()])]}
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(5)
+        xw, w, dy = (torch.randn(*s, device=dev, generator=g).to(dt)
+                     for s in ((256, 128), (128, 192), (256, 192)))
+        rows = slice(rank * 128, (rank + 1) * 128)
+        for sa in (0, 1):
+            for tag, ring_, xi, wi, dyi in (
+                    ("rank", ring, xw[rows], w.chunk(2, sa)[rank].contiguous(), dy[rows]),
+                    ("whole", InProcessRing(2), xw, w, dy)):
+                xi, wi = xi.clone().requires_grad_(True), wi.clone().requires_grad_(True)
+                y = oc.overlap_dense_matmul(xi, wi, shard_axis=sa, ring=ring_)
+                y.backward(dyi)
+                res[f"op_{dt}_{sa}_{tag}"] = [y.detach(), xi.grad, wi.grad]
+    return res
 
 
 @pytest.fixture(scope="module")
@@ -1502,6 +1575,31 @@ def test_tp_block_on_cuda_matches_the_whole_block(tp_pair, dt):
                               for leaf in ("weight", "bias")])
             limit = row_tolerance(site[None], dtype)[0, 0]
             assert ((g.float() - wants[name].float()).abs() <= limit).all(), name
+
+
+def test_dist_ring_carries_cuda_tensors_between_gloo_ranks(tp_pair):
+    """Two gloo ranks on the card: a ``DistRing`` exchange hands each rank
+    the other's CUDA tensor (through host buffers: gloo moves CUDA tensors
+    only in collectives) and keeps the self-pair's transposed view; the
+    overlapped op over the two ranks (the FSDP ring's kernels, this rank's
+    rows and weight chunk) equals the op over 2 virtual ranks of the whole
+    within ``parity.row_tolerance``, forward and gradients, both shard
+    axes, float32 and bf16."""
+    from dtc_tpu_torch.parity import row_tolerance
+
+    for rank in range(2):
+        mine, got, home = tp_pair[rank]["ring_exchange"]
+        assert torch.equal(got, tp_pair[1 - rank]["ring_exchange"][0])
+        assert torch.equal(home, mine.t())
+        for dt in (torch.float32, torch.bfloat16):
+            for sa in (0, 1):
+                got = tp_pair[rank][f"op_{dt}_{sa}_rank"]
+                want = tp_pair[0][f"op_{dt}_{sa}_whole"]
+                rows = slice(rank * 128, (rank + 1) * 128)
+                pieces = (want[0][rows], want[1][rows], want[2].chunk(2, sa)[rank])
+                for a, b in zip(got, pieces):
+                    assert a.dtype == dt and a.shape == b.shape
+                    assert ((a.float() - b.float()).abs() <= row_tolerance(b, dt)).all()
 
 
 if __name__ == "__main__":

@@ -18,11 +18,22 @@ gloo processes on the CPU, against the JAX package on its 8-device CPU mesh
   the model group), and the vocab-parallel head + CE over a model group of
   2 against JAX's ``fused_head_ce``, loss and gradients, with targets on
   both ranks and inside the pad's rank, in one chunk and in 7-row chunks.
+  In the same spawn, FSDP on a (data 2, model 2) mesh: DP×FSDP×TP under
+  ``xla`` and ``overlapped`` and FSDP with ring attention, against JAX's
+  ``train()`` (3D on data 4 × model 2, ``overlapped``; the ring on data 2 ×
+  model 4) at JAX's 5e-4 on losses and 3e-4 on the parameters gathered by
+  ``parity.gather_mesh``, the first step's reduced gradients and clip norm
+  against one process's, the ring's step counts; and a ``DistRing``
+  exchange that takes its tensors for CUDA tensors under gloo (through
+  host buffers).
 - Pure Python: the port's ``simulate_interleaved`` / ``simulate_1f1b``
   tables equal JAX's over a grid of (M, S, V); GPipe's table; the stage
   layout equals ``pp_stack_params``; ``pp_stage`` / ``tp_shards`` and
   their gathers; the Megatron dims against JAX's ``param_specs``;
-  ``train_memory_bytes`` on TP and PP meshes against JAX's.
+  ``train_memory_bytes`` on TP and PP meshes against JAX's; under
+  FSDP_RULES and the ring's rules every parameter's spec against JAX's,
+  ``mesh_shards`` / ``gather_mesh``, ``check_fsdp``, and the FSDP metrics
+  on (data, model) meshes against JAX's.
 """
 
 import dataclasses
@@ -36,7 +47,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_dist import _flax_params, _spawn, _write_run
+from tests.test_torch_dist import _count_ring_steps, _flax_params, _spawn, _write_run
 
 #: The spawn's training runs: (name, the port's train-config overrides,
 #: JAX's overrides on its 8 devices, loss tolerance).
@@ -53,6 +64,21 @@ RUNS = (
     ("pp_tp", dict(parallel="3d", pp_microbatches=2, mesh=(2, 1, 2)),
      dict(parallel="3d", pp_microbatches=2, mesh=(2, 2, 2)), 5e-4),
 )
+#: The spawn's FSDP runs on a (pipe 1, data 2, model 2) mesh: (name, the
+#: port's train-config overrides, its model-config overrides, the JAX
+#: oracle they are held to). DP×FSDP×TP under both collectives, and FSDP
+#: with ring attention over the model axis.
+FSDP_RUNS = (
+    ("3d_xla", dict(parallel="fsdp", mesh=(1, 2, 2)), {}, "3d"),
+    ("3d_overlapped", dict(parallel="fsdp", collectives="overlapped", mesh=(1, 2, 2)), {}, "3d"),
+    ("fsdp_ring", dict(parallel="fsdp", mesh=(1, 2, 2)), dict(attention="ring"), "ring"),
+)
+#: JAX's ``train()`` on its 8 devices for each oracle: (train overrides,
+#: model overrides). The two 3D runs share JAX's ``overlapped`` one (JAX's
+#: own test holds ``xla`` and ``overlapped`` to the same losses); the
+#: global batch is the same, so the losses are.
+JAX_FSDP = {"3d": (dict(parallel="fsdp", collectives="overlapped", mesh=(0, 4, 2)), {}),
+            "ring": (dict(parallel="fsdp", mesh=(0, 2, 4)), dict(attention="ring"))}
 STEPS = 4
 CE_ROWS, CE_D, CE_VOCAB = 24, 16, 97     # padded to 128: rank 1 holds 64..127
 
@@ -86,18 +112,83 @@ def _worker(case: str, out_dir: str) -> None:
     from dtc_tpu_torch.train.trainer import train
 
     model_spec = spec["model"]
-    for name, over, _, _ in RUNS + (("tp_dropout", RUNS[0][1], None, None),):
+    _staged_exchange(out, rank)
+    runs = [(name, over, {}) for name, over, _, _ in RUNS]
+    runs += [("tp_dropout", RUNS[0][1], dict(dropout=0.1))]
+    runs += [(name, over, model_over) for name, over, model_over, _ in FSDP_RUNS]
+    for name, over, model_over in runs:
         over = dict(over, mesh=ts.MeshConfig(*over["mesh"]))
         cfg = _build(ts.TrainConfig, spec["train"], "train")
         cfg = dataclasses.replace(cfg, output_dir=str(out / f"log_{name}"), **over)
-        mcfg = _build(ts.ModelConfig, dict(model_spec, dropout=0.1 if "dropout" in name
-                                           else model_spec["dropout"]), "model")
+        mcfg = _build(ts.ModelConfig, dict(model_spec, **model_over), "model")
+        fsdp_run = name in {r[0] for r in FSDP_RUNS}
+        if fsdp_run:
+            first, steps = _record_first_step(), _count_ring_steps()
         res = train(cfg, mcfg, _build(ts.OptimConfig, spec["optim"], "optim"), device="cpu",
                     params=params)
         (out / f"losses_{name}_r{rank}.json").write_text(json.dumps(res.losses))
         np.savez(out / f"params_{name}_r{rank}.npz",
                  **{k: v.detach().numpy() for k, v in res.model.state_dict().items()})
+        if fsdp_run:
+            # this rank's shards after the steps, its first step's reduced
+            # gradients (shards) and clip norm, and its ring steps
+            names = [n for n, _ in res.model.named_parameters()]
+            grads, norm = first()
+            np.savez(out / f"shards_{name}_r{rank}.npz",
+                     **{n: p.detach().numpy() for n, p in zip(names, res.optimizer.params)})
+            np.savez(out / f"grads_{name}_r{rank}.npz", norm=norm, ring_steps=steps(),
+                     **{n: g.numpy() for n, g in zip(names, grads)})
     dist_utils.teardown()
+
+
+def _record_first_step():
+    """Record the gradients the optimizer's first ``step`` sees (reduced
+    as the train step reduces them) and the clip's global norm; returns a
+    function that stops recording and gives ``(gradients, norm)``."""
+    from dtc_tpu_torch.train.optimizer import ClippedAdamW
+
+    real, seen = ClippedAdamW.step, {}
+
+    def step(self):
+        if not seen:
+            grads = [p.grad for p in self.params]
+            seen["grads"] = [g.detach().clone() for g in grads]
+            seen["norm"] = float(torch.linalg.vector_norm(self._param_norms(grads)))
+        return real(self)
+
+    ClippedAdamW.step = step
+
+    def stop():
+        ClippedAdamW.step = real
+        return seen["grads"], seen["norm"]
+    return stop
+
+
+def _staged_exchange(out: Path, rank: int) -> None:
+    """A ``DistRing`` exchange over the 4 ranks with every tensor taken for
+    a CUDA tensor under gloo (``_host_staged`` answers yes): a chunk sent
+    right and a non-contiguous one kept home. Records which tensors were
+    asked about, the transfers in flight and the tensors staged when
+    ``start`` returned, and whether what arrived equals the unstaged
+    exchange's result."""
+    from dtc_tpu_torch.ops import ring_attention as tra
+    from dtc_tpu_torch.utils import dist as dist_utils
+
+    ring = tra.DistRing(range(4))
+    x = torch.arange(12.0).reshape(3, 4) + 100 * rank
+    right, home = tuple((i + 1) % 4 for i in range(4)), tuple(range(4))
+    (plain,) = ring.exchange((right,), [x])
+    asked, real = [], dist_utils._host_staged
+    dist_utils._host_staged = lambda t, group=None: asked.append(list(t.shape)) or True
+    try:
+        pending = ring.start((right, home), [x, x.t()])
+        in_flight, staged = len(pending._works), len(pending._staged)
+        got = pending.wait()
+    finally:
+        dist_utils._host_staged = real
+    (out / f"staged_r{rank}.json").write_text(json.dumps(dict(
+        asked=asked, in_flight=in_flight, staged=staged,
+        equal=[torch.equal(got[0], plain), torch.equal(got[1], x.t())])))
 
 
 def _vocab_parallel_ce(out: Path, rank: int) -> None:
@@ -141,7 +232,7 @@ def spawned(tmp_path_factory):
     the spawn under a file lock and the others read its results."""
     from filelock import FileLock
 
-    from dtc_tpu.config.schema import ModelConfig, OptimConfig
+    from dtc_tpu.config.schema import OptimConfig
 
     base = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
@@ -150,10 +241,7 @@ def spawned(tmp_path_factory):
     with FileLock(str(out) + ".lock"):
         if not (out / "done").exists():
             out.mkdir(exist_ok=True)
-            model_cfg = ModelConfig(vocab_size=97, d_model=64, n_layers=4, n_heads=4,
-                                    d_ff=128, max_seq_len=32, dropout=0.0,
-                                    param_dtype="float32", compute_dtype="float32",
-                                    attention="dense")
+            model_cfg = _tiny_cfg()
             from tests.conftest import make_train_cfg
 
             train_cfg = make_train_cfg("dp", steps=STEPS, log_every=1, output_dir="x")
@@ -258,6 +346,148 @@ def test_vocab_parallel_ce_over_two_ranks_matches_jax(spawned):
         np.testing.assert_allclose(dw, jdw, atol=1e-5 * max(float(np.abs(jdw).max()), 1.0))
         np.testing.assert_allclose(db, jdb, atol=1e-5 * max(float(np.abs(jdb).max()), 1.0))
         assert float(np.abs(db[CE_VOCAB:]).max()) == 0.0    # pad columns get nothing
+
+
+# ---------------------------------------------------------------------------
+# FSDP on a (data, model) mesh: DP×FSDP×TP and FSDP with ring attention
+# ---------------------------------------------------------------------------
+
+def _tiny_cfg(**over):
+    from dtc_tpu.config.schema import ModelConfig
+
+    return ModelConfig(**dict(dict(vocab_size=97, d_model=64, n_layers=4, n_heads=4, d_ff=128,
+                                   max_seq_len=32, dropout=0.0, param_dtype="float32",
+                                   compute_dtype="float32", attention="dense"), **over))
+
+
+@pytest.fixture(scope="session")
+def jax_fsdp(tmp_path_factory):
+    """JAX's ``train()`` for an oracle of :data:`JAX_FSDP`, run once a
+    session (by the first xdist worker to ask, under a file lock): a
+    function of the oracle's tag giving its losses and its parameters
+    after the steps as a ``from_flax`` state."""
+    from filelock import FileLock
+
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+
+    def get(tag):
+        out = base / f"jax_fsdp_{tag}"
+        with FileLock(str(out) + ".lock"):
+            if not (out / "done").exists():
+                import jax
+
+                from dtc_tpu.config.schema import MeshConfig as JMesh
+                from dtc_tpu.config.schema import OptimConfig
+                from dtc_tpu.train.trainer import train as jtrain
+                from dtc_tpu_torch.parity import from_flax
+                from tests.conftest import make_train_cfg
+
+                over, model_over = JAX_FSDP[tag]
+                cfg = _tiny_cfg(**model_over)
+                res = jtrain(make_train_cfg(steps=STEPS, log_every=1,
+                                            **dict(over, mesh=JMesh(*over["mesh"]))),
+                             cfg, OptimConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0))
+                out.mkdir(exist_ok=True)
+                state = from_flax(jax.tree.map(np.asarray, jax.device_get(res.state.params)),
+                                  cfg)
+                np.savez(out / "params.npz", **{k: v.numpy() for k, v in state.items()})
+                (out / "losses.json").write_text(json.dumps(res.losses))
+                (out / "done").write_text("")
+        return (json.loads((out / "losses.json").read_text()),
+                {k: torch.from_numpy(v) for k, v in np.load(out / "params.npz").items()})
+    return get
+
+
+def _one_process_first_step(spawned, model_over):
+    """The port's first step in one process on the spawn's weights and
+    global batch: the gradients the optimizer sees and the clip's norm."""
+    from dtc_tpu_torch.config import schema as ts
+    from dtc_tpu_torch.config.loader import _build
+    from dtc_tpu_torch.train.trainer import train
+
+    spec = json.loads((spawned / "config.json").read_text())
+    with open(spawned / "params.pkl", "rb") as f:
+        params = pickle.load(f)
+    cfg = dataclasses.replace(_build(ts.TrainConfig, spec["train"], "train"), steps=1,
+                              output_dir="")
+    first = _record_first_step()
+    res = train(cfg, _build(ts.ModelConfig, dict(spec["model"], **model_over), "model"),
+                _build(ts.OptimConfig, spec["optim"], "optim"), device="cpu", params=params)
+    grads, norm = first()
+    return dict(zip([n for n, _ in res.model.named_parameters()], grads)), norm
+
+
+@pytest.mark.parametrize("run", [r[0] for r in FSDP_RUNS])
+def test_fsdp_on_a_data_model_mesh_matches_jax(spawned, jax_fsdp, run):
+    """DP×FSDP×TP (``xla`` and ``overlapped``) and FSDP with ring attention
+    over 4 gloo ranks (data 2 × model 2) against JAX's ``train()`` (3D:
+    data 4 × model 2 ``overlapped``; ring: data 2 × model 4): the losses
+    within JAX's 5e-4, every rank's shards the shape ``parity.mesh_shards``
+    cuts, the parameters after the steps (each rank's shards gathered by
+    ``parity.gather_mesh``) within JAX's 3e-4, the replicated shards
+    bit-equal across each model group. The first step's reduced gradients
+    (gathered) and clip norm against one process's on the whole batch
+    (AdamW hides a wrong gradient scale from the losses), and the ring's
+    steps: 2R all-gather-matmul and R reduce-scatter steps at each of the
+    24 dense sites a step under ``overlapped`` (every site on the ring),
+    none otherwise."""
+    from dtc_tpu_torch.parallel.sharding import tp_shard_dim
+    from dtc_tpu_torch.parity import gather_mesh, mesh_shards
+
+    _, _, model_over, oracle = next(r for r in FSDP_RUNS if r[0] == run)
+    want_losses, want = jax_fsdp(oracle)
+    losses = [json.loads((spawned / f"losses_{run}_r{r}.json").read_text()) for r in range(4)]
+    assert all(lo == losses[0] for lo in losses), "the ranks logged different losses"
+    np.testing.assert_allclose(losses[0], want_losses, rtol=5e-4, atol=5e-4)
+    rows = (spawned / f"log_{run}" / "log.csv").read_text().splitlines()
+    assert rows[0] == "step,elapsed_time,loss" and len(rows) == STEPS + 1
+
+    def load(kind, rank):
+        return {k: torch.from_numpy(v) for k, v in
+                np.load(spawned / f"{kind}_{run}_r{rank}.npz").items()}
+
+    n_model = 1 if model_over.get("attention") == "ring" else 2
+    shards = [[load("shards", 2 * d + m) for m in range(2)] for d in range(2)]
+    for d in range(2):
+        for m in range(2):
+            cut = mesh_shards(want, d, 2, m % n_model, n_model)
+            assert {k: tuple(v.shape) for k, v in shards[d][m].items()} == \
+                {k: tuple(v.shape) for k, v in cut.items()}, (d, m)
+        for name, x in shards[d][0].items():
+            if n_model == 1 or tp_shard_dim(name) is None:
+                assert torch.equal(x, shards[d][1][name]), (d, name)
+    got = gather_mesh([row[:n_model] for row in shards])
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].numpy(), w.numpy(), atol=3e-4, err_msg=name)
+
+    ref, ref_norm = _one_process_first_step(spawned, model_over)
+    grads = [[load("grads", 2 * d + m) for m in range(2)] for d in range(2)]
+    steps = [0, 0]
+    if run == "3d_overlapped":
+        steps = [STEPS * 4 * 6 * 2 * 2, STEPS * 4 * 6 * 2]
+    for row in grads:
+        for g in row:
+            assert g.pop("ring_steps").tolist() == steps
+            np.testing.assert_allclose(float(g.pop("norm")), ref_norm, rtol=1e-5)
+    whole = gather_mesh([row[:n_model] for row in grads])
+    for name, g in ref.items():
+        np.testing.assert_allclose(whole[name].numpy(), g.numpy(), rtol=1e-4, atol=1e-6,
+                                   err_msg=name)
+
+
+def test_dist_ring_stages_cuda_tensors_through_host_buffers(spawned):
+    """Gloo moves CUDA tensors only in collectives: a ``DistRing`` exchange
+    of a tensor that travels under gloo from a card asks ``_host_staged``,
+    sends a host copy and copies what arrives back at ``wait()``, with the
+    transfers already in flight when ``start`` returns; the self-pair stays
+    a local copy; the result equals the unstaged exchange's."""
+    for rank in range(4):
+        rec = json.loads((spawned / f"staged_r{rank}.json").read_text())
+        assert rec["asked"] == [[3, 4]], rec
+        assert rec["staged"] == 1 and rec["in_flight"] > 0 and rec["equal"] == [True, True]
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +627,113 @@ def test_train_memory_bytes_on_tp_and_pp_meshes_matches_jax(tiny_model_cfg, mesh
         got = tm.train_memory_bytes(port, 8, cfg.max_seq_len, mesh_shape, parallel)
         for key, value in got.items():
             assert value == pytest.approx(want[key], rel=1e-12), (parallel, key)
+
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["3d", "ring"])
+def test_fsdp_param_specs_match_jax_and_mesh_shards_round_trip(tiny_model_cfg, ring):
+    """Every port parameter's spec under FSDP_RULES (an FSDP dim over
+    ``data`` and a Megatron dim over ``model``: q_proj's kernel
+    ``P(None, "data", "model")``) and under the ring's derived rules (the
+    FSDP dim alone: ``P(None, "data")``) against JAX's ``param_specs``
+    through the layouts; ``mesh_shards`` over data 4 × model 2 (ring: data 2,
+    no Megatron slices) gathered back bit for bit by ``gather_mesh``."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from dtc_tpu.parallel import sharding as js
+    from dtc_tpu_torch.parallel import sharding as ps
+    from dtc_tpu_torch.parity import from_flax, gather_mesh, mesh_shards
+
+    params = _flax_params(tiny_model_cfg)
+    jrules = js.ring_rules_from(js.FSDP_RULES) if ring else js.FSDP_RULES
+    rules = ps.ring_rules_from(ps.FSDP_RULES) if ring else ps.FSDP_RULES
+    specs = js.param_specs(params, jrules)
+    qk = specs["stage"]["blocks"]["Block_0"]["attn"]["q_proj"]["kernel"]
+    # (JAX's trained kernel shows the spec without its trailing None)
+    assert P(*tuple(qk)[:2 if ring else 3]) == (P(None, "data") if ring
+                                                else P(None, "data", "model"))
+    assert tuple(qk)[2 if ring else 3:] in ((), (None,))
+    flat = {"/".join(str(getattr(k, "key", k)) for k in path): spec for path, spec in
+            jax.tree_util.tree_flatten_with_path(specs, is_leaf=lambda s: isinstance(s, P))[0]}
+    state = from_flax(jax.tree.map(np.asarray, params), tiny_model_cfg)
+    for name in state:
+        parts = name.split(".")
+        mod = parts[-2]
+        leaf = {"weight": {"wte": "embedding", "wpe": "embedding"}.get(
+                    mod, "scale" if mod.startswith("ln") else "kernel"), "bias": "bias"}[parts[-1]]
+        spec = next(s for p, s in flat.items() if p.endswith(f"/{mod}/{leaf}"))
+        axes = list(spec) + [None] * (state[name].ndim + ("blocks" in name) - len(spec))
+        if "blocks" in name:
+            axes = axes[1:]
+        if leaf == "kernel":
+            axes = axes[::-1]
+        assert list(ps.param_spec(name, rules)) == axes, name
+    n_data, n_model = (2, 1) if ring else (4, 2)
+    grid = [[mesh_shards(state, d, n_data, m, n_model) for m in range(n_model)]
+            for d in range(n_data)]
+    q = grid[1][0]["stage.blocks.0.attn.q_proj.weight"]
+    assert q.shape == (64 // n_model, 64 // n_data)
+    back = gather_mesh(grid)
+    assert back.keys() == state.keys() and all(torch.equal(back[n], state[n]) for n in state)
+
+
+def test_check_fsdp_refuses_only_a_pipe_axis(tiny_model_cfg, opt_cfg, train_cfg_factory):
+    """FSDP trains with a model axis (Megatron or ring attention) and still
+    refuses a pipe axis, before any process group."""
+    from dtc_tpu_torch.config import schema as ts
+    from dtc_tpu_torch.config.loader import _build
+    from dtc_tpu_torch.parallel.mesh import check_fsdp
+    from dtc_tpu_torch.train.trainer import refuse_unported
+
+    for shape in ((1, 4, 2), (1, 2, 4), (1, 8, 1), (1, 1, 8)):
+        check_fsdp(shape)
+    with pytest.raises(NotImplementedError, match="pipe axis"):
+        check_fsdp((2, 2, 2))
+    port = lambda cls, c: _build(cls, dataclasses.asdict(c), "test")
+
+    def fsdp_cfg(**mesh):
+        cfg = train_cfg_factory("fsdp", mesh=ts.MeshConfig(**mesh))
+        return port(ts.TrainConfig, dataclasses.replace(
+            cfg, obs=dataclasses.replace(cfg.obs, enabled=False)))
+
+    for attention in ("dense", "ring"):
+        model = port(ts.ModelConfig, dataclasses.replace(tiny_model_cfg, attention=attention))
+        refuse_unported(fsdp_cfg(data=4, model=2), model)
+    with pytest.raises(NotImplementedError, match="pipe axis"):
+        refuse_unported(fsdp_cfg(pipe=2, data=2, model=2), port(ts.ModelConfig, tiny_model_cfg))
+
+
+@pytest.mark.parametrize("mesh_shape,attention", [
+    ({"data": 4, "model": 2}, "dense"), ({"data": 2, "model": 4}, "ring"),
+    ({"pipe": 1, "data": 2, "model": 2}, "dense"),
+])
+def test_comm_bytes_and_memory_on_fsdp_meshes_match_jax(tiny_model_cfg, mesh_shape, attention):
+    """``comm_bytes_per_step`` and ``train_memory_bytes`` under ``fsdp``
+    with a model axis against JAX's, and at data 4 × model 2 against the
+    terms of JAX's ``test_comm_bytes_3d_terms``."""
+    from dtc_tpu.utils.metrics import comm_bytes_per_step as jcomm
+    from dtc_tpu.utils.metrics import train_memory_bytes as jmem
+    from dtc_tpu_torch.config import schema as ts
+    from dtc_tpu_torch.config.loader import _build
+    from dtc_tpu_torch.models.gpt import param_count
+    from dtc_tpu_torch.utils import metrics as tm
+
+    for cfg in (dataclasses.replace(tiny_model_cfg, attention=attention),
+                dataclasses.replace(tiny_model_cfg, attention=attention,
+                                    compute_dtype="bfloat16", remat="block")):
+        port = _build(ts.ModelConfig, dataclasses.asdict(cfg), "test")
+        got = tm.comm_bytes_per_step(port, 8, 32, mesh_shape, "fsdp")
+        assert got == pytest.approx(jcomm(cfg, 8, 32, mesh_shape, "fsdp"), rel=1e-12)
+        want = jmem(cfg, 8, cfg.max_seq_len, mesh_shape, "fsdp")
+        mem = tm.train_memory_bytes(port, 8, cfg.max_seq_len, mesh_shape, "fsdp")
+        for key, value in mem.items():
+            assert value == pytest.approx(want[key], rel=1e-12), key
+        if mesh_shape == {"data": 4, "model": 2} and cfg.compute_dtype == "float32":
+            n, n_tp = param_count(port), tm.tp_sharded_param_count(port)
+            assert got["dp_allreduce"] == pytest.approx(3.0 * 3 / 4 * (n_tp / 2 + n - n_tp) * 4)
+            act = 8 * 32 * cfg.d_model * 4 / 4
+            assert got["tp_allreduce"] == pytest.approx(4.0 * cfg.n_layers * 2.0 / 2 * act)
 
 
 if __name__ == "__main__":

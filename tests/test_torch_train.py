@@ -281,7 +281,7 @@ def test_trainer_without_a_card_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("over", [
-    dict(parallel="fsdp", mesh=ts.MeshConfig(model=2)),
+    dict(parallel="fsdp", mesh=ts.MeshConfig(pipe=2)),
     dict(dataset="fineweb"),
     dict(checkpoint_every=10), dict(eval_every=5), dict(obs=ts.ObsConfig()),
     dict(resilience=ts.ResilienceConfig(chaos=ts.ChaosConfig(enabled=True))),
