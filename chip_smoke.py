@@ -239,6 +239,20 @@ Phases (each prints its own lines; any failure exits non-zero):
     ``attention: ring`` on ``train_config_fsdp.yaml``, data 2 × model 2,
     float32, 4 steps within 1e-4 of one process; each rank's ring block
     launches 12 x (2R+1) forward calls a step (R 2), on the CUDA cores.
+24. Checkpoints, resume, held-out eval and the guard's rollback on the
+    flagship (``train_config_dp.yaml``, B 8, synthetic, bf16, dropout 0.1;
+    checkpoints and eval every 10 steps, 2 eval batches, ``log_every`` 5,
+    ``checkpoint_keep_n`` 2, in a temporary directory): (a) run A trains
+    5 + 20 steps; B trains 10 and C resumes B's directory to 20: C's
+    losses, eval loss and parameters equal A's bit for bit, A's flash
+    launches 12 a step and an eval batch forward and 24 a step backward,
+    all "tc"; (b) the newest step's ``model.pt`` truncated: its manifest
+    fails and ``restore_latest`` lands on step 10; (c) the trainer's
+    ``train_step`` wrapped to multiply the parameters and the loss by NaN
+    after the update of step 13 (``log_every`` 10, checkpoints every 5):
+    the save at 15 skipped, the guard rolls back to step 10, and the run
+    ends bit-equal to A; (d) a checkpoint's bytes, save and sha256 seconds,
+    restore seconds, eval ms a batch and A's step median beside phase 7's.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -2651,6 +2665,197 @@ def fsdp_mesh_phase(ref32, smi: str, device: str = "cuda", bf16_steps: int = 10,
 
 
 # ---------------------------------------------------------------------------
+# phase 24: checkpoints, resume, held-out eval and the guard's rollback
+# ---------------------------------------------------------------------------
+
+def _models_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters()))
+
+
+def checkpoint_phase(smi: str, phase7_step_ms: float, steps: int = 20, warmup: int = 5,
+                     poison_step: int = 13, device: str = "cuda") -> dict:
+    """The flagship (``train_config_dp.yaml`` + ``model_config.yaml``, B 8,
+    synthetic data, bf16 compute) with checkpoints and held-out eval every
+    10 steps (2 eval batches, ``log_every`` 5, ``checkpoint_keep_n`` 2), in
+    a temporary directory: (a) run A trains ``steps`` steps; run B trains
+    10 and run C resumes B's directory to ``steps``: C's losses, its eval
+    loss and its parameters equal A's bit for bit, and every flash launch
+    of A (its eval forwards among them) is "tc"; (b) a truncated file of
+    the newest step fails its manifest and ``restore_latest`` lands on the
+    previous step; (c) the trainer's ``train_step`` wrapped to multiply the
+    parameters and the loss by NaN after the update of ``poison_step``
+    (the JAX package's chaos ``maybe_poison``), with ``log_every`` 10 and
+    checkpoints every 5: the save at 15 is skipped, the guard rolls back to
+    step 10 and the run ends with A's losses, eval losses and parameters
+    bit for bit; (d) a checkpoint's bytes, save seconds (sha256 seconds
+    inside them), restore seconds, eval ms per batch (CUDA events) and A's
+    step median beside phase 7's. ``device``: ``cpu`` rehearses the phase
+    (no timing is a card's there)."""
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.data.prefetch import split_to_device
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.train import trainer as trainer_mod
+    from dtc_tpu_torch.train.train_step import eval_loss
+    from dtc_tpu_torch.utils.checkpoint import CheckpointManager
+
+    tcfg0, mcfg, ocfg = load_config(ROOT / "configs" / "train_config_dp.yaml")
+    rec: dict = dict(card=smi)
+    cuda = device.startswith("cuda")
+
+    def sync() -> None:
+        if cuda:
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory(prefix="dtc_chip_smoke_ckpt_") as tmp:
+        tmp = Path(tmp)
+
+        def cfg(name, **over):
+            kw = dict(dataset="synthetic", obs=dataclasses.replace(tcfg0.obs, enabled=False),
+                      steps=steps, warmup_steps=warmup, log_every=5, checkpoint_every=10,
+                      eval_every=10, eval_batches=2, output_dir=str(tmp / name),
+                      checkpoint_dir=str(tmp / f"{name}_ckpt"), overwrite=False,
+                      resilience=dataclasses.replace(tcfg0.resilience, checkpoint_keep_n=2))
+            kw.update(over)
+            return dataclasses.replace(tcfg0, **kw)
+
+        def train(name, **over):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                res = trainer_mod.train(cfg(name, **over), mcfg, ocfg, device=device)
+            return res, out.getvalue(), time.perf_counter() - t0
+
+        # (a) resume is bit-exact
+        zero_flash_counts()
+        a, _, a_s = train("a")
+        a_launches = [fa.fwd_launches, fa.bwd_launches]
+        routes = check_flash_routes("phase 24 run A", mcfg.compute_dtype)
+        n_steps, n_evals = warmup + steps, 2 * 2
+        check(not cuda or a_launches == [mcfg.n_layers * (n_steps + n_evals),
+                                         mcfg.n_layers * n_steps * fa.BWD_KERNELS],
+              f"phase 24: flash launches fwd / bwd {a_launches}, want "
+              f"{mcfg.n_layers} a step and an eval batch / {mcfg.n_layers * fa.BWD_KERNELS} a "
+              f"step over {n_steps} steps and {n_evals} eval batches")
+        check(len(a.losses) == steps and all(math.isfinite(x) for x in a.losses)
+              and [s for s, _ in a.eval_losses] == [10, 20],
+              f"phase 24 run A: losses {a.losses}, eval {a.eval_losses}")
+        b, _, b_s = train("b", steps=10)
+        c, c_out, c_s = train("b")
+        check("resumed from checkpoint step 10" in c_out, f"phase 24 run C did not resume:\n{c_out}")
+        check(b.losses == a.losses[:10] and c.losses == a.losses[10:],
+              f"phase 24: B + C losses {b.losses} + {c.losses} != A's {a.losses}")
+        check(b.eval_losses + c.eval_losses == a.eval_losses,
+              f"phase 24: B + C eval {b.eval_losses} + {c.eval_losses} != A's {a.eval_losses}")
+        check(_models_equal(a.model, c.model), "phase 24: C's parameters differ from A's")
+        eval_rows = (tmp / "b" / "eval_log.csv").read_text().splitlines()
+        log_rows = (tmp / "b" / "log.csv").read_text().splitlines()
+        check(eval_rows[0] == "step,loss" and len(eval_rows) == 3 and len(log_rows) == steps + 1,
+              f"phase 24: B/C eval_log.csv {eval_rows}, log.csv {len(log_rows) - 1} rows")
+        rec["resume"] = dict(losses=a.losses, eval_losses=a.eval_losses,
+                             flash_launches=a_launches,
+                             flash_routes=routes, run_s=dict(a=a_s, b=b_s, c=c_s))
+        log(f"phase 24 (a): the flagship with checkpoints and eval every 10 steps: C resumed "
+            f"B's step 10 to {steps}; its {len(c.losses)} losses, eval loss "
+            f"{c.eval_losses[0][1]!r} at step 20 and parameters equal run A's bit for bit; "
+            f"A's flash launches fwd {a_launches[0]} ({n_steps} steps + {n_evals} eval "
+            f"batches) and bwd {a_launches[1]}, by route {routes} [{smi}]")
+        del b, c
+        torch.cuda.empty_cache()
+
+        # (b) a truncated newest step falls back to the previous one
+        b_dir = tmp / "b_ckpt"
+        steps_b = CheckpointManager(str(b_dir)).all_steps()
+        check(steps_b == [10, 20], f"phase 24: B's steps {steps_b} (keep_n 2)")
+        victim = b_dir / "20" / "model.pt"
+        with open(victim, "r+b") as f:
+            f.truncate(victim.stat().st_size // 2)
+        reopened = CheckpointManager(str(b_dir))
+        check(not reopened.verify_step(20), "phase 24: the truncated step 20 passed its manifest")
+        _, got = reopened.restore_latest(map_location=device)
+        check(got == 10, f"phase 24: restore_latest landed on {got}, not 10")
+        rec["fallback"] = dict(truncated=str(victim.relative_to(tmp)), restored_step=got)
+        log(f"phase 24 (b): step 20's model.pt truncated to half: the manifest rejects it and "
+            f"restore_latest lands on step {got}")
+        shutil.rmtree(b_dir)
+
+        # (c) the rollback drill
+        real, calls = trainer_mod.train_step, [0]
+
+        def poisoned(model, opt, *args):
+            loss = real(model, opt, *args)
+            calls[0] += 1
+            if calls[0] == warmup + poison_step:
+                with torch.no_grad():
+                    for p in model.parameters():
+                        p.mul_(float("nan"))
+                loss = loss * float("nan")
+            return loss
+
+        trainer_mod.train_step = poisoned
+        try:
+            d, d_out, d_s = train("d", log_every=10, checkpoint_every=5)
+        finally:
+            trainer_mod.train_step = real
+        check("restored checkpoint step 10," in d_out and "skipping checkpoint at step 15"
+              in d_out, f"phase 24 (c): no rollback to 10 or no skipped save:\n{d_out}")
+        check(d.losses == a.losses and d.eval_losses == a.eval_losses
+              and _models_equal(a.model, d.model),
+              f"phase 24 (c): the drill's losses {d.losses} / eval {d.eval_losses} != A's")
+        rec["rollback"] = dict(poison_step=poison_step, to_step=10, skipped_save=15,
+                               train_step_calls=calls[0], run_s=d_s)
+        log(f"phase 24 (c): NaN after the update of step {poison_step}: the save at 15 "
+            f"skipped, rolled back to step 10, {calls[0]} train steps in all; the {steps} "
+            f"losses, eval losses and parameters equal run A's bit for bit [{smi}]")
+        del d
+        shutil.rmtree(tmp / "d_ckpt")
+        torch.cuda.empty_cache()
+
+        # (d) costs
+        a_dir = tmp / "a_ckpt"
+        sync()
+        t0 = time.perf_counter()
+        state, got = CheckpointManager(str(a_dir)).restore_latest(map_location=device)
+        sync()
+        restore_s = time.perf_counter() - t0
+        check(got == 20 and torch.equal(state["model"]["head.lm_head.weight"],
+                                        a.model.head.lm_head.weight),
+              "phase 24 (d): restored step 20 differs from run A's model")
+        mgr = CheckpointManager(str(tmp / "cost"), keep_n=1)
+        t0 = time.perf_counter()
+        mgr.save(20, {"model": state["model"], "optimizer": state["optimizer"]},
+                 {"rng": state["rng"]})
+        save_s = time.perf_counter() - t0
+        nbytes = mgr.bytes_written
+        del state
+        x, y = split_to_device(next(trainer_mod.make_eval_iterator(cfg("e"), mcfg)), a.model
+                               .head.lm_head.weight.device)
+        eval_ms = cuda_ms(lambda: eval_loss(a.model, x, y), iters=20, warmup=3) if cuda else None
+        el = a.elapsed_times
+        step_ms = sorted(b_ - a_ for a_, b_ in zip([0.0] + el[:-1], el))[len(el) // 2] * 1e3
+        rec["costs"] = dict(bytes=nbytes, params=sum(p.numel() for p in a.model.parameters()),
+                            save_s=save_s, sha256_s=mgr.hash_s, restore_s=restore_s,
+                            eval_ms_per_batch=eval_ms, step_ms_median=step_ms,
+                            phase7_step_ms_median=phase7_step_ms, card=smi)
+        log(f"phase 24 (d): a checkpoint {nbytes} B ({rec['costs']['params']} parameters, "
+            f"float32 + 2 moments); save {save_s:.6f} s (sha256 {mgr.hash_s:.6f} s of it); "
+            f"restore (verify + load onto the card) {restore_s:.6f} s; eval {eval_ms} ms a "
+            f"batch (B {tcfg0.batch}, T {mcfg.max_seq_len}); run A's step_ms median "
+            f"{step_ms:.6f} (phase 7: {phase7_step_ms:.6f}) [{smi}]")
+        del a
+        torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the decode megakernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -3879,6 +4084,10 @@ def main() -> int:
         # model index's data group, on the Megatron slices
         record["fsdp_mesh"] = fsdp_mesh_phase(ref32, smi)
 
+        # 24. checkpoints, resume, held-out eval and the guard's rollback on
+        # the flagship
+        record["checkpoints"] = checkpoint_phase(smi, train_rec["step_ms_median"])
+
         main = results[0]
         kernels = [dict(
             name="decode_attention", route="cuda",
@@ -3914,6 +4123,9 @@ def main() -> int:
                                     ("library_ms", f"library_{part}_ms"))},
                 launches_pp2={name: [n[part == "bwd"] for n in record["pp"][name]["bf16"][
                     "launches"]] for name in ("gpipe", "1f1b", "1f1b_v2")},
+                launches_checkpoint_run=record["checkpoints"]["resume"]["flash_launches"][
+                    part == "bwd"],
+                route_launches_checkpoint_run=record["checkpoints"]["resume"]["flash_routes"],
                 **({"dq_ms": fl["dq_ms"], "dkv_ms": fl["dkv_ms"],
                     "dq_bound_ms": fl["dq_bound_ms"], "dq_route_launches": routes7["dq"]}
                    if part == "bwd" else {}),

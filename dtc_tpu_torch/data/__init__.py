@@ -1,1 +1,3 @@
-"""Training data: the synthetic token stream and host->device prefetch."""
+"""Training data: the synthetic token stream, the resumable packed
+document stream (packing, tokenizer, FineWeb, held-out split) and
+host->device prefetch."""

@@ -18,9 +18,11 @@ def synthetic_batch_iterator(
     seq_len: int,
     vocab_size: int,
     seed: int = 0,
+    start: int = 0,
 ) -> Iterator[np.ndarray]:
-    """Yield deterministic ``(batch_size, seq_len)`` int32 batches."""
-    i = 0
+    """Yield deterministic ``(batch_size, seq_len)`` int32 batches from
+    batch ``start`` on (O(1): a resumed run seeks by it)."""
+    i = start
     while True:
         rng = np.random.default_rng(np.random.SeedSequence([seed, i]))
         base = rng.zipf(1.3, size=(batch_size, seq_len)).astype(np.int64)

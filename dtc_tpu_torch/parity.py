@@ -126,6 +126,17 @@ def from_flax(params, cfg) -> dict[str, torch.Tensor]:
     return sd
 
 
+def adam_from_optax(mu, nu, count: int, cfg, names) -> dict:
+    """The port optimizer's ``state_dict``
+    (:meth:`~dtc_tpu_torch.train.optimizer.ClippedAdamW.load_state_dict`)
+    from optax's AdamW state: ``mu`` / ``nu``, the ``ScaleByAdamState``
+    moments as flax trees of numpy arrays, carried across by
+    :func:`from_flax`'s mapping, and its ``count``, in the order of
+    ``names`` (the model's parameter names)."""
+    m, n = from_flax(mu, cfg), from_flax(nu, cfg)
+    return {"count": int(count), "mu": [m[k] for k in names], "nu": [n[k] for k in names]}
+
+
 def fsdp_shards(state: dict[str, torch.Tensor], rank: int, world: int) -> dict[str, torch.Tensor]:
     """Rank ``rank``'s FSDP shards of a whole ``state_dict`` (such as
     :func:`from_flax` gives): each parameter FSDP shards cut into ``world``

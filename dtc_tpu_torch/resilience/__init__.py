@@ -1,1 +1,2 @@
-"""Retry and hung-step watchdog for the serving runtime."""
+"""Resilience: retry and position-preserving stream healing, the hung-step
+watchdog, the anomaly guard's ladder and the typed failures."""

@@ -1,0 +1,20 @@
+"""Typed failures of the resilience code: the port's copy of the JAX
+package's ``resilience/errors.py`` for what the port raises. The trainer
+and the data stream branch on these types instead of on messages."""
+
+from __future__ import annotations
+
+
+class ResilienceError(RuntimeError):
+    """Base class for failures raised by the resilience code itself."""
+
+
+class DataStreamError(ResilienceError):
+    """The input stream is dead beyond repair: its retries are exhausted.
+    Carries the last underlying exception as ``__cause__``."""
+
+
+class AnomalyAbort(ResilienceError):
+    """The anomaly guard's ladder is exhausted (``max_rollbacks`` spent and
+    the loss still unhealthy): a clean abort, so a supervisor can restart
+    from the last verified checkpoint."""

@@ -1,15 +1,24 @@
-"""Retry with exponential backoff for one-shot operations.
+"""Retry with exponential backoff: :func:`resilient_iterator` for
+re-openable streams and :func:`retry_call` for one-shot operations.
 
-The serving engine's transient-fault wrapper: a decode or prefill step
-whose logits read back non-finite is re-run from the pre-step cache.
-``sleep``, ``clock`` and ``rng`` are injectable so tests run instantly.
+A document stream that dies on a transient fault cannot be resumed in
+place, but it can be re-opened at an index. :func:`resilient_iterator`
+tracks the absolute index of the next item and on a failure re-opens
+``factory(index)`` there, so the consumer sees one exactly-once sequence
+across any number of re-opens (the JAX package's ``resilience/retry.py``).
+:func:`retry_call` is the serving engine's transient-fault wrapper: a
+decode or prefill step whose logits read back non-finite is re-run from
+the pre-step cache. ``sleep``, ``clock`` and ``rng`` are injectable so
+tests run instantly.
 """
 
 from __future__ import annotations
 
 import random
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Iterator
+
+from dtc_tpu_torch.resilience.errors import DataStreamError
 
 
 def backoff_schedule(
@@ -23,6 +32,83 @@ def backoff_schedule(
         r = rng if rng is not None else random
         delay *= 1.0 + jitter * (2.0 * r.random() - 1.0)
     return max(delay, 0.0)
+
+
+def resilient_iterator(
+    factory: Callable[[int], Iterator[Any]],
+    *,
+    start_index: int = 0,
+    max_attempts: int = 5,
+    backoff_s: float = 1.0,
+    backoff_max_s: float = 30.0,
+    jitter: float = 0.1,
+    max_elapsed_s: float = 0.0,
+    transient: tuple[type[BaseException], ...] = (Exception,),
+    on_event: Callable[..., None] | None = None,
+    sleep: Callable[[float], None] = time.sleep,
+    rng: random.Random | None = None,
+    cancel: Any = None,
+    clock: Callable[[], float] = time.monotonic,
+) -> Iterator[Any]:
+    """Yield ``factory(start_index)``'s items, re-opening at the failing
+    index on a transient fault. ``factory(index)`` returns an iterator
+    whose first item is the stream's absolute item ``index``. The failure
+    count resets after every item, so ``max_attempts`` bounds the attempts
+    per fault; once they are spent (or a fault episode would outlive
+    ``max_elapsed_s`` > 0) it raises :class:`DataStreamError` with the last
+    fault as ``__cause__``. ``StopIteration`` from the source ends the
+    stream and is never retried. ``cancel`` (a ``threading.Event``) ends
+    the stream at once instead of sleeping out a backoff, for a consumer
+    tearing its pipeline down. ``on_event`` receives one
+    ``("recovery", action="stream_retry", ...)`` record per re-open."""
+    index = start_index
+    attempts = 0
+    episode_start: float | None = None
+    it = None
+    while True:
+        try:
+            if it is None:
+                it = factory(index)
+            item = next(it)
+        except StopIteration:
+            return
+        except transient as e:
+            attempts += 1
+            now = clock()
+            if episode_start is None:
+                episode_start = now
+            if attempts >= max_attempts:
+                raise DataStreamError(
+                    f"data stream failed {attempts} consecutive attempts at "
+                    f"item {index}; giving up ({type(e).__name__}: {e})"
+                ) from e
+            if cancel is not None and cancel.is_set():
+                return
+            delay = backoff_schedule(attempts, backoff_s, backoff_max_s, jitter, rng)
+            if max_elapsed_s > 0 and (now - episode_start) + delay > max_elapsed_s:
+                raise DataStreamError(
+                    f"data stream fault episode exceeded max_elapsed_s="
+                    f"{max_elapsed_s} at item {index} (attempt {attempts}, "
+                    f"{now - episode_start:.3f}s elapsed + {delay:.3f}s "
+                    f"backoff pending); giving up ({type(e).__name__}: {e})"
+                ) from e
+            if on_event is not None:
+                on_event(
+                    "recovery", action="stream_retry", index=index,
+                    attempt=attempts, backoff_s=round(delay, 3),
+                    error=f"{type(e).__name__}: {e}",
+                )
+            if cancel is not None:
+                if cancel.wait(delay):
+                    return
+            else:
+                sleep(delay)
+            it = None  # re-open at the failing index
+            continue
+        attempts = 0
+        episode_start = None
+        index += 1
+        yield item
 
 
 def retry_call(

@@ -17,6 +17,20 @@ match optax's ``chain(clip_by_global_norm, adamw)`` (the JAX package's
 Parameters and moments are updated in place (the JAX package's donated
 train state does the same work functionally).
 
+With ``skip_nonfinite`` the update is optax's ``apply_if_finite(chain(clip,
+adamw), max_consecutive_errors=max_consecutive_skips)``: a step whose
+gradients are not all finite leaves the parameters, the moments and the
+count as they were, unless it is the ``max_consecutive_skips + 1``-th such
+step in a row, which is applied anyway. The decision is made on the
+device from the global norm the clip computes (non-finite exactly when a
+gradient is), with ``torch.where``: no host sync. The count then lives
+on the device too, and the learning rate is read from a table of the
+schedule's values.
+
+:meth:`ClippedAdamW.state_dict` / :meth:`~ClippedAdamW.load_state_dict`
+carry the moments, the count (the warmup updates included, as optax's) and
+the skip counters into and out of a checkpoint.
+
 Under FSDP (``fsdp``, a :class:`~dtc_tpu_torch.parallel.fsdp.FSDP` state
 over a ``DistRing``) a rank holds shards of the sharded parameters and
 whole copies of the rest: the clip's global norm sums the sharded
@@ -86,7 +100,8 @@ class ClippedAdamW:
     """Clip by global norm, then AdamW, over ``params`` (their ``.grad``)."""
 
     def __init__(self, params, cfg: OptimConfig, total_steps: int = 0, fsdp=None,
-                 norm_groups: NormGroups | None = None):
+                 norm_groups: NormGroups | None = None, skip_nonfinite: bool = False,
+                 max_consecutive_skips: int = 10):
         if cfg.precision != "fp32":
             raise NotImplementedError(
                 "precision: bf16_mixed (fp32 master weights) is not ported "
@@ -104,6 +119,15 @@ class ClippedAdamW:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        self.skip_nonfinite = skip_nonfinite
+        if skip_nonfinite:
+            dev = self.params[0].device
+            self.max_consecutive_skips = max_consecutive_skips
+            n = total_steps + 1 if cfg.schedule != "constant" else 1
+            self._lr_table = torch.tensor([self.lr(c) for c in range(n)], device=dev)
+            self.count = torch.zeros((), dtype=torch.int64, device=dev)
+            self.notfinite_count = torch.zeros((), dtype=torch.int64, device=dev)
+            self.total_notfinite = torch.zeros((), dtype=torch.int64, device=dev)
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -118,10 +142,15 @@ class ClippedAdamW:
         grads = [p.grad for p in self.params]
         if any(g is None for g in grads):
             raise RuntimeError("every parameter needs a gradient before step()")
-        if cfg.grad_clip > 0:
+        norm = None
+        if cfg.grad_clip > 0 or self.skip_nonfinite:
             norm = torch.linalg.vector_norm(self._param_norms(grads))
+        if cfg.grad_clip > 0:
             factor = torch.where(norm < cfg.grad_clip, 1.0, cfg.grad_clip / norm)
             grads = torch._foreach_mul(grads, factor)
+        if self.skip_nonfinite:
+            self._step_if_finite(grads, torch.isfinite(norm))
+            return
         lr = self.lr(self.count)
         self.count += 1
         b1, b2 = cfg.b1, cfg.b2
@@ -137,6 +166,61 @@ class ClippedAdamW:
         if cfg.weight_decay:
             torch._foreach_add_(upd, self.params, alpha=cfg.weight_decay)
         torch._foreach_add_(self.params, upd, alpha=-lr)
+
+    def _step_if_finite(self, grads, finite: torch.Tensor) -> None:
+        """AdamW from the clipped ``grads``, kept only where ``finite`` (or
+        past ``max_consecutive_skips`` skips in a row): new moments and
+        parameters are formed out of place and selected on the device."""
+        cfg = self.cfg
+        self.notfinite_count = torch.where(finite, 0, self.notfinite_count + 1)
+        self.total_notfinite = self.total_notfinite + (~finite).long()
+        apply = finite | (self.notfinite_count > self.max_consecutive_skips)
+        lr = self._lr_table[self.count.clamp(max=self._lr_table.numel() - 1)]
+        c = (self.count + 1).float()
+        b1, b2 = cfg.b1, cfg.b2
+        mu = torch._foreach_mul(self.mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+        nu = torch._foreach_mul(self.nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+        den = torch._foreach_div(nu, 1.0 - torch.pow(b2, c))
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, ADAM_EPS)
+        upd = torch._foreach_div(mu, 1.0 - torch.pow(b1, c))
+        torch._foreach_div_(upd, den)
+        if cfg.weight_decay:
+            torch._foreach_add_(upd, self.params, alpha=cfg.weight_decay)
+        torch._foreach_mul_(upd, lr)
+        new_p = torch._foreach_sub(self.params, upd)
+        for olds, news in ((self.mu, mu), (self.nu, nu), (self.params, new_p)):
+            for old, new in zip(olds, news):
+                old.copy_(torch.where(apply, new, old))
+        self.count = self.count + apply.long()
+
+    def state_dict(self) -> dict:
+        """The moments (in the parameters' order), the count and, with
+        ``skip_nonfinite``, the skip counters (one host sync for the count
+        there)."""
+        state = {"count": int(self.count), "mu": list(self.mu), "nu": list(self.nu)}
+        if self.skip_nonfinite:
+            state.update(notfinite_count=self.notfinite_count.clone(),
+                         total_notfinite=self.total_notfinite.clone())
+        return state
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` (from any device) into this optimizer."""
+        for mine, theirs, what in ((self.mu, state["mu"], "mu"), (self.nu, state["nu"], "nu")):
+            if len(theirs) != len(mine) or any(a.shape != b.shape
+                                               for a, b in zip(mine, theirs)):
+                raise ValueError(f"optimizer state {what}: shapes do not match the parameters")
+            torch._foreach_copy_(mine, list(theirs))
+        if self.skip_nonfinite:
+            dev = self.count.device
+            self.count = torch.tensor(int(state["count"]), device=dev)
+            self.notfinite_count = torch.as_tensor(state.get("notfinite_count", 0)).to(dev)
+            self.total_notfinite = torch.as_tensor(state.get("total_notfinite", 0)).to(dev)
+        else:
+            self.count = int(state["count"])
 
     def _param_norms(self, grads) -> torch.Tensor:
         """Each parameter's gradient norm; under FSDP a sharded one's is the
@@ -168,5 +252,8 @@ class ClippedAdamW:
 
 
 def create_optimizer(params, cfg: OptimConfig, total_steps: int = 0,
-                     fsdp=None, norm_groups: NormGroups | None = None) -> ClippedAdamW:
-    return ClippedAdamW(params, cfg, total_steps, fsdp, norm_groups)
+                     fsdp=None, norm_groups: NormGroups | None = None,
+                     skip_nonfinite: bool = False,
+                     max_consecutive_skips: int = 10) -> ClippedAdamW:
+    return ClippedAdamW(params, cfg, total_steps, fsdp, norm_groups, skip_nonfinite,
+                        max_consecutive_skips)

@@ -1,7 +1,7 @@
 """One eager training step (and the pipeline's), the gradient average over
 the ranks of a process group, the routing of ``collectives``, the check
-that tensor parallelism's replicated parameters stay equal, and the
-cross-entropy of the evaluation (logits) path.
+that tensor parallelism's replicated parameters stay equal, the
+cross-entropy of the evaluation (logits) path and the held-out eval loss.
 
 Under Megatron tensor parallelism a rank's gradients of its slices are
 its own, and those of the replicated parameters (LayerNorms, embeddings,
@@ -50,6 +50,25 @@ def average_over_ranks(params, loss: torch.Tensor, group=None) -> torch.Tensor:
             # the trainer holds the step's loss.
             loss = parts[-1].clone()
     return loss[0]
+
+
+@torch.no_grad()
+def eval_loss(model, x: torch.Tensor, y: torch.Tensor, group=None) -> torch.Tensor:
+    """The held-out loss of one batch (the JAX package's
+    ``create_eval_step``): the forward with targets, no dropout, no
+    update, through the same ``GPT``, so on a card its attention is the
+    flash forward. Inside a process group each rank holds an equal share
+    of the batch (its rows, or its sequence shard under ring attention)
+    and the losses are averaged over ``group`` (the world when None).
+    Returns a device tensor (no host sync)."""
+    loss = model(x, train=False, targets=y)
+    if torch.distributed.is_initialized():
+        import torch.distributed as dist
+
+        loss = loss.reshape(1)
+        dist.all_reduce(loss, group=group)
+        loss = loss[0] / dist.get_world_size(group)
+    return loss
 
 
 def train_step(model, opt, x: torch.Tensor, y: torch.Tensor,

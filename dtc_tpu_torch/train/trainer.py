@@ -49,6 +49,31 @@ batch's ``pp_microbatches`` microbatches (the JAX package's
 ``(microbatch, batch)`` split); the first stage reads the inputs and the
 last the targets.
 
+Checkpoints (``checkpoint_every``), resume, held-out eval
+(``eval_every``), the guard's rollback and SIGTERM run in one process,
+under DP and under DP with ring attention, where every rank holds the
+whole model and its optimizer state (under tensor or pipeline parallelism
+and FSDP they raise ``NotImplementedError``, :func:`refuse_sharded_state`).
+A checkpoint is labelled with the loop step and holds the parameters, the
+optimizer's moments and count (the warmup updates included) and skip
+counters (written by rank 0) and every rank's dropout-generator state
+(each rank its own): the generator's state is what lets a resumed or
+rolled-back run draw the masks the uninterrupted run draws, where the JAX
+package derives its keys from the step. A resume restores the newest
+intact step and skips warmup; the stream is positioned after the
+``warmup_steps + step`` batches the run consumed (the synthetic stream by
+seeking, FineWeb by its checkpointed position). The guard's rollback is a
+resume without the restart: the newest verified step is restored, the
+stream re-seeked, and the window's healthy prefix committed, so the losses
+equal the clean run's. A save whose loss is unhealthy is skipped.
+Held-out eval runs ``eval_batches`` batches of the synthetic stream at
+``seed_offset=500`` (FineWeb: every ``eval_holdout_every``-th batch of the
+stream's head, withheld from training) at ``eval_every`` and the last
+step into ``eval_log.csv``, its time kept out of ``elapsed_time``. SIGTERM
+on the main thread checkpoints at the step it lands in, flushes the CSV
+and returns. ``host_iterator`` (a caller's batches) cannot be re-seeked,
+so it disables the rollback.
+
 Measurement protocol as in the JAX package (and its reference):
 ``warmup_steps`` untimed steps that are real updates on the first batches,
 then the timed loop, whose step 1 consumes the next batch. Losses are
@@ -60,21 +85,25 @@ None`` syncs the device after every step whenever a ``log.csv`` is written,
 so each row's time is a completed step.
 
 What the port has not ported raises ``NotImplementedError`` naming the
-slice it waits for (:func:`refuse_unported`).
+slice it waits for (:func:`refuse_unported`, :func:`refuse_sharded_state`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import signal
 import threading
 import time
 from dataclasses import dataclass, field
+from typing import Iterator
 
+import numpy as np
 import torch
 
 from dtc_tpu_torch.config.schema import ModelConfig, OptimConfig, TrainConfig
-from dtc_tpu_torch.data.prefetch import PrefetchIterator
+from dtc_tpu_torch.data.holdout import divert_holdout, diverted_indices, stream_index_for
+from dtc_tpu_torch.data.prefetch import PrefetchIterator, split_to_device
 from dtc_tpu_torch.data.synthetic import synthetic_batch_iterator
 from dtc_tpu_torch.models.gpt import GPT, resolve_device
 from dtc_tpu_torch.ops.ring_attention import DistRing, use_ring
@@ -83,13 +112,15 @@ from dtc_tpu_torch.parallel.fsdp import FSDP
 from dtc_tpu_torch.parallel.mesh import AXIS_NAMES, Mesh, check_fsdp, resolve_mesh_shape
 from dtc_tpu_torch.parallel.pipeline import StageLayout, schedule_rows
 from dtc_tpu_torch.parallel.tensor import TensorParallel
+from dtc_tpu_torch.resilience.errors import AnomalyAbort
 from dtc_tpu_torch.resilience.guard import AnomalyGuard
 from dtc_tpu_torch.resilience.watchdog import StepWatchdog
 from dtc_tpu_torch.train.optimizer import NormGroups, create_optimizer
 from dtc_tpu_torch.train.train_step import (
-    pipeline_step, replicas_equal, resolve_collectives, train_step,
+    eval_loss, pipeline_step, replicas_equal, resolve_collectives, train_step,
 )
 from dtc_tpu_torch.utils import dist as dist_utils
+from dtc_tpu_torch.utils.checkpoint import CheckpointManager
 from dtc_tpu_torch.utils.logging import CSVLogger
 from dtc_tpu_torch.utils.metrics import mfu, peak_flops
 
@@ -99,12 +130,15 @@ class TrainResult:
     """``model``: the trained model, whole (under FSDP the shards
     gathered; under tensor or pipeline parallelism this rank's slice,
     which ``parity.gather_tp`` / ``gather_stages`` put together);
-    ``optimizer``: its optimizer (under FSDP over this rank's shards)."""
+    ``optimizer``: its optimizer (under FSDP over this rank's shards);
+    ``losses`` from the step after the resumed one (the first step on a
+    fresh run); ``eval_losses``: ``(step, held-out loss)``."""
 
     model: GPT
     optimizer: object
     losses: list[float] = field(default_factory=list)
     elapsed_times: list[float] = field(default_factory=list)
+    eval_losses: list[tuple[int, float]] = field(default_factory=list)
     total_time_s: float = 0.0
 
 
@@ -125,11 +159,6 @@ def refuse_unported(train_cfg: TrainConfig, model_cfg: ModelConfig) -> None:
         (train_cfg.parallel == "none", "parallel: none"),
         ((m.dcn_pipe, m.dcn_data, m.dcn_model) != (1, 1, 1),
          "dcn mesh factors (multi-host)"),
-        (train_cfg.dataset == "fineweb",
-         "dataset: fineweb (waits for a dataset in the repository; use "
-         "--dataset synthetic)"),
-        (train_cfg.checkpoint_every > 0, "checkpoint_every > 0 (checkpoints)"),
-        (train_cfg.eval_every > 0, "eval_every > 0 (held-out eval, with checkpoints)"),
         (train_cfg.obs.enabled,
          "obs.enabled (telemetry, obs/); pass --no-obs or obs: {enabled: false}"),
         (train_cfg.profile_start or train_cfg.profile_stop,
@@ -138,8 +167,6 @@ def refuse_unported(train_cfg: TrainConfig, model_cfg: ModelConfig) -> None:
         (train_cfg.resilience.chaos.enabled, "resilience.chaos (fault injection)"),
         (train_cfg.resilience.elastic.enabled,
          "resilience.elastic (elastic training)"),
-        (train_cfg.resilience.guard.skip_nonfinite_updates,
-         "resilience.guard.skip_nonfinite_updates (with checkpoints)"),
         (train_cfg.multihost, "multihost (one host's torchrun processes only)"),
         (train_cfg.debug_nans, "debug_nans"),
     ]
@@ -150,6 +177,149 @@ def refuse_unported(train_cfg: TrainConfig, model_cfg: ModelConfig) -> None:
         check_fsdp((max(m.pipe, 1), 1, max(m.model, 1)))
 
 
+def refuse_sharded_state(train_cfg: TrainConfig, shape: tuple[int, int, int],
+                         ring_attn: bool, fsdp: bool) -> None:
+    """``NotImplementedError`` for checkpoints and held-out eval where a
+    rank holds a slice of the model (``shape`` the resolved ``(pipe, data,
+    model)`` mesh; ``fsdp`` whether FSDP shards it): a checkpoint there
+    waits for the one-process layout gathered from the ranks' slices."""
+    n_pipe, _, n_model = shape
+    slicing = [(fsdp, "FSDP"), (n_model > 1 and not ring_attn, "tensor parallelism"),
+               (n_pipe > 1, "pipeline parallelism")]
+    for on, what in slicing:
+        for asked, feature in ((train_cfg.checkpoint_every > 0, "checkpoints"),
+                               (train_cfg.eval_every > 0, "held-out eval")):
+            if on and asked:
+                raise NotImplementedError(
+                    f"the PyTorch port does not train with {feature} under {what} yet "
+                    "(ROADMAP.md §A2: checkpoints under TP, PP and FSDP, in the "
+                    "one-process layout gathered from the ranks' slices)")
+
+
+def make_host_iterator(train_cfg: TrainConfig, model_cfg: ModelConfig,
+                       skip_batches: int = 0, seed_offset: int = 0,
+                       stream_position: dict | None = None, history: int = 64,
+                       cancel=None) -> Iterator[np.ndarray]:
+    """``(batch, seq_len+1)`` token batches of the global batch (the JAX
+    package's process 0's stream; a rank takes its share). The synthetic
+    stream from seed ``seed·1000 + seed_offset`` seeks by ``skip_batches``;
+    FineWeb seeks by ``stream_position`` (a checkpointed position) and
+    drains ``skip_batches`` (for checkpoints without one). ``cancel`` ends
+    the stream's retry backoff when the trainer drops it."""
+    seq = model_cfg.max_seq_len + 1
+    if train_cfg.dataset == "synthetic":
+        return synthetic_batch_iterator(train_cfg.batch, seq, model_cfg.vocab_size,
+                                        seed=train_cfg.seed * 1000 + seed_offset,
+                                        start=skip_batches)
+    from dtc_tpu_torch.data.fineweb import FinewebStream
+
+    it = FinewebStream(train_cfg.batch, seq, position=stream_position, history=history,
+                       retry=train_cfg.resilience.stream_retry, cancel=cancel)
+    for _ in range(skip_batches):
+        next(it)
+    return it
+
+
+def make_eval_iterator(train_cfg: TrainConfig, model_cfg: ModelConfig) -> Iterator[np.ndarray]:
+    """The synthetic eval batches: a stream disjoint from training's
+    (``seed_offset=500``). FineWeb's come from the held-out split."""
+    return make_host_iterator(train_cfg, model_cfg, seed_offset=500)
+
+
+def _drop_yields(it: Iterator[np.ndarray], drops: set[int]) -> Iterator[np.ndarray]:
+    """Skip the 0-based yield indices in ``drops``: the held-out batches a
+    resumed stream has not passed yet."""
+    last = max(drops)
+    for i, batch in enumerate(it):
+        if i in drops:
+            if i == last:
+                break
+            continue
+        yield batch
+    yield from it
+
+
+class _Stream:
+    """The run's host batch stream positioned as of a checkpoint step, and
+    the position of the batch training consumed for a step (the JAX
+    trainer's ``build_data`` and ``stream_position_sidecar``): shared by
+    the resume and the rollback, which is a resume without the restart."""
+
+    def __init__(self, train_cfg, model_cfg, ckpt, host_iterator, rank: int):
+        self.cfg, self.model_cfg, self.ckpt = train_cfg, model_cfg, ckpt
+        self.host_iterator = host_iterator
+        self.rank = rank
+        self.fineweb = train_cfg.dataset == "fineweb" and host_iterator is None
+        self.holdout_n = (train_cfg.eval_batches
+                          if self.fineweb and train_cfg.eval_every > 0 else 0)
+        self.every = train_cfg.eval_holdout_every
+        # The history must reach past prefetch's look-ahead and the
+        # holdout's eager read of the stream's head.
+        span = (self.holdout_n - 1) * self.every + 1 if self.holdout_n else 0
+        self.history = span + 64
+        self.eval_batches: list[np.ndarray] | None = None  # FineWeb's held-out set
+        self.cancel = threading.Event()
+        self.obj = None          # the FinewebStream, for its positions
+        self.delivered = 0       # batches handed to warmup and training so far
+        self.drops: set[int] = set()  # this stream's withheld 0-based yields
+        self.base = 0            # absolute index where this stream starts
+        self.start_step = 0      # the loop step the stream is positioned at
+
+    def build(self, resume_from: int) -> Iterator[np.ndarray]:
+        """The stream as of checkpoint step ``resume_from`` (0: its head)."""
+        cfg, ckpt = self.cfg, self.ckpt
+        self.cancel = threading.Event()
+        self.start_step, self.delivered, self.drops, self.base = resume_from, 0, set(), 0
+        self.obj = None
+        skip = cfg.warmup_steps + resume_from if resume_from > 0 else 0
+        if self.host_iterator is not None:
+            for _ in range(skip):
+                next(self.host_iterator)
+            return self.host_iterator
+        if not self.fineweb:
+            return make_host_iterator(cfg, self.model_cfg, skip_batches=skip)
+        sidecar = ckpt.load_stream(resume_from, self.rank) if ckpt and resume_from > 0 else None
+        if sidecar is not None:
+            self.obj = it = make_host_iterator(cfg, self.model_cfg,
+                                               stream_position=sidecar["position"],
+                                               history=self.history, cancel=self.cancel)
+            self.base = sidecar["stream_index"]
+            if self.holdout_n:
+                # The held-out batches were taken from the stream's head:
+                # those past the resume point are still withheld.
+                self.drops = {d - self.base for d in diverted_indices(self.every, self.holdout_n)
+                              if d + 1 > self.base}
+                if self.drops:
+                    it = _drop_yields(it, self.drops)
+                if self.eval_batches is None:
+                    self.eval_batches = ckpt.load_eval_set(self.rank)
+                if self.eval_batches is None:
+                    head = make_host_iterator(cfg, self.model_cfg)
+                    _, self.eval_batches = divert_holdout(head, self.every, self.holdout_n)
+            return it
+        self.obj = it = make_host_iterator(cfg, self.model_cfg, history=self.history,
+                                           cancel=self.cancel)
+        if self.holdout_n:
+            self.drops = diverted_indices(self.every, self.holdout_n)
+            it, diverted = divert_holdout(it, self.every, self.holdout_n)
+            if self.eval_batches is None:
+                self.eval_batches = diverted
+                if ckpt:
+                    ckpt.save_eval_set(diverted, self.rank)
+        for _ in range(skip):  # a checkpoint without a position: drain
+            next(it)
+        self.delivered = skip
+        return it
+
+    def sidecar(self, step: int) -> dict | None:
+        """The resume point of the batch training consumed for ``step``,
+        read from the stream's position history (prefetch may be ahead)."""
+        if self.obj is None:
+            return None
+        idx = stream_index_for(self.delivered + step - self.start_step, self.drops)
+        return {"position": self.obj.position_after(idx), "stream_index": self.base + idx}
+
+
 def train(
     train_cfg: TrainConfig,
     model_cfg: ModelConfig,
@@ -158,24 +328,29 @@ def train(
     device=None,
     params=None,
     backend: str | None = None,
+    host_iterator: Iterator[np.ndarray] | None = None,
 ) -> TrainResult:
     """Train ``model_cfg`` on ``device`` (``cuda`` unless named; raises
     without a card). The weights come from ``GPT(model_cfg,
     seed=train_cfg.seed)``, or from ``params``, a flax parameter tree of
     numpy arrays carried across by :func:`dtc_tpu_torch.parity.from_flax`
-    (each rank keeps its slice). Dropout masks come from a generator seeded
-    with ``train_cfg.seed`` plus the rank's ``(pipe, data)`` index (see the
-    module docstring); the synthetic stream from seed ``seed·1000`` (the
-    JAX trainer's seed for process 0). Under torchrun's environment the
-    process group is joined first, over ``backend`` (NCCL on cards and gloo
-    on the CPU unless named; gloo runs several ranks on one card), and left
-    at the end if this call joined it; the mesh spans its ranks."""
+    (each rank keeps its slice), or from the newest intact checkpoint when
+    one exists and ``resume`` is set. Dropout masks come from a generator
+    seeded with ``train_cfg.seed`` plus the rank's ``(pipe, data)`` index
+    (see the module docstring); the synthetic stream from seed
+    ``seed·1000`` (the JAX trainer's seed for process 0), or the batches
+    come from ``host_iterator`` (global ``(batch, seq_len+1)`` arrays).
+    Under torchrun's environment the process group is joined first, over
+    ``backend`` (NCCL on cards and gloo on the CPU unless named; gloo runs
+    several ranks on one card), and left at the end if this call joined
+    it; the mesh spans its ranks."""
     model_cfg = resolve_collectives(train_cfg, model_cfg)
     refuse_unported(train_cfg, model_cfg)
     joined = dist_utils.launched() and not torch.distributed.is_initialized()
     dev = dist_utils.initialize(device, backend) or resolve_device(device)
     try:
-        return _train(train_cfg, model_cfg, opt_cfg, resolve_device(dev), params)
+        return _train(train_cfg, model_cfg, opt_cfg, resolve_device(dev), params,
+                      host_iterator)
     finally:
         if joined:
             dist_utils.teardown()
@@ -201,7 +376,7 @@ def _rows(batch: int, n_data: int, data_idx: int, microbatches: int):
     return [j * mb + data_idx * per + i for j in range(microbatches) for i in range(per)]
 
 
-def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
+def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator) -> TrainResult:
     cuda = dev.type == "cuda"
     world, rank = dist_utils.world_size(), dist_utils.rank()
     shape = resolve_mesh_shape(train_cfg.parallel, world, train_cfg.mesh,
@@ -212,6 +387,9 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
     n_pipe, n_data, n_model = shape
     seq = model_cfg.max_seq_len
     ring_attn = model_cfg.attention == "ring"
+    fsdp_on = (train_cfg.parallel == "fsdp" and torch.distributed.is_initialized()
+               and (mesh is None or n_data > 1))
+    refuse_sharded_state(train_cfg, shape, ring_attn, fsdp_on)
     micro = train_cfg.pp_microbatches if n_pipe > 1 else 1
     if train_cfg.batch % (n_data * micro) or ring_attn and seq % n_model:
         raise ValueError(
@@ -230,8 +408,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
 
         model.load_state_dict(model.local_state(from_flax(params, model_cfg)))
     fsdp = None
-    if (train_cfg.parallel == "fsdp" and torch.distributed.is_initialized()
-            and (mesh is None or n_data > 1)):
+    if fsdp_on:
         # The FSDP ring: the data group of this rank's model index (the
         # world of one process without a mesh).
         ring = (DistRing(range(world)) if mesh is None
@@ -244,8 +421,12 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
             [tp is not None and sharding.tp_shard_dim(n) is not None
              for n, p in model.named_parameters() if p.requires_grad],
             model=None if tp is None else tp.group, pipe=mesh.pipe_group)
+    res_cfg = train_cfg.resilience
+    guard_cfg = res_cfg.guard
     opt = create_optimizer(model.parameters(), opt_cfg, total_steps=train_cfg.steps,
-                           fsdp=fsdp, norm_groups=norm_groups)
+                           fsdp=fsdp, norm_groups=norm_groups,
+                           skip_nonfinite=guard_cfg.skip_nonfinite_updates,
+                           max_consecutive_skips=guard_cfg.max_consecutive_skips)
     seed_idx = rank if mesh is None or ring_attn else mesh.pipe_idx * n_data + mesh.data_idx
     gen = torch.Generator(device=dev).manual_seed(train_cfg.seed + seed_idx)
     # The gradient average: over the world for DP and ring attention (whose
@@ -264,28 +445,118 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
         def step_fn(x, y):
             return train_step(model, opt, x, y, gen, fsdp, group, average)
 
+    say = print if lead else (lambda *a, **k: None)
+
+    # ------ checkpoints and resume ------
+    ckpt = None
+    start_step = 0
+
+    def restore_latest() -> int | None:
+        """Load the newest intact checkpoint into the model, the optimizer
+        and this rank's generator and return its step; None when no step is
+        intact. Rank 0 picks the step (verifying it) and every rank loads
+        it."""
+        found, step = None, -1
+        if lead:
+            try:
+                found, step = ckpt.restore_latest(process_index=rank, map_location=dev)
+            except FileNotFoundError:
+                step = -1
+        step = dist_utils.broadcast_int(step, dev)
+        if step < 0:
+            return None
+        if found is None:
+            found = ckpt.restore(step, process_index=rank, map_location=dev)
+        model.load_state_dict(found["model"])
+        opt.load_state_dict(found["optimizer"])
+        gen.set_state(found["rng"].cpu())
+        return step
+
+    if train_cfg.checkpoint_every > 0:
+        ckpt_dir = train_cfg.checkpoint_dir or os.path.join(train_cfg.output_dir,
+                                                             "checkpoints")
+        ckpt = CheckpointManager(ckpt_dir, verify=res_cfg.verify_checkpoints,
+                                 keep_n=res_cfg.checkpoint_keep_n)
+        if train_cfg.resume and ckpt.all_steps():
+            # Labels are loop steps: the optimizer's count also holds the
+            # warmup updates.
+            start_step = restore_latest()
+            if start_step is None:
+                raise RuntimeError(
+                    "resume requested but no checkpoint could be restored from "
+                    f"{ckpt_dir}. Causes range from real corruption to a "
+                    "model/optimizer config that no longer matches the saved state. "
+                    "Inspect the checkpoint dir, revert config changes, or set resume: "
+                    "false (plus overwrite: true if output_dir holds a previous "
+                    "log.csv) to deliberately start fresh")
+            say(f"[dtc_tpu_torch] resumed from checkpoint step {start_step}")
+
+    def save_checkpoint(step: int) -> None:
+        """Rank 0 writes the model and the optimizer, every rank its own
+        generator state and stream position; the step is committed when
+        every rank's files have landed."""
+        if lead:
+            ckpt.begin(step)
+        dist_utils.barrier()
+        if lead:
+            ckpt.write(step, {"model": model.state_dict(), "optimizer": opt.state_dict()})
+        ckpt.write(step, {"rng": gen.get_state()}, process_index=rank)
+        dist_utils.barrier()
+        if lead:
+            ckpt.commit(step)
+        position = stream.sidecar(step)
+        if position is not None:
+            ckpt.save_stream(step, position, rank)
+        dist_utils.barrier()
+
     log_path = os.path.join(train_cfg.output_dir, "log.csv")
-    if (lead and train_cfg.output_dir and not train_cfg.overwrite
+    if (lead and train_cfg.output_dir and start_step == 0 and not train_cfg.overwrite
             and os.path.exists(log_path)):
         raise ValueError(
             f"refusing to overwrite existing {log_path} on a fresh run; pass "
-            "overwrite: true or pick another output_dir"
+            "overwrite: true, pick another output_dir, or enable checkpointing so the "
+            "run resumes instead"
         )
-    host_it = synthetic_batch_iterator(
-        train_cfg.batch, seq + 1, model_cfg.vocab_size, seed=train_cfg.seed * 1000
-    )
+    # Rollback needs a checkpoint and a stream the trainer can rebuild.
+    guard = (AnomalyGuard(guard_cfg, can_rollback=ckpt is not None and host_iterator is None)
+             if guard_cfg.enabled else None)
+    rows = cols = None
     ring = contextlib.nullcontext()
     if mesh is not None:
         t_local = seq // n_model if ring_attn else seq
         t_idx = mesh.model_idx if ring_attn else 0
-        host_it = _shard(host_it, _rows(train_cfg.batch, n_data, mesh.data_idx, micro),
-                         slice(t_idx * t_local, (t_idx + 1) * t_local + 1))
+        rows = _rows(train_cfg.batch, n_data, mesh.data_idx, micro)
+        cols = slice(t_idx * t_local, (t_idx + 1) * t_local + 1)
         if n_model > 1 and ring_attn:
             ring = use_ring(DistRing(mesh.model_ranks, mesh.model_group))
-    data_it = PrefetchIterator(host_it, dev, depth=train_cfg.prefetch)
-    csv = CSVLogger(log_path) if train_cfg.output_dir and lead else None
-    res_cfg = train_cfg.resilience
-    guard = AnomalyGuard(res_cfg.guard) if res_cfg.guard.enabled else None
+
+    def shard(batches):
+        """This rank's share of each global batch."""
+        return batches if rows is None else _shard(batches, rows, cols)
+
+    stream = _Stream(train_cfg, model_cfg, ckpt, host_iterator, rank)
+
+    def feed(resume_from: int) -> PrefetchIterator:
+        return PrefetchIterator(shard(stream.build(resume_from)), dev,
+                                depth=train_cfg.prefetch)
+
+    data_it = feed(start_step)
+    eval_set = None
+    if train_cfg.eval_every > 0:
+        if stream.eval_batches is not None:
+            say(f"[dtc_tpu_torch] fineweb eval: {len(stream.eval_batches)} held-out batches "
+                f"(every {stream.every}th from the stream head), excluded from training")
+            host_eval = stream.eval_batches
+        else:
+            it = make_eval_iterator(train_cfg, model_cfg)
+            host_eval = [next(it) for _ in range(train_cfg.eval_batches)]
+        eval_set = [split_to_device(b, dev) for b in shard(host_eval)]
+    resumed = start_step > 0
+    csv = (CSVLogger(log_path, append=resumed)
+           if train_cfg.output_dir and lead else None)
+    eval_csv = (CSVLogger(os.path.join(train_cfg.output_dir, "eval_log.csv"), ("step", "loss"),
+                          append=resumed)
+                if eval_set is not None and train_cfg.output_dir and lead else None)
     wd = StepWatchdog(res_cfg.watchdog) if res_cfg.watchdog.enabled else None
     sync_every_step = train_cfg.sync_every_step
     if sync_every_step is None:
@@ -294,11 +565,62 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
     peak = peak * world if peak is not None else None
     tokens_per_step = train_cfg.batch * seq
     result = TrainResult(model=model, optimizer=opt)
-    say = print if lead else (lambda *a, **k: None)
+    # The step the result's lists start after; a rollback below the resume
+    # point moves it down.
+    result_base = start_step
 
     def sync() -> None:
         if cuda:
             torch.cuda.synchronize(dev)
+
+    def commit_and_truncate(target: int, window_rows, window_losses) -> None:
+        """Commit the detection window's steps at or before the restored
+        step (they are not replayed), then drop what follows it from the
+        result; the replay appends it again."""
+        nonlocal result_base
+        for (s, el), lo in zip(window_rows, window_losses):
+            if s <= target:
+                result.losses.append(lo)
+                if csv is not None:
+                    csv.log(step=s, elapsed_time=el, loss=lo)
+        if csv is not None:
+            csv.flush()
+        keep = max(target - result_base, 0)
+        del result.losses[keep:]
+        del result.elapsed_times[keep:]
+        result.eval_losses[:] = [e for e in result.eval_losses if e[0] <= target]
+        result_base = min(result_base, target)
+
+    def rollback(cur_step: int, reason: str, window_losses, window_rows) -> int | None:
+        """The guard's rollback: restore the newest verified checkpoint,
+        re-seek the stream there and return its step (None when no step is
+        intact: the guard then only burns a rung)."""
+        nonlocal data_it
+        target = restore_latest()
+        if target is None:
+            return None
+        stream.cancel.set()  # ends a retry backoff of the dropped stream
+        data_it.close()
+        data_it = feed(target)
+        guard.note_rollback()
+        commit_and_truncate(target, window_rows, window_losses)
+        say(f"[dtc_tpu_torch] ROLLBACK: {reason} — restored checkpoint step {target}, "
+            f"stream re-seeked ({guard.rollbacks_done}/{guard_cfg.max_rollbacks})")
+        return target
+
+    def run_eval(step: int) -> float:
+        """Held-out eval at ``step``; returns its wall-clock seconds, which
+        the caller keeps out of the training ``elapsed_time``."""
+        sync()  # the pending training work's time stays training time
+        t0 = time.perf_counter()
+        vals = [float(eval_loss(model, x, y)) for x, y in eval_set]
+        el = float(np.mean(vals))
+        result.eval_losses.append((step, el))
+        if eval_csv is not None:
+            eval_csv.log(step=step, loss=el)
+            eval_csv.flush()
+        say(f"Eval @ step {step}: loss {el:.4f}")
+        return time.perf_counter() - t0
 
     say(f"[dtc_tpu_torch] strategy={train_cfg.parallel} device={dev}"
         + (f" ({torch.cuda.get_device_name(dev)})" if cuda else "")
@@ -313,28 +635,46 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
             "no usable FSDP ring in scope (the active rules don't shard 'embed_p', its "
             "mesh axis is size 1, or sequence-parallel rules own the activations); every "
             "matmul keeps its plain product")
+
+    # SIGTERM (a preemption) asks for a graceful stop: the loop finishes the
+    # step, checkpoints it, flushes the CSV and returns.
+    stop_requested = [False]
+    in_main_thread = threading.current_thread() is threading.main_thread()
+    prev_handler = None
+    if in_main_thread:
+        def on_sigterm(signum, frame):
+            stop_requested[0] = True
+            say("[dtc_tpu_torch] SIGTERM received — will checkpoint and stop")
+        prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
     try:
         with ring:
-            if train_cfg.warmup_steps:
+            warmup_steps = 0 if resumed else train_cfg.warmup_steps
+            if warmup_steps:
                 say("Warmup")
-            for _ in range(train_cfg.warmup_steps):
+            for _ in range(warmup_steps):
                 x, y = next(data_it)
                 loss = step_fn(x, y)
-            if train_cfg.warmup_steps:
+            stream.delivered += warmup_steps
+            if warmup_steps:
                 float(loss)  # wait for the warmup updates
 
-            if wd is not None and threading.current_thread() is threading.main_thread():
+            if wd is not None and in_main_thread:
                 wd.start()
             say("Start measuring")
             device_losses: list[torch.Tensor] = []
             pending: list[tuple[int, float]] = []
             start = window_start = prev = time.perf_counter()
             window_steps = 0
-            for step in range(1, train_cfg.steps + 1):
+            # while, not for: a rollback moves the step back to the
+            # restored checkpoint and the loop replays from there.
+            step = start_step
+            while step < train_cfg.steps:
+                step += 1
                 if wd is not None:
                     wd.arm(step)
                 x, y = next(data_it)
-                device_losses.append(step_fn(x, y))
+                loss = step_fn(x, y)
+                device_losses.append(loss)
                 if sync_every_step:
                     sync()
                 now = time.perf_counter()
@@ -346,39 +686,76 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params) -> TrainResult:
                         say(f"[dtc_tpu_torch] hung step: {flag}")
                 prev = now
                 window_steps += 1
-                if step % train_cfg.log_every and step != train_cfg.steps:
-                    continue
-                losses = torch.stack(device_losses).tolist()  # the window's one sync
-                now = time.perf_counter()
-                if not sync_every_step:
-                    # Rows were stamped at dispatch: re-stamp the window's last
-                    # one now that its work is done.
-                    pending[-1] = (pending[-1][0], now - start)
-                    result.elapsed_times[-1] = now - start
-                if guard is not None:
-                    decision = guard.check_window(step, losses)
-                    if decision.anomalous:
-                        say(f"[dtc_tpu_torch] ANOMALY: {decision.reason} -> {decision.action}")
-                result.losses.extend(losses)
-                if csv is not None:
-                    for (s, el), lo in zip(pending, losses):
-                        csv.log(step=s, elapsed_time=el, loss=lo)
-                    csv.flush()
-                avg = (now - window_start) / max(window_steps, 1)
-                msg = (f"Step: {step} | Avg loss: {sum(losses) / len(losses):.4f} | "
-                       f"Average step time: {avg:.4f} | tokens/s: {tokens_per_step / avg:,.0f}")
-                u = mfu(model_cfg, train_cfg.batch, seq, avg, peak)
-                if u is not None:
-                    msg += f" | MFU: {u * 100:.1f}%"
-                say(msg)
-                device_losses, pending = [], []
-                window_start, window_steps = time.perf_counter(), 0
+                stopping = stop_requested[0]
+                if stopping:
+                    say(f"[dtc_tpu_torch] stopping at step {step} (SIGTERM)")
+                if step % train_cfg.log_every == 0 or step == train_cfg.steps or stopping:
+                    losses = torch.stack(device_losses).tolist()  # the window's one sync
+                    now = time.perf_counter()
+                    if guard is not None:
+                        decision = guard.check_window(step, losses)
+                        if decision.anomalous:
+                            say(f"[dtc_tpu_torch] ANOMALY: {decision.reason} -> "
+                                f"{decision.action}")
+                        if decision.action == "abort":
+                            raise AnomalyAbort(decision.reason)
+                        if decision.action == "rollback":
+                            target = rollback(step, decision.reason, losses, pending)
+                            if target is not None:
+                                # The poisoned window is dropped whole: no rows,
+                                # no eval, no checkpoint; replay from the target.
+                                step = target
+                                device_losses, pending = [], []
+                                window_start, window_steps = time.perf_counter(), 0
+                                continue
+                            # Nothing intact to restore: a rung is burnt all the
+                            # same, so a persistent anomaly reaches the abort.
+                            guard.note_rollback_failed()
+                    if not sync_every_step:
+                        # Rows were stamped at dispatch: re-stamp the window's last
+                        # one now that its work is done.
+                        pending[-1] = (pending[-1][0], now - start)
+                        result.elapsed_times[-1] = now - start
+                    result.losses.extend(losses)
+                    if csv is not None:
+                        for (s, el), lo in zip(pending, losses):
+                            csv.log(step=s, elapsed_time=el, loss=lo)
+                        csv.flush()
+                    avg = (now - window_start) / max(window_steps, 1)
+                    msg = (f"Step: {step} | Avg loss: {sum(losses) / len(losses):.4f} | "
+                           f"Average step time: {avg:.4f} | "
+                           f"tokens/s: {tokens_per_step / avg:,.0f}")
+                    u = mfu(model_cfg, train_cfg.batch, seq, avg, peak)
+                    if u is not None:
+                        msg += f" | MFU: {u * 100:.1f}%"
+                    say(msg)
+                    device_losses, pending = [], []
+                    window_start, window_steps = time.perf_counter(), 0
+                if eval_set is not None and (step % train_cfg.eval_every == 0
+                                             or step == train_cfg.steps):
+                    start += run_eval(step)
+                    window_start, window_steps = time.perf_counter(), 0
+                if ckpt is not None and (step % train_cfg.checkpoint_every == 0 or stopping):
+                    # The state may already be poisoned before the next log
+                    # boundary sees it; a bit-intact NaN checkpoint would become
+                    # the rollback target. One scalar fetch a save.
+                    if guard is not None and not guard.healthy_loss(float(loss)):
+                        say(f"[dtc_tpu_torch] skipping checkpoint at step {step}: "
+                            "unhealthy loss at save point")
+                    else:
+                        save_checkpoint(step)
+                if stopping:
+                    break
     finally:
         if wd is not None:
             wd.stop()
+        stream.cancel.set()
         data_it.close()
-        if csv is not None:
-            csv.close()
+        for log in (csv, eval_csv):
+            if log is not None:
+                log.close()
+        if in_main_thread:
+            signal.signal(signal.SIGTERM, prev_handler)
     result.total_time_s = time.perf_counter() - start
     if fsdp is not None:
         result.model = fsdp.gathered(model)

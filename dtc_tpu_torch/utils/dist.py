@@ -123,3 +123,18 @@ def recv(like: torch.Tensor, src: int) -> torch.Tensor:
     buf = torch.empty(like.shape, dtype=like.dtype, device="cpu" if staged else like.device)
     dist.recv(buf, src)
     return buf.to(like.device) if staged else buf
+
+
+def barrier() -> None:
+    """Wait for every rank (nothing in one process)."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def broadcast_int(value: int, device: torch.device) -> int:
+    """Rank 0's ``value`` on every rank (itself in one process)."""
+    if not dist.is_initialized():
+        return value
+    t = torch.tensor([value], dtype=torch.int64, device=device)
+    dist.broadcast(t, 0)
+    return int(t.item())

@@ -12,10 +12,14 @@ dropout 0.
   ``MeshConfig(pipe=1, data=2, model=2)`` and ``attention: ring`` against
   JAX's ring training (``data=4, model=2``: JAX's mesh must cover its 8
   devices; the global batch, the ring of 2 and so the losses are the
-  same), 3 steps, JAX's rtol 2e-4 (``tests/test_ring_attention.py``).
+  same), 3 steps, JAX's rtol 2e-4 (``tests/test_ring_attention.py``), and
+  the resume below under ring attention.
 - One spawn of 2 processes: ``parallel: dp`` against JAX's dp on 8
   devices at the same global batch, 3 steps, rtol 2e-4; rank 0 alone
-  writes ``log.csv``, one row per step.
+  writes ``log.csv``, one row per step. Then, at dropout 0.1 with
+  checkpoints and eval every 2 steps, a resume to 4 steps from the step-2
+  checkpoint gives the uninterrupted run's losses and eval losses bit for
+  bit on both ranks.
 - One spawn of 4 processes: the FSDP ring's op (``overlap_dense_matmul``,
   both shard axes, forward and gradients, and ``reduce_scatter_matmul``)
   over a ``DistRing`` gives the in-process ring's result bit for bit in
@@ -138,7 +142,34 @@ def _worker(case: str, out_dir: str) -> None:
             report = dict(params=_shard_report(res, rank, world), ring_steps=steps())
             (out / f"shards{tag}_r{rank}.json").write_text(json.dumps(report))
             _fsdp_gradients(out / f"grads{tag}_r{rank}.npz", spec, params, tag, rank, world)
+    if case in ("dp", "ring"):
+        _dp_resume(out, spec, rank)
     dist_utils.teardown()
+
+
+def _dp_resume(out: Path, spec: dict, rank: int) -> None:
+    """The spawn's run (DP, or DP with ring attention) at dropout 0.1 with
+    checkpoints and eval every 2 steps: 4 steps
+    uninterrupted, then 2 steps and a resume to 4 from the step-2
+    checkpoint (rank 0's model and optimizer, each rank's generator)."""
+    from dtc_tpu_torch.config import schema as ts
+    from dtc_tpu_torch.config.loader import _build
+    from dtc_tpu_torch.train.trainer import train
+
+    model = dataclasses.replace(_build(ts.ModelConfig, spec["model"], "model"), dropout=0.1)
+    opt = _build(ts.OptimConfig, spec["optim"], "optim")
+    base = _build(ts.TrainConfig, spec["train"], "train")
+
+    def run(name, steps):
+        cfg = dataclasses.replace(base, steps=steps, warmup_steps=1, checkpoint_every=2,
+                                  eval_every=2, eval_batches=1,
+                                  output_dir=str(out / f"resume_{name}"),
+                                  checkpoint_dir=str(out / f"resume_{name}_ckpt"))
+        res = train(cfg, model, opt, device="cpu")
+        return dict(losses=res.losses, evals=res.eval_losses)
+
+    report = dict(full=run("full", 4), part=run("part", 2), resumed=run("part", 4))
+    (out / f"resume_r{rank}.json").write_text(json.dumps(report))
 
 
 def _fsdp_batch(vocab: int, seq: int):
@@ -308,6 +339,19 @@ def test_ring_transport_and_ring_training_over_four_gloo_processes(
             whole = np.concatenate([g[f"arr_{j}"] for g in got], axis=1)
             assert whole.tobytes() == want_ring[j].tobytes(), f"{name} {label}"
     _check_losses(tmp_path, 4, want)
+    _check_resume(tmp_path, 4)
+
+
+def _check_resume(out_dir: Path, world: int) -> None:
+    """The resume of :func:`_dp_resume`: bit-equal to the uninterrupted
+    run, on every rank, eval included."""
+    reports = [json.loads((out_dir / f"resume_r{r}.json").read_text()) for r in range(world)]
+    assert all(rep == reports[0] for rep in reports)
+    rep = reports[0]
+    assert rep["resumed"]["losses"] == rep["full"]["losses"][2:]
+    assert rep["part"]["losses"] == rep["full"]["losses"][:2]
+    assert rep["part"]["evals"] + rep["resumed"]["evals"] == rep["full"]["evals"]
+    assert [s for s, _ in rep["full"]["evals"]] == [2, 4]
 
 
 def test_dp_training_over_two_gloo_processes_matches_jax(
@@ -323,6 +367,7 @@ def test_dp_training_over_two_gloo_processes_matches_jax(
     _write_run(tmp_path, port_cfg, tiny_model_cfg, opt_cfg, _flax_params(tiny_model_cfg))
     _spawn(2, "dp", tmp_path)
     _check_losses(tmp_path, 2, want)
+    _check_resume(tmp_path, 2)
 
 
 def test_fsdp_over_four_gloo_processes_matches_jax(

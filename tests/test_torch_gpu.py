@@ -3,7 +3,8 @@ megakernel (with its LoRA sites) and FSDP ring kernels against their plain
 versions (the ring's at the flagship's and the DP×FSDP×TP sites), and the
 kernels on the model's decode and training paths (rematerialisation and
 the FSDP ring over virtual ranks included); two gloo ranks sharing the
-card for tensor parallelism and the FSDP ring's transport.
+card for tensor parallelism and the FSDP ring's transport; a resume at the
+flagship's widths.
 Needs an NVIDIA GPU with ``nvcc``; elsewhere every test skips with the
 reason.
 
@@ -1600,6 +1601,41 @@ def test_dist_ring_carries_cuda_tensors_between_gloo_ranks(tp_pair):
                 for a, b in zip(got, pieces):
                     assert a.dtype == dt and a.shape == b.shape
                     assert ((a.float() - b.float()).abs() <= row_tolerance(b, dt)).all()
+
+
+def test_flagship_width_resume_and_eval_are_bit_exact(cuda, tmp_path):
+    """``chip_smoke.py`` phase 24(a) at fewer steps and 2 layers: the
+    flagship's widths (d_model 512, 16 heads of 32, T 512, B 8, dropout
+    0.1, bf16 compute) with checkpoints and eval every 3 steps; 3 steps and
+    a resume to 6 give the uninterrupted run's losses, eval losses and
+    parameters bit for bit, and every flash launch is "tc"."""
+    from pathlib import Path
+
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.train.trainer import train
+
+    root = Path(__file__).resolve().parent.parent
+    tcfg, mcfg, ocfg = load_config(root / "configs" / "train_config_dp.yaml")
+    mcfg = dataclasses.replace(mcfg, n_layers=2)
+
+    def run(name, steps):
+        cfg = dataclasses.replace(
+            tcfg, dataset="synthetic", obs=dataclasses.replace(tcfg.obs, enabled=False),
+            steps=steps, warmup_steps=2, log_every=3, checkpoint_every=3, eval_every=3,
+            eval_batches=1, output_dir=str(tmp_path / name),
+            checkpoint_dir=str(tmp_path / f"{name}_ckpt"))
+        return train(cfg, mcfg, ocfg)
+
+    fa.fwd_route_launches.update(dict.fromkeys(fa.fwd_route_launches, 0))
+    full = run("full", 6)
+    part = run("part", 3)
+    resumed = run("part", 6)
+    assert part.losses + resumed.losses == full.losses
+    assert part.eval_losses + resumed.eval_losses == full.eval_losses
+    assert all(torch.equal(p, q) for p, q in zip(full.model.parameters(),
+                                                 resumed.model.parameters()))
+    assert fa.fwd_route_launches["tc"] > 0 and fa.fwd_route_launches["fma"] == 0
 
 
 if __name__ == "__main__":

@@ -282,8 +282,7 @@ def test_trainer_without_a_card_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("over", [
     dict(parallel="fsdp", mesh=ts.MeshConfig(pipe=2)),
-    dict(dataset="fineweb"),
-    dict(checkpoint_every=10), dict(eval_every=5), dict(obs=ts.ObsConfig()),
+    dict(obs=ts.ObsConfig()),
     dict(resilience=ts.ResilienceConfig(chaos=ts.ChaosConfig(enabled=True))),
     dict(multihost=True), dict(profile_start=1, profile_stop=2),
 ])
@@ -291,6 +290,26 @@ def test_unported_training_features_raise(tmp_path, over):
     with pytest.raises(NotImplementedError):
         train(_tiny_train_cfg(tmp_path, **over), _tiny_model_cfg(),
               ts.OptimConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0), device="cpu")
+
+
+@pytest.mark.parametrize("shape,ring,fsdp", [
+    ((1, 1, 2), False, False), ((2, 1, 1), False, False), ((1, 4, 1), False, True),
+    ((1, 2, 2), True, True),
+])
+@pytest.mark.parametrize("feature", [dict(checkpoint_every=10), dict(eval_every=5)])
+def test_checkpoints_and_eval_refused_where_a_rank_holds_a_slice(tmp_path, shape, ring, fsdp,
+                                                                  feature):
+    """Under tensor parallelism, a pipeline and FSDP a rank holds a slice of
+    the model: checkpoints and held-out eval raise, naming the ROADMAP item
+    they wait for. DP, DP with ring attention and one process take them."""
+    from dtc_tpu_torch.train.trainer import refuse_sharded_state
+
+    cfg = _tiny_train_cfg(tmp_path, **feature)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A2"):
+        refuse_sharded_state(cfg, shape, ring, fsdp)
+    for whole in (((1, 1, 1), False, False), ((1, 4, 1), False, False),
+                  ((1, 2, 2), True, False)):
+        refuse_sharded_state(cfg, *whole)
 
 
 @pytest.mark.parametrize("over", [
