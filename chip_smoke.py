@@ -253,6 +253,30 @@ Phases (each prints its own lines; any failure exits non-zero):
     the save at 15 skipped, the guard rolls back to step 10, and the run
     ends bit-equal to A; (d) a checkpoint's bytes, save and sha256 seconds,
     restore seconds, eval ms a batch and A's step median beside phase 7's.
+25. ``precision: bf16_mixed`` and the LoRA finetune loop on the flagship:
+    (a) ``python -m dtc_tpu_torch.main --train_config_path
+    configs/train_config_bf16.yaml --optim_config_path
+    configs/optim_config_bf16.yaml --dataset synthetic --no-obs --steps 35
+    --output_dir <tmp>``: finite losses whose last-5 mean is below the
+    first, the first 8 within 3% of phase 7's (same seed, batches and
+    masks), every parameter's dtype as on the CPU with float32 masters and
+    moments, 12 forward and 24 backward flash launches a step, all "tc";
+    the step median beside phase 7's, the peak beside
+    ``train_memory_bytes(precision="bf16_mixed")``, a torch.profiler window
+    of 5 steps of each precision (busy share, elementwise passes and
+    copies). (b) ``python -m dtc_tpu_torch.adapters.finetune
+    --finetune_config configs/finetune_lora.yaml --no-obs --out
+    <tmp>/adapter.npz --output_dir <tmp>`` (60 steps, eval and checkpoints
+    at 20, 40, 60): exit 0 with the gate passed, the eval loss at 60 below
+    the one at 20, the base bit-equal to ``GPT(seed)``'s, checkpoints of the
+    adapter alone, a run stopped at 40 and resumed to 60 bit-equal to the
+    uninterrupted one, every flash launch "tc"; the checkpoint's bytes, save
+    and restore seconds, the step median. (c) The export read back by
+    ``load_adapter_file`` and served beside base requests and a second
+    tenant through phase 12's checks under ``fused_layers`` and ``fused``:
+    float32 tokens equal ``generate(lora=trained)``, bf16 tokens each
+    request's solo run, a trained-adapter request's tokens off the base's,
+    a megakernel launch per decode iteration.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -690,6 +714,9 @@ def device_time_by_kernel(prof, wall: float) -> dict:
         flash_device_s=sum(r[1] for r in rows if "flash_" in r[0]) / 1e6,
         # the FSDP ring's step kernels (TPU kernel rows 17-18), every instance
         overlap_device_s=sum(r[1] for r in rows if "overlap_" in r[0]) / 1e6,
+        # PyTorch's elementwise passes and its copies (dtype casts among them)
+        elementwise_device_s=sum(r[1] for r in rows if "elementwise" in r[0]) / 1e6,
+        copy_device_s=sum(r[1] for r in rows if "copy" in r[0].lower()) / 1e6,
         top=[dict(name=k[:120], device_ms=us / 1e3, count=c) for k, us, c in rows[:15]],
     )
 
@@ -1078,7 +1105,8 @@ def profile_train(model_cfg, train_cfg, opt_cfg, steps: int = 5, host_keys=(),
     flagship (torch.profiler, CUDA activity) against the host wall time of
     the same window: the device's busy share. ``host_keys``: profiler rows
     (host ranges and ops) whose names hold one of these are also returned,
-    with their host and device times. ``fsdp``: the steps' FSDP state."""
+    with their host and device times. ``fsdp``: the steps' FSDP state. An
+    adapter-enabled ``model_cfg`` profiles the LoRA finetune's step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1090,18 +1118,25 @@ def profile_train(model_cfg, train_cfg, opt_cfg, steps: int = 5, host_keys=(),
 
     dev = torch.device(device)
     model = GPT(model_cfg, device=dev, seed=train_cfg.seed)
-    opt = create_optimizer(model.parameters(), opt_cfg, total_steps=train_cfg.steps)
+    trainable, lora = model.parameters(), None
+    if model_cfg.adapter.rank > 0:  # a LoRA finetune's step: the factors alone train
+        from dtc_tpu_torch.adapters.lora import init_lora
+
+        model.requires_grad_(False)
+        lora = {k: v.requires_grad_(True) for k, v in init_lora(model, train_cfg.seed).items()}
+        trainable = lora.values()
+    opt = create_optimizer(trainable, opt_cfg, total_steps=train_cfg.steps)
     gen = torch.Generator(device=dev).manual_seed(train_cfg.seed)
     batches = synthetic_batch_iterator(train_cfg.batch, model_cfg.max_seq_len + 1,
                                        model_cfg.vocab_size, seed=train_cfg.seed * 1000)
     for _ in range(3):
-        train_step(model, opt, *split_to_device(next(batches), dev), gen, fsdp)
+        train_step(model, opt, *split_to_device(next(batches), dev), gen, fsdp, lora=lora)
     data = [split_to_device(next(batches), dev) for _ in range(steps)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for x, y in data:
-            train_step(model, opt, x, y, gen, fsdp)
+            train_step(model, opt, x, y, gen, fsdp, lora=lora)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     host = [dict(name=ev.key[:80], count=ev.count, host_ms=ev.cpu_time_total / 1e3,
@@ -2856,6 +2891,268 @@ def checkpoint_phase(smi: str, phase7_step_ms: float, steps: int = 20, warmup: i
 
 
 # ---------------------------------------------------------------------------
+# phase 25: bf16_mixed master weights; the LoRA finetune -> gate -> export ->
+# serve loop
+# ---------------------------------------------------------------------------
+
+def bf16_mixed_phase(smi: str, phase7, steps: int = 35, device: str = "cuda") -> dict:
+    """25(a): ``python -m dtc_tpu_torch.main --train_config_path
+    configs/train_config_bf16.yaml --optim_config_path
+    configs/optim_config_bf16.yaml --dataset synthetic --no-obs --steps 35
+    --output_dir <tmp>`` (5 warmup steps): finite losses whose last-5 mean
+    is below the first; the first 8 within 3% of phase 7's (``phase7``: its
+    record; same seed, batches and dropout masks); every parameter's dtype
+    as on the CPU, masters and moments float32; 12 forward and 24 backward
+    flash launches a step, all "tc". Records the step median beside phase
+    7's, the peak memory beside ``train_memory_bytes(precision=
+    "bf16_mixed")``, and a torch.profiler window of 5 steps of each
+    precision (busy share, elementwise passes and copies a step)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from dtc_tpu_torch import main as cli
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.train.train_step import resolve_precision
+    from dtc_tpu_torch.utils.metrics import train_memory_bytes
+
+    cfgs = [ROOT / "configs" / n for n in ("train_config_bf16.yaml", "optim_config_bf16.yaml")]
+    tcfg, mcfg, ocfg = load_config(cfgs[0], optim_config_path=cfgs[1])
+    rcfg = resolve_precision(ocfg, mcfg)
+    cuda = device.startswith("cuda")
+    with tempfile.TemporaryDirectory(prefix="dtc_chip_smoke_bf16_") as tmp:
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        zero_flash_counts()                          # the main path starts here
+        argv = ["--train_config_path", str(cfgs[0]), "--optim_config_path", str(cfgs[1]),
+                "--dataset", "synthetic", "--no-obs", "--steps", str(steps),
+                "--output_dir", tmp] + ([] if cuda else ["--device", device])
+        res = cli.main(argv)
+        launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+        peak = torch.cuda.max_memory_allocated() - base if cuda else None
+        routes = check_flash_routes("phase 25(a) bf16_mixed", rcfg.compute_dtype)
+        rows = (Path(tmp) / "log.csv").read_text().splitlines()
+    losses = res.losses
+    n_steps = steps + tcfg.warmup_steps
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses)
+          and sum(losses[-5:]) / 5 < losses[0],
+          f"phase 25(a): {len(losses)} losses, not finite or not falling: {losses}")
+    check(len(rows) == steps + 1, f"phase 25(a): log.csv {len(rows) - 1} rows for {steps}")
+    want7 = phase7["losses"][:8]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[:8], want7)]
+    check(max(rel) < 0.03, f"phase 25(a): the first 8 losses {losses[:8]} not within 3% of "
+          f"phase 7's {want7} ({rel})")
+    opt = res.optimizer
+    # the CPU's dtypes, by name with the layer index dropped (one layer built)
+    unlayer = functools.partial(re.sub, r"blocks\.\d+\.", "blocks.")
+    want_dtypes = {unlayer(n): p.dtype for n, p in GPT(
+        dataclasses.replace(rcfg, n_layers=1), device="cpu").named_parameters()}
+    got_dtypes = {unlayer(n): p.dtype for n, p in res.model.named_parameters()}
+    check(got_dtypes == want_dtypes and set(want_dtypes.values()) == {torch.bfloat16,
+                                                                       torch.float32},
+          f"phase 25(a): parameter dtypes {got_dtypes} differ from the CPU's {want_dtypes}")
+    check(all(t.dtype == torch.float32 for t in opt.masters + opt.mu + opt.nu)
+          and all(torch.equal(p.detach(), m.to(p.dtype)) for p, m in zip(opt.params,
+                                                                          opt.masters)),
+          "phase 25(a): masters or moments not float32, or a parameter not its master rounded")
+    check(not cuda or launches == (rcfg.n_layers * n_steps,
+                                   rcfg.n_layers * n_steps * fa.BWD_KERNELS),
+          f"phase 25(a): flash launches {launches} for {n_steps} steps")
+    budget = train_memory_bytes(rcfg, tcfg.batch, rcfg.max_seq_len, precision="bf16_mixed")
+    budget32 = train_memory_bytes(mcfg, tcfg.batch, mcfg.max_seq_len)
+    rec = dict(losses=losses, first8_rel_to_phase7=rel, step_ms_median=step_ms(
+        res.elapsed_times), phase7_step_ms_median=phase7["step_ms_median"],
+        peak_allocated=peak, phase7_peak_allocated=phase7["peak_allocated"],
+        train_memory_bytes=budget, train_memory_bytes_fp32=budget32,
+        flash_launches=launches, flash_routes=routes, card=smi)
+    del res, opt
+    if cuda:
+        torch.cuda.empty_cache()
+        for tag, (m, o) in (("bf16_mixed", (rcfg, ocfg)),
+                            ("fp32", (mcfg, dataclasses.replace(ocfg, precision="fp32")))):
+            prof = profile_train(m, tcfg, o, steps=5)
+            rec[f"profile_{tag}"] = prof
+            log(f"phase 25(a) profile {tag}: 5 steps, wall {prof['wall_s'] / 5 * 1e3:.6f} ms a "
+                f"step, device busy {prof['device_busy_s'] / 5 * 1e3:.6f} ms a step (share "
+                f"{prof['busy_share']:.4f}), {prof['kernel_launches'] // 5} kernels a step; "
+                f"elementwise passes "
+                f"{prof['elementwise_device_s'] / 5 * 1e3:.6f} ms and copies "
+                f"{prof['copy_device_s'] / 5 * 1e3:.6f} ms a step; flash "
+                f"{prof['flash_device_s'] / 5 * 1e3:.6f} ms a step [{smi}]")
+            for row in prof["top"][:8]:
+                log(f"  {row['device_ms'] / 5:.4f} ms a step x{row['count'] // 5} {row['name']}")
+            torch.cuda.empty_cache()
+    log(f"phase 25(a) bf16_mixed (train_config_bf16.yaml + optim_config_bf16.yaml, {steps} "
+        f"steps after {tcfg.warmup_steps} warmup): loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"the first 8 within {max(rel):.6f} of phase 7's; flash launches {launches}, by route "
+        f"{routes}; step_ms median {rec['step_ms_median']:.6f} (phase 7: "
+        f"{phase7['step_ms_median']:.6f}); peak allocated {peak} B (phase 7: "
+        f"{phase7['peak_allocated']} B), train_memory_bytes bf16_mixed {budget['total']:.0f} B "
+        f"(params {budget['params']:.0f}, master {budget['master']:.0f}, moments "
+        f"{budget['moments']:.0f}), fp32 {budget32['total']:.0f} B [{smi}]")
+    return rec
+
+
+def finetune_phase(smi: str, device: str = "cuda") -> tuple[dict, Path]:
+    """25(b): ``python -m dtc_tpu_torch.adapters.finetune --finetune_config
+    configs/finetune_lora.yaml --no-obs --out <tmp>/adapter.npz --output_dir
+    <tmp>``
+    (the flagship with the adapter block, 60 steps, eval and checkpoints at
+    20, 40 and 60), read back from the files it writes (``log.csv``,
+    ``eval_log.csv``, the checkpoints, the exported ``.npz``): exit 0 with
+    the gate passed; the eval loss at 60 below the one at 20; the exported
+    factors on a fresh ``GPT(seed)`` give the step-60 eval loss bit for bit
+    (the base the run evaluated is the seed's); the checkpoints hold the
+    adapter, its optimizer state and the generator alone; the same command
+    stopped at 40 (``--steps 40``) and run again to 60 gives the
+    uninterrupted run's losses, eval losses and factors bit for bit;
+    every flash launch "tc", 12 a step and an eval batch forward and 24 a
+    step backward. Records the checkpoint bytes, save and restore seconds
+    and the step median. Returns the record and the directory holding the
+    export (the caller removes it)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dtc_tpu_torch.adapters import finetune as ft
+    from dtc_tpu_torch.adapters.lora import load_adapter_file
+    from dtc_tpu_torch.config.loader import load_finetune_config
+    from dtc_tpu_torch.data.prefetch import split_to_device
+    from dtc_tpu_torch.models.gpt import GPT, adapter_param_count
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.train.train_step import eval_loss
+    from dtc_tpu_torch.train.trainer import make_eval_iterator
+    from dtc_tpu_torch.utils.checkpoint import CheckpointManager
+
+    path = ROOT / "configs" / "finetune_lora.yaml"
+    tcfg, mcfg, ocfg = load_finetune_config(path)
+    cuda = device.startswith("cuda")
+    tmp = Path(tempfile.mkdtemp(prefix="dtc_chip_smoke_finetune_"))
+
+    def run(name, *extra):
+        argv = ["--finetune_config", str(path), "--no-obs", "--out", str(tmp / f"{name}.npz"),
+                "--output_dir", str(tmp / name)] + list(extra)
+        if not cuda:
+            argv += ["--device", device]
+        t0 = time.perf_counter()
+        code = ft.main(argv)
+        return code, time.perf_counter() - t0
+
+    def rows(name, csv):
+        return [r.split(",") for r in (tmp / name / csv).read_text().splitlines()[1:]]
+
+    zero_flash_counts()                          # the main path starts here
+    code, full_s = run("full")
+    launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+    routes = check_flash_routes("phase 25(b) finetune", mcfg.compute_dtype)
+    n_steps = tcfg.steps + tcfg.warmup_steps
+    n_evals = (tcfg.steps // tcfg.eval_every) * tcfg.eval_batches
+    check(code == 0 and (tmp / "full.npz").exists(), f"phase 25(b): exit {code}")
+    trained, meta = load_adapter_file(str(tmp / "full.npz"))
+    check(meta["gate_passed"] is True, f"phase 25(b): the export's meta {meta}")
+    evals = [(int(s), float(v)) for s, v in rows("full", "eval_log.csv")]
+    losses = [float(r[2]) for r in rows("full", "log.csv")]
+    elapsed = [float(r[1]) for r in rows("full", "log.csv")]
+    check([s for s, _ in evals] == [20, 40, 60] and evals[-1][1] < evals[0][1]
+          and (meta["eval_first"], meta["eval_final"]) == (evals[0][1], evals[-1][1]),
+          f"phase 25(b): eval losses {evals} (want 20, 40, 60, falling), meta {meta}")
+    check(len(losses) == tcfg.steps and all(math.isfinite(x) for x in losses),
+          f"phase 25(b): losses {losses}")
+    check(not cuda or launches == (mcfg.n_layers * (n_steps + n_evals),
+                                   mcfg.n_layers * n_steps * fa.BWD_KERNELS),
+          f"phase 25(b): flash launches {launches} for {n_steps} steps and {n_evals} eval "
+          f"batches")
+    # The export on the seed's base gives the run's last eval loss bit for
+    # bit: the base the run trained against did not move.
+    fresh = GPT(mcfg, device=device, seed=tcfg.seed)
+    factors = {k: v.to(device) for k, v in trained.items()}
+    it = make_eval_iterator(tcfg, mcfg)
+    dev = torch.device(device)
+    again = float(np.mean([float(eval_loss(fresh, *split_to_device(next(it), dev), lora=factors))
+                           for _ in range(tcfg.eval_batches)]))
+    check(again == evals[-1][1],
+          f"phase 25(b): the export on GPT(seed)'s base evaluates to {again!r}, the run's "
+          f"step-60 eval loss {evals[-1][1]!r}: the base moved")
+    del fresh
+    ckdir = tmp / "full" / "checkpoints"
+    mgr = CheckpointManager(str(ckdir))
+    steps_saved = mgr.all_steps()
+    files = sorted(f.name for f in Path(mgr.step_dir(60)).iterdir())
+    check(steps_saved == [20, 40, 60] and files == ["adapter.pt", "optimizer.pt", "rng_p0.pt"],
+          f"phase 25(b): checkpoints {steps_saved}, files {files}")
+    nbytes = sum((Path(mgr.step_dir(60)) / n).stat().st_size for n in files)
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, got = mgr.restore_latest(map_location=device)
+    if cuda:
+        torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(got == 60 and sorted(state["adapter"]) == sorted(factors)
+          and all(torch.equal(state["adapter"][k], v) for k, v in factors.items()),
+          "phase 25(b): the step-60 checkpoint's factors differ from the export's")
+    cost = CheckpointManager(str(tmp / "cost"), keep_n=1)
+    t0 = time.perf_counter()
+    cost.save(60, {"adapter": state["adapter"], "optimizer": state["optimizer"]},
+              {"rng": state["rng"]})
+    save_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in trained.values())
+    check(n_params == adapter_param_count(mcfg),
+          f"phase 25(b): {n_params} adapter parameters, adapter_param_count "
+          f"{adapter_param_count(mcfg)}")
+    del state
+
+    # stopped at 40, run again to 60 (the CLI resumes from the checkpoints)
+    code40, _ = run("part", "--steps", "40")
+    code60, _ = run("part")
+    check(code40 == 0 and code60 == 0, f"phase 25(b): resume exits {code40}, {code60}")
+    part_losses = [float(r[2]) for r in rows("part", "log.csv")]
+    part_evals = [(int(s), float(v)) for s, v in rows("part", "eval_log.csv")]
+    resumed, _ = load_adapter_file(str(tmp / "part.npz"))
+    check(part_losses == losses and part_evals == evals
+          and all(torch.equal(resumed[k], v) for k, v in trained.items()),
+          f"phase 25(b): stopped at 40 and resumed: losses {part_losses}, eval {part_evals} "
+          f"differ from the uninterrupted run's {losses}, {evals}")
+    shutil.rmtree(tmp / "part")
+    shutil.rmtree(tmp / "cost")
+    prof = None
+    if cuda:
+        torch.cuda.empty_cache()
+        prof = profile_train(mcfg, tcfg, ocfg, steps=5)
+        log(f"phase 25(b) profile: 5 finetune steps, wall {prof['wall_s'] / 5 * 1e3:.6f} ms a "
+            f"step, device busy {prof['device_busy_s'] / 5 * 1e3:.6f} ms a step (share "
+            f"{prof['busy_share']:.4f}), {prof['kernel_launches'] // 5} kernels a step; "
+            f"elementwise passes {prof['elementwise_device_s'] / 5 * 1e3:.6f} ms and copies "
+            f"{prof['copy_device_s'] / 5 * 1e3:.6f} ms a step; flash "
+            f"{prof['flash_device_s'] / 5 * 1e3:.6f} ms a step [{smi}]")
+        for row in prof["top"][:6]:
+            log(f"  {row['device_ms'] / 5:.4f} ms a step x{row['count'] // 5} {row['name']}")
+    rec = dict(losses=losses, eval_losses=evals, eval_first=meta["eval_first"],
+               eval_final=meta["eval_final"], gate_passed=meta["gate_passed"],
+               flash_launches=launches, flash_routes=routes, adapter_params=n_params,
+               checkpoint_bytes=nbytes, save_s=save_s, sha256_s=cost.hash_s,
+               restore_s=restore_s, run_s=full_s, profile=prof,
+               step_ms_median=step_ms(elapsed), card=smi)
+    log(f"phase 25(b) finetune (finetune_lora.yaml, rank {mcfg.adapter.rank} on "
+        f"{len(mcfg.adapter.target_modules)} sites, {n_params} adapter parameters, {tcfg.steps} "
+        f"steps): exit 0, gate passed (eval {evals[0][1]:.6f} at 20 -> {evals[-1][1]:.6f} at "
+        f"60); the export on GPT(seed)'s base gives the step-60 eval loss bit for bit; checkpoints hold the adapter alone; stopped "
+        f"at 40 and resumed to 60: losses, eval losses and factors bit-equal; flash launches "
+        f"{launches}, by route {routes} [{smi}]")
+    log(f"phase 25(b): an adapter checkpoint {nbytes} B (save {save_s:.6f} s, sha256 "
+        f"{cost.hash_s:.6f} s of it; restore onto the card {restore_s:.6f} s); step_ms median "
+        f"{rec['step_ms_median']:.6f}; the CLI's run {full_s:.3f} s [{smi}]")
+    return rec, tmp
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the decode megakernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -2889,11 +3186,11 @@ def exact_products():
 
     real = gpt.Dense.forward
 
-    def forward(self, z, lora=None):
+    def forward(self, z, lora=None, dropout=0.0, gen=None):
         cd = self.cdtype
         y = F.linear(z.to(cd).float(), self.weight.to(cd).float()).to(cd)
         y = y + self.bias.to(cd)
-        return y if lora is None else gpt.apply_lora(y, z, lora, self.lora_scale)
+        return y if lora is None else gpt.apply_lora(y, z, lora, self.lora_scale, dropout, gen)
 
     gpt.Dense.forward = forward
     try:
@@ -3077,7 +3374,7 @@ def megakernel_case(name, model, b, t, kvdtype, starts, seed, lora=None, ids=Non
         finally:
             gpt.apply_lora = real_lora
 
-    def delta_unrounded(y, z, factors, scale):
+    def delta_unrounded(y, z, factors, scale, *_):
         # z = x A rounded as before; z B, scaled and added to y in float32,
         # rounded once with the sum.
         a, bb = factors[0].to(y.dtype), factors[1].to(y.dtype)
@@ -3092,11 +3389,11 @@ def megakernel_case(name, model, b, t, kvdtype, starts, seed, lora=None, ids=Non
     def bias_before_rounding():
         real = gpt.Dense.forward
         if exact:
-            gpt.Dense.forward = lambda self, z, lora=None: F.linear(
+            gpt.Dense.forward = lambda self, z, *_: F.linear(
                 z.to(self.cdtype).float(), self.weight.to(self.cdtype).float(),
                 self.bias.to(self.cdtype).float()).to(self.cdtype)
         else:
-            gpt.Dense.forward = lambda self, z, lora=None: F.linear(
+            gpt.Dense.forward = lambda self, z, *_: F.linear(
                 z.to(self.cdtype), self.weight.to(self.cdtype), self.bias.to(self.cdtype))
         try:
             yield
@@ -3136,7 +3433,7 @@ def megakernel_case(name, model, b, t, kvdtype, starts, seed, lora=None, ids=Non
             exact_scale = model.cfg.adapter.scale
             if gpt.lora_scale(model.cfg) != exact_scale:
                 def unrounded_scale():
-                    with patched_lora(lambda y, z, f, _s: real_lora(y, z, f, exact_scale)):
+                    with patched_lora(lambda y, z, f, _s, *_: real_lora(y, z, f, exact_scale)):
                         return run(ref, 1)[0]
                 faults["scale left unrounded"] = unrounded_scale
     want, _ = run(decode_fused.fused_layers_reference, 1)
@@ -3199,21 +3496,25 @@ def megakernel_times(model, b, t, kvdtype, starts, seed, iters, lora=None, ids=N
 ADAPTER_SPREAD = (None, "t1", "t2", "t3", "t1", None)
 
 
-def adapter_requests(vocab: int, seed: int, max_new: int):
+def adapter_requests(vocab: int, seed: int, max_new: int, spread=ADAPTER_SPREAD):
     import dataclasses
 
     return [dataclasses.replace(r, adapter=a)
-            for r, a in zip(flagship_requests(vocab, seed, max_new), ADAPTER_SPREAD)]
+            for r, a in zip(flagship_requests(vocab, seed, max_new), spread)]
 
 
 def serve_adapters(scfg, mcfg_ad, seed: int, max_new: int, tokens_fl, fl_rec, smi,
-                   device: str = "cuda"):
+                   device: str = "cuda", tenants=None, spread=ADAPTER_SPREAD,
+                   must_move=None, tag: str = "adapters"):
     """Phase 12: three tenants on the flagship under ``fused_layers`` and
     ``fused`` in bf16 (launch counts, ms/token; under ``fused_layers`` each
     request equals its solo run, and the base requests equal phase 10's
     tokens), then float32 under both: each request equals ``generate()``
     with its tenant's factors. ``tokens_fl`` / ``fl_rec``: phase 10's
-    tokens and record."""
+    tokens and record. ``tenants`` ({name: factors}; three random ones by
+    default) and ``spread`` (each request's tenant) as phase 25(c) serves
+    them; ``must_move``: tenants that must move at least one of their
+    requests' tokens off the base's (any tenant when None)."""
     import dataclasses
 
     import torch
@@ -3221,21 +3522,22 @@ def serve_adapters(scfg, mcfg_ad, seed: int, max_new: int, tokens_fl, fl_rec, sm
     from dtc_tpu_torch.generate import generate
     from dtc_tpu_torch.serve import ServingEngine
 
-    tenants = dict(zip(("t1", "t2", "t3"),
-                       tenant_factors(mcfg_ad, torch.device(device), seed + 1200, 3)))
+    if tenants is None:
+        tenants = dict(zip(("t1", "t2", "t3"),
+                           tenant_factors(mcfg_ad, torch.device(device), seed + 1200, 3)))
     out = {}
     for backend in ("fused_layers", "fused"):
         mcfg_b = dataclasses.replace(mcfg_ad, decode_attention=backend)
-        reqs = adapter_requests(mcfg_ad.vocab_size, seed, max_new)
+        reqs = adapter_requests(mcfg_ad.vocab_size, seed, max_new, spread)
         model, eng, res, wall, launched = serve(scfg, mcfg_b, seed, reqs, device, tenants)
         steps = eng.counters["serve_decode_steps"]
         for r in reqs:
             rr = res[r.rid]
             check(rr.state.value == "done" and len(rr.tokens) == max_new,
-                  f"adapters {backend} {r.rid}: {rr.state.value}, {len(rr.tokens)} tokens "
+                  f"{tag} {backend} {r.rid}: {rr.state.value}, {len(rr.tokens)} tokens "
                   f"({rr.error})")
         check(eng.counters["serve_prefix_builds"] == 2 and eng.counters["serve_prefix_hits"] == 0,
-              f"adapters {backend}: the prefix store is not scoped per adapter: "
+              f"{tag} {backend}: the prefix store is not scoped per adapter: "
               f"{dict(eng.counters)}")
         if backend == "fused_layers":
             ok_launch = launched["fused_layers"] == steps and launched["decode_attention"] == 0
@@ -3243,20 +3545,20 @@ def serve_adapters(scfg, mcfg_ad, seed: int, max_new: int, tokens_fl, fl_rec, sm
             ok_launch = (launched["decode_attention"] == mcfg_ad.n_layers * steps
                          and launched["fused_layers"] == 0)
         check(ok_launch and steps > 0,
-              f"adapters {backend}: {launched} launches for {steps} decode iterations")
+              f"{tag} {backend}: {launched} launches for {steps} decode iterations")
         tokens = {r.rid: list(res[r.rid].tokens) for r in reqs}
         n_tok = sum(len(t) for t in tokens.values())
         ttft = [res[r.rid].ttft_s for r in reqs]
         mspt = [res[r.rid].ms_per_token for r in reqs]
         rec = dict(
-            requests=len(reqs), adapters=list(ADAPTER_SPREAD), tokens=n_tok,
+            requests=len(reqs), adapters=list(spread), tokens=n_tok,
             decode_iterations=steps, megakernel_launches=launched["fused_layers"],
             decode_attention_launches=launched["decode_attention"], wall_s=wall,
             ttft_p50_s=percentile(ttft, 0.5), ms_per_token_mean=sum(mspt) / len(mspt),
             tokens_per_s=n_tok / wall, counters=dict(eng.counters), card=smi,
-            watchdog_flags=watchdog_report(eng, f"serve adapters {backend}"),
+            watchdog_flags=watchdog_report(eng, f"serve {tag} {backend}"),
         )
-        log(f"serve adapters {backend}: 6/6 done ({', '.join(str(a) for a in ADAPTER_SPREAD)}), "
+        log(f"serve {tag} {backend}: 6/6 done ({', '.join(str(a) for a in spread)}), "
             f"{n_tok} tokens, {steps} decode iterations, launches {launched}; ms/token "
             f"{rec['ms_per_token_mean']:.6f}, tokens/s {rec['tokens_per_s']:.3f}, ttft_p50 "
             f"{rec['ttft_p50_s']:.6f} s (phase 10 without adapters: ms/token "
@@ -3264,6 +3566,8 @@ def serve_adapters(scfg, mcfg_ad, seed: int, max_new: int, tokens_fl, fl_rec, sm
         if backend == "fused_layers":
             base_same = [tokens[r.rid] == tokens_fl[r.rid] for r in reqs if r.adapter is None]
             moved = [tokens[r.rid] != tokens_fl[r.rid] for r in reqs if r.adapter is not None]
+            moved_by = {name: sum(tokens[r.rid] != tokens_fl[r.rid] for r in reqs
+                                  if r.adapter == name) for name in tenants}
             solo_same = 0
             for r in reqs:
                 solo = ServingEngine(model, scfg)
@@ -3272,20 +3576,21 @@ def serve_adapters(scfg, mcfg_ad, seed: int, max_new: int, tokens_fl, fl_rec, sm
                 solo.submit(r)
                 solo_same += solo.run(max_steps=10_000)[r.rid].tokens == tokens[r.rid]
             rec.update(solo_identical=solo_same, base_equal_phase10=sum(base_same),
-                       tenants_moved=sum(moved))
-            log(f"serve adapters fused_layers bf16: {solo_same}/{len(reqs)} requests equal "
+                       tenants_moved=sum(moved), moved_by_tenant=moved_by)
+            log(f"serve {tag} fused_layers bf16: {solo_same}/{len(reqs)} requests equal "
                 f"their solo runs; base requests equal phase 10's tokens: {sum(base_same)}/"
                 f"{len(base_same)}; tenant requests whose tokens the adapter moved: "
-                f"{sum(moved)}/{len(moved)}")
+                f"{sum(moved)}/{len(moved)} (by tenant {moved_by})")
             check(solo_same == len(reqs),
-                  f"adapters: {solo_same}/{len(reqs)} equal their solo runs")
-            check(all(base_same), "adapters: a base request differs from phase 10")
-            check(any(moved), "adapters: no tenant's tokens moved")
+                  f"{tag}: {solo_same}/{len(reqs)} equal their solo runs")
+            check(all(base_same), f"{tag}: a base request differs from phase 10")
+            check(any(moved) if must_move is None else all(moved_by[t] for t in must_move),
+                  f"{tag}: no request's tokens moved off the base's ({moved_by})")
         del model, eng
         torch.cuda.empty_cache()
 
         mcfg32 = dataclasses.replace(mcfg_b, compute_dtype="float32")
-        reqs32 = adapter_requests(mcfg_ad.vocab_size, seed, max_new)
+        reqs32 = adapter_requests(mcfg_ad.vocab_size, seed, max_new, spread)
         model, eng, res, _, launched32 = serve(scfg, mcfg32, seed, reqs32, device, tenants)
         same = 0
         for r in reqs32:
@@ -3293,13 +3598,55 @@ def serve_adapters(scfg, mcfg_ad, seed: int, max_new: int, tokens_fl, fl_rec, sm
             same += res[r.rid].state.value == "done" and res[r.rid].tokens == ref[0].tolist()
         rec["fp32_matching_generate"] = same
         rec["fp32_launches"] = launched32
-        log(f"serve adapters {backend} fp32: {same}/{len(reqs32)} requests equal generate() "
+        log(f"serve {tag} {backend} fp32: {same}/{len(reqs32)} requests equal generate() "
             f"with their tenant's factors; launches {launched32}")
-        check(same == len(reqs32), f"adapters {backend} fp32: {same}/{len(reqs32)} match generate")
+        check(same == len(reqs32), f"{tag} {backend} fp32: {same}/{len(reqs32)} match generate")
         out[backend] = rec
         del model, eng
         torch.cuda.empty_cache()
     return out
+
+
+#: Phase 25(c)'s requests by tenant: the trained adapter ("ft") on three,
+#: a second tenant with random factors on one (r2, sharing r1's prefix),
+#: base on two.
+TRAINED_SPREAD = (None, "ft", "t2", "ft", "ft", None)
+
+
+def serve_trained_adapter(npz: Path, scfg, seed: int, max_new: int, tokens_fl, fl_rec, smi,
+                          device: str = "cuda") -> dict:
+    """25(c): the exported adapter read back by the port's
+    ``load_adapter_file`` and served on its base (``finetune_lora.yaml``'s
+    model and seed) beside base requests and a second tenant, through phase
+    12's checks (:func:`serve_adapters`) under ``fused_layers`` and
+    ``fused``: float32 tokens equal ``generate(lora=trained)``; bf16
+    ``fused_layers`` tokens equal each request's solo run, base requests
+    phase 10's; at least one trained-adapter request's tokens differ from
+    the base's; a megakernel launch per decode iteration. ``tokens_fl`` /
+    ``fl_rec``: phase 10's (served from ``seed``)."""
+    import dataclasses
+
+    import torch
+
+    from dtc_tpu_torch.adapters.lora import load_adapter_file
+    from dtc_tpu_torch.config.loader import load_finetune_config
+
+    tcfg, mcfg, _ = load_finetune_config(ROOT / "configs" / "finetune_lora.yaml")
+    trained, meta = load_adapter_file(str(npz))
+    check(meta["gate_passed"] and meta["rank"] == mcfg.adapter.rank,
+          f"phase 25(c): the export's meta {meta}")
+    dev = torch.device(device)
+    tenants = {"ft": {k: v.to(dev) for k, v in trained.items()},
+               "t2": tenant_factors(mcfg, dev, seed + 1250, 1)[0]}
+    if seed != tcfg.seed:
+        # phase 10 served another base: the base requests' tokens anew
+        mcfg_fl = dataclasses.replace(mcfg, decode_attention="fused_layers")
+        reqs = flagship_requests(mcfg.vocab_size, tcfg.seed, max_new)
+        _, _, res, _, _ = serve(scfg, mcfg_fl, tcfg.seed, reqs, device)
+        tokens_fl = {r.rid: list(res[r.rid].tokens) for r in reqs}
+    return serve_adapters(scfg, mcfg, tcfg.seed, max_new, tokens_fl, fl_rec, smi, device,
+                          tenants=tenants, spread=TRAINED_SPREAD, must_move=("ft",),
+                          tag="phase 25(c) trained adapter")
 
 
 def main() -> int:
@@ -3980,15 +4327,11 @@ def main() -> int:
               f"phase 17: log.csv {rows17}")
         check(launches17 == (12 * n17, 12 * n17 * fa.BWD_KERNELS),
               f"phase 17: flash launches {launches17} for {n17} steps")
-        def median_step_ms(res):
-            el = res.elapsed_times
-            return sorted(b - a for a, b in zip([0.0] + el[:-1], el))[len(el) // 2] * 1e3
-
         record["nccl_world1"] = dict(losses=res17.losses, losses_alone=alone17.losses,
                                      backend=seen17["backend"], averages=seen17["averages"],
                                      flash_launches=launches17, card=smi,
-                                     step_ms_median=median_step_ms(res17),
-                                     step_ms_median_alone=median_step_ms(alone17))
+                                     step_ms_median=step_ms(res17.elapsed_times),
+                                     step_ms_median_alone=step_ms(alone17.elapsed_times))
         log(f"trainer over NCCL at world size 1 (torchrun's environment, the flagship, "
             f"{steps17} steps after 5 warmup): losses {res17.losses} equal the single-process "
             f"run's bit for bit; {seen17['averages']} gradient all-reduces; flash launches "
@@ -4088,6 +4431,30 @@ def main() -> int:
         # the flagship
         record["checkpoints"] = checkpoint_phase(smi, train_rec["step_ms_median"])
 
+        # 25. bf16_mixed master weights; the LoRA finetune -> eval gate ->
+        # export -> serve loop on the flagship
+        walls25 = [time.perf_counter()]
+        record["bf16_mixed"] = bf16_mixed_phase(smi, train_rec)
+        torch.cuda.empty_cache()
+        walls25.append(time.perf_counter())
+        ft_rec, ft_dir = finetune_phase(smi)
+        record["finetune"] = ft_rec
+        walls25.append(time.perf_counter())
+        try:
+            ft_rec["serve"] = serve_trained_adapter(ft_dir / "full.npz", scfg, args.seed,
+                                                    max_new, tokens_fl, fl_rec, smi)
+        finally:
+            import shutil
+
+            shutil.rmtree(ft_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        walls25.append(time.perf_counter())
+        parts25 = [b - a for a, b in zip(walls25, walls25[1:])]
+        record["phase25_wall_s"] = dict(total=walls25[-1] - walls25[0], a=parts25[0],
+                                        b=parts25[1], c=parts25[2])
+        log(f"phase 25 wall {walls25[-1] - walls25[0]:.1f} s: (a) {parts25[0]:.1f}, (b) "
+            f"{parts25[1]:.1f}, (c) {parts25[2]:.1f}")
+
         main = results[0]
         kernels = [dict(
             name="decode_attention", route="cuda",
@@ -4097,6 +4464,7 @@ def main() -> int:
             launches=main_launches, max_abs_err=max(c["max_abs_err"] for c in results),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
+            launches_trained_adapter=ft_rec["serve"]["fused"]["decode_attention_launches"],
         )]
         # The flash rows: the plan's route of the timed bf16 kernels ("tc":
         # tensor cores) and the main path's launches by kind and route; the
@@ -4126,6 +4494,10 @@ def main() -> int:
                 launches_checkpoint_run=record["checkpoints"]["resume"]["flash_launches"][
                     part == "bwd"],
                 route_launches_checkpoint_run=record["checkpoints"]["resume"]["flash_routes"],
+                launches_bf16_mixed=record["bf16_mixed"]["flash_launches"][part == "bwd"],
+                route_launches_bf16_mixed=record["bf16_mixed"]["flash_routes"],
+                launches_finetune=ft_rec["flash_launches"][part == "bwd"],
+                route_launches_finetune=ft_rec["flash_routes"],
                 **({"dq_ms": fl["dq_ms"], "dkv_ms": fl["dkv_ms"],
                     "dq_bound_ms": fl["dq_bound_ms"], "dq_route_launches": routes7["dq"]}
                    if part == "bwd" else {}),
@@ -4153,6 +4525,7 @@ def main() -> int:
             bound_ms=mk_lora_t1["bound_ms"], bound_by=mk_lora_t1["bound_by"], library_ms=None,
             without_adapters_ms=mk_lora_t1["base_ms"],
             yardstick_per_layer_ms=mk_lora_t1["per_layer_ms"],
+            launches_trained_adapter=ft_rec["serve"]["fused_layers"]["megakernel_launches"],
         ))
         kernels.append(dict(
             name="flash_attention_bwd_t8192", route="cuda",

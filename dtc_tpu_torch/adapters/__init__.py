@@ -1,11 +1,14 @@
 """Multi-tenant LoRA adapters for the port: factors, the resident stack
-and its registry, the merge oracle and the artifact (the JAX package's
-``dtc_tpu.adapters`` without its finetune leg, which is not ported yet).
+and its registry, the merge oracle, the artifact and the finetune leg (the
+JAX package's ``dtc_tpu.adapters``).
 
 - :mod:`~dtc_tpu_torch.adapters.lora`: factor shapes, initialisation, the
   serving stack, validation, ``merge_lora``, the ``.npz`` artifact;
 - :mod:`~dtc_tpu_torch.adapters.store`: the LRU + refcounted registry of
-  the stack's slots (slot 0 pinned to base).
+  the stack's slots (slot 0 pinned to base);
+- :mod:`~dtc_tpu_torch.adapters.finetune`: ``finetune_adapter`` (train,
+  eval gate) and its CLI, ``python -m dtc_tpu_torch.adapters.finetune``
+  (not imported here, so that ``-m`` runs it as the main module).
 
 The site math (:func:`~dtc_tpu_torch.models.gpt.apply_lora`) and the
 per-row gather from the stack (``gather_slot_lora``) live with the model.

@@ -30,7 +30,7 @@ class AdapterConfig:
     and leaves the model bitwise as without them; ``rank > 0`` gives every
     targeted dense layer a low-rank delta ``(alpha / rank) * B (A x)`` whose
     factors are passed per call (``dtc_tpu_torch.adapters``). ``dropout``
-    applies to adapter training only, which the port does not run yet."""
+    applies to the adapter's input in training (the finetune) only."""
 
     rank: int = 0
     alpha: float = 16.0

@@ -63,7 +63,12 @@ parameters; the caller passes them per call as ``lora`` (see
 or with ``lora_ids`` a stack of adapters of which row b reads slot
 ``lora_ids[b]`` (:func:`gather_slot_lora`, :func:`layer_lora`). Every
 targeted :class:`Dense` adds :func:`apply_lora`'s delta; without ``lora``
-the model is the base model, and at rank 0 nothing of it runs.
+the model is the base model, and at rank 0 nothing of it runs. In
+training (the finetune) the factors are the tensors that require
+gradients, the base frozen by the caller; ``adapter.dropout`` drops the
+adapter's input only (the base path never sees it), its masks from the
+same generator as the model's dropout, drawn in site order (q, k, v,
+out_proj, fc1, fc2 of each layer), and replayed by remat's recompute.
 
 Decode: :meth:`GPT.forward` with a ``cache`` dict (see
 ``dtc_tpu_torch.generate.init_cache``) writes each layer's new k/v into
@@ -179,7 +184,8 @@ def lora_scale(cfg: ModelConfig) -> float:
     return float(torch.tensor(cfg.adapter.scale, dtype=DTYPES[cfg.compute_dtype]))
 
 
-def apply_lora(y: torch.Tensor, x: torch.Tensor, factors, scale: float) -> torch.Tensor:
+def apply_lora(y: torch.Tensor, x: torch.Tensor, factors, scale: float,
+               dropout: float = 0.0, gen: torch.Generator | None = None) -> torch.Tensor:
     """``y + scale * ((x @ A) @ B)`` with the JAX package's rounding points
     (``dtc_tpu/adapters/lora.py`` ``apply_lora``): factors cast to y's
     (compute) dtype; ``z = x A`` rounded; the delta ``z B`` rounded; the
@@ -187,10 +193,11 @@ def apply_lora(y: torch.Tensor, x: torch.Tensor, factors, scale: float) -> torch
     :func:`lora_scale`); then added to ``y``. ``factors`` is ``(A, B)`` in
     ``nn.Linear``'s orientation: A ``(r, in)``, B ``(out, r)`` shared by
     every row, or A ``(B, r, in)``, B ``(B, out, r)`` one pair per batch
-    row of x ``(B, T, in)``."""
+    row of x ``(B, T, in)``. ``dropout`` (training) drops x on the
+    adapter's path only, its keep mask drawn from ``gen``."""
     cd = y.dtype
     a, b = factors[0].to(cd), factors[1].to(cd)
-    xc = x.to(cd)
+    xc = _dropout(x, dropout, gen).to(cd)
     if a.ndim == 2:
         delta = F.linear(F.linear(xc, a), b)
     else:
@@ -260,7 +267,9 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(torch.empty(d_out, d_in, dtype=pdt, device=device))
         self.bias = nn.Parameter(torch.zeros(d_out, dtype=pdt, device=device))
 
-    def forward(self, x: torch.Tensor, lora=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lora=None, dropout: float = 0.0,
+                gen: torch.Generator | None = None) -> torch.Tensor:
+        """``dropout`` / ``gen``: the adapter's input dropout (training)."""
         cd = self.cdtype
         ring = fsdp.overlap_ring() if self.overlapped else None
         if ring is None:
@@ -271,7 +280,7 @@ class Dense(nn.Module):
         if self.shard_axis == 1:
             y = reduce_from_model(y, self.tp)
         y = y + fsdp.full(self.bias).to(cd)
-        return y if lora is None else apply_lora(y, x, lora, self.lora_scale)
+        return y if lora is None else apply_lora(y, x, lora, self.lora_scale, dropout, gen)
 
 
 def _cache_write(buf: torch.Tensor, update: torch.Tensor, idx: torch.Tensor) -> None:
@@ -305,19 +314,21 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, cache: dict | None = None,
                 layer: int = 0, idx: torch.Tensor | None = None,
-                lora: dict | None = None) -> torch.Tensor:
+                lora: dict | None = None, lora_drop: float = 0.0,
+                gen: torch.Generator | None = None) -> torch.Tensor:
         """The q/k/v projections and attention: out_proj's (B, T, d_model)
         input. The block applies ``out_proj`` itself, so that remat can
-        split the block around the flash call."""
+        split the block around the flash call. ``lora_drop``: the
+        adapter's input dropout (training), masks from ``gen``."""
         cfg = self.cfg
         lora = lora or {}
         b, t, _ = x.shape
         h, dh = self.n_heads, cfg.head_dim
         hd = h * dh
         x = copy_to_model(x, self.tp)
-        q = self.q_proj(x, lora.get("q_proj"))
-        k = self.k_proj(x, lora.get("k_proj"))
-        v = self.v_proj(x, lora.get("v_proj"))
+        q = self.q_proj(x, lora.get("q_proj"), lora_drop, gen)
+        k = self.k_proj(x, lora.get("k_proj"), lora_drop, gen)
+        v = self.v_proj(x, lora.get("v_proj"), lora_drop, gen)
         if cache is None:
             out = causal_attention(
                 q.view(b, t, h, dh), k.view(b, t, h, dh), v.view(b, t, h, dh),
@@ -365,11 +376,12 @@ class MLP(nn.Module):
         self.fc1 = Dense(cfg.d_model, cfg.d_ff, cfg, device, tp=tp)
         self.fc2 = Dense(cfg.d_ff, cfg.d_model, cfg, device, shard_axis=1, tp=tp)
 
-    def forward(self, x: torch.Tensor, lora: dict | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lora: dict | None = None, lora_drop: float = 0.0,
+                gen: torch.Generator | None = None) -> torch.Tensor:
         lora = lora or {}
         x = copy_to_model(x, self.tp)
-        h = F.gelu(self.fc1(x, lora.get("fc1")), approximate="tanh")
-        return self.fc2(h, lora.get("fc2"))
+        h = F.gelu(self.fc1(x, lora.get("fc1"), lora_drop, gen), approximate="tanh")
+        return self.fc2(h, lora.get("fc2"), lora_drop, gen)
 
 
 class Block(nn.Module):
@@ -389,32 +401,37 @@ class Block(nn.Module):
     def forward(self, x, *, train: bool = False, gen=None, cache=None, layer: int = 0,
                 idx=None, lora: dict | None = None):
         p = self.cfg.dropout if train else 0.0
+        ld = self.cfg.adapter.dropout if train and lora else 0.0
         mode = self.cfg.remat_mode
         if not (train and cache is None and torch.is_grad_enabled()):
             mode = "none"
         if mode == "block":
-            return _recompute(lambda x, g: self._rest(x, self._attend(x, lora), p, g, lora),
-                              x, gen=gen)
+            return _recompute(
+                lambda x, g: self._rest(x, self._attend(x, lora, ld=ld, gen=g), p, g, lora, ld),
+                x, gen=gen)
         if mode == "block_save_flash":
             # LN_1 recomputed; the projections and the flash call outside
             # any checkpoint, so their residuals (h, q, k, v, out, lse) stay.
             h = _recompute(lambda x, _: self.ln_1(x).to(self.cdtype), x)
-            a = self.attn(h, lora=lora)
-            return _recompute(lambda x, a, g: self._rest(x, a, p, g, lora), x, a, gen=gen)
-        a = self._attend(x, lora, cache, layer, idx)
-        return self._rest(x, a, p, gen, lora, remat_mlp=mode == "mlp")
+            a = self.attn(h, lora=lora, lora_drop=ld, gen=gen)
+            return _recompute(lambda x, a, g: self._rest(x, a, p, g, lora, ld), x, a, gen=gen)
+        a = self._attend(x, lora, cache, layer, idx, ld, gen)
+        return self._rest(x, a, p, gen, lora, ld, remat_mlp=mode == "mlp")
 
-    def _attend(self, x, lora, cache=None, layer: int = 0, idx=None):
-        return self.attn(self.ln_1(x).to(self.cdtype), cache, layer, idx, lora)
+    def _attend(self, x, lora, cache=None, layer: int = 0, idx=None, ld: float = 0.0,
+                gen=None):
+        return self.attn(self.ln_1(x).to(self.cdtype), cache, layer, idx, lora, ld, gen)
 
-    def _rest(self, x, a, p: float, gen, lora, remat_mlp: bool = False):
+    def _rest(self, x, a, p: float, gen, lora, ld: float = 0.0, remat_mlp: bool = False):
         """From attention's output ``a`` on: out_proj, dropout, residual;
         LN_2, the MLP (recomputed in the backward with ``remat_mlp``),
-        dropout, residual."""
-        x = x + _dropout(self.attn.out_proj(a, (lora or {}).get("out_proj")), p, gen)
+        dropout, residual. ``ld``: the adapter's input dropout."""
+        lora = lora or {}
+        x = x + _dropout(self.attn.out_proj(a, lora.get("out_proj"), ld, gen), p, gen)
         h = self.ln_2(x).to(self.cdtype)
-        m = (_recompute(lambda h, _: self.mlp(h, lora), h) if remat_mlp
-             else self.mlp(h, lora))
+        m = (_recompute(lambda h, g: self.mlp(h, lora, ld, g), h, gen=gen if ld else None)
+             if remat_mlp
+             else self.mlp(h, lora, ld, gen))
         return x + _dropout(m, p, gen)
 
 
@@ -503,9 +520,9 @@ class GPTHead(nn.Module):
 class GPT(nn.Module):
     """Full decoder-only GPT on ``device`` (``cuda`` unless named), its
     parameters drawn from flax's initializer distributions with a
-    generator seeded by ``seed``. With ``adapter.rank > 0`` it serves LoRA
-    factors passed per call (the adapter parameters are not part of the
-    module). Mixture-of-experts is not ported yet and raises
+    generator seeded by ``seed``. With ``adapter.rank > 0`` it serves and
+    trains LoRA factors passed per call (the adapter parameters are not
+    part of the module). Mixture-of-experts is not ported yet and raises
     ``NotImplementedError``. ``tp`` / ``stage``: this rank's slice under
     tensor parallelism and its stage under pipeline parallelism (see the
     module docstring); the parameters are the whole model's for ``seed``,
@@ -585,10 +602,8 @@ class GPT(nn.Module):
         new_index)``: the tokens are appended at the cache's write
         frontier, whose advanced value is ``new_index``. The caller keeps
         the cumulative length within ``max_seq_len``. ``lora`` /
-        ``lora_ids``: adapter factors (see :func:`gather_slot_lora`);
-        inference only."""
-        if lora is not None and train:
-            raise NotImplementedError("LoRA finetuning is not ported yet")
+        ``lora_ids``: adapter factors (see :func:`gather_slot_lora`); in
+        training one adapter's, which require gradients (the finetune)."""
         if self.layout is not None:
             raise ValueError("a pipeline stage runs through the pipeline step "
                              "(dtc_tpu_torch.parallel.pipeline), not GPT.forward")

@@ -31,6 +31,19 @@ schedule's values.
 carry the moments, the count (the warmup updates included, as optax's) and
 the skip counters into and out of a checkpoint.
 
+Under ``precision: bf16_mixed`` (the JAX package's ``with_master_weights``
+inside ``apply_if_finite``) the model holds bfloat16 parameters and the
+optimizer a float32 master of every trainable tensor, each its own buffer
+even where the parameter is float32 already (the LayerNorms). The moments
+are float32 over the masters; the gradients are lifted to float32 and the
+whole clip + AdamW chain runs on the masters; each parameter is then set
+to its master rounded to its own dtype (round to nearest even, as JAX's
+``astype``: the bf16 parameter equals the rounded master bit for bit).
+A step smaller than a bfloat16 ulp keeps accumulating in the master.
+Skip-nonfinite wraps the masters too: a skipped step leaves masters,
+moments, count and parameters as they were. The masters ride in
+:meth:`~ClippedAdamW.state_dict`.
+
 Under FSDP (``fsdp``, a :class:`~dtc_tpu_torch.parallel.fsdp.FSDP` state
 over a ``DistRing``) a rank holds shards of the sharded parameters and
 whole copies of the rest: the clip's global norm sums the sharded
@@ -102,12 +115,13 @@ class ClippedAdamW:
     def __init__(self, params, cfg: OptimConfig, total_steps: int = 0, fsdp=None,
                  norm_groups: NormGroups | None = None, skip_nonfinite: bool = False,
                  max_consecutive_skips: int = 10):
-        if cfg.precision != "fp32":
-            raise NotImplementedError(
-                "precision: bf16_mixed (fp32 master weights) is not ported "
-                "yet; it is queued after the training slice"
-            )
         self.params = [p for p in params if p.requires_grad]
+        # Under bf16_mixed the float32 masters the update runs on (a copy
+        # each, float32 parameters included); the parameters themselves
+        # otherwise.
+        self.masters = None
+        if cfg.precision == "bf16_mixed":
+            self.masters = [p.detach().to(torch.float32, copy=True) for p in self.params]
         self.cfg = cfg
         self.fsdp = fsdp if fsdp is not None and fsdp.distributed else None
         self._sharded = (None if self.fsdp is None else
@@ -117,8 +131,8 @@ class ClippedAdamW:
             raise ValueError("norm_groups.sharded needs one flag per parameter")
         self.lr = lr_schedule(cfg, total_steps)
         self.count = 0
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.mu = [torch.zeros_like(p) for p in self.targets]
+        self.nu = [torch.zeros_like(p) for p in self.targets]
         self.skip_nonfinite = skip_nonfinite
         if skip_nonfinite:
             dev = self.params[0].device
@@ -128,6 +142,12 @@ class ClippedAdamW:
             self.count = torch.zeros((), dtype=torch.int64, device=dev)
             self.notfinite_count = torch.zeros((), dtype=torch.int64, device=dev)
             self.total_notfinite = torch.zeros((), dtype=torch.int64, device=dev)
+
+    @property
+    def targets(self) -> list[torch.Tensor]:
+        """What AdamW updates: the masters under bf16_mixed, else the
+        parameters."""
+        return self.params if self.masters is None else self.masters
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -142,6 +162,8 @@ class ClippedAdamW:
         grads = [p.grad for p in self.params]
         if any(g is None for g in grads):
             raise RuntimeError("every parameter needs a gradient before step()")
+        if self.masters is not None:
+            grads = [g.float() for g in grads]
         norm = None
         if cfg.grad_clip > 0 or self.skip_nonfinite:
             norm = torch.linalg.vector_norm(self._param_norms(grads))
@@ -150,7 +172,15 @@ class ClippedAdamW:
             grads = torch._foreach_mul(grads, factor)
         if self.skip_nonfinite:
             self._step_if_finite(grads, torch.isfinite(norm))
-            return
+        else:
+            self._step(grads)
+        if self.masters is not None:
+            torch._foreach_copy_(self.params, self.masters)  # rounds to the params' dtype
+
+    def _step(self, grads) -> None:
+        """AdamW from the clipped ``grads`` on :attr:`targets`, in place."""
+        cfg = self.cfg
+        targets = self.targets
         lr = self.lr(self.count)
         self.count += 1
         b1, b2 = cfg.b1, cfg.b2
@@ -164,14 +194,15 @@ class ClippedAdamW:
         upd = torch._foreach_div(self.mu, 1.0 - b1 ** self.count)
         torch._foreach_div_(upd, den)
         if cfg.weight_decay:
-            torch._foreach_add_(upd, self.params, alpha=cfg.weight_decay)
-        torch._foreach_add_(self.params, upd, alpha=-lr)
+            torch._foreach_add_(upd, targets, alpha=cfg.weight_decay)
+        torch._foreach_add_(targets, upd, alpha=-lr)
 
     def _step_if_finite(self, grads, finite: torch.Tensor) -> None:
         """AdamW from the clipped ``grads``, kept only where ``finite`` (or
         past ``max_consecutive_skips`` skips in a row): new moments and
         parameters are formed out of place and selected on the device."""
         cfg = self.cfg
+        targets = self.targets
         self.notfinite_count = torch.where(finite, 0, self.notfinite_count + 1)
         self.total_notfinite = self.total_notfinite + (~finite).long()
         apply = finite | (self.notfinite_count > self.max_consecutive_skips)
@@ -188,19 +219,21 @@ class ClippedAdamW:
         upd = torch._foreach_div(mu, 1.0 - torch.pow(b1, c))
         torch._foreach_div_(upd, den)
         if cfg.weight_decay:
-            torch._foreach_add_(upd, self.params, alpha=cfg.weight_decay)
+            torch._foreach_add_(upd, targets, alpha=cfg.weight_decay)
         torch._foreach_mul_(upd, lr)
-        new_p = torch._foreach_sub(self.params, upd)
-        for olds, news in ((self.mu, mu), (self.nu, nu), (self.params, new_p)):
+        new_p = torch._foreach_sub(targets, upd)
+        for olds, news in ((self.mu, mu), (self.nu, nu), (targets, new_p)):
             for old, new in zip(olds, news):
                 old.copy_(torch.where(apply, new, old))
         self.count = self.count + apply.long()
 
     def state_dict(self) -> dict:
-        """The moments (in the parameters' order), the count and, with
-        ``skip_nonfinite``, the skip counters (one host sync for the count
-        there)."""
+        """The moments (in the parameters' order), the count, under
+        bf16_mixed the masters and, with ``skip_nonfinite``, the skip
+        counters (one host sync for the count there)."""
         state = {"count": int(self.count), "mu": list(self.mu), "nu": list(self.nu)}
+        if self.masters is not None:
+            state["master"] = list(self.masters)
         if self.skip_nonfinite:
             state.update(notfinite_count=self.notfinite_count.clone(),
                          total_notfinite=self.total_notfinite.clone())
@@ -208,12 +241,25 @@ class ClippedAdamW:
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        """Copy a :meth:`state_dict` (from any device) into this optimizer."""
-        for mine, theirs, what in ((self.mu, state["mu"], "mu"), (self.nu, state["nu"], "nu")):
+        """Copy a :meth:`state_dict` (from any device) into this optimizer.
+        Under bf16_mixed the masters come back and the parameters are set
+        to them rounded; a state of the other precision is refused (the
+        JAX package's fp32 and bf16_mixed states do not interconvert)."""
+        if ("master" in state) != (self.masters is not None):
+            raise ValueError(
+                f"optimizer state of the other precision: this optimizer is "
+                f"{self.cfg.precision}, the state "
+                f"{'has' if 'master' in state else 'has no'} float32 masters")
+        pairs = [(self.mu, state["mu"], "mu"), (self.nu, state["nu"], "nu")]
+        if self.masters is not None:
+            pairs.append((self.masters, state["master"], "master"))
+        for mine, theirs, what in pairs:
             if len(theirs) != len(mine) or any(a.shape != b.shape
                                                for a, b in zip(mine, theirs)):
                 raise ValueError(f"optimizer state {what}: shapes do not match the parameters")
             torch._foreach_copy_(mine, list(theirs))
+        if self.masters is not None:
+            torch._foreach_copy_(self.params, self.masters)
         if self.skip_nonfinite:
             dev = self.count.device
             self.count = torch.tensor(int(state["count"]), device=dev)

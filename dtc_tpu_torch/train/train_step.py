@@ -1,7 +1,8 @@
 """One eager training step (and the pipeline's), the gradient average over
 the ranks of a process group, the routing of ``collectives``, the check
 that tensor parallelism's replicated parameters stay equal, the
-cross-entropy of the evaluation (logits) path and the held-out eval loss.
+cross-entropy of the evaluation (logits) path, the held-out eval loss and
+the routing of ``precision`` onto the model config.
 
 Under Megatron tensor parallelism a rank's gradients of its slices are
 its own, and those of the replicated parameters (LayerNorms, embeddings,
@@ -35,7 +36,9 @@ def average_over_ranks(params, loss: torch.Tensor, group=None) -> torch.Tensor:
     n = dist.get_world_size(group)
     grads = [p.grad for p in params]
     loss = loss.detach().reshape(1)
-    for dtype in {g.dtype for g in grads} | {loss.dtype}:
+    # One order on every rank: a set of dtypes iterates by hash, which
+    # differs between processes, and the all-reduces must pair up.
+    for dtype in sorted({g.dtype for g in grads} | {loss.dtype}, key=str):
         mine = [g for g in grads if g.dtype == dtype]
         sizes = [g.numel() for g in mine]
         flat = torch.cat([g.reshape(-1) for g in mine]
@@ -53,15 +56,17 @@ def average_over_ranks(params, loss: torch.Tensor, group=None) -> torch.Tensor:
 
 
 @torch.no_grad()
-def eval_loss(model, x: torch.Tensor, y: torch.Tensor, group=None) -> torch.Tensor:
+def eval_loss(model, x: torch.Tensor, y: torch.Tensor, group=None,
+              lora: dict | None = None) -> torch.Tensor:
     """The held-out loss of one batch (the JAX package's
     ``create_eval_step``): the forward with targets, no dropout, no
-    update, through the same ``GPT``, so on a card its attention is the
-    flash forward. Inside a process group each rank holds an equal share
-    of the batch (its rows, or its sequence shard under ring attention)
-    and the losses are averaged over ``group`` (the world when None).
-    Returns a device tensor (no host sync)."""
-    loss = model(x, train=False, targets=y)
+    update, through the same ``GPT`` (with ``lora`` an adapter's factors:
+    base + adapter), so on a card its attention is the flash forward.
+    Inside a process group each rank holds an equal share of the batch
+    (its rows, or its sequence shard under ring attention) and the losses
+    are averaged over ``group`` (the world when None). Returns a device
+    tensor (no host sync)."""
+    loss = model(x, train=False, targets=y, lora=lora)
     if torch.distributed.is_initialized():
         import torch.distributed as dist
 
@@ -73,7 +78,7 @@ def eval_loss(model, x: torch.Tensor, y: torch.Tensor, group=None) -> torch.Tens
 
 def train_step(model, opt, x: torch.Tensor, y: torch.Tensor,
                gen: torch.Generator | None, fsdp=None, group=None,
-               average: bool = True) -> torch.Tensor:
+               average: bool = True, lora: dict | None = None) -> torch.Tensor:
     """Forward with targets (dropout masks from ``gen``), backward, clip,
     AdamW. Inside a process group the gradients and the loss are averaged
     over the ranks of ``group`` (the world when None; nothing when
@@ -82,12 +87,14 @@ def train_step(model, opt, x: torch.Tensor, y: torch.Tensor,
     :class:`~dtc_tpu_torch.parallel.fsdp.FSDP` state) the model computes
     with it in scope and, over a ``DistRing``, the state reduces the
     gradients (sharded ones scaled by 1/R once, whole ones averaged).
-    Returns the loss as a device tensor (no host sync)."""
+    With ``lora`` (an adapter's factors, the optimizer's parameters) the
+    model is the frozen base plus the adapter, and only the factors get
+    gradients. Returns the loss as a device tensor (no host sync)."""
     from dtc_tpu_torch.parallel.fsdp import use_fsdp
 
     opt.zero_grad()
     with use_fsdp(fsdp):
-        loss = model(x, train=True, targets=y, generator=gen)
+        loss = model(x, train=True, targets=y, generator=gen, lora=lora)
         loss.backward()
     if fsdp is not None and fsdp.distributed:
         loss = fsdp.reduce_gradients(opt.params, loss)
@@ -138,6 +145,30 @@ def replicas_equal(model, tp) -> bool:
     same = torch.tensor([float(torch.equal(first, flat))], device=flat.device)
     dist.all_reduce(same, op=dist.ReduceOp.MIN, group=tp.group)
     return bool(same.item())
+
+
+def resolve_precision(opt_cfg, model_cfg):
+    """``OptimConfig.precision`` routed onto the model config (the JAX
+    package's ``resolve_precision``): ``fp32`` passes the model config
+    through untouched; ``bf16_mixed`` lifts ``param_dtype`` and
+    ``compute_dtype`` to ``bfloat16`` (the LayerNorms, the softmax
+    statistics and the loss stay float32 in the model), the float32 masters
+    and moments living in the optimizer. A float16 model config raises
+    ValueError: float16 would need loss scaling, which neither package
+    has."""
+    import dataclasses
+
+    if opt_cfg.precision != "bf16_mixed":
+        return model_cfg
+    if "float16" in (model_cfg.param_dtype, model_cfg.compute_dtype):
+        raise ValueError(
+            "precision: bf16_mixed cannot combine with a float16 model "
+            "config (fp16 would need loss scaling); use bfloat16/float32 "
+            "model dtypes and let the policy lift them"
+        )
+    if model_cfg.param_dtype == model_cfg.compute_dtype == "bfloat16":
+        return model_cfg
+    return dataclasses.replace(model_cfg, param_dtype="bfloat16", compute_dtype="bfloat16")
 
 
 def resolve_collectives(train_cfg, model_cfg):

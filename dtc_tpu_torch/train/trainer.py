@@ -84,6 +84,19 @@ of the timed loop) and tokens/s and MFU are printed. ``sync_every_step:
 None`` syncs the device after every step whenever a ``log.csv`` is written,
 so each row's time is a completed step.
 
+``precision: bf16_mixed`` (the optim config's) lifts the model's
+parameter and compute dtypes to bfloat16 through
+:func:`~dtc_tpu_torch.train.train_step.resolve_precision` before the model
+is built; the optimizer keeps float32 masters, which ride in the
+checkpoint. A LoRA finetune (``adapter.rank > 0``, the JAX package's
+``init_adapter_state``) trains the adapter's factors alone: the base is
+built from ``seed`` (or ``params``) and frozen (no ``.grad``, no optimizer
+slot, never written to disk, built again on resume), the optimizer runs
+over the factors, a checkpoint holds the factors, their optimizer state
+and every rank's generator, eval runs base + adapter, and
+``TrainResult.base_params`` / ``adapter`` hand the pair on to the export
+(:mod:`dtc_tpu_torch.adapters.finetune`).
+
 What the port has not ported raises ``NotImplementedError`` naming the
 slice it waits for (:func:`refuse_unported`, :func:`refuse_sharded_state`).
 """
@@ -117,7 +130,8 @@ from dtc_tpu_torch.resilience.guard import AnomalyGuard
 from dtc_tpu_torch.resilience.watchdog import StepWatchdog
 from dtc_tpu_torch.train.optimizer import NormGroups, create_optimizer
 from dtc_tpu_torch.train.train_step import (
-    eval_loss, pipeline_step, replicas_equal, resolve_collectives, train_step,
+    eval_loss, pipeline_step, replicas_equal, resolve_collectives, resolve_precision,
+    train_step,
 )
 from dtc_tpu_torch.utils import dist as dist_utils
 from dtc_tpu_torch.utils.checkpoint import CheckpointManager
@@ -132,7 +146,10 @@ class TrainResult:
     which ``parity.gather_tp`` / ``gather_stages`` put together);
     ``optimizer``: its optimizer (under FSDP over this rank's shards);
     ``losses`` from the step after the resumed one (the first step on a
-    fresh run); ``eval_losses``: ``(step, held-out loss)``."""
+    fresh run); ``eval_losses``: ``(step, held-out loss)``. A LoRA
+    finetune: ``adapter`` the trained factors (the optimizer's
+    parameters), ``base_params`` the frozen base's ``state_dict`` they were
+    trained against (None for full training)."""
 
     model: GPT
     optimizer: object
@@ -140,21 +157,48 @@ class TrainResult:
     elapsed_times: list[float] = field(default_factory=list)
     eval_losses: list[tuple[int, float]] = field(default_factory=list)
     total_time_s: float = 0.0
+    adapter: dict[str, torch.Tensor] | None = None
+
+    @property
+    def base_params(self) -> dict[str, torch.Tensor] | None:
+        """A finetune's frozen base (the model's ``state_dict``); None for
+        full training."""
+        return None if self.adapter is None else self.model.state_dict()
 
 
-def refuse_unported(train_cfg: TrainConfig, model_cfg: ModelConfig) -> None:
+def refuse_unported(train_cfg: TrainConfig, model_cfg: ModelConfig,
+                    opt_cfg: OptimConfig | None = None) -> None:
     """Raise ``NotImplementedError`` for every setting that asks for a part
     of the JAX trainer the port does not have yet, naming where it waits;
-    ``ValueError`` for ring attention under pipeline parallelism, which the
-    JAX trainer refuses too."""
+    ``ValueError`` for ring attention and LoRA training under pipeline
+    parallelism, which the JAX trainer refuses too."""
     m = train_cfg.mesh
     ring = model_cfg.attention == "ring"
-    if ring and (m.pipe > 1 or train_cfg.parallel == "pp"):
+    piped = m.pipe > 1 or train_cfg.parallel == "pp"
+    if ring and piped:
         raise ValueError(
             "attention='ring' (sequence parallelism) cannot run under "
             "pipeline parallelism; use a mesh with pipe=1 (ring "
             "composes with the data axis) or attention='ulysses'"
         )
+    lora = model_cfg.adapter.rank > 0
+    if lora and piped:
+        raise ValueError(
+            "LoRA adapter training is not supported under pipeline "
+            "parallelism (pipe > 1); adapters compose with DP/TP/FSDP"
+        )
+    # Megatron slices: a model axis that is not ring attention's.
+    tp = not ring and (m.model > 1 or train_cfg.parallel in ("tp", "3d"))
+    fsdp = train_cfg.parallel == "fsdp"
+    bf16 = opt_cfg is not None and opt_cfg.precision == "bf16_mixed"
+    for asked, feature, where in ((bf16, "precision: bf16_mixed", (tp, piped, fsdp)),
+                                  (lora, "LoRA adapter training", (tp, False, fsdp))):
+        for on, what in zip(where, ("tensor parallelism", "pipeline parallelism", "FSDP")):
+            if asked and on:
+                raise NotImplementedError(
+                    f"the PyTorch port does not train with {feature} under {what} yet "
+                    "(ROADMAP.md §A2: the sharded optimizer state, masters and "
+                    "adapters with checkpoints under TP, PP and FSDP)")
     refusals = [
         (train_cfg.parallel == "none", "parallel: none"),
         ((m.dcn_pipe, m.dcn_data, m.dcn_model) != (1, 1, 1),
@@ -329,6 +373,7 @@ def train(
     params=None,
     backend: str | None = None,
     host_iterator: Iterator[np.ndarray] | None = None,
+    lora=None,
 ) -> TrainResult:
     """Train ``model_cfg`` on ``device`` (``cuda`` unless named; raises
     without a card). The weights come from ``GPT(model_cfg,
@@ -343,14 +388,21 @@ def train(
     Under torchrun's environment the process group is joined first, over
     ``backend`` (NCCL on cards and gloo on the CPU unless named; gloo runs
     several ranks on one card), and left at the end if this call joined
-    it; the mesh spans its ranks."""
-    model_cfg = resolve_collectives(train_cfg, model_cfg)
-    refuse_unported(train_cfg, model_cfg)
+    it; the mesh spans its ranks. With ``adapter.rank > 0`` the run is a
+    LoRA finetune of the base (see the module docstring), its factors
+    drawn by :func:`~dtc_tpu_torch.adapters.lora.init_lora` from ``seed``,
+    or taken from ``lora``, a flax ``"lora"`` collection of numpy arrays
+    (:func:`dtc_tpu_torch.parity.lora_from_flax`)."""
+    model_cfg = resolve_precision(opt_cfg, resolve_collectives(train_cfg, model_cfg))
+    refuse_unported(train_cfg, model_cfg, opt_cfg)
+    if lora is not None and model_cfg.adapter.rank <= 0:
+        raise ValueError("initial adapter factors need an adapter-enabled model "
+                         "(ModelConfig.adapter.rank > 0)")
     joined = dist_utils.launched() and not torch.distributed.is_initialized()
     dev = dist_utils.initialize(device, backend) or resolve_device(device)
     try:
         return _train(train_cfg, model_cfg, opt_cfg, resolve_device(dev), params,
-                      host_iterator)
+                      host_iterator, lora)
     finally:
         if joined:
             dist_utils.teardown()
@@ -376,7 +428,23 @@ def _rows(batch: int, n_data: int, data_idx: int, microbatches: int):
     return [j * mb + data_idx * per + i for j in range(microbatches) for i in range(per)]
 
 
-def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator) -> TrainResult:
+def _adapter_state(factors: dict[str, torch.Tensor], saved: dict) -> None:
+    """Copy a checkpoint's adapter factors into ``factors`` in place;
+    ValueError unless it holds the same sites at the same shapes (a
+    checkpoint of another rank, targets or model, or of full training)."""
+    if not isinstance(saved, dict) or set(saved) != set(factors) or any(
+            tuple(saved[k].shape) != tuple(v.shape) for k, v in factors.items()):
+        got = ({k: tuple(v.shape) for k, v in saved.items()} if isinstance(saved, dict)
+               else type(saved).__name__)
+        raise ValueError(
+            f"the checkpoint's adapter factors {got} do not match this finetune's "
+            f"{ {k: tuple(v.shape) for k, v in factors.items()} }")
+    with torch.no_grad():
+        for k, v in factors.items():
+            v.copy_(saved[k])
+
+
+def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> TrainResult:
     cuda = dev.type == "cuda"
     world, rank = dist_utils.world_size(), dist_utils.rank()
     shape = resolve_mesh_shape(train_cfg.parallel, world, train_cfg.mesh,
@@ -407,6 +475,19 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator) -> TrainRe
         from dtc_tpu_torch.parity import from_flax
 
         model.load_state_dict(model.local_state(from_flax(params, model_cfg)))
+    factors = None
+    if model_cfg.adapter.rank > 0:
+        # The finetune: the base frozen, the factors the trainable state.
+        from dtc_tpu_torch.adapters.lora import init_lora
+
+        model.requires_grad_(False)
+        factors = init_lora(model, train_cfg.seed)
+        if lora is not None:
+            from dtc_tpu_torch.parity import lora_from_flax
+
+            _adapter_state(factors, lora_from_flax(lora))
+        for f in factors.values():
+            f.requires_grad_(True)
     fsdp = None
     if fsdp_on:
         # The FSDP ring: the data group of this rank's model index (the
@@ -423,7 +504,8 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator) -> TrainRe
             model=None if tp is None else tp.group, pipe=mesh.pipe_group)
     res_cfg = train_cfg.resilience
     guard_cfg = res_cfg.guard
-    opt = create_optimizer(model.parameters(), opt_cfg, total_steps=train_cfg.steps,
+    trainable = model.parameters() if factors is None else factors.values()
+    opt = create_optimizer(trainable, opt_cfg, total_steps=train_cfg.steps,
                            fsdp=fsdp, norm_groups=norm_groups,
                            skip_nonfinite=guard_cfg.skip_nonfinite_updates,
                            max_consecutive_skips=guard_cfg.max_consecutive_skips)
@@ -443,7 +525,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator) -> TrainRe
             return pipeline_step(model, opt, x, y, gen, mesh, rows_table, group, average)
     else:
         def step_fn(x, y):
-            return train_step(model, opt, x, y, gen, fsdp, group, average)
+            return train_step(model, opt, x, y, gen, fsdp, group, average, factors)
 
     say = print if lead else (lambda *a, **k: None)
 
@@ -467,7 +549,10 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator) -> TrainRe
             return None
         if found is None:
             found = ckpt.restore(step, process_index=rank, map_location=dev)
-        model.load_state_dict(found["model"])
+        if factors is None:
+            model.load_state_dict(found["model"])
+        else:
+            _adapter_state(factors, found.get("adapter"))
         opt.load_state_dict(found["optimizer"])
         gen.set_state(found["rng"].cpu())
         return step
@@ -492,14 +577,17 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator) -> TrainRe
             say(f"[dtc_tpu_torch] resumed from checkpoint step {start_step}")
 
     def save_checkpoint(step: int) -> None:
-        """Rank 0 writes the model and the optimizer, every rank its own
-        generator state and stream position; the step is committed when
-        every rank's files have landed."""
+        """Rank 0 writes the model (a finetune: the adapter's factors) and
+        the optimizer, every rank its own generator state and stream
+        position; the step is committed when every rank's files have
+        landed."""
         if lead:
             ckpt.begin(step)
         dist_utils.barrier()
         if lead:
-            ckpt.write(step, {"model": model.state_dict(), "optimizer": opt.state_dict()})
+            weights = ({"model": model.state_dict()} if factors is None
+                       else {"adapter": {k: v.detach() for k, v in factors.items()}})
+            ckpt.write(step, {**weights, "optimizer": opt.state_dict()})
         ckpt.write(step, {"rng": gen.get_state()}, process_index=rank)
         dist_utils.barrier()
         if lead:
@@ -564,7 +652,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator) -> TrainRe
     peak = peak_flops(dev)
     peak = peak * world if peak is not None else None
     tokens_per_step = train_cfg.batch * seq
-    result = TrainResult(model=model, optimizer=opt)
+    result = TrainResult(model=model, optimizer=opt, adapter=factors)
     # The step the result's lists start after; a rollback below the resume
     # point moves it down.
     result_base = start_step
@@ -613,7 +701,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator) -> TrainRe
         the caller keeps out of the training ``elapsed_time``."""
         sync()  # the pending training work's time stays training time
         t0 = time.perf_counter()
-        vals = [float(eval_loss(model, x, y)) for x, y in eval_set]
+        vals = [float(eval_loss(model, x, y, lora=factors)) for x, y in eval_set]
         el = float(np.mean(vals))
         result.eval_losses.append((step, el))
         if eval_csv is not None:

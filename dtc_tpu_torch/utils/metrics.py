@@ -98,16 +98,19 @@ def comm_bytes_per_step(cfg: ModelConfig, batch: int, seq_len: int,
 
 def train_memory_bytes(cfg: ModelConfig, batch: int, seq_len: int,
                        mesh_shape: dict[str, int] | None = None,
-                       parallel: str = "dp") -> dict[str, float]:
+                       parallel: str = "dp", precision: str = "fp32") -> dict[str, float]:
     """The JAX package's analytic device-memory budget of one training step
     (``dtc_tpu/utils/metrics.py`` ``train_memory_bytes``) for a device of a
     ``mesh_shape`` mesh (``{"pipe", "data", "model"}`` sizes, 1 where
-    absent) under ``parallel``, with float32 master weights (no master
-    copy). Bytes by component:
+    absent) under ``parallel`` and ``precision``. Bytes by component:
 
-    - ``params``, ``grads``: the device's parameters in ``param_dtype``:
-      ``1/model`` of the tensor-parallel ones and the replicated ones
-      whole, over ``pipe`` stages, and under ``fsdp`` ``1/data`` of that;
+    - ``params``, ``grads``: the device's parameters in ``param_dtype``
+      (bfloat16 under ``bf16_mixed``): ``1/model`` of the tensor-parallel
+      ones and the replicated ones whole, over ``pipe`` stages, and under
+      ``fsdp`` ``1/data`` of that;
+    - ``master``: their float32 masters under ``bf16_mixed`` (0 under
+      ``fp32``, where the parameters are the masters): 2 + 4 + 8 = 14
+      bytes a parameter with the moments, against fp32's 12;
     - ``moments``: AdamW's two float32 moments of those;
     - ``activations``: per layer of the stage ``(10·d_model + 2·d_ff)``
       values a token of the device's batch rows in ``compute_dtype``, plus
@@ -130,9 +133,11 @@ def train_memory_bytes(cfg: ModelConfig, batch: int, seq_len: int,
     local = (n_tp / m_axis + (n - n_tp)) / p_axis
     if parallel == "fsdp" and d_axis > 1:
         local = local / d_axis
-    pbytes = float(DTYPE_BYTES.get(cfg.param_dtype, 4))
+    pbytes = float(DTYPE_BYTES.get("bfloat16" if precision == "bf16_mixed"
+                                   else cfg.param_dtype, 4))
     cbytes = float(DTYPE_BYTES.get(cfg.compute_dtype, 4))
     params = local * pbytes
+    master = local * 4.0 if precision == "bf16_mixed" else 0.0
     moments = local * 8.0
     grads = local * pbytes
     b_loc = batch / d_axis
@@ -150,7 +155,6 @@ def train_memory_bytes(cfg: ModelConfig, batch: int, seq_len: int,
     acts += b_loc * seq_len * cfg.padded_vocab_size * cbytes / m_axis  # logits
     comm = comm_bytes_per_step(cfg, batch, seq_len, mesh_shape, parallel)["total"]
     batch_io = 2.0 * b_loc * seq_len * 4.0
-    master = 0.0
     total = params + master + moments + grads + acts + comm + batch_io
     return {
         "params": params, "master": master, "moments": moments, "grads": grads,

@@ -19,7 +19,13 @@ dropout 0.
   writes ``log.csv``, one row per step. Then, at dropout 0.1 with
   checkpoints and eval every 2 steps, a resume to 4 steps from the step-2
   checkpoint gives the uninterrupted run's losses and eval losses bit for
-  bit on both ranks.
+  bit on both ranks. Then the LoRA finetune (rank 4 on all six sites,
+  eval every 2 steps) and ``precision: bf16_mixed`` training, 4 steps
+  each, against the port's one-process runs within 1e-6 (bf16_mixed's
+  taking each step as the two ranks do; no JAX oracle: both are held
+  against JAX in ``tests/test_torch_finetune.py`` and
+  ``tests/test_torch_bf16.py``). The spawn runs once a session, under a
+  file lock, for both of its tests.
 - One spawn of 4 processes: the FSDP ring's op (``overlap_dense_matmul``,
   both shard axes, forward and gradients, and ``reduce_scatter_matmul``)
   over a ``DistRing`` gives the in-process ring's result bit for bit in
@@ -144,7 +150,76 @@ def _worker(case: str, out_dir: str) -> None:
             _fsdp_gradients(out / f"grads{tag}_r{rank}.npz", spec, params, tag, rank, world)
     if case in ("dp", "ring"):
         _dp_resume(out, spec, rank)
+    if case == "dp":
+        with open(out / f"lora_bf16_r{rank}.pkl", "wb") as f:
+            pickle.dump(_lora_and_bf16_runs(spec, out / f"lora_bf16_r{rank}"), f)
     dist_utils.teardown()
+
+
+def _lora_and_bf16_runs(spec: dict, out: Path) -> dict:
+    """:func:`_lora_run` and :func:`_bf16_run` (a rank's or one process's)."""
+    return dict(lora=_lora_run(spec, out), bf16=_bf16_run(spec, out))
+
+
+def _lora_run(spec: dict, out: Path) -> dict:
+    """The spawn's model as a LoRA finetune (rank 4 on all six sites, eval
+    every 2 steps), 4 steps from the seed: losses, eval losses and the
+    factors (float32 numpy)."""
+    from dtc_tpu_torch.config import schema as ts
+    from dtc_tpu_torch.config.loader import _build
+    from dtc_tpu_torch.train.trainer import train
+
+    lora = train(dataclasses.replace(_four_steps(spec), eval_every=2, eval_batches=1,
+                                     output_dir=str(out / "lora")),
+                 dataclasses.replace(_build(ts.ModelConfig, spec["model"], "model"),
+                                     adapter=ts.AdapterConfig(rank=4, alpha=8.0)),
+                 _build(ts.OptimConfig, spec["optim"], "optim"), device="cpu")
+    return dict(losses=lora.losses, evals=lora.eval_losses,
+                factors={k: v.detach().float().numpy() for k, v in lora.adapter.items()})
+
+
+def _bf16_run(spec: dict, out: Path) -> dict:
+    """The spawn's model under ``precision: bf16_mixed``, 4 steps from the
+    seed: losses, the parameters' dtypes, the masters (float32 numpy)."""
+    from dtc_tpu_torch.config import schema as ts
+    from dtc_tpu_torch.config.loader import _build
+    from dtc_tpu_torch.train.trainer import train
+
+    bf16 = train(dataclasses.replace(_four_steps(spec), output_dir=str(out / "bf16")),
+                 _build(ts.ModelConfig, spec["model"], "model"),
+                 dataclasses.replace(_build(ts.OptimConfig, spec["optim"], "optim"),
+                                     precision="bf16_mixed"), device="cpu")
+    return dict(losses=bf16.losses,
+                dtypes={n: str(p.dtype) for n, p in bf16.model.named_parameters()},
+                masters=[m.detach().numpy().copy() for m in bf16.optimizer.masters])
+
+
+def _four_steps(spec: dict):
+    from dtc_tpu_torch.config import schema as ts
+    from dtc_tpu_torch.config.loader import _build
+
+    return dataclasses.replace(_build(ts.TrainConfig, spec["train"], "train"), steps=4,
+                               warmup_steps=1, log_every=2)
+
+
+def _step_as_two_ranks(model, opt, x, y, gen, fsdp=None, group=None, average=True,
+                       lora=None):
+    """``train_step`` as two DP ranks take it, in one process: each half of
+    the batch (a rank's rows) its own forward and backward, the gradients
+    and losses summed in their own dtype and halved (what gloo's sum and
+    ``average_over_ranks``' division give: bfloat16 gradients stay
+    bfloat16), then the clip and AdamW."""
+    grads, losses = [], []
+    for xs, ys in zip(x.chunk(2), y.chunk(2)):
+        opt.zero_grad()
+        loss = model(xs, train=True, targets=ys, generator=gen, lora=lora)
+        loss.backward()
+        grads.append([p.grad.clone() for p in opt.params])
+        losses.append(loss.detach())
+    for p, a, b in zip(opt.params, *grads):
+        p.grad = (a + b) / 2
+    opt.step()
+    return (losses[0] + losses[1]) / 2
 
 
 def _dp_resume(out: Path, spec: dict, rank: int) -> None:
@@ -354,20 +429,83 @@ def _check_resume(out_dir: Path, world: int) -> None:
     assert [s for s, _ in rep["full"]["evals"]] == [2, 4]
 
 
+@pytest.fixture(scope="session")
+def dp_spawn(tmp_path_factory):
+    """The spawn of 2 processes under ``parallel: dp`` (the tiny model of
+    ``tests/conftest.py``), once a session (the first xdist worker to ask,
+    under a file lock); its directory."""
+    from filelock import FileLock
+
+    from dtc_tpu.config.schema import ModelConfig, OptimConfig
+    from tests.conftest import make_train_cfg
+
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    out = base / "dp_spawn"
+    with FileLock(str(out) + ".lock"):
+        if not (out / "done").exists():
+            out.mkdir(exist_ok=True)
+            model = ModelConfig(vocab_size=97, d_model=64, n_layers=4, n_heads=4, d_ff=128,
+                                max_seq_len=32, dropout=0.0, param_dtype="float32",
+                                compute_dtype="float32", attention="dense")
+            cfg = make_train_cfg("dp", steps=3, log_every=1, output_dir=str(out / "log"))
+            cfg = dataclasses.replace(cfg, obs=dataclasses.replace(cfg.obs, enabled=False))
+            _write_run(out, cfg, model, OptimConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0),
+                       _flax_params(model))
+            _spawn(2, "dp", out)
+            (out / "done").write_text("")
+    return out
+
+
 def test_dp_training_over_two_gloo_processes_matches_jax(
-        tmp_path, tiny_model_cfg, opt_cfg, train_cfg_factory):
+        dp_spawn, tiny_model_cfg, opt_cfg, train_cfg_factory):
     from dtc_tpu.train.trainer import train as jtrain
 
     want = jtrain(train_cfg_factory("dp", steps=3, log_every=1), tiny_model_cfg,
                   opt_cfg).losses
-    port_cfg = train_cfg_factory("dp", steps=3, log_every=1,
-                                 output_dir=str(tmp_path / "log"))
-    port_cfg = dataclasses.replace(port_cfg, obs=dataclasses.replace(port_cfg.obs,
-                                                                     enabled=False))
-    _write_run(tmp_path, port_cfg, tiny_model_cfg, opt_cfg, _flax_params(tiny_model_cfg))
-    _spawn(2, "dp", tmp_path)
-    _check_losses(tmp_path, 2, want)
-    _check_resume(tmp_path, 2)
+    _check_losses(dp_spawn, 2, want)
+    _check_resume(dp_spawn, 2)
+
+
+def test_dp_finetune_and_bf16_mixed_over_two_gloo_processes(dp_spawn, tmp_path, monkeypatch):
+    """The LoRA finetune and bf16_mixed training under DP over 2 gloo
+    ranks: the ranks agree bit for bit, and each run equals the port's
+    one-process run within 1e-6 (rtol and atol): the finetune's losses,
+    eval losses and factors (float32) against the whole batch in one
+    process; bf16_mixed's losses and float32 masters against one process
+    that takes each step as the two ranks do (:func:`_step_as_two_ranks`).
+    Against the whole batch bf16_mixed cannot hold 1e-6: each rank's
+    bfloat16 gradients of its half batch are averaged in bfloat16 (the JAX
+    package keeps them bfloat16 on the wire too), and the whole batch's
+    gradient rounds once (losses 3.4e-4 and masters 6.0e-3 apart at step
+    4; against the two-rank reference both are 0)."""
+    from dtc_tpu_torch.train import trainer
+
+    spec = json.loads((dp_spawn / "config.json").read_text())
+    ranks = [pickle.loads((dp_spawn / f"lora_bf16_r{r}.pkl").read_bytes()) for r in range(2)]
+    one = dict(lora=_lora_run(spec, tmp_path))
+    monkeypatch.setattr(trainer, "train_step", _step_as_two_ranks)
+    one["bf16"] = _bf16_run(spec, tmp_path)
+    for r in ranks[1:]:
+        assert r["lora"]["losses"] == ranks[0]["lora"]["losses"]
+        assert r["bf16"]["losses"] == ranks[0]["bf16"]["losses"]
+        assert all(np.array_equal(a, b) for a, b in zip(r["bf16"]["masters"],
+                                                        ranks[0]["bf16"]["masters"]))
+    got = ranks[0]
+    for kind in ("lora", "bf16"):
+        np.testing.assert_allclose(got[kind]["losses"], one[kind]["losses"], rtol=1e-6,
+                                   atol=1e-6, err_msg=kind)
+    assert [s for s, _ in got["lora"]["evals"]] == [2, 4]
+    np.testing.assert_allclose([v for _, v in got["lora"]["evals"]],
+                               [v for _, v in one["lora"]["evals"]], rtol=1e-6)
+    for k, v in one["lora"]["factors"].items():
+        np.testing.assert_allclose(got["lora"]["factors"][k], v, rtol=1e-6, atol=1e-6, err_msg=k)
+    assert got["bf16"]["dtypes"] == one["bf16"]["dtypes"]
+    assert set(one["bf16"]["dtypes"].values()) == {"torch.bfloat16", "torch.float32"}
+    assert len(got["bf16"]["masters"]) == len(one["bf16"]["masters"]) > 0
+    for i, (a, b) in enumerate(zip(got["bf16"]["masters"], one["bf16"]["masters"])):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6, err_msg=f"master {i}")
 
 
 def test_fsdp_over_four_gloo_processes_matches_jax(
@@ -482,6 +620,32 @@ def test_rank_coordinates_follow_the_jax_mesh_device_order(shape):
     ids = np.vectorize(lambda dev: dev.id)(mesh.devices)
     for rank in range(8):
         assert ids[coords(rank, shape)] == rank
+
+
+def test_gradient_average_reduces_the_dtypes_in_one_order(monkeypatch):
+    """``average_over_ranks`` under mixed dtypes (bf16_mixed's bfloat16
+    gradients beside the float32 LayerNorms' and the loss): one all-reduce
+    a dtype in the order of their names, the same on every rank (a set of
+    dtypes iterates by hash, which differs between processes: the ranks'
+    reductions then paired up wrongly and gloo aborted); the averages
+    land in each gradient and the loss."""
+    import torch.distributed as dist
+
+    from dtc_tpu_torch.train.train_step import average_over_ranks
+
+    seen = []
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(dist, "all_reduce",
+                        lambda t, group=None: seen.append(t.dtype) or t.mul_(2))
+    params = [torch.zeros(3, dtype=dt, requires_grad=True)
+              for dt in (torch.bfloat16, torch.float32, torch.bfloat16, torch.float16)]
+    for i, p in enumerate(params):
+        p.grad = torch.full_like(p, float(i + 1))
+    loss = average_over_ranks(params, torch.tensor(5.0))
+    assert seen == sorted({torch.bfloat16, torch.float32, torch.float16}, key=str)
+    assert float(loss) == 5.0
+    assert all(torch.equal(p.grad, torch.full_like(p, float(i + 1)))
+               for i, p in enumerate(params))
 
 
 def test_failed_rendezvous_raises(monkeypatch):

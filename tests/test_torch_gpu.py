@@ -4,7 +4,8 @@ versions (the ring's at the flagship's and the DP×FSDP×TP sites), and the
 kernels on the model's decode and training paths (rematerialisation and
 the FSDP ring over virtual ranks included); two gloo ranks sharing the
 card for tensor parallelism and the FSDP ring's transport; a resume at the
-flagship's widths.
+flagship's widths; a LoRA finetune step and bf16_mixed optimizer steps
+against the CPU's.
 Needs an NVIDIA GPU with ``nvcc``; elsewhere every test skips with the
 reason.
 
@@ -1636,6 +1637,144 @@ def test_flagship_width_resume_and_eval_are_bit_exact(cuda, tmp_path):
     assert all(torch.equal(p, q) for p, q in zip(full.model.parameters(),
                                                  resumed.model.parameters()))
     assert fa.fwd_route_launches["tc"] > 0 and fa.fwd_route_launches["fma"] == 0
+
+
+def _lora_case(b_scale: float):
+    """``finetune_lora.yaml``'s model (12 layers, d_model 512, 16 heads of
+    32, bf16 compute, rank 8 on all six sites) at dropout 0, its base drawn
+    once on the CPU (a CUDA generator draws other numbers), factors with A
+    lecun-sized and B ``b_scale`` times that, and a B 2, T 512 batch."""
+    from pathlib import Path
+
+    from dtc_tpu_torch.adapters.lora import lora_shapes
+    from dtc_tpu_torch.config.loader import load_finetune_config
+    from dtc_tpu_torch.models.gpt import GPT
+
+    root = Path(__file__).resolve().parent.parent
+    _, mcfg, _ = load_finetune_config(root / "configs" / "finetune_lora.yaml")
+    mcfg = dataclasses.replace(mcfg, dropout=0.0)
+    g = torch.Generator().manual_seed(3)
+    factors = {k: torch.randn(shape, generator=g) / shape[-1] ** 0.5
+               * (b_scale if k.endswith("_b") else 1.0) for k, shape in lora_shapes(mcfg).items()}
+    tokens = torch.randint(0, mcfg.vocab_size, (2, mcfg.max_seq_len + 1), generator=g)
+    return mcfg, GPT(mcfg, device="cpu", seed=0).state_dict(), factors, tokens
+
+
+def _lora_step(mcfg, base, factors, tokens, dev):
+    """One forward with targets and its backward on ``dev`` from ``base``:
+    the loss, the factors' gradients (on the CPU), the flash launches
+    (forward, backward) and whether the base got no gradient."""
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    model = GPT(mcfg, device=dev, seed=0).requires_grad_(False)
+    model.load_state_dict(base)
+    fac = {k: v.clone().to(dev).requires_grad_(True) for k, v in factors.items()}
+    t = tokens.to(dev)
+    fa.fwd_launches = fa.bwd_launches = 0
+    for counts in (fa.fwd_route_launches, fa.dq_route_launches, fa.dkv_route_launches):
+        counts.update(dict.fromkeys(counts, 0))
+    loss = model(t[:, :-1], train=True, targets=t[:, 1:], lora=fac)
+    loss.backward()
+    return (float(loss.detach()), {k: v.grad.detach().cpu() for k, v in fac.items()},
+            (fa.fwd_launches, fa.bwd_launches), all(p.grad is None for p in model.parameters()))
+
+
+def _check_lora_launches(mcfg, launches):
+    from dtc_tpu_torch.ops import flash_attention as fa
+
+    assert launches == (mcfg.n_layers, mcfg.n_layers * fa.BWD_KERNELS)
+    assert fa.fwd_route_launches["tc"] == mcfg.n_layers and fa.fwd_route_launches["fma"] == 0
+    assert fa.dq_route_launches["tc"] == fa.dkv_route_launches["tc"] == mcfg.n_layers
+
+
+def test_lora_training_step_on_cuda_matches_cpu(cuda):
+    """One LoRA finetune step's forward and backward at the flagship's
+    widths (:func:`_lora_case`) with factors of a finetuned adapter's size
+    (B a hundredth of A's scale: AdamW moves a B entry by about lr a step,
+    ~0.019 over phase 25's 62 steps at lr 3e-4; nonzero, so A's gradients
+    are not zero): on the card against the CPU, the loss within 1e-2
+    relative and each factor's gradient within the flash kernels' bf16
+    gradient limit (``parity.grad_tolerance``: ``BF16_ULPS`` ulps of the
+    tensor's largest value); the base gets no gradient; 12 forward and 24
+    backward flash launches, all "tc". With B as large as A the two
+    devices part by more than that limit, and
+    :func:`test_lora_training_step_on_cuda_is_as_near_float64_as_cpu`
+    holds both against a float64 reference."""
+    from dtc_tpu_torch.parity import grad_tolerance
+
+    mcfg, base, factors, tokens = _lora_case(0.01)
+    l_cpu, g_cpu, _, frozen_cpu = _lora_step(mcfg, base, factors, tokens, "cpu")
+    l_gpu, g_gpu, launches, frozen_gpu = _lora_step(mcfg, base, factors, tokens, cuda)
+    assert frozen_cpu and frozen_gpu
+    _check_lora_launches(mcfg, launches)
+    assert abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu)
+    for k, want in g_cpu.items():
+        flat = want.reshape(1, -1, want.shape[-1])
+        limit = grad_tolerance(flat.to(torch.bfloat16), 1).reshape(want.shape)
+        assert ((g_gpu[k] - want).abs() <= limit).all(), k
+
+
+#: How much farther (normwise) from the float64 gradient the card's bf16
+#: factor gradients may lie than the CPU's, at B as large as A: both
+#: devices' bf16 roundings are of one size, so the ratio sits near 1
+#: (``tools/lora_grad_agreement.py`` on an H100: see PERF.md §6); a
+#: misplaced rounding point or a wrong product on the card moves it far
+#: past this.
+LORA_F64_RATIO = 1.5
+
+
+def test_lora_training_step_on_cuda_is_as_near_float64_as_cpu(cuda):
+    """:func:`_lora_case` with B as large as A (a delta the size of the
+    dense output it joins), where the card's and the CPU's bf16 factor
+    gradients part by a quarter of the largest gradient over 12 layers:
+    each factor's gradient on the card lies no farther (normwise) from a
+    plain float64 model's (``tools/lora_grad_agreement.py``'s
+    ``lora_grads_float64``) than ``LORA_F64_RATIO`` times the CPU's bf16
+    gradient does, the loss within 1e-2 of float64's on both devices; 12
+    forward and 24 backward flash launches, all "tc"."""
+    from tools.lora_grad_agreement import lora_grads_float64
+
+    mcfg, base, factors, tokens = _lora_case(1.0)
+    l64, g64 = lora_grads_float64(base, factors, tokens, mcfg)
+    l_cpu, g_cpu, _, _ = _lora_step(mcfg, base, factors, tokens, "cpu")
+    l_gpu, g_gpu, launches, frozen = _lora_step(mcfg, base, factors, tokens, cuda)
+    assert frozen
+    _check_lora_launches(mcfg, launches)
+    assert abs(l_cpu - l64) <= 1e-2 * l64 and abs(l_gpu - l64) <= 1e-2 * l64, (l_cpu, l_gpu, l64)
+    ratios = {k: float((g_gpu[k].double() - want).norm() / (g_cpu[k].double() - want).norm())
+              for k, want in g64.items()}
+    assert max(ratios.values()) <= LORA_F64_RATIO, ratios
+
+
+def test_bf16_mixed_optimizer_step_on_cuda_matches_cpu(cuda):
+    """``precision: bf16_mixed`` updates on the card: 3 clip + AdamW steps
+    over bfloat16 and float32 parameters from the same gradients give the
+    CPU's masters and moments within 1e-6, each parameter its master
+    rounded bit for bit."""
+    from dtc_tpu_torch.train.optimizer import create_optimizer
+
+    cfg = OptimConfig(lr=1e-2, weight_decay=0.1, grad_clip=1.0, precision="bf16_mixed")
+    g = torch.Generator().manual_seed(5)
+    shapes = [((64, 48), torch.bfloat16), ((48,), torch.float32), ((300,), torch.bfloat16)]
+    init = [torch.randn(s, generator=g).to(dt) for s, dt in shapes]
+    grads = [[torch.randn(s, generator=g).to(dt) for s, dt in shapes] for _ in range(3)]
+    opts = {}
+    for dev in ("cpu", cuda):
+        params = [p.clone().to(dev).requires_grad_(True) for p in init]
+        opt = create_optimizer(params, cfg, skip_nonfinite=True)
+        for step in grads:
+            for p, gr in zip(params, step):
+                p.grad = gr.to(dev)
+            opt.step()
+        opts[str(dev)] = opt
+    cpu, gpu = opts["cpu"], opts[str(cuda)]
+    for a, b in zip(gpu.masters + gpu.mu + gpu.nu, cpu.masters + cpu.mu + cpu.nu):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-6)
+    for o in (cpu, gpu):
+        assert all(torch.equal(p.detach(), m.to(p.dtype)) for p, m in zip(o.params, o.masters))
+    assert int(gpu.count) == int(cpu.count) == 3
 
 
 if __name__ == "__main__":

@@ -374,7 +374,7 @@ def test_merged_weights_oracle_is_token_exact():
 def test_rank0_and_zero_factors_are_bitwise_the_base_model():
     """A rank-0 adapter config builds the same model and logits bit for bit;
     a rank > 0 model without factors, or with init_lora's (B zero), is the
-    base model bit for bit."""
+    base model bit for bit, in training (the finetune's first step) too."""
     _, _, tm, _, _ = _pair("bfloat16")
     kw = dict(TINY, compute_dtype="bfloat16")
     plain = GPT(ModelConfig(**kw), device="cpu", seed=4)
@@ -389,8 +389,11 @@ def test_rank0_and_zero_factors_are_bitwise_the_base_model():
         want = base(x)
         assert torch.equal(tm(x), want)
         assert torch.equal(tm(x, lora=init_lora(tm, seed=3)), want)
-    with pytest.raises(NotImplementedError):
-        tm(x, train=True, lora=init_lora(tm), generator=torch.Generator())
+    y = torch.roll(x, -1, dims=1).long()
+    want = base(x, train=True, targets=y, generator=torch.Generator().manual_seed(0))
+    got = tm(x, train=True, targets=y, generator=torch.Generator().manual_seed(0),
+             lora={k: v.requires_grad_(True) for k, v in init_lora(tm).items()})
+    assert torch.equal(got.detach(), want.detach())
 
 
 def test_init_lora_shapes_scale_and_seed():

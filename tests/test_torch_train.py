@@ -352,9 +352,22 @@ def test_unported_model_features_raise(over):
         model(torch.zeros(1, 4, dtype=torch.long))
 
 
-def test_bf16_mixed_precision_raises():
-    from dtc_tpu_torch.train.optimizer import create_optimizer
-
-    with pytest.raises(NotImplementedError):
-        create_optimizer([], ts.OptimConfig(lr=1e-3, weight_decay=0.0, grad_clip=1.0,
-                                            precision="bf16_mixed"))
+@pytest.mark.parametrize("feature,parallel,mesh", [
+    ("bf16_mixed", "tp", ts.MeshConfig()), ("bf16_mixed", "dp", ts.MeshConfig(model=2)),
+    ("bf16_mixed", "pp", ts.MeshConfig()), ("bf16_mixed", "fsdp", ts.MeshConfig()),
+    ("lora", "tp", ts.MeshConfig()), ("lora", "3d", ts.MeshConfig(data=1, model=2)),
+    ("lora", "fsdp", ts.MeshConfig()),
+])
+def test_sharded_bf16_mixed_and_lora_training_raise(tmp_path, feature, parallel, mesh):
+    """``precision: bf16_mixed`` under tensor or pipeline parallelism or
+    FSDP, and LoRA training under tensor parallelism or FSDP, wait for the
+    sharded optimizer state (ROADMAP §A2): NotImplementedError naming it,
+    before any process group."""
+    ocfg = ts.OptimConfig(lr=1e-3, weight_decay=0.0, grad_clip=1.0,
+                          precision="bf16_mixed" if feature == "bf16_mixed" else "fp32")
+    mcfg = _tiny_model_cfg(adapter=ts.AdapterConfig(rank=2 if feature == "lora" else 0))
+    cfg = _tiny_train_cfg(tmp_path, parallel=parallel, mesh=mesh, pp_microbatches=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A2") as e:
+        train(cfg, mcfg, ocfg, device="cpu")
+    assert ("bf16_mixed" if feature == "bf16_mixed" else "LoRA") in str(e.value)
+    assert not torch.distributed.is_initialized()

@@ -1,5 +1,6 @@
 """The training path's host-side pieces against the JAX package's: the
-synthetic stream, the FLOP accounting, the anomaly guard; and the prefetch
+synthetic stream, the FLOP accounting, the memory budget under each
+precision, the anomaly guard; and the prefetch
 feeder and ``log.csv`` writer on their own. All exact: these are integer,
 float64 or control-flow results with no device arithmetic in them."""
 
@@ -15,13 +16,14 @@ from dtc_tpu.config import schema as jschema
 from dtc_tpu.data.synthetic import synthetic_batch_iterator as jsynthetic
 from dtc_tpu.resilience.guard import AnomalyGuard as JGuard
 from dtc_tpu.utils.metrics import gpt_step_flops as jflops
+from dtc_tpu.utils.metrics import train_memory_bytes as jtrain_memory_bytes
 from dtc_tpu_torch.config import loader as tloader
 from dtc_tpu_torch.config import schema as tschema
 from dtc_tpu_torch.data.prefetch import PrefetchIterator
 from dtc_tpu_torch.data.synthetic import synthetic_batch_iterator
 from dtc_tpu_torch.resilience.guard import AnomalyGuard
 from dtc_tpu_torch.utils.logging import CSVLogger
-from dtc_tpu_torch.utils.metrics import gpt_step_flops, mfu, peak_flops
+from dtc_tpu_torch.utils.metrics import gpt_step_flops, mfu, peak_flops, train_memory_bytes
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -41,6 +43,27 @@ def test_step_flops_equal_jax(name):
     jcfg = jloader.load_yaml_dataclass(path, jschema.ModelConfig)
     for batch, seq in ((8, 512), (2, 64)):
         assert gpt_step_flops(tcfg, batch, seq) == jflops(jcfg, batch, seq)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16_mixed"])
+@pytest.mark.parametrize("train_name,parallel,mesh", [
+    ("train_config_dp.yaml", "dp", {}),
+    ("train_config_fsdp.yaml", "fsdp", {"pipe": 1, "data": 8, "model": 1}),
+])
+def test_train_memory_bytes_by_precision_equal_jax(precision, train_name, parallel, mesh):
+    """The flagship's budget under each precision, one card and the FSDP
+    mesh of ``train_config_fsdp.yaml`` over 8 devices: the JAX package's
+    numbers, component by component; ``bf16_mixed`` holds 14 bytes a
+    parameter of state against fp32's 12."""
+    tcfg, mcfg, _ = tloader.load_config(ROOT / "configs" / train_name)
+    _, jcfg, _ = jloader.load_config(ROOT / "configs" / train_name)
+    want = jtrain_memory_bytes(jcfg, tcfg.batch, mcfg.max_seq_len, mesh, parallel,
+                               precision=precision)
+    got = train_memory_bytes(mcfg, tcfg.batch, mcfg.max_seq_len, mesh, parallel,
+                             precision=precision)
+    assert got == want
+    state = (got["params"] + got["master"] + got["moments"]) / (got["moments"] / 8)
+    assert state == (14.0 if precision == "bf16_mixed" else 12.0)
 
 
 def test_mfu_takes_the_peak_as_a_parameter():
