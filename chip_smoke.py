@@ -277,6 +277,26 @@ Phases (each prints its own lines; any failure exits non-zero):
     float32 tokens equal ``generate(lora=trained)``, bf16 tokens each
     request's solo run, a trained-adapter request's tokens off the base's,
     a megakernel launch per decode iteration.
+26. The telemetry subsystem (``obs/``) in the trainer on the flagship:
+    (a) ``python -m dtc_tpu_torch.main --train_config_path
+    configs/train_config_dp.yaml --dataset synthetic --steps 40
+    --output_dir <tmp>`` as a subprocess, telemetry on as the config says:
+    exit 0; ``obs/events.r0.jsonl`` holds ``run_start``, one step-0
+    ``compile``, a ``step`` event per timed step whose parts sum to its
+    ``step_time_s`` within 1e-9, ``window``, ``memory`` and ``run_summary``
+    events; ``summary.json``; 40 ``log.csv`` rows. (b) In this process 40
+    steps with telemetry on and a device-profile window at steps 30–31,
+    then 40 with it off: the losses equal bit for bit, 12 forward and 24
+    backward flash launches a step, all "tc". (c) The capture read by
+    ``obs.devprof.analyze_capture``: every flash kernel of the window
+    attributed to ``attn_kernel`` (12 forward in ``fwd``, 24 dq and dk/dv
+    in ``bwd`` a step, all "tc"), every matrix product attributed, the
+    unattributed share at most 0.10, the kernels' summed time within 1% of
+    ``key_averages()``'s device total; the device-time MFU, the component
+    table and the window's own costs. (d) The last memory sample's peak
+    equals ``torch.cuda.max_memory_allocated()``. (e) Reported, not gated:
+    the step median with telemetry on and off, the runs alternated, and
+    the step clock's split (data_wait, dispatch, block, other).
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -698,7 +718,10 @@ def device_time_by_kernel(prof, wall: float) -> dict:
 
     rows = []  # kernels only: CPU-op rows repeat their kernels' time
     for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+        # record_function ranges (the model's devprof scopes) put device
+        # spans over their kernels: not kernels, so left out.
+        if (getattr(ev, "device_type", None) != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -3649,6 +3672,246 @@ def serve_trained_adapter(npz: Path, scfg, seed: int, max_new: int, tokens_fl, f
                           tag="phase 25(c) trained adapter")
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the telemetry subsystem (obs/) in the trainer
+# ---------------------------------------------------------------------------
+
+FLASH_KERNELS = {"flash_fwd_tc_kernel": ("fwd", "tc"), "flash_dq_tc_kernel": ("bwd", "tc"),
+                 "flash_dkv_tc_kernel": ("bwd", "tc"), "flash_fwd_kernel": ("fwd", "fma"),
+                 "flash_bwd_dq_kernel": ("bwd", "fma"), "flash_bwd_dkv_kernel": ("bwd", "fma")}
+
+
+def flash_kernel(name: str):
+    """``(phase, route)`` of a flash kernel's trace name, None for any other
+    kernel (the ring's block kernels included)."""
+    m = re.search(r"\b(flash_[a-z_]+_kernel)\b", name)
+    return FLASH_KERNELS.get(m.group(1)) if m else None
+
+
+def step_events(obs_dir: Path) -> list[dict]:
+    from dtc_tpu_torch.obs import read_jsonl, shard_path
+
+    return read_jsonl(shard_path(str(obs_dir), 0))
+
+
+def check_event_stream(what: str, events: list[dict], steps: int) -> dict:
+    """The shard of a fresh ``steps``-step run: ``run_start`` then one
+    ``compile`` at step 0, one ``step`` event per timed step whose parts
+    sum to its ``step_time_s`` within 1e-9, a ``window`` at each log
+    boundary, ``memory`` samples and one ``run_summary``. Returns the
+    medians of the step clock's split (seconds)."""
+    kinds = [e["etype"] for e in events]
+    check(kinds[0] == "run_start", f"{what}: the shard starts with {kinds[:3]}")
+    compiles = [e for e in events if e["etype"] == "compile"]
+    check(len(compiles) == 1 and compiles[0]["step"] == 0,
+          f"{what}: compile events {compiles}")
+    steps_ev = [e for e in events if e["etype"] == "step"]
+    check([e["step"] for e in steps_ev] == list(range(1, steps + 1)),
+          f"{what}: step events {[e['step'] for e in steps_ev]}")
+    worst = max(abs(e["data_wait_s"] + e["dispatch_s"] + e["block_s"] + e["other_s"]
+                    - e["step_time_s"]) for e in steps_ev)
+    check(worst <= 1e-9, f"{what}: a step's parts miss its step_time_s by {worst}")
+    check(kinds.count("window") >= 1 and kinds.count("memory") >= 1
+          and kinds.count("run_summary") == 1,
+          f"{what}: windows {kinds.count('window')}, memory {kinds.count('memory')}, "
+          f"run_summary {kinds.count('run_summary')}")
+    split = {k: percentile([e[k] for e in steps_ev], 0.5)
+             for k in ("data_wait_s", "dispatch_s", "block_s", "other_s", "step_time_s")}
+    split["compile_time_s"] = compiles[0]["compile_time_s"]
+    split["compile_count"] = compiles[0]["count"]
+    return split
+
+
+def telemetry_run(out_dir: str, obs: bool, steps: int, devprof_every: int = 0,
+                  device: str = "cuda"):
+    """``train()`` on ``train_config_dp.yaml`` as written (synthetic data),
+    ``steps`` timed steps, telemetry on or off, a devprof window of 2 steps
+    every ``devprof_every``. Returns (result, flash launches (fwd, bwd),
+    flash routes, max memory allocated after the run)."""
+    import dataclasses
+
+    import torch
+
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.train.trainer import train
+
+    tcfg, mcfg, ocfg = load_config(ROOT / "configs" / "train_config_dp.yaml")
+    tcfg = dataclasses.replace(
+        tcfg, dataset="synthetic", steps=steps, output_dir=out_dir,
+        obs=dataclasses.replace(tcfg.obs, enabled=obs, devprof_every=devprof_every))
+    cuda = device.startswith("cuda")
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts()                          # the main path starts here
+    res = train(tcfg, mcfg, ocfg, device=None if cuda else device)
+    launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+    routes = check_flash_routes(f"phase 26 obs {'on' if obs else 'off'}", mcfg.compute_dtype)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    return res, launches, routes, peak
+
+
+def telemetry_phase(smi: str, phase7: dict, steps: int = 40, device: str = "cuda") -> dict:
+    """26: (a) ``python -m dtc_tpu_torch.main --train_config_path
+    configs/train_config_dp.yaml --dataset synthetic --steps 40
+    --output_dir <tmp>`` as a subprocess, telemetry on as the config says:
+    exit 0, the shard's stream (:func:`check_event_stream`), ``summary.json``
+    and ``log.csv``'s 40 rows. (b) In this process 40 steps with telemetry
+    on and a devprof window at steps 30-31, then 40 with it off: losses
+    equal bit for bit; then on and off again, every run's step median
+    recorded. (c) The capture read by ``analyze_capture``: every flash
+    kernel attributed to ``attn_kernel``, 12 forward ("fwd") and 24
+    backward ("bwd") launches a step, all "tc"; every matrix product
+    attributed; the unattributed share at most 0.10; the kernels' summed
+    time within 1% of ``key_averages()``'s device total over the window;
+    the device-time MFU and component table. (d) The last memory sample's
+    peak equals ``torch.cuda.max_memory_allocated()`` after the run. (e)
+    The step clock's split of the flagship step."""
+    import json as _json
+    import os
+    import tempfile
+
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.obs import analyze_capture, find_captures
+    from dtc_tpu_torch.obs.devprof import classify_scope, structural_gates
+
+    tcfg, mcfg, _ = load_config(ROOT / "configs" / "train_config_dp.yaml")
+    cuda = device.startswith("cuda")
+    rec: dict = {"card": smi}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dtc_chip_smoke_obs_") as tmp:
+        tmp = Path(tmp)
+        # (a) the committed config as written, through the command line
+        cmd = [sys.executable, "-m", "dtc_tpu_torch.main", "--train_config_path",
+               str(ROOT / "configs" / "train_config_dp.yaml"), "--dataset", "synthetic",
+               "--steps", str(steps), "--output_dir", str(tmp / "cli")]
+        if not cuda:
+            cmd += ["--device", device]
+        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                             env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        check(out.returncode == 0, f"phase 26(a): exit {out.returncode}:\n{out.stdout[-3000:]}"
+              f"\n{out.stderr[-3000:]}")
+        cli_split = check_event_stream("phase 26(a)", step_events(tmp / "cli" / "obs"), steps)
+        summary = _json.loads((tmp / "cli" / "obs" / "summary.json").read_text())
+        rows = (tmp / "cli" / "log.csv").read_text().splitlines()
+        check(rows[0] == "step,elapsed_time,loss" and len(rows) == steps + 1,
+              f"phase 26(a): log.csv {rows[:2]}, {len(rows) - 1} rows")
+        check(summary["summary"]["steps"] == steps and summary["hosts"]["n_hosts"] == 1,
+              f"phase 26(a): summary.json {summary['summary'].get('steps')}, "
+              f"{summary['hosts']}")
+        rec["cli"] = dict(split=cli_split, wall_s=time.perf_counter() - t0,
+                          tokens_per_sec=summary["summary"]["tokens_per_sec"])
+        log(f"phase 26(a) python -m dtc_tpu_torch.main --train_config_path "
+            f"configs/train_config_dp.yaml --dataset synthetic --steps {steps}: exit 0, "
+            f"{steps} step events whose parts sum to step_time_s, summary.json, log.csv "
+            f"{steps} rows; compile event {cli_split['compile_time_s']} s over "
+            f"{cli_split['compile_count']} library loads [{smi}]")
+
+        # (b) obs on (a devprof window at steps 30-31) against obs off, bit for bit
+        on, on_launch, on_routes, peak_after = telemetry_run(
+            str(tmp / "on"), True, steps, devprof_every=30, device=device)
+        off, off_launch, _, _ = telemetry_run(str(tmp / "off"), False, steps, device=device)
+        check(on.losses == off.losses and len(on.losses) == steps,
+              f"phase 26(b): losses with obs on {on.losses[:4]}... differ from off "
+              f"{off.losses[:4]}...")
+        check(on_launch == off_launch, f"phase 26(b): flash launches on {on_launch}, off "
+              f"{off_launch}")
+        n_steps = steps + tcfg.warmup_steps
+        check(not cuda or on_launch == (mcfg.n_layers * n_steps, 2 * mcfg.n_layers * n_steps),
+              f"phase 26(b): flash launches {on_launch} for {n_steps} steps")
+        rec["launches"] = on_launch
+        rec["routes"] = on_routes
+        events = step_events(tmp / "on" / "obs")
+        split = check_event_stream("phase 26(b)", events, steps)
+
+        # (c) the capture
+        caps = find_captures(str(tmp / "on" / "obs" / "devprof"))
+        check(len(caps) == 1, f"phase 26(c): captures {caps}")
+        cap = analyze_capture(caps[0])
+        check(cap is not None, f"phase 26(c): no trace in {caps[0]}")
+        att, meta = cap["attribution"], cap["meta"]
+        win = meta["steps"]
+        check(win == 2 and meta["step_start"] == 30, f"phase 26(c): window {meta}")
+        flash_rows = [(r, flash_kernel(r.name)) for r in cap["rows"]]
+        flash_rows = [(r, k) for r, k in flash_rows if k is not None]
+        by = {"fwd": 0, "bwd": 0}
+        for r, (part, route) in flash_rows:
+            comp, phase = classify_scope(r.scope)
+            check(route == "tc" and comp == "attn_kernel" and phase == part,
+                  f"phase 26(c): {r.name[:60]} ({route}) attributed to {comp!r} / "
+                  f"{phase!r}, scope {r.scope!r}")
+            by[part] += 1
+        check(not cuda or by == {"fwd": mcfg.n_layers * win, "bwd": 2 * mcfg.n_layers * win},
+              f"phase 26(c): flash kernels in the window {by}, want "
+              f"{mcfg.n_layers} fwd and {2 * mcfg.n_layers} bwd a step over {win} steps")
+        gates = structural_gates(att)
+        check(gates["all_dot_fusions_attributed"] and gates["unattributed_share_ok"],
+              f"phase 26(c): structural gates {gates}")
+        prof_s = meta["profiler_device_s"]
+        if cuda:
+            check(prof_s and abs(att.total_s - prof_s) <= 0.01 * prof_s,
+                  f"phase 26(c): the capture's kernels {att.total_s} s, key_averages() "
+                  f"{prof_s} s")
+        table = att.component_table(win)
+        dmfu = att.device_mfu(meta["step_flops"], meta["peak_flops"], win)
+        rec["capture"] = dict(
+            window_steps=win, flash_kernels=by, gates=gates, device_s=att.total_s,
+            profiler_device_s=prof_s, busy_s_per_step=att.busy_s / win,
+            device_mfu=dmfu, components=table,
+            phases={k: v / win for k, v in att.phases.items()},
+            n_kernels=att.n_ops, peak_hbm_bytes=meta["peak_hbm_bytes"],
+            costs_s={k: meta[k] for k in ("start_s", "stop_and_write_s",
+                                          "profiler_device_read_s")})
+        log(f"phase 26(c) devprof capture of steps 30-31: {att.n_ops} device rows, "
+            f"{by['fwd']} forward + {by['bwd']} backward flash kernels all 'tc' in "
+            f"attn_kernel (fwd / bwd), unattributed share {gates['unattributed_share']}, "
+            f"kernels {att.total_s:.6f} s vs key_averages() {prof_s} s, busy "
+            f"{att.busy_s / win * 1e3:.6f} ms a step, device-time MFU {dmfu}; the "
+            f"window's costs: start {meta['start_s']} s, stop and trace write "
+            f"{meta['stop_and_write_s']} s, key_averages() {meta['profiler_device_read_s']} s "
+            f"[{smi}]")
+        for row in table:
+            log(f"  component {row['component']}: {row['s_per_step'] * 1e3:.6f} ms a step, "
+                f"share {row['share']}")
+        log(f"  phases (ms a step): "
+            f"{ {k: round(v / win * 1e3, 6) for k, v in att.phases.items()} }")
+
+        # (d) memory
+        mem = [e for e in events if e["etype"] == "memory"]
+        last = mem[-1]["devices"]
+        if cuda:
+            got = last[0]["stats"]["peak_bytes_in_use"]
+            check(got == peak_after, f"phase 26(d): last memory sample's peak {got} != "
+                  f"max_memory_allocated() {peak_after}")
+        else:
+            check(last is None, f"phase 26(d): memory stats {last} on the CPU")
+        rec["memory"] = dict(peak_bytes=peak_after, samples=len(mem))
+
+        # (e) costs: obs on vs off, alternated; the step clock's split
+        def med(res):
+            el = [0.0] + res.elapsed_times
+            return percentile([b - a for a, b in zip(el, el[1:])], 0.5) * 1e3
+
+        on2, _, _, _ = telemetry_run(str(tmp / "on2"), True, steps, device=device)
+        off2, _, _, _ = telemetry_run(str(tmp / "off2"), False, steps, device=device)
+        check(on2.losses == off2.losses == on.losses,
+              "phase 26(e): the second pair's losses differ")
+        medians = {"on_devprof": med(on), "off": med(off), "on": med(on2), "off_2": med(off2)}
+        rec["step_ms_median"] = medians
+        rec["split_s"] = split
+        rec["wall_s"] = time.perf_counter() - t0
+    log(f"phase 26(e) step median (ms) obs on {medians['on_devprof']:.6f} (with the window) / "
+        f"{medians['on']:.6f}, off {medians['off']:.6f} / {medians['off_2']:.6f} "
+        f"(phase 7: {phase7['step_ms_median']:.6f}) [{smi}]")
+    log(f"phase 26(e) step clock split (median s): data_wait {split['data_wait_s']:.6f}, "
+        f"dispatch {split['dispatch_s']:.6f}, block {split['block_s']:.6f}, other "
+        f"{split['other_s']:.6f}, step {split['step_time_s']:.6f}; startup compile "
+        f"{split['compile_time_s']} s [{smi}]")
+    log(f"phase 26 wall {rec['wall_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default="", help="write every measured number to this JSON file")
@@ -4455,6 +4718,11 @@ def main() -> int:
         log(f"phase 25 wall {walls25[-1] - walls25[0]:.1f} s: (a) {parts25[0]:.1f}, (b) "
             f"{parts25[1]:.1f}, (c) {parts25[2]:.1f}")
 
+        # 26. the telemetry subsystem in the trainer: the committed config
+        # as written, obs on against off, the devprof capture, memory, costs
+        record["telemetry"] = telemetry_phase(smi, train_rec)
+        torch.cuda.empty_cache()
+
         main = results[0]
         kernels = [dict(
             name="decode_attention", route="cuda",
@@ -4498,6 +4766,9 @@ def main() -> int:
                 route_launches_bf16_mixed=record["bf16_mixed"]["flash_routes"],
                 launches_finetune=ft_rec["flash_launches"][part == "bwd"],
                 route_launches_finetune=ft_rec["flash_routes"],
+                launches_telemetry=record["telemetry"]["launches"][part == "bwd"],
+                route_launches_telemetry=record["telemetry"]["routes"],
+                capture_kernels_telemetry=record["telemetry"]["capture"]["flash_kernels"][part],
                 **({"dq_ms": fl["dq_ms"], "dkv_ms": fl["dkv_ms"],
                     "dq_bound_ms": fl["dq_bound_ms"], "dq_route_launches": routes7["dq"]}
                    if part == "bwd" else {}),

@@ -11,12 +11,12 @@ that made the held-out loss worse than the first eval point's must not
 reach the serving engine.
 
     python -m dtc_tpu_torch.adapters.finetune \\
-        --finetune_config configs/finetune_lora.yaml --no-obs --out adapter.npz \\
-        [--gate-ratio R] [--no-gate] [--device D] [--output_dir DIR] [--steps N]
+        --finetune_config configs/finetune_lora.yaml --out adapter.npz \\
+        [--gate-ratio R] [--no-gate] [--device D] [--output_dir DIR] [--steps N] [--no-obs]
 
 ``--no-obs`` as in ``python -m dtc_tpu_torch.main``: the config leaves the
-telemetry subsystem on, which the port does not have yet (the trainer
-refuses it).
+trainer's telemetry on (its shards under ``<output_dir>/obs/``); the flag
+turns it off.
 
 Exit status, as the JAX package's CLI: 0 trained, gated and exported; 1
 the gate failed (nothing exported unless ``--no-gate``); 2 a config error
@@ -120,7 +120,7 @@ def main(argv: list[str] | None = None) -> int:
                    help="override output_dir (log.csv, eval_log.csv, checkpoints)")
     p.add_argument("--steps", type=int, default=None, help="override train steps")
     p.add_argument("--no-obs", action="store_true",
-                   help="turn the telemetry subsystem off (not ported: the trainer refuses it)")
+                   help="turn the trainer's telemetry subsystem off")
     args = p.parse_args(argv)
 
     from dtc_tpu_torch.adapters.lora import save_adapter

@@ -205,8 +205,10 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class SloConfig:
-    """Online SLO objectives (0 = off). The port has no SLO monitor yet:
-    the serving engine refuses any non-zero objective."""
+    """Online SLO objectives (0 = off). The trainer's telemetry evaluates
+    the training objectives (``step_time_p99_s``, ``data_wait_p99_s``,
+    ``goodput_min_pct``); the serving engine refuses any non-zero
+    objective."""
 
     enabled: bool = True
     window: int = 64
@@ -500,8 +502,8 @@ class MeshConfig:
 @dataclass(frozen=True)
 class ObsConfig:
     """Telemetry knobs (JSONL events, spans, flight recorder, device
-    profiles, goodput). The port has no telemetry yet: its trainer refuses
-    ``enabled: true`` (``--no-obs`` on the command line)."""
+    profiles, goodput) of the trainer (:mod:`dtc_tpu_torch.obs`); the
+    serving engine has none yet."""
 
     enabled: bool = True
     jsonl: bool = True

@@ -2,13 +2,13 @@
 JAX package's ``main.py``:
 
     python -m dtc_tpu_torch.main --train_config_path configs/train_config_dp.yaml \\
-        --dataset synthetic --no-obs [--steps N] [--output_dir DIR] [--device cpu]
+        --dataset synthetic [--steps N] [--output_dir DIR] [--device cpu]
 
 Over several processes, under ``torchrun`` (NCCL on cards, one per rank;
 gloo with ``--device cpu``)::
 
     torchrun --nproc_per_node N -m dtc_tpu_torch.main --train_config_path ... \
-        --dataset synthetic --no-obs --output_dir DIR
+        --dataset synthetic --output_dir DIR
 
 ``--backend gloo --device cuda:0`` runs every rank on one card (NCCL refuses
 two ranks on one device); the mesh (``parallel``, ``mesh``) picks data,
@@ -18,6 +18,10 @@ The model and optim configs default to the train config's siblings. Runs on
 ``cuda`` unless ``--device`` names another device. ``--output_dir``
 overrides the config's: the trainer refuses to overwrite an existing
 ``log.csv`` (such as the JAX runs' committed ``outputs/dp/log.csv``).
+Telemetry follows the config's ``obs`` block (on in every committed
+config): each rank's event shard ``obs/events.r<k>.jsonl`` and rank 0's
+``obs/summary.json`` land under the output directory; ``--no-obs`` turns
+it off, ``--obs`` on.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ def main(argv: list[str] | None = None):
     p.add_argument("--dataset", default=None, choices=["fineweb", "synthetic"],
                    help="override dataset")
     p.add_argument("--obs", dest="obs", action="store_true", default=None,
-                   help="force the telemetry subsystem on (not ported: refused)")
+                   help="force the telemetry subsystem on (default: ObsConfig from YAML)")
     p.add_argument("--no-obs", dest="obs", action="store_false",
                    help="force the telemetry subsystem off")
     p.add_argument("--output_dir", default=None, help="override output_dir (log.csv)")

@@ -89,6 +89,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from dtc_tpu_torch.config.schema import ModelConfig
+from dtc_tpu_torch.obs.devprof import scope
 from dtc_tpu_torch.ops import decode_attention as fused
 from dtc_tpu_torch.ops import ring_attention
 from dtc_tpu_torch.ops.attention import causal_attention, decode_attention
@@ -170,11 +171,12 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        mean = x.mean(dim=-1, keepdim=True)
-        var = torch.clamp_min((x * x).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
-        mul = torch.rsqrt(var + LN_EPS) * fsdp.full(self.weight)
-        return (x - mean) * mul + fsdp.full(self.bias)
+        with scope("ln"):
+            x = x.float()
+            mean = x.mean(dim=-1, keepdim=True)
+            var = torch.clamp_min((x * x).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+            mul = torch.rsqrt(var + LN_EPS) * fsdp.full(self.weight)
+            return (x - mean) * mul + fsdp.full(self.bias)
 
 
 def lora_scale(cfg: ModelConfig) -> float:
@@ -325,10 +327,20 @@ class CausalSelfAttention(nn.Module):
         b, t, _ = x.shape
         h, dh = self.n_heads, cfg.head_dim
         hd = h * dh
-        x = copy_to_model(x, self.tp)
-        q = self.q_proj(x, lora.get("q_proj"), lora_drop, gen)
-        k = self.k_proj(x, lora.get("k_proj"), lora_drop, gen)
-        v = self.v_proj(x, lora.get("v_proj"), lora_drop, gen)
+        with scope("attn_qkv"):
+            x = copy_to_model(x, self.tp)
+            q = self.q_proj(x, lora.get("q_proj"), lora_drop, gen)
+            k = self.k_proj(x, lora.get("k_proj"), lora_drop, gen)
+            v = self.v_proj(x, lora.get("v_proj"), lora_drop, gen)
+        with scope("attn_kernel"):
+            return self._attention(q, k, v, cache, layer, idx).reshape(b, t, hd)
+
+    def _attention(self, q, k, v, cache, layer, idx):
+        """Causal attention over the projections, or under ``cache`` the
+        cache write and attention over the cache: ``(B, T, H, D)``."""
+        cfg = self.cfg
+        b, t, hd = q.shape
+        h, dh = self.n_heads, cfg.head_dim
         if cache is None:
             out = causal_attention(
                 q.view(b, t, h, dh), k.view(b, t, h, dh), v.view(b, t, h, dh),
@@ -366,7 +378,7 @@ class CausalSelfAttention(nn.Module):
                     q.view(b, t, h, dh), k_full.view(b, s, h, dh),
                     v_full.view(b, s, h, dh), idx,
                 )
-        return out.reshape(b, t, hd)
+        return out
 
 
 class MLP(nn.Module):
@@ -379,9 +391,10 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor, lora: dict | None = None, lora_drop: float = 0.0,
                 gen: torch.Generator | None = None) -> torch.Tensor:
         lora = lora or {}
-        x = copy_to_model(x, self.tp)
-        h = F.gelu(self.fc1(x, lora.get("fc1"), lora_drop, gen), approximate="tanh")
-        return self.fc2(h, lora.get("fc2"), lora_drop, gen)
+        with scope("mlp"):
+            x = copy_to_model(x, self.tp)
+            h = F.gelu(self.fc1(x, lora.get("fc1"), lora_drop, gen), approximate="tanh")
+            return self.fc2(h, lora.get("fc2"), lora_drop, gen)
 
 
 class Block(nn.Module):
@@ -400,6 +413,10 @@ class Block(nn.Module):
 
     def forward(self, x, *, train: bool = False, gen=None, cache=None, layer: int = 0,
                 idx=None, lora: dict | None = None):
+        with scope("blocks"):
+            return self._forward(x, train, gen, cache, layer, idx, lora)
+
+    def _forward(self, x, train, gen, cache, layer, idx, lora):
         p = self.cfg.dropout if train else 0.0
         ld = self.cfg.adapter.dropout if train and lora else 0.0
         mode = self.cfg.remat_mode
@@ -427,12 +444,16 @@ class Block(nn.Module):
         LN_2, the MLP (recomputed in the backward with ``remat_mlp``),
         dropout, residual. ``ld``: the adapter's input dropout."""
         lora = lora or {}
-        x = x + _dropout(self.attn.out_proj(a, lora.get("out_proj"), ld, gen), p, gen)
+        with scope("attn_proj"):
+            a = _dropout(self.attn.out_proj(a, lora.get("out_proj"), ld, gen), p, gen)
+        x = x + a
         h = self.ln_2(x).to(self.cdtype)
         m = (_recompute(lambda h, g: self.mlp(h, lora, ld, g), h, gen=gen if ld else None)
              if remat_mlp
              else self.mlp(h, lora, ld, gen))
-        return x + _dropout(m, p, gen)
+        with scope("mlp"):
+            m = _dropout(m, p, gen)
+        return x + m
 
 
 class GPTEmbed(nn.Module):
@@ -448,6 +469,10 @@ class GPTEmbed(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool = False, gen=None,
                 pos_offset: int | torch.Tensor = 0) -> torch.Tensor:
+        with scope("embed"):
+            return self._embed(x, train, gen, pos_offset)
+
+    def _embed(self, x, train, gen, pos_offset):
         cfg = self.cfg
         t = x.shape[1]
         s = cfg.max_seq_len
@@ -506,6 +531,10 @@ class GPTHead(nn.Module):
 
     def forward(self, h: torch.Tensor, targets: torch.Tensor | None = None) -> torch.Tensor:
         hc = self.ln_f(h).to(DTYPES[self.cfg.compute_dtype])
+        with scope("head"):
+            return self._head(hc, targets)
+
+    def _head(self, hc: torch.Tensor, targets: torch.Tensor | None) -> torch.Tensor:
         w, b = fsdp.full(self.lm_head.weight), fsdp.full(self.lm_head.bias)
         v = self.cfg.vocab_size
         if targets is not None:

@@ -7,7 +7,8 @@ with a hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads. A source may build several libraries, each with its
 own preprocessor defines (:data:`_VARIANTS`). :func:`build_all` starts one
 ``nvcc`` per library at once. Nothing builds at import: the first launch
-builds.
+builds. The seconds every build and first load take reach the listeners
+of :func:`add_listener` (the telemetry's compile watcher).
 """
 
 from __future__ import annotations
@@ -151,6 +152,28 @@ def _finish(name: str, proc, tmp) -> None:
     os.replace(tmp, library_path(name))
 
 
+#: Callables told of every build and first load: ``fn(seconds, count)``.
+_listeners: list = []
+
+
+def add_listener(fn) -> None:
+    """Call ``fn(seconds, count)`` after each :func:`build_all` that built
+    ``count`` libraries (its wall seconds) and each first :func:`load` of a
+    library (the seconds to open and bind it, count 1)."""
+    if fn not in _listeners:
+        _listeners.append(fn)
+
+
+def remove_listener(fn) -> None:
+    if fn in _listeners:
+        _listeners.remove(fn)
+
+
+def _notify(seconds: float, count: int) -> None:
+    for fn in list(_listeners):
+        fn(seconds, count)
+
+
 def build_all(names=None) -> dict[str, float]:
     """Build every kernel library that is missing, one ``nvcc`` per library
     started together. Returns the wall seconds until each finished."""
@@ -161,6 +184,9 @@ def build_all(names=None) -> dict[str, float]:
     for n, (proc, tmp) in started.items():
         _finish(n, proc, tmp)
         took[n] = time.perf_counter() - t0
+    built = sum(proc is not None for proc, _ in started.values())
+    if built:
+        _notify(time.perf_counter() - t0, built)
     return took
 
 
@@ -170,6 +196,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     build_all([name])
+    t0 = time.perf_counter()
     lib = ctypes.CDLL(str(library_path(name)))
     for fn_name, argtypes in _SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
@@ -178,6 +205,7 @@ def load(name: str) -> ctypes.CDLL:
     lib.dtc_error_string.argtypes = [ctypes.c_int]
     lib.dtc_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib
+    _notify(time.perf_counter() - t0, 1)
     return lib
 
 

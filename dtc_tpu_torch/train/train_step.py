@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from dtc_tpu_torch.obs.devprof import BWD_SCOPE, scope
 from dtc_tpu_torch.ops.fused_ce import _stats_loss
 
 
@@ -89,18 +90,26 @@ def train_step(model, opt, x: torch.Tensor, y: torch.Tensor,
     gradients (sharded ones scaled by 1/R once, whole ones averaged).
     With ``lora`` (an adapter's factors, the optimizer's parameters) the
     model is the frozen base plus the adapter, and only the factors get
-    gradients. Returns the loss as a device tensor (no host sync)."""
+    gradients. Returns the loss as a device tensor (no host sync).
+
+    Under a profiler session the forward, the backward and the update run
+    in the ranges ``fwd``, :data:`~dtc_tpu_torch.obs.devprof.BWD_SCOPE` and
+    ``optimizer`` that the device-time attribution reads."""
     from dtc_tpu_torch.parallel.fsdp import use_fsdp
 
-    opt.zero_grad()
+    with scope("optimizer"):
+        opt.zero_grad()
     with use_fsdp(fsdp):
-        loss = model(x, train=True, targets=y, generator=gen, lora=lora)
-        loss.backward()
+        with scope("fwd"):
+            loss = model(x, train=True, targets=y, generator=gen, lora=lora)
+        with scope(BWD_SCOPE):
+            loss.backward()
     if fsdp is not None and fsdp.distributed:
         loss = fsdp.reduce_gradients(opt.params, loss)
     elif average and torch.distributed.is_initialized():
         loss = average_over_ranks(opt.params, loss, group)
-    opt.step()
+    with scope("optimizer"):
+        opt.step()
     return loss.detach()
 
 

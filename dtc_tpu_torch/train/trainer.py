@@ -97,6 +97,18 @@ and every rank's generator, eval runs base + adapter, and
 ``TrainResult.base_params`` / ``adapter`` hand the pair on to the export
 (:mod:`dtc_tpu_torch.adapters.finetune`).
 
+Telemetry (:class:`~dtc_tpu_torch.obs.telemetry.Telemetry`, built after
+the clobber guard and before warmup, obs on or off) is the JAX trainer's:
+``log.csv`` and ``eval_log.csv`` are its CSV sinks; with ``obs`` on each
+rank writes its event shard (the step clock's ``data_wait`` / ``dispatch``
+/ ``block`` split of every timed step, windows, eval, memory, spans, SLO
+breaches, anomalies, recoveries, hung steps) and rank 0 the cross-process
+``summary.json``; the flight recorder dumps on an anomaly, a hung step,
+SIGTERM and a crash; profiler windows (``profile_start``/``profile_stop``,
+the watchdog's ``profile_on_flag``) and device-profile captures
+(``obs.devprof_every``, an SLO breach, a hung step) run
+``torch.profiler``. It adds no device sync.
+
 What the port has not ported raises ``NotImplementedError`` naming the
 slice it waits for (:func:`refuse_unported`, :func:`refuse_sharded_state`).
 """
@@ -119,6 +131,7 @@ from dtc_tpu_torch.data.holdout import divert_holdout, diverted_indices, stream_
 from dtc_tpu_torch.data.prefetch import PrefetchIterator, split_to_device
 from dtc_tpu_torch.data.synthetic import synthetic_batch_iterator
 from dtc_tpu_torch.models.gpt import GPT, resolve_device
+from dtc_tpu_torch.obs.telemetry import Telemetry
 from dtc_tpu_torch.ops.ring_attention import DistRing, use_ring
 from dtc_tpu_torch.parallel import sharding
 from dtc_tpu_torch.parallel.fsdp import FSDP
@@ -135,8 +148,8 @@ from dtc_tpu_torch.train.train_step import (
 )
 from dtc_tpu_torch.utils import dist as dist_utils
 from dtc_tpu_torch.utils.checkpoint import CheckpointManager
-from dtc_tpu_torch.utils.logging import CSVLogger
-from dtc_tpu_torch.utils.metrics import mfu, peak_flops
+from dtc_tpu_torch.utils.logging import FIELDS
+from dtc_tpu_torch.utils.metrics import comm_bytes_per_step, gpt_step_flops, mfu, peak_flops
 
 
 @dataclass
@@ -203,11 +216,6 @@ def refuse_unported(train_cfg: TrainConfig, model_cfg: ModelConfig,
         (train_cfg.parallel == "none", "parallel: none"),
         ((m.dcn_pipe, m.dcn_data, m.dcn_model) != (1, 1, 1),
          "dcn mesh factors (multi-host)"),
-        (train_cfg.obs.enabled,
-         "obs.enabled (telemetry, obs/); pass --no-obs or obs: {enabled: false}"),
-        (train_cfg.profile_start or train_cfg.profile_stop,
-         "profile_start/profile_stop (profiler windows, with obs/)"),
-        (train_cfg.slo.any_objective, "SLO objectives (with obs/)"),
         (train_cfg.resilience.chaos.enabled, "resilience.chaos (fault injection)"),
         (train_cfg.resilience.elastic.enabled,
          "resilience.elastic (elastic training)"),
@@ -640,11 +648,30 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
             host_eval = [next(it) for _ in range(train_cfg.eval_batches)]
         eval_set = [split_to_device(b, dev) for b in shard(host_eval)]
     resumed = start_step > 0
-    csv = (CSVLogger(log_path, append=resumed)
-           if train_cfg.output_dir and lead else None)
-    eval_csv = (CSVLogger(os.path.join(train_cfg.output_dir, "eval_log.csv"), ("step", "loss"),
-                          append=resumed)
-                if eval_set is not None and train_cfg.output_dir and lead else None)
+    # Telemetry after the clobber guard (a refused run writes nothing) and
+    # before warmup, so the compile watcher sees the kernel libraries'
+    # build. log.csv and eval_log.csv are its CSV sinks, obs on or off.
+    tele = Telemetry.for_training(train_cfg, lead=lead, process_index=rank,
+                                  resumed=resumed, device=dev)
+    mesh_shape = dict(zip(AXIS_NAMES, shape))
+    comm = comm_bytes_per_step(model_cfg, train_cfg.batch, seq, mesh_shape,
+                               train_cfg.parallel, train_cfg.pp_microbatches)
+    tele.set_device_profile_context(
+        step_flops=gpt_step_flops(model_cfg, train_cfg.batch, seq),
+        peak_flops=peak_flops(dev), comm_estimate=comm)
+    try:
+        if train_cfg.output_dir and lead:
+            tele.add_csv(log_path, FIELDS, "train_row", append=resumed)
+            if eval_set is not None:
+                tele.add_csv(os.path.join(train_cfg.output_dir, "eval_log.csv"),
+                             ("step", "loss"), "eval", append=resumed)
+    except BaseException:
+        tele.close()
+        raise
+    tele.on_run_start(strategy=train_cfg.parallel, mesh=mesh_shape, devices=world,
+                      processes=world, batch=train_cfg.batch, seq_len=seq,
+                      steps=train_cfg.steps, start_step=start_step,
+                      dataset=train_cfg.dataset)
     wd = StepWatchdog(res_cfg.watchdog) if res_cfg.watchdog.enabled else None
     sync_every_step = train_cfg.sync_every_step
     if sync_every_step is None:
@@ -669,10 +696,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
         for (s, el), lo in zip(window_rows, window_losses):
             if s <= target:
                 result.losses.append(lo)
-                if csv is not None:
-                    csv.log(step=s, elapsed_time=el, loss=lo)
-        if csv is not None:
-            csv.flush()
+                tele.emit_train_row(s, el, lo)
         keep = max(target - result_base, 0)
         del result.losses[keep:]
         del result.elapsed_times[keep:]
@@ -684,6 +708,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
         re-seek the stream there and return its step (None when no step is
         intact: the guard then only burns a rung)."""
         nonlocal data_it
+        t_detect = time.time()
         target = restore_latest()
         if target is None:
             return None
@@ -692,6 +717,11 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
         data_it = feed(target)
         guard.note_rollback()
         commit_and_truncate(target, window_rows, window_losses)
+        tele.on_recovery(cur_step, action="rollback", to_step=target, reason=reason,
+                         tier="cold", rollbacks=guard.rollbacks_done,
+                         t_detect=round(t_detect, 6), t_restored=round(time.time(), 6))
+        tele.record_aux_compile(cur_step, "rollback")
+        tele.flush()
         say(f"[dtc_tpu_torch] ROLLBACK: {reason} — restored checkpoint step {target}, "
             f"stream re-seeked ({guard.rollbacks_done}/{guard_cfg.max_rollbacks})")
         return target
@@ -704,21 +734,21 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
         vals = [float(eval_loss(model, x, y, lora=factors)) for x, y in eval_set]
         el = float(np.mean(vals))
         result.eval_losses.append((step, el))
-        if eval_csv is not None:
-            eval_csv.log(step=step, loss=el)
-            eval_csv.flush()
         say(f"Eval @ step {step}: loss {el:.4f}")
-        return time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        tele.on_eval(step, el, duration_s=dt)
+        tele.flush()
+        return dt
 
     say(f"[dtc_tpu_torch] strategy={train_cfg.parallel} device={dev}"
         + (f" ({torch.cuda.get_device_name(dev)})" if cuda else "")
-        + (f" mesh={dict(zip(AXIS_NAMES, shape))} processes={world}"
+        + (f" mesh={mesh_shape} processes={world}"
            if torch.distributed.is_initialized() else ""))
     rules = sharding.FSDP_RULES if train_cfg.parallel == "fsdp" else sharding.DEFAULT_RULES
     if model_cfg.attention == "ring":
         rules = sharding.ring_rules_from(rules)
     if (model_cfg.collectives == "overlapped"
-            and sharding.fsdp_axis(rules, dict(zip(AXIS_NAMES, shape))) is None):
+            and sharding.fsdp_axis(rules, mesh_shape) is None):
         say("[dtc_tpu_torch] WARNING: collectives: overlapped is inert on this run — "
             "no usable FSDP ring in scope (the active rules don't shard 'embed_p', its "
             "mesh axis is size 1, or sequence-parallel rules own the activations); every "
@@ -745,37 +775,51 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
             stream.delivered += warmup_steps
             if warmup_steps:
                 float(loss)  # wait for the warmup updates
+            # Every library built and loaded so far is the run's startup
+            # compile: the step-0 ``compile`` event.
+            tele.record_startup_compile()
 
             if wd is not None and in_main_thread:
                 wd.start()
             say("Start measuring")
             device_losses: list[torch.Tensor] = []
             pending: list[tuple[int, float]] = []
-            start = window_start = prev = time.perf_counter()
+            start = window_start = time.perf_counter()
             window_steps = 0
             # while, not for: a rollback moves the step back to the
             # restored checkpoint and the loop replays from there.
             step = start_step
             while step < train_cfg.steps:
                 step += 1
+                tele.on_step_start(step)  # profiler windows + step clock
                 if wd is not None:
                     wd.arm(step)
-                x, y = next(data_it)
-                loss = step_fn(x, y)
+                with tele.clock.phase("data_wait"):
+                    x, y = next(data_it)
+                with tele.clock.phase("dispatch"):
+                    loss = step_fn(x, y)
                 device_losses.append(loss)
                 if sync_every_step:
-                    sync()
+                    with tele.clock.phase("block"):
+                        sync()
                 now = time.perf_counter()
                 result.elapsed_times.append(now - start)
                 pending.append((step, now - start))
+                breakdown = tele.on_step_end(step, elapsed_s=now - start,
+                                             synced=bool(sync_every_step))
                 if wd is not None:
-                    flag = wd.observe(step, now - prev)
+                    flag = wd.observe(step, breakdown["step_time_s"])
                     if flag is not None:
                         say(f"[dtc_tpu_torch] hung step: {flag}")
-                prev = now
+                        tele.on_hung_step(**flag)
+                        if res_cfg.watchdog.profile_on_flag:
+                            tele.arm_profile_window(step + 1)
                 window_steps += 1
                 stopping = stop_requested[0]
                 if stopping:
+                    # The preemption's post-mortem, before the checkpoint
+                    # and flush work the preemptor may not leave time for.
+                    tele.dump_flight("sigterm", step=step)
                     say(f"[dtc_tpu_torch] stopping at step {step} (SIGTERM)")
                 if step % train_cfg.log_every == 0 or step == train_cfg.steps or stopping:
                     losses = torch.stack(device_losses).tolist()  # the window's one sync
@@ -783,9 +827,12 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
                     if guard is not None:
                         decision = guard.check_window(step, losses)
                         if decision.anomalous:
+                            tele.on_anomaly(step, reason=decision.reason,
+                                            action=decision.action)
                             say(f"[dtc_tpu_torch] ANOMALY: {decision.reason} -> "
                                 f"{decision.action}")
                         if decision.action == "abort":
+                            tele.on_recovery(step, action="abort", reason=decision.reason)
                             raise AnomalyAbort(decision.reason)
                         if decision.action == "rollback":
                             target = rollback(step, decision.reason, losses, pending)
@@ -799,52 +846,81 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
                             # Nothing intact to restore: a rung is burnt all the
                             # same, so a persistent anomaly reaches the abort.
                             guard.note_rollback_failed()
+                            tele.on_recovery(step, action="rollback_failed",
+                                             reason=decision.reason)
                     if not sync_every_step:
                         # Rows were stamped at dispatch: re-stamp the window's last
                         # one now that its work is done.
                         pending[-1] = (pending[-1][0], now - start)
                         result.elapsed_times[-1] = now - start
                     result.losses.extend(losses)
-                    if csv is not None:
-                        for (s, el), lo in zip(pending, losses):
-                            csv.log(step=s, elapsed_time=el, loss=lo)
-                        csv.flush()
+                    # train_row events: every rank's shard, and log.csv on rank 0.
+                    for (s, el), lo in zip(pending, losses):
+                        tele.emit_train_row(s, el, lo)
                     avg = (now - window_start) / max(window_steps, 1)
+                    u = mfu(model_cfg, train_cfg.batch, seq, avg, peak)
+                    tele.on_window(step, avg_step_s=avg,
+                                   tokens_per_sec=tokens_per_step / avg, mfu=u)
+                    tele.flush()
                     msg = (f"Step: {step} | Avg loss: {sum(losses) / len(losses):.4f} | "
                            f"Average step time: {avg:.4f} | "
                            f"tokens/s: {tokens_per_step / avg:,.0f}")
-                    u = mfu(model_cfg, train_cfg.batch, seq, avg, peak)
                     if u is not None:
                         msg += f" | MFU: {u * 100:.1f}%"
                     say(msg)
                     device_losses, pending = [], []
+                    tele.record_aux_compile(step, "log_boundary")
                     window_start, window_steps = time.perf_counter(), 0
                 if eval_set is not None and (step % train_cfg.eval_every == 0
                                              or step == train_cfg.steps):
                     start += run_eval(step)
+                    tele.record_aux_compile(step, "eval")
                     window_start, window_steps = time.perf_counter(), 0
                 if ckpt is not None and (step % train_cfg.checkpoint_every == 0 or stopping):
                     # The state may already be poisoned before the next log
                     # boundary sees it; a bit-intact NaN checkpoint would become
                     # the rollback target. One scalar fetch a save.
                     if guard is not None and not guard.healthy_loss(float(loss)):
+                        tele.on_recovery(step, action="skip_checkpoint",
+                                         reason="unhealthy loss at save point")
                         say(f"[dtc_tpu_torch] skipping checkpoint at step {step}: "
                             "unhealthy loss at save point")
                     else:
-                        save_checkpoint(step)
+                        tele.registry.counter("checkpoints").inc()
+                        with tele.span("checkpoint", step=step):
+                            save_checkpoint(step)
+                    tele.record_aux_compile(step, "checkpoint")
                 if stopping:
                     break
+    except KeyboardInterrupt:
+        # The watchdog's hard timeout interrupts the main thread.
+        tele.dump_flight("watchdog_timeout" if wd is not None and wd.timed_out
+                         else "interrupt")
+        tele.close()
+        raise
+    except BaseException as e:
+        # A crashed run keeps its flushed JSONL prefix, plus the flight
+        # recorder's timeline.
+        tele.dump_flight(f"crash: {type(e).__name__}")
+        tele.close()
+        raise
     finally:
         if wd is not None:
             wd.stop()
         stream.cancel.set()
         data_it.close()
-        for log in (csv, eval_csv):
-            if log is not None:
-                log.close()
         if in_main_thread:
             signal.signal(signal.SIGTERM, prev_handler)
-    result.total_time_s = time.perf_counter() - start
+    result.total_time_s = total = time.perf_counter() - start
+    timed = len(result.elapsed_times)
+    tele.on_run_end(
+        total_time_s=round(total, 4),
+        steps=timed,
+        tokens_per_sec=round(tokens_per_step * timed / total, 1) if total > 0 else None,
+        mfu=mfu(model_cfg, train_cfg.batch, seq, total / timed, peak) if timed else None,
+        est_comm_bytes_per_step=comm,
+    )
+    tele.close()
     if fsdp is not None:
         result.model = fsdp.gathered(model)
     if tp is not None and not replicas_equal(model, tp):

@@ -449,8 +449,9 @@ def dp_spawn(tmp_path_factory):
             model = ModelConfig(vocab_size=97, d_model=64, n_layers=4, n_heads=4, d_ff=128,
                                 max_seq_len=32, dropout=0.0, param_dtype="float32",
                                 compute_dtype="float32", attention="dense")
+            # Telemetry on: every rank writes its shard, rank 0 the
+            # cross-process summary.
             cfg = make_train_cfg("dp", steps=3, log_every=1, output_dir=str(out / "log"))
-            cfg = dataclasses.replace(cfg, obs=dataclasses.replace(cfg.obs, enabled=False))
             _write_run(out, cfg, model, OptimConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0),
                        _flax_params(model))
             _spawn(2, "dp", out)
@@ -466,6 +467,29 @@ def test_dp_training_over_two_gloo_processes_matches_jax(
                   opt_cfg).losses
     _check_losses(dp_spawn, 2, want)
     _check_resume(dp_spawn, 2)
+
+
+def test_dp_telemetry_writes_every_ranks_shard_and_the_leads_summary(dp_spawn):
+    """The DP spawn's run with telemetry on: one event shard per rank, each
+    with its 3 ``step`` events and ``run_summary``; rank 0's shard ends with
+    the ``hosts`` reduction over both ranks, which ``summary.json``
+    holds; rank 1 writes no reduction."""
+    from dtc_tpu_torch.obs import find_shards, read_jsonl
+
+    obs = dp_spawn / "log" / "obs"
+    shards = find_shards(str(obs))
+    assert sorted(shards) == [0, 1]
+    events = {r: read_jsonl(p) for r, p in shards.items()}
+    for r, evs in events.items():
+        assert [e["step"] for e in evs if e["etype"] == "step"] == [1, 2, 3]
+        assert all(e["proc"] == r for e in evs)
+        assert sum(e["etype"] == "run_summary" for e in evs) == 1
+    assert not any(e["etype"] == "hosts" for e in events[1])
+    hosts = events[0][-1]
+    assert hosts["etype"] == "hosts" and hosts["n_hosts"] == 2
+    assert sorted(hosts["hosts"]) == ["0", "1"]
+    summary = json.loads((obs / "summary.json").read_text())
+    assert summary["hosts"]["n_hosts"] == 2 and summary["summary"]["steps"] == 3
 
 
 def test_dp_finetune_and_bf16_mixed_over_two_gloo_processes(dp_spawn, tmp_path, monkeypatch):

@@ -282,9 +282,9 @@ def test_trainer_without_a_card_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("over", [
     dict(parallel="fsdp", mesh=ts.MeshConfig(pipe=2)),
-    dict(obs=ts.ObsConfig()),
     dict(resilience=ts.ResilienceConfig(chaos=ts.ChaosConfig(enabled=True))),
-    dict(multihost=True), dict(profile_start=1, profile_stop=2),
+    dict(resilience=ts.ResilienceConfig(elastic=ts.ElasticConfig(enabled=True))),
+    dict(multihost=True), dict(debug_nans=True),
 ])
 def test_unported_training_features_raise(tmp_path, over):
     with pytest.raises(NotImplementedError):
