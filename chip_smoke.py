@@ -10,7 +10,11 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. Device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device.
 2. Build: every kernel library with ``nvcc`` (one process per source, all
-   started together), with the compiler's register / shared-memory report;
+   started together), with the compiler's register / shared-memory report.
+   The six decode-megakernel libraries take minutes: phases 3, 5, 6 and 8
+   (kernel cases timed on the device between CUDA events, and correctness)
+   run while they compile, and the host-timed phases 4 and 7 run after the
+   build has finished; the script logs each phase's wall seconds at the end;
    the FSDP ring library's tensor-core instances' dynamic shared memory,
    and its ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) SASS counts
    (``cuobjdump -sass``): a zero fails; the same for every tensor-core
@@ -228,7 +232,7 @@ Phases (each prints its own lines; any failure exits non-zero):
     on its Megatron slices): float32 dropout-0 runs of 4 steps under
     ``xla`` and ``overlapped`` within 1e-4 of one process on the config's
     batch (B 16), then ``python -m dtc_tpu_torch.main --train_config_path
-    configs/train_config_3d.yaml --dataset synthetic --no-obs --steps 10
+    configs/train_config_3d.yaml --dataset synthetic --no-obs --steps 6
     --backend gloo --device cuda:0`` in bf16 (5 warmup steps): finite,
     falling losses, ``log.csv`` from rank 0, each rank's ring launches
     2R x 72 and R x 72 a step (R 4: 576 and 288), every one "tma" (float32:
@@ -246,12 +250,13 @@ Phases (each prints its own lines; any failure exits non-zero):
     5 + 20 steps; B trains 10 and C resumes B's directory to 20: C's
     losses, eval loss and parameters equal A's bit for bit, A's flash
     launches 12 a step and an eval batch forward and 24 a step backward,
-    all "tc"; (b) the newest step's ``model.pt`` truncated: its manifest
-    fails and ``restore_latest`` lands on step 10; (c) the trainer's
-    ``train_step`` wrapped to multiply the parameters and the loss by NaN
-    after the update of step 13 (``log_every`` 10, checkpoints every 5):
-    the save at 15 skipped, the guard rolls back to step 10, and the run
-    ends bit-equal to A; (d) a checkpoint's bytes, save and sha256 seconds,
+    all "tc"; (b) the chaos harness's ``maybe_corrupt_checkpoint`` cuts the
+    newest step's largest file to half: its manifest fails and
+    ``restore_latest`` lands on step 10; (c) ``resilience.chaos``
+    ``nan_at_step: 13`` multiplies the parameters and the loss by NaN after
+    the update of step 13 (``log_every`` 10, checkpoints every 5): the save
+    at 15 skipped, the guard rolls back to step 10, and the run ends
+    bit-equal to A; (d) a checkpoint's bytes, save and sha256 seconds,
     restore seconds, eval ms a batch and A's step median beside phase 7's.
 25. ``precision: bf16_mixed`` and the LoRA finetune loop on the flagship:
     (a) ``python -m dtc_tpu_torch.main --train_config_path
@@ -297,6 +302,32 @@ Phases (each prints its own lines; any failure exits non-zero):
     equals ``torch.cuda.max_memory_allocated()``. (e) Reported, not gated:
     the step median with telemetry on and off, the runs alternated, and
     the step clock's split (data_wait, dispatch, block, other).
+27. The chaos harness and the recovery bus: (a)
+    ``configs/train_config_dev_chaos.yaml`` as written on the flagship
+    (``model_config.yaml``, bf16) through ``train()``, its output and
+    checkpoint directories moved to a temporary one: 40 steps with a
+    finite last loss and 40 ``log.csv`` rows; ``chaos`` events
+    ``nan_loss`` (25) and ``ckpt_corrupt`` (30), one anomaly, one rollback
+    to step 20; after the run step 30 fails its manifest; a flight dump
+    with the anomaly's reason; 12 forward and 24 backward flash launches
+    for every step run (warmup and the replay included), all "tc"; the
+    run's wall time and what the rollback cost in steps and seconds. (b)
+    Phase 4's six requests under ``fused`` and under ``fused_layers`` with
+    ``Telemetry.for_serving`` into a temporary directory,
+    ``verify_pages_every: 1`` and chaos preemption (iteration 4), a
+    corrupted page (6), poisoned logits (8) and a stall (10): float32
+    tokens equal ``generate()``; bf16 tokens equal phases 4 and 10 for
+    every request never evicted, and for an evicted one up to its first
+    eviction (reported: how far past it they agree); the
+    counters (4 injections, 1 preemption, 1 corruption, retries, a hung
+    iteration); one ``serve_request`` a rid; decode-kernel launches 12 a
+    decode attempt under ``fused``, a megakernel launch a decode attempt
+    under ``fused_layers`` (attempts: decode iterations plus retries); an
+    impossible TTFT objective degrades the next admission to 16 tokens,
+    phase 4's first 16; ``shutdown("evict")`` ends what is in flight FAILED
+    with ``EngineClosedError``, the partial tokens phase 4's prefix; ms
+    per token with the engine's telemetry on and off, alternated, beside
+    phase 10's.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -313,6 +344,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -615,13 +647,18 @@ def flagship_requests(vocab: int, seed: int, max_new: int):
     return reqs
 
 
-def serve(serve_cfg, model_cfg, seed: int, reqs, device: str = "cuda", adapters=None):
+def serve(serve_cfg, model_cfg, seed: int, reqs, device: str = "cuda", adapters=None,
+          telemetry=None):
     """Serve ``reqs`` on a fresh model from ``seed`` after a warm-up
     request; ``adapters`` ({name: factors}) are loaded into the engine
-    first. Returns (model, engine, results, wall s, kernel launches of the
-    timed run)."""
+    first, ``telemetry`` (a ``Telemetry.for_serving``) is the timed
+    engine's. Returns (model, engine, results, wall s, kernel launches of
+    the timed run)."""
+    import dataclasses
+
     import torch
 
+    from dtc_tpu_torch.config.schema import ChaosConfig
     from dtc_tpu_torch.models.gpt import GPT
     from dtc_tpu_torch.ops import decode_attention as da
     from dtc_tpu_torch.serve import Request, ServingEngine
@@ -634,7 +671,7 @@ def serve(serve_cfg, model_cfg, seed: int, reqs, device: str = "cuda", adapters=
     # run below does not pay first-call costs (cuBLAS workspaces, lazy
     # module loading).
     adapters = adapters or {}
-    warm = ServingEngine(model, serve_cfg)
+    warm = ServingEngine(model, dataclasses.replace(serve_cfg, chaos=ChaosConfig()))
     for name, fac in adapters.items():
         warm.load_adapter(name, fac)
     warm.submit(Request(rid="warm", prompt=list(reqs[0].prompt), max_new_tokens=4,
@@ -644,7 +681,7 @@ def serve(serve_cfg, model_cfg, seed: int, reqs, device: str = "cuda", adapters=
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
-    eng = ServingEngine(model, serve_cfg)
+    eng = ServingEngine(model, serve_cfg, telemetry=telemetry)
     for name, fac in adapters.items():
         eng.load_adapter(name, fac)
     for r in reqs:
@@ -2571,19 +2608,19 @@ def check_ring_launches(what: str, ranks: list[dict], name: str, per_step, n_ste
     return [r["ring_launches"] for r in recs]
 
 
-def fsdp_mesh_phase(ref32, smi: str, device: str = "cuda", bf16_steps: int = 10,
+def fsdp_mesh_phase(ref32, smi: str, device: str = "cuda", bf16_steps: int = 6,
                     ring_bf16_steps: int = 3):
     """Phase 23: (a) ``configs/train_config_3d.yaml`` (DP×FSDP×TP,
     ``collectives: overlapped``, data 4 × model 2: 8 gloo ranks sharing the
     card) in float32 at dropout 0 under ``xla`` and under
-    ``overlapped``, 4 steps each, held to one process on the config's batch
-    within 1e-4; then ``python -m dtc_tpu_torch.main --train_config_path
+    ``overlapped``, ``len(ref32)`` steps each, held to one process on the
+    config's batch within 1e-4; then ``python -m dtc_tpu_torch.main --train_config_path
     configs/train_config_3d.yaml --dataset synthetic --no-obs --backend gloo
     --device cuda:0`` in bf16, every rank inside a torch.profiler window on
     a card (the ring kernels' device time a step, each rank's busy time).
     (b) ``train_config_fsdp.yaml`` with ``attention: ring`` on data 2 ×
-    model 2 (4 ranks), float32, 4 steps, held to ``ref32`` (one process on
-    the same batch and seed), then bf16 for ``ring_bf16_steps`` steps
+    model 2 (4 ranks), float32, held to ``ref32`` (one process on the same
+    batch and seed), then bf16 for ``ring_bf16_steps`` steps
     (finite, every block launch on the tensor-core route). Returns the
     phase's record."""
     from dtc_tpu_torch.config.loader import load_config
@@ -2759,8 +2796,10 @@ def checkpoint_phase(smi: str, phase7_step_ms: float, steps: int = 20, warmup: i
     import torch
 
     from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.config.schema import ChaosConfig
     from dtc_tpu_torch.data.prefetch import split_to_device
     from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.resilience import ChaosInjector, RecoveryBus
     from dtc_tpu_torch.train import trainer as trainer_mod
     from dtc_tpu_torch.train.train_step import eval_loss
     from dtc_tpu_torch.utils.checkpoint import CheckpointManager
@@ -2829,50 +2868,50 @@ def checkpoint_phase(smi: str, phase7_step_ms: float, steps: int = 20, warmup: i
         del b, c
         torch.cuda.empty_cache()
 
-        # (b) a truncated newest step falls back to the previous one
+        # (b) a truncated newest step falls back to the previous one: the
+        # chaos harness damages it (its largest file cut to half)
         b_dir = tmp / "b_ckpt"
         steps_b = CheckpointManager(str(b_dir)).all_steps()
         check(steps_b == [10, 20], f"phase 24: B's steps {steps_b} (keep_n 2)")
-        victim = b_dir / "20" / "model.pt"
-        with open(victim, "r+b") as f:
-            f.truncate(victim.stat().st_size // 2)
-        reopened = CheckpointManager(str(b_dir))
+        sizes = {f.name: f.stat().st_size for f in (b_dir / "20").iterdir()}
+        bus = RecoveryBus()
+        injector = ChaosInjector(ChaosConfig(enabled=True, corrupt_ckpt_at_step=20,
+                                             corrupt_mode="truncate"), bus)
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(injector.maybe_corrupt_checkpoint(20, str(b_dir / "20")),
+                  "phase 24 (b): the chaos injector damaged nothing")
+        cut = [n for n, size in sizes.items() if (b_dir / "20" / n).stat().st_size != size]
+        check(len(cut) == 1 and bus.drain() == [("chaos", dict(kind="ckpt_corrupt", step=20,
+                                                                  mode="truncate"))],
+              f"phase 24 (b): files cut {cut}")
+        victim = b_dir / "20" / cut[0]
+        fallbacks = []
+        reopened = CheckpointManager(str(b_dir), on_event=lambda *a, **k: fallbacks.append(k))
         check(not reopened.verify_step(20), "phase 24: the truncated step 20 passed its manifest")
         _, got = reopened.restore_latest(map_location=device)
-        check(got == 10, f"phase 24: restore_latest landed on {got}, not 10")
+        check(got == 10 and [f["rejected_step"] for f in fallbacks] == [20],
+              f"phase 24: restore_latest landed on {got}, not 10; fallbacks {fallbacks}")
         rec["fallback"] = dict(truncated=str(victim.relative_to(tmp)), restored_step=got)
-        log(f"phase 24 (b): step 20's model.pt truncated to half: the manifest rejects it and "
-            f"restore_latest lands on step {got}")
+        log(f"phase 24 (b): step 20's {victim.name} truncated to half by the chaos injector: the "
+            f"manifest rejects it, restore_latest lands on step {got} and posts ckpt_fallback")
         shutil.rmtree(b_dir)
 
-        # (c) the rollback drill
-        real, calls = trainer_mod.train_step, [0]
-
-        def poisoned(model, opt, *args):
-            loss = real(model, opt, *args)
-            calls[0] += 1
-            if calls[0] == warmup + poison_step:
-                with torch.no_grad():
-                    for p in model.parameters():
-                        p.mul_(float("nan"))
-                loss = loss * float("nan")
-            return loss
-
-        trainer_mod.train_step = poisoned
-        try:
-            d, d_out, d_s = train("d", log_every=10, checkpoint_every=5)
-        finally:
-            trainer_mod.train_step = real
-        check("restored checkpoint step 10," in d_out and "skipping checkpoint at step 15"
-              in d_out, f"phase 24 (c): no rollback to 10 or no skipped save:\n{d_out}")
+        # (c) the rollback drill: the chaos harness's NaN
+        chaos = ChaosConfig(enabled=True, nan_at_step=poison_step)
+        d, d_out, d_s = train("d", log_every=10, checkpoint_every=5,
+                              resilience=dataclasses.replace(
+                                  tcfg0.resilience, checkpoint_keep_n=2, chaos=chaos))
+        check(f"CHAOS: injecting nan_loss ({{'step': {poison_step}}})" in d_out
+              and "restored checkpoint step 10," in d_out
+              and "skipping checkpoint at step 15" in d_out,
+              f"phase 24 (c): no injection, rollback to 10 or skipped save:\n{d_out}")
         check(d.losses == a.losses and d.eval_losses == a.eval_losses
               and _models_equal(a.model, d.model),
               f"phase 24 (c): the drill's losses {d.losses} / eval {d.eval_losses} != A's")
-        rec["rollback"] = dict(poison_step=poison_step, to_step=10, skipped_save=15,
-                               train_step_calls=calls[0], run_s=d_s)
-        log(f"phase 24 (c): NaN after the update of step {poison_step}: the save at 15 "
-            f"skipped, rolled back to step 10, {calls[0]} train steps in all; the {steps} "
-            f"losses, eval losses and parameters equal run A's bit for bit [{smi}]")
+        rec["rollback"] = dict(poison_step=poison_step, to_step=10, skipped_save=15, run_s=d_s)
+        log(f"phase 24 (c): resilience.chaos nan_at_step {poison_step}: the save at 15 "
+            f"skipped, rolled back to step 10; the {steps} losses, eval losses and parameters "
+            f"equal run A's bit for bit [{smi}]")
         del d
         shutil.rmtree(tmp / "d_ckpt")
         torch.cuda.empty_cache()
@@ -3912,6 +3951,272 @@ def telemetry_phase(smi: str, phase7: dict, steps: int = 40, device: str = "cuda
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the chaos harness and the recovery bus
+# ---------------------------------------------------------------------------
+
+def chaos_train_phase(smi: str, device: str = "cuda") -> dict:
+    """27(a): ``configs/train_config_dev_chaos.yaml`` as written on the
+    flagship (the sibling ``model_config.yaml``, bf16) through ``train()``,
+    only its output and checkpoint directories moved to a temporary one.
+    Gates: 40 steps with a finite last loss and 40 ``log.csv`` rows; the
+    ``chaos`` events ``nan_loss`` at 25 and ``ckpt_corrupt`` at 30, one
+    anomaly and one rollback to step 20; step 30 fails its manifest after
+    the run; a flight dump with the anomaly's reason; every flash launch
+    "tc", 12 forward and 24 backward a step run (warmup and replay
+    included). Reports the run's wall time and the rollback's cost: the
+    replayed steps, the detection-to-restore seconds and the replayed
+    steps' seconds. ``device``: ``cpu`` rehearses the phase (no launch or
+    timing gate is a card's there)."""
+    import dataclasses
+    import io
+    import tempfile
+
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.obs import read_jsonl, shard_path
+    from dtc_tpu_torch.obs.trace import FlightRecorder
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.train.trainer import train
+    from dtc_tpu_torch.utils.checkpoint import CheckpointManager
+
+    tcfg, mcfg, ocfg = load_config(ROOT / "configs" / "train_config_dev_chaos.yaml")
+    cuda = device.startswith("cuda")
+    reasons: list[str] = []
+    real_dump = FlightRecorder.dump
+
+    def dump(self, path, *, reason, **meta):
+        reasons.append(reason)
+        return real_dump(self, path, reason=reason, **meta)
+
+    with tempfile.TemporaryDirectory(prefix="dtc_chip_smoke_chaos_") as tmp:
+        out = Path(tmp) / "dev_chaos"
+        cfg = dataclasses.replace(tcfg, output_dir=str(out),
+                                  checkpoint_dir=str(out / "checkpoints"))
+        text = io.StringIO()
+        FlightRecorder.dump = dump
+        try:
+            zero_flash_counts()                            # the main path starts here
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                res = train(cfg, mcfg, ocfg, device=None if cuda else device)
+            wall = time.perf_counter() - t0
+            launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+        finally:
+            FlightRecorder.dump = real_dump
+        routes = check_flash_routes("phase 27(a)", mcfg.compute_dtype)
+        events = read_jsonl(shard_path(str(out / "obs"), 0))
+        rows = (out / "log.csv").read_text().splitlines()
+        check(len(res.losses) == cfg.steps == 40 and math.isfinite(res.losses[-1])
+              and len(rows) == cfg.steps + 1,
+              f"phase 27(a): {len(res.losses)} losses (last {res.losses[-1:]}), log.csv "
+              f"{len(rows) - 1} rows")
+        chaos = sorted((e["kind"], e["step"]) for e in events if e["etype"] == "chaos")
+        rollbacks = [e for e in events if e["etype"] == "recovery" and e["action"] == "rollback"]
+        anomalies = [e for e in events if e["etype"] == "anomaly"]
+        check(chaos == [("ckpt_corrupt", 30), ("nan_loss", 25)] and len(anomalies) == 1
+              and [e["to_step"] for e in rollbacks] == [20],
+              f"phase 27(a): chaos {chaos}, anomalies {anomalies}, rollbacks {rollbacks}\n"
+              f"{text.getvalue()}")
+        check(not CheckpointManager(cfg.checkpoint_dir).verify_step(30),
+              "phase 27(a): the corrupted step 30 passed its manifest")
+        check(f"anomaly: {anomalies[0]['reason']}" in reasons,
+              f"phase 27(a): flight dumps {reasons}")
+        step_events = [e for e in events if e["etype"] == "step"]
+        n_run = cfg.warmup_steps + len(step_events)
+        check(not cuda or launches == (mcfg.n_layers * n_run,
+                                       mcfg.n_layers * n_run * fa.BWD_KERNELS),
+              f"phase 27(a): flash launches {launches} for {n_run} steps run")
+        rb = rollbacks[0]
+        replay = [e for e in events[events.index(rb):]
+                  if e["etype"] == "step" and e["step"] <= rb["step"]]
+        restore_s = rb["t_restored"] - rb["t_detect"]
+        replay_s = sum(e["step_time_s"] for e in replay)
+    rec = dict(wall_s=wall, losses=res.losses, chaos=chaos, to_step=rb["to_step"],
+               detected_at=rb["step"], replayed_steps=len(replay), restore_s=restore_s,
+               replay_s=replay_s, steps_run=n_run, flash_launches=launches, flash_routes=routes,
+               flight_dumps=reasons,
+               hung_steps=sum(e["etype"] == "hung_step" for e in events), card=smi)
+    log(f"phase 27(a) train_config_dev_chaos.yaml on the flagship (bf16): 40 steps in "
+        f"{wall:.3f} s wall, loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f}; chaos {chaos}; "
+        f"the anomaly at step {rb['step']} rolled back to {rb['to_step']}: "
+        f"{len(replay)} steps replayed ({replay_s:.6f} s) after a {restore_s:.6f} s restore; "
+        f"step 30 fails its manifest; flight dumps {reasons}; flash launches fwd "
+        f"{launches[0]} / bwd {launches[1]} for {n_run} steps run, by route {routes} [{smi}]")
+    return rec
+
+
+#: Phase 27(b)'s faults, at scheduler iterations.
+SERVE_FAULTS = dict(enabled=True, serve_preempt_at_step=4, serve_corrupt_page_at_step=6,
+                    serve_poison_logits_at_step=8, serve_stall_at_step=10, stall_s=0.5)
+
+
+def chaos_serve_phase(scfg, seed: int, max_new: int, tokens_fused: dict, tokens_fl: dict,
+                      fl_rec: dict, smi: str, device: str = "cuda") -> dict:
+    """27(b): phase 4's six requests under ``fused`` and ``fused_layers``,
+    bf16 and float32, with ``Telemetry.for_serving`` into a temporary
+    directory, ``verify_pages_every: 1`` and :data:`SERVE_FAULTS`: tokens
+    (bf16: phases 4 and 10 in this process; float32: ``generate()``), the
+    counters, one ``serve_request`` a rid in the shard, the decode kernel
+    12 times and the megakernel once a decode attempt; then an impossible
+    TTFT objective degrading the next admission, ``shutdown("evict")``, and
+    ms per token with the telemetry on and off, alternated. Tokens: in
+    float32 every request's; in bf16 those of the requests never evicted,
+    and of an evicted one those before its first eviction (its re-prefill
+    rounds K/V as the prefill path does, not as the decode steps did)."""
+    import dataclasses
+    import io
+    import tempfile
+
+    import torch
+
+    from dtc_tpu_torch.config.loader import load_serve_config
+    from dtc_tpu_torch.config.schema import ChaosConfig, SloConfig
+    from dtc_tpu_torch.generate import generate
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.obs import read_jsonl, shard_path
+    from dtc_tpu_torch.obs.telemetry import Telemetry
+    from dtc_tpu_torch.serve import EngineClosedError, ServingEngine
+
+    rec: dict = dict(card=smi, faults=SERVE_FAULTS)
+    chaos_cfg = dataclasses.replace(scfg, verify_pages_every=1,
+                                    chaos=ChaosConfig(**SERVE_FAULTS))
+    with tempfile.TemporaryDirectory(prefix="dtc_chip_smoke_serve_chaos_") as tmp:
+        for backend, want_bf16 in (("fused", tokens_fused), ("fused_layers", tokens_fl)):
+            for dtype in ("bfloat16", "float32"):
+                what = f"phase 27(b) {backend} {dtype}"
+                _, mc = load_serve_config(ROOT / "configs" / "serve_config.yaml", model_overrides={
+                    "compute_dtype": dtype, "decode_attention": backend})
+                reqs = flagship_requests(mc.vocab_size, seed, max_new)
+                tele = Telemetry.for_serving(str(Path(tmp) / f"{backend}_{dtype}"))
+                text = io.StringIO()
+                with contextlib.redirect_stdout(text):
+                    model, eng, res, wall, launched = serve(chaos_cfg, mc, seed, reqs,
+                                                            device=device, telemetry=tele)
+                tele.flush()
+                c = eng.counters
+                if dtype == "bfloat16":
+                    want = want_bf16
+                else:
+                    want = {r.rid: generate(model, [list(r.prompt)], max_new)[0].tolist()
+                            for r in reqs}
+                got = {r.rid: list(res[r.rid].tokens) for r in reqs}
+                tele.flush()
+                events = read_jsonl(shard_path(str(Path(tmp) / f"{backend}_{dtype}" / "obs"), 0))
+                # A re-prefill recomputes the evicted request's K/V through the
+                # prefill path: in bf16 its rounding is not the decode steps',
+                # so past its first eviction a request may part from the clean
+                # run; before it, and for every request never evicted, the
+                # tokens must be equal; in float32 all of them.
+                evicted_at = {}
+                for e in events:
+                    if e["etype"] == "serve_evict":
+                        evicted_at.setdefault(e["rid"], e["generated"])
+                agree = {rid: next((i for i, (a, b) in enumerate(zip(got[rid], want[rid]))
+                                    if a != b), min(len(got[rid]), len(want[rid])))
+                         for rid in want}
+                must = {rid: (len(want[rid]) if dtype == "float32" or rid not in evicted_at
+                              else evicted_at[rid]) for rid in want}
+                short = sorted(rid for rid in want if agree[rid] < must[rid])
+                check(all(res[r.rid].state.value == "done" and len(got[r.rid]) == max_new
+                          for r in reqs) and not short,
+                      f"{what}: states {[res[r.rid].state.value for r in reqs]}, tokens part "
+                      f"from {'phase 4/10' if dtype == 'bfloat16' else 'generate()'} too early "
+                      f"for {short} (agree {agree}, evicted at {evicted_at})")
+                check((c["chaos_injections"], c["serve_preemptions"], c["serve_corruptions"])
+                      == (4, 1, 1) and c["serve_retries"] >= 1 and c["serve_hung_steps"] >= 1,
+                      f"{what}: counters {dict(c)}")
+                terminal = sorted(e["rid"] for e in events if e["etype"] == "serve_request")
+                check(terminal == sorted(r.rid for r in reqs), f"{what}: serve_request {terminal}")
+                attempts = c["serve_decode_steps"] + c["serve_retries"]
+                want_launch = (dict(decode_attention=mc.n_layers * attempts, fused_layers=0)
+                               if backend == "fused"
+                               else dict(decode_attention=0, fused_layers=attempts))
+                check(launched == want_launch and attempts > 0,
+                      f"{what}: launches {launched} for {attempts} decode attempts "
+                      f"({c['serve_decode_steps']} iterations + {c['serve_retries']} retries)")
+                rec[f"{backend}_{dtype}"] = dict(
+                    evicted_at=evicted_at, tokens_equal={rid: agree[rid] for rid in want},
+                    all_equal=all(got[rid] == want[rid] for rid in want),
+                    launches=launched, decode_attempts=attempts,
+                    decode_iterations=c["serve_decode_steps"], retries=c["serve_retries"],
+                    hung_steps=c["serve_hung_steps"], wall_s=wall,
+                    evicted=[r.rid for r in reqs if res[r.rid].n_evictions],
+                    events=len(events), counters=dict(c))
+                tele.close()
+                ref = ("phase " + ("4" if backend == "fused" else "10") if dtype == "bfloat16"
+                       else "generate()")
+                log(f"{what}: 6/6 done; tokens equal to {ref}'s for "
+                    f"{sum(got[rid] == want[rid] for rid in want)}/6 requests (the leading "
+                    f"tokens each agrees on {agree}; evicted and re-prefilled after "
+                    f"{evicted_at} tokens); "
+                    f"chaos {c['chaos_injections']}, preemptions {c['serve_preemptions']}, "
+                    f"corruptions {c['serve_corruptions']}, retries {c['serve_retries']}, hung "
+                    f"iterations {c['serve_hung_steps']}; launches {launched} for {attempts} "
+                    f"decode attempts; {len(events)} events in the shard [{smi}]")
+                del model, eng, res
+                torch.cuda.empty_cache()
+
+        # an SLO breach degrades the next admission; shutdown("evict")
+        _, mc = load_serve_config(ROOT / "configs" / "serve_config.yaml")
+        reqs = flagship_requests(mc.vocab_size, seed, max_new)
+        model = GPT(mc, device=device, seed=seed)
+        eng = ServingEngine(model, dataclasses.replace(scfg, slo=SloConfig(
+            ttft_p99_s=1e-9, window=8, min_samples=1, check_every=1)))
+        eng.submit(reqs[0])
+        eng.run()
+        eng.submit(reqs[3])
+        res = eng.run()
+        cap = scfg.degrade_max_new_tokens
+        check(not res["r0"].degraded and res["r3"].degraded and eng.slo.degrade_active
+              and res["r3"].tokens == tokens_fused["r3"][:cap],
+              f"phase 27(b) SLO: r0 degraded {res['r0'].degraded}, r3 degraded "
+              f"{res['r3'].degraded} with {len(res['r3'].tokens)} tokens")
+        rec["slo_degraded_tokens"] = len(res["r3"].tokens)
+        eng.shutdown()
+        eng = ServingEngine(model, scfg)
+        for r in flagship_requests(mc.vocab_size, seed, max_new):
+            eng.submit(r)
+        for _ in range(8):
+            eng.step()
+        res = eng.shutdown(mode="evict", reason="preemption notice")
+        check(all(r.state.value == "failed" and isinstance(r.error, EngineClosedError)
+                  and r.tokens == tokens_fused[rid][:len(r.tokens)] for rid, r in res.items())
+              and any(r.tokens for r in res.values()),
+              f"phase 27(b) shutdown: {[(rid, r.state.value, len(r.tokens)) for rid, r in res.items()]}")
+        rec["shutdown_partial_tokens"] = {rid: len(r.tokens) for rid, r in res.items()}
+        log(f"phase 27(b): ttft_p99_s 1e-9 breached and the next admission was capped at {cap} "
+            f"tokens (phase 4's first {cap}); shutdown('evict') after 8 iterations: every "
+            f"request FAILED with EngineClosedError, partial tokens "
+            f"{rec['shutdown_partial_tokens']} (phase 4's prefixes)")
+        del model, eng
+        torch.cuda.empty_cache()
+
+        # ms per token, the engine's telemetry off and on, alternated
+        _, mc = load_serve_config(ROOT / "configs" / "serve_config.yaml",
+                                  model_overrides={"decode_attention": "fused_layers"})
+        mspt = {"off": [], "on": []}
+        flags = {"off": [], "on": []}   # the watchdog's flags, and flight dumps written
+        for i, mode in enumerate(("off", "on", "on", "off")):
+            tele = (Telemetry.for_serving(str(Path(tmp) / f"timing_{i}")) if mode == "on"
+                    else None)
+            reqs = flagship_requests(mc.vocab_size, seed, max_new)
+            model, eng, res, wall, _ = serve(scfg, mc, seed, reqs, device=device, telemetry=tele)
+            mspt[mode].append(sum(res[r.rid].ms_per_token for r in reqs) / len(reqs))
+            flags[mode].append((eng.counters["serve_hung_steps"],
+                                len(tele.recorder.dumps) if tele is not None else 0))
+            if tele is not None:
+                tele.close()
+            del model, eng, res
+            torch.cuda.empty_cache()
+    rec["ms_per_token"] = mspt
+    rec["hung_steps_and_dumps"] = flags
+    log(f"phase 27(b) fused_layers ms/token, telemetry off {mspt['off']} / on {mspt['on']} "
+        f"(runs off, on, on, off; phase 10: {fl_rec['ms_per_token_mean']:.6f}); hung "
+        f"iterations and flight dumps written a run: off {flags['off']}, on {flags['on']} "
+        f"[{smi}]")
+    return rec
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default="", help="write every measured number to this JSON file")
@@ -3943,6 +4248,15 @@ def main() -> int:
 
     record: dict = {}
     wall0 = time.perf_counter()
+    walls: dict[str, float] = {}
+    running = [wall0, "1"]
+
+    def mark(phase: str) -> None:
+        """Close the running phase's wall seconds and start ``phase``'s."""
+        now = time.perf_counter()
+        walls[running[1]] = walls.get(running[1], 0.0) + now - running[0]
+        running[:] = [now, phase]
+
     try:
         # 1. device
         smi = nvidia_smi_line()
@@ -3952,14 +4266,34 @@ def main() -> int:
         record["device"] = dict(name=kind, nvidia_smi=smi, torch=torch.__version__,
                                 cuda=torch.version.cuda)
 
-        # 2. build
+        mark("2")
+        # 2. build: one nvcc per library, all started together. The six
+        # megakernel libraries take minutes: phases 3, 5, 6 and 8 (kernel
+        # cases timed on the device, and correctness) run while they
+        # compile; the host-timed phases 4 and 7 wait for the whole build.
         from dtc_tpu_torch.ops import _build
 
-        took = _build.build_all()
-        for name, sec in took.items():
-            log(f"build {name}: {sec:.1f} s -> {_build.library_path(name).name}")
-            for inst, rep in ptxas_report(_build.log_path(name).read_text()):
-                log(f"  ptxas {inst}: {rep}")
+        mk_names = list(_build._MEGAKERNELS)
+        mk_took: dict = {}
+        mk_failed: list = []
+
+        def build_megakernels() -> None:
+            try:
+                mk_took.update(_build.build_all(mk_names))
+            except Exception as e:  # raised in this thread when phase 9 needs them
+                mk_failed.append(e)
+
+        mk_build = threading.Thread(target=build_megakernels, name="megakernel-build")
+        mk_build.start()
+        took = _build.build_all([n for n in _build._SIGNATURES if n not in mk_names])
+
+        def log_builds(took: dict) -> None:
+            for name, sec in took.items():
+                log(f"build {name}: {sec:.1f} s -> {_build.library_path(name).name}")
+                for inst, rep in ptxas_report(_build.log_path(name).read_text()):
+                    log(f"  ptxas {inst}: {rep}")
+
+        log_builds(took)
         record["build_s"] = took
         # the FSDP ring's bf16 instances: dynamic shared memory a block, and
         # proof in the SASS that they run wgmma (HGMMA) on TMA loads (UTMALDG)
@@ -3998,6 +4332,7 @@ def main() -> int:
                   f"flash_attention_tc: {kern} instances without a tensor-core or TMA "
                   f"instruction in the SASS: {insts}")
 
+        mark("3")
         # 3. kernels vs plain
         from dtc_tpu_torch.ops import decode_attention as da
 
@@ -4021,57 +4356,19 @@ def main() -> int:
             for i, (name, b, s, h, d, qd, kd, st, pr) in enumerate(cases)
         ]
         record["kernel_cases"] = results
+        # ms and plain_ms replay CUDA graphs (device time); wrapper_ms
+        # dispatches from the host, which the megakernel build shares here
+        record["kernel_cases_wrapper_ms"] = "host-dispatched, during the megakernel build"
+        log("phase 3: wrapper_ms is host-dispatched and was taken while the megakernel "
+            "libraries build beside it (not comparable with readings on an idle host); ms and "
+            "plain_ms are CUDA-graph device times")
 
-        # 4. serve the flagship as configured
         from dtc_tpu_torch.config.loader import load_serve_config
 
         scfg, mcfg = load_serve_config(ROOT / "configs" / "serve_config.yaml")
         max_new = 64
-        reqs = flagship_requests(mcfg.vocab_size, args.seed, max_new)
-        mem_base = torch.cuda.memory_allocated()  # what earlier phases still hold
-        log(f"device memory still allocated before serving: {mem_base} B")
-        model, eng, res, wall, launched = serve(scfg, mcfg, args.seed, reqs)
-        launches = launched["decode_attention"]
-        steps = eng.counters["serve_decode_steps"]
-        for r in reqs:
-            rr = res[r.rid]
-            check(rr.state.value == "done", f"{r.rid}: {rr.state.value} ({rr.error})")
-            check(len(rr.tokens) == max_new, f"{r.rid}: {len(rr.tokens)} tokens")
-            check(all(0 <= t < mcfg.vocab_size for t in rr.tokens), f"{r.rid}: token out of vocab")
-        check(eng.counters["serve_prefix_builds"] == 1 and eng.counters["serve_prefix_hits"] == 1,
-              f"prefix store not shared: {dict(eng.counters)}")
-        check(launches == mcfg.n_layers * steps and steps > 0,
-              f"decode attention launched {launches} times for {steps} decode "
-              f"iterations (want {mcfg.n_layers} per iteration)")
-        ttft = [res[r.rid].ttft_s for r in reqs]
-        mspt = [res[r.rid].ms_per_token for r in reqs]
-        n_tok = sum(len(res[r.rid].tokens) for r in reqs)
-        serve_rec = dict(
-            requests=len(reqs), tokens=n_tok, decode_iterations=steps,
-            kernel_launches=launches, wall_s=wall,
-            ttft_p50_s=percentile(ttft, 0.5), ttft_max_s=max(ttft),
-            ms_per_token_mean=sum(mspt) / len(mspt), tokens_per_s=n_tok / wall,
-            peak_allocated=torch.cuda.max_memory_allocated() - mem_base,
-            counters=dict(eng.counters), card=smi,
-        )
-        record["serve_bf16"] = serve_rec
-        log(f"serve bf16: 6/6 done, {n_tok} tokens, {steps} decode iterations, "
-            f"{launches} kernel launches (= {mcfg.n_layers} x {steps}) [{smi}]")
-        log(f"serve bf16: ttft_p50 {serve_rec['ttft_p50_s']:.6f} s, ms/token "
-            f"{serve_rec['ms_per_token_mean']:.6f}, tokens/s {serve_rec['tokens_per_s']:.3f}, "
-            f"peak allocated {serve_rec['peak_allocated']} B [{smi}]")
-        main_launches = launches
-        if args.profile:
-            prof = profile_decode(model, scfg, flagship_requests(mcfg.vocab_size, args.seed, max_new))
-            record["profile_bf16"] = prof
-            log(f"profile bf16: {prof['iterations']} decode iterations, wall "
-                f"{prof['wall_s']:.6f} s, device busy {prof['device_busy_s']:.6f} s "
-                f"(share {prof['busy_share']:.4f}), {prof['kernel_launches']} kernels [{smi}]")
-            for row in prof["top"]:
-                log(f"  {row['device_ms']:.4f} ms x{row['count']} {row['name']}")
-        del model, eng
-        torch.cuda.empty_cache()
 
+        mark("5")
         # 5. serve in float32: token-identical to generate()
         from dtc_tpu_torch.generate import generate
 
@@ -4095,6 +4392,7 @@ def main() -> int:
         del model, eng
         torch.cuda.empty_cache()
 
+        mark("6")
         # 6. flash-attention kernels vs plain (TF32 off since phase 5)
         from dtc_tpu_torch.ops import flash_attention as fa
 
@@ -4134,6 +4432,78 @@ def main() -> int:
         record["flash_dq_faults"] = dq_faults
         torch.cuda.empty_cache()
 
+        mark("8")
+        # 8. path agreement: flash kernels vs dense attention, float32, at
+        # head dims 32 and 48 (the latter the JAX package's transpose-layout
+        # family, at phase 6's fp32_d48 shape)
+        record["path_agreement"] = {}
+        for head_dim, seq in ((32, 256), (48, 1024)):
+            agree, pa_launches = path_agreement(args.seed, head_dim=head_dim, max_seq_len=seq)
+            gap = max(abs(a - b) for a, b in zip(agree["flash"], agree["dense"]))
+            record["path_agreement"][f"d{head_dim}"] = dict(
+                agree, max_abs_diff=gap, flash_launches=pa_launches)
+            log(f"path agreement (8 heads of {head_dim}, T {seq}): flash {agree['flash']} vs dense "
+                f"{agree['dense']}: max abs diff {gap:.3e} (limit 1e-4); flash launches "
+                f"{pa_launches}")
+            check(gap <= 1e-4, f"flash and dense training disagree by {gap} at D {head_dim}")
+
+        # the megakernel libraries: their build ran beside phases 3, 5, 6 and 8
+        mark("2 (megakernel build, waited for)")
+        mk_build.join()
+        if mk_failed:
+            raise mk_failed[0]
+        log_builds(mk_took)
+        record["build_s"].update(mk_took)
+
+        mark("4")
+        # 4. serve the flagship as configured
+        reqs = flagship_requests(mcfg.vocab_size, args.seed, max_new)
+        mem_base = torch.cuda.memory_allocated()  # what earlier phases still hold
+        log(f"device memory still allocated before serving: {mem_base} B")
+        model, eng, res, wall, launched = serve(scfg, mcfg, args.seed, reqs)
+        launches = launched["decode_attention"]
+        steps = eng.counters["serve_decode_steps"]
+        for r in reqs:
+            rr = res[r.rid]
+            check(rr.state.value == "done", f"{r.rid}: {rr.state.value} ({rr.error})")
+            check(len(rr.tokens) == max_new, f"{r.rid}: {len(rr.tokens)} tokens")
+            check(all(0 <= t < mcfg.vocab_size for t in rr.tokens), f"{r.rid}: token out of vocab")
+        check(eng.counters["serve_prefix_builds"] == 1 and eng.counters["serve_prefix_hits"] == 1,
+              f"prefix store not shared: {dict(eng.counters)}")
+        tokens_fused = {r.rid: list(res[r.rid].tokens) for r in reqs}  # phase 27's reference
+        check(launches == mcfg.n_layers * steps and steps > 0,
+              f"decode attention launched {launches} times for {steps} decode "
+              f"iterations (want {mcfg.n_layers} per iteration)")
+        ttft = [res[r.rid].ttft_s for r in reqs]
+        mspt = [res[r.rid].ms_per_token for r in reqs]
+        n_tok = sum(len(res[r.rid].tokens) for r in reqs)
+        serve_rec = dict(
+            requests=len(reqs), tokens=n_tok, decode_iterations=steps,
+            kernel_launches=launches, wall_s=wall,
+            ttft_p50_s=percentile(ttft, 0.5), ttft_max_s=max(ttft),
+            ms_per_token_mean=sum(mspt) / len(mspt), tokens_per_s=n_tok / wall,
+            peak_allocated=torch.cuda.max_memory_allocated() - mem_base,
+            counters=dict(eng.counters), card=smi,
+        )
+        record["serve_bf16"] = serve_rec
+        log(f"serve bf16: 6/6 done, {n_tok} tokens, {steps} decode iterations, "
+            f"{launches} kernel launches (= {mcfg.n_layers} x {steps}) [{smi}]")
+        log(f"serve bf16: ttft_p50 {serve_rec['ttft_p50_s']:.6f} s, ms/token "
+            f"{serve_rec['ms_per_token_mean']:.6f}, tokens/s {serve_rec['tokens_per_s']:.3f}, "
+            f"peak allocated {serve_rec['peak_allocated']} B [{smi}]")
+        main_launches = launches
+        if args.profile:
+            prof = profile_decode(model, scfg, flagship_requests(mcfg.vocab_size, args.seed, max_new))
+            record["profile_bf16"] = prof
+            log(f"profile bf16: {prof['iterations']} decode iterations, wall "
+                f"{prof['wall_s']:.6f} s, device busy {prof['device_busy_s']:.6f} s "
+                f"(share {prof['busy_share']:.4f}), {prof['kernel_launches']} kernels [{smi}]")
+            for row in prof["top"]:
+                log(f"  {row['device_ms']:.4f} ms x{row['count']} {row['name']}")
+        del model, eng
+        torch.cuda.empty_cache()
+
+        mark("7")
         # 7. train the flagship as the command line would
         steps, warmup = 30, 5
         out_dir = ROOT / "build" / "chip_smoke_train"
@@ -4186,20 +4556,7 @@ def main() -> int:
                 log(f"  {row['device_ms']:.4f} ms x{row['count']} {row['name']}")
             torch.cuda.empty_cache()
 
-        # 8. path agreement: flash kernels vs dense attention, float32, at
-        # head dims 32 and 48 (the latter the JAX package's transpose-layout
-        # family, at phase 6's fp32_d48 shape)
-        record["path_agreement"] = {}
-        for head_dim, seq in ((32, 256), (48, 1024)):
-            agree, pa_launches = path_agreement(args.seed, head_dim=head_dim, max_seq_len=seq)
-            gap = max(abs(a - b) for a, b in zip(agree["flash"], agree["dense"]))
-            record["path_agreement"][f"d{head_dim}"] = dict(
-                agree, max_abs_diff=gap, flash_launches=pa_launches)
-            log(f"path agreement (8 heads of {head_dim}, T {seq}): flash {agree['flash']} vs dense "
-                f"{agree['dense']}: max abs diff {gap:.3e} (limit 1e-4); flash launches "
-                f"{pa_launches}")
-            check(gap <= 1e-4, f"flash and dense training disagree by {gap} at D {head_dim}")
-
+        mark("9")
         # 9. the decode megakernel vs plain at the flagship widths and depth
         import dataclasses
 
@@ -4278,6 +4635,7 @@ def main() -> int:
               f"decode_fused: {len(mk_insts)} kernel instances, or no bulk copy in the SASS: "
               f"{mk_sass}")
 
+        mark("9b")
         # 9b. the megakernel's LoRA sites: rank 8 on all six sites (the adapter
         # block of finetune_lora.yaml), slots [0, 1, 2, 1] of a stack whose slot
         # 0 is the base, scale 2 and 8/3 (not a bf16 value)
@@ -4319,6 +4677,7 @@ def main() -> int:
         del lora_models, model_l, stack
         torch.cuda.empty_cache()
 
+        mark("10")
         # 10. serve the flagship under fused_layers: one megakernel launch per
         # decode step, no per-layer decode kernel
         mcfg_fl = dataclasses.replace(mcfg, decode_attention="fused_layers")
@@ -4365,6 +4724,7 @@ def main() -> int:
         del model, eng
         torch.cuda.empty_cache()
 
+        mark("10b")
         # 10b. float32 under fused_layers: the engine's tokens equal generate()'s
         _, mcfg32_fl = load_serve_config(
             ROOT / "configs" / "serve_config.yaml",
@@ -4384,6 +4744,7 @@ def main() -> int:
         del model, eng
         torch.cuda.empty_cache()
 
+        mark("11")
         # 11. speculative serving on the megakernel: token-identical to phase 10
         from dtc_tpu_torch.config.schema import SpecConfig
 
@@ -4427,10 +4788,12 @@ def main() -> int:
         del model, eng
         torch.cuda.empty_cache()
 
+        mark("12")
         # 12. multi-tenant adapter serving on the flagship
         ad_rec = serve_adapters(scfg, mcfg_ad, args.seed, max_new, tokens_fl, fl_rec, smi)
         record["serve_adapters"] = ad_rec
 
+        mark("13")
         # 13. long-context training: T 4096 from the command line, T 8192 as
         # bench.py's long_context_t8192_b2
         from dtc_tpu_torch.utils.metrics import train_memory_bytes
@@ -4495,6 +4858,7 @@ def main() -> int:
                 torch.cuda.empty_cache()
         record["long_context"] = long_rec
 
+        mark("14")
         # 14. the remat modes at T 4096: the same bits, their launches and
         # their peak memory
         modes, rtcfg, rmcfg = remat_modes()
@@ -4519,6 +4883,7 @@ def main() -> int:
                            for m, v in modes.items()}
         log(f"remat: losses of the four modes equal bit for bit; peak memory {peaks} [{smi}]")
         torch.cuda.empty_cache()
+        mark("14b")
         # 14b. the head + CE's float32 (B·T, V) temporaries: each mode's peak
         # with the CE on all 16,384 rows at once (as before it was chunked)
         # beside its peak now, and an allocation trace of one step each way
@@ -4548,6 +4913,7 @@ def main() -> int:
                 log(f"  {len(sizes)} x {sizes[0]} B (sum {sum(sizes)} B) from {where}")
         torch.cuda.empty_cache()
 
+        mark("15")
         # 15. the ring's block kernels against their plain versions
         block_specs = [
             ("bf16_tc1024", 2, 1024, 16, 32, "bfloat16"),   # T 8192 over a ring of 4
@@ -4566,6 +4932,7 @@ def main() -> int:
                   for i, (name, b, tc, h, d, dt) in enumerate(block_specs)]
         record["block_cases"] = blocks
 
+        mark("16")
         # 16. the zigzag ring on one card: R virtual ranks at (B 2, T 8192,
         # H 16, D 32), then one training step of the model on the ring
         ring_recs = [ring_on_one_card(r, 2, 8192, 16, 32, dt, seed=args.seed + 160 + i)
@@ -4574,6 +4941,7 @@ def main() -> int:
         record["ring_one_card"] = ring_recs
         record["ring_training"] = ring_training_step(4, args.seed)
 
+        mark("17")
         # 17. the trainer over NCCL at world size 1: bit-equal to one process
         from dtc_tpu_torch.config.loader import load_config
 
@@ -4615,6 +4983,7 @@ def main() -> int:
                     log(f"  {row}")
             torch.cuda.empty_cache()
 
+        mark("18")
         # 18. the FSDP ring's kernels (rows 17-18) against their plain
         # versions over 4 virtual ranks, at the flagship's dense sites
         overlap_specs = [
@@ -4646,10 +5015,12 @@ def main() -> int:
                    for i, (name, b, t, k, n, sa, dt, it) in enumerate(overlap_specs)]
         record["overlap_cases"] = overlap
 
+        mark("19")
         # 19. FSDP over 4 virtual ranks on one card, overlapped: the dense
         # sites run the kernels (the launches of the kernels line)
         record["fsdp_virtual"] = fsdp_virtual(args.seed, profile=args.profile)
 
+        mark("20")
         # 20. the FSDP trainer over NCCL at world size 1: xla bit-equal to one
         # process, overlapped inert
         steps20 = 10
@@ -4678,6 +5049,7 @@ def main() -> int:
             f"This proves the process group, the gathers and reduce-scatters and rank-0 "
             f"logging on one card, not several cards [{smi}]")
 
+        mark("21-22")
         # 21-22. tensor and pipeline parallelism over gloo ranks sharing the
         # card, each rank's flash kernels on its heads / its stage's layers
         ref32 = one_process_fp32(4)
@@ -4685,15 +5057,18 @@ def main() -> int:
         record["tp"] = tensor_parallel_phase(ref32, smi)
         record["pp"] = pipeline_phase(ref32, smi)
 
+        mark("23")
         # 23. DP×FSDP×TP (train_config_3d.yaml) and FSDP with ring attention
         # over gloo ranks sharing the card: the FSDP ring's kernels over each
         # model index's data group, on the Megatron slices
         record["fsdp_mesh"] = fsdp_mesh_phase(ref32, smi)
 
+        mark("24")
         # 24. checkpoints, resume, held-out eval and the guard's rollback on
         # the flagship
         record["checkpoints"] = checkpoint_phase(smi, train_rec["step_ms_median"])
 
+        mark("25")
         # 25. bf16_mixed master weights; the LoRA finetune -> eval gate ->
         # export -> serve loop on the flagship
         walls25 = [time.perf_counter()]
@@ -4718,10 +5093,27 @@ def main() -> int:
         log(f"phase 25 wall {walls25[-1] - walls25[0]:.1f} s: (a) {parts25[0]:.1f}, (b) "
             f"{parts25[1]:.1f}, (c) {parts25[2]:.1f}")
 
+        mark("26")
         # 26. the telemetry subsystem in the trainer: the committed config
         # as written, obs on against off, the devprof capture, memory, costs
         record["telemetry"] = telemetry_phase(smi, train_rec)
         torch.cuda.empty_cache()
+
+        mark("27")
+        # 27. the chaos harness and the recovery bus: the dev chaos config on
+        # the flagship, and the serving drill under both decode backends
+        walls27 = [time.perf_counter()]
+        record["chaos_train"] = chaos_train_phase(smi)
+        torch.cuda.empty_cache()
+        walls27.append(time.perf_counter())
+        record["chaos_serve"] = chaos_serve_phase(scfg, args.seed, max_new, tokens_fused,
+                                                  tokens_fl, fl_rec, smi)
+        walls27.append(time.perf_counter())
+        record["phase27_wall_s"] = dict(total=walls27[-1] - walls27[0],
+                                        a=walls27[1] - walls27[0], b=walls27[2] - walls27[1])
+        log(f"phase 27 wall {walls27[-1] - walls27[0]:.1f} s: (a) {walls27[1] - walls27[0]:.1f}, "
+            f"(b) {walls27[2] - walls27[1]:.1f}")
+        chaos_serve = record["chaos_serve"]
 
         main = results[0]
         kernels = [dict(
@@ -4733,6 +5125,8 @@ def main() -> int:
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
             launches_trained_adapter=ft_rec["serve"]["fused"]["decode_attention_launches"],
+            launches_chaos_serve={dt: chaos_serve[f"fused_{dt}"]["launches"]["decode_attention"]
+                                  for dt in ("bfloat16", "float32")},
         )]
         # The flash rows: the plan's route of the timed bf16 kernels ("tc":
         # tensor cores) and the main path's launches by kind and route; the
@@ -4769,6 +5163,8 @@ def main() -> int:
                 launches_telemetry=record["telemetry"]["launches"][part == "bwd"],
                 route_launches_telemetry=record["telemetry"]["routes"],
                 capture_kernels_telemetry=record["telemetry"]["capture"]["flash_kernels"][part],
+                launches_chaos_train=record["chaos_train"]["flash_launches"][part == "bwd"],
+                route_launches_chaos_train=record["chaos_train"]["flash_routes"],
                 **({"dq_ms": fl["dq_ms"], "dkv_ms": fl["dkv_ms"],
                     "dq_bound_ms": fl["dq_bound_ms"], "dq_route_launches": routes7["dq"]}
                    if part == "bwd" else {}),
@@ -4784,6 +5180,8 @@ def main() -> int:
             yardstick_per_layer_ms=mk_flag["per_layer_ms"], t4_ms=mk_verify["ms"],
             ladder_ms={tag: r["ms"] for tag, r in mk_ladder.items()},
             ladder_bound_ms={tag: r["bound_ms"] for tag, r in mk_ladder.items()},
+            launches_chaos_serve={dt: chaos_serve[f"fused_layers_{dt}"]["launches"]["fused_layers"]
+                                  for dt in ("bfloat16", "float32")},
         ))
         kernels.append(dict(
             name="decode_fused_layers_lora", route="cuda",
@@ -4883,6 +5281,9 @@ def main() -> int:
                                            record["fsdp_mesh"]["ring_launches_per_rank_step"]],
             ))
         record["kernels"] = kernels
+        mark("end")
+        record["phase_wall_s"] = walls
+        log("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     except Exception:
         traceback.print_exc()
         log("FAIL")

@@ -207,8 +207,10 @@ class ModelConfig:
 class SloConfig:
     """Online SLO objectives (0 = off). The trainer's telemetry evaluates
     the training objectives (``step_time_p99_s``, ``data_wait_p99_s``,
-    ``goodput_min_pct``); the serving engine refuses any non-zero
-    objective."""
+    ``goodput_min_pct``); the serving engine the serving ones (TTFT,
+    queue wait, ms per token, shed rate, accepted tokens/s), where a
+    breaching latency objective caps admissions at
+    ``degrade_max_new_tokens``."""
 
     enabled: bool = True
     window: int = 64
@@ -292,8 +294,11 @@ class StreamRetryConfig:
 
 @dataclass(frozen=True)
 class ChaosConfig:
-    """Deterministic fault injection (dev/test). The port has no chaos
-    harness yet: the serving engine refuses ``enabled: true``."""
+    """Deterministic fault injection (dev/test), read by
+    :class:`dtc_tpu_torch.resilience.chaos.ChaosInjector`: the trainer
+    consults the data, NaN, checkpoint and SIGTERM faults, the serving
+    engine the ``serve_*`` ones. The elastic kinds need
+    ``resilience.elastic``, which the trainer refuses."""
 
     enabled: bool = False
     data_error_at_doc: int = 0

@@ -1,4 +1,5 @@
-"""Telemetry facade: the hook surface the trainer emits through.
+"""Telemetry facade: the hook surface the trainer (and, through
+:meth:`Telemetry.for_serving`, the serving engine) emits through.
 
 One object owns the registry, sinks, step clock, compile watcher, memory
 sampler and profilers; the trainer talks to it through a small hook
@@ -31,7 +32,10 @@ its readers — ``find_shards``, the goodput ledger,
 - ``anomaly``      — the guard detected an unhealthy loss window
                      (``reason``, chosen ``action``);
 - ``recovery``     — a recovery action executed (``action``: rollback,
-                     rollback_failed, skip_checkpoint, abort);
+                     rollback_failed, skip_checkpoint, abort, and from the
+                     recovery bus stream_retry, ckpt_fallback);
+- ``chaos``        — a fault the chaos harness injected (``kind``), from
+                     the recovery bus (:meth:`Telemetry.drain_recovery_bus`);
 - ``hung_step``    — watchdog flag: a step exceeded the configured multiple
                      of the trailing median step time;
 - ``aux_compile``  — a kernel library built and loaded at its first use
@@ -55,7 +59,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any
+from typing import Any, Callable
 
 from dtc_tpu_torch.obs.aggregate import reduce_shards, shard_path
 from dtc_tpu_torch.obs.device import peak_hbm_bytes, sample_memory
@@ -66,6 +70,23 @@ from dtc_tpu_torch.obs.registry import CsvSink, JsonlSink, MetricsRegistry
 from dtc_tpu_torch.obs.slo import SloMonitor
 from dtc_tpu_torch.obs.stepclock import CompileWatcher, StepClock
 from dtc_tpu_torch.obs.trace import FlightRecorder, Tracer
+
+
+def drain_bus(bus: Any, registry: MetricsRegistry, key: str, at: int,
+              on_chaos: Callable[[dict], None] | None = None) -> None:
+    """Emit ``bus``'s pending records into ``registry``'s event stream,
+    counting ``chaos_injections`` and ``recoveries``; a record without its
+    own ``key`` (``step`` or ``iteration``) is stamped ``at``.
+    ``on_chaos(fields)`` runs for each chaos record before it is emitted."""
+    for etype, fields in bus.drain():
+        if etype == "chaos":
+            registry.counter("chaos_injections").inc()
+            if on_chaos is not None:
+                on_chaos(fields)
+        elif etype == "recovery":
+            registry.counter("recoveries").inc()
+        fields.setdefault(key, at)
+        registry.emit(etype, **fields)
 
 
 class Telemetry:
@@ -184,6 +205,20 @@ class Telemetry:
             append=resumed,
             slo_cfg=getattr(train_cfg, "slo", None),
             device=device,
+        )
+
+    @classmethod
+    def for_serving(
+        cls, output_dir: str, *, obs_cfg: Any = None, process_index: int = 0
+    ) -> "Telemetry":
+        """Telemetry for a :class:`dtc_tpu_torch.serve.engine.ServingEngine`:
+        the engine emits its SLO instruments and ``serve_*`` events through
+        ``.registry`` into the trainer's shard layout
+        (``<output_dir>/obs/events.r<k>.jsonl``), so the cross-process
+        reducer and the JAX package's readers take a serving run."""
+        return cls(
+            obs_cfg, output_dir=output_dir, lead=process_index == 0,
+            process_index=process_index,
         )
 
     def add_csv(self, path: str, fieldnames: tuple[str, ...], etype: str,
@@ -409,6 +444,14 @@ class Telemetry:
         if self.devprof is not None and self.cfg.devprof_on_trigger:
             self.devprof.request("hung_step")
         self.dump_flight("hung_step", step=step)
+
+    def drain_recovery_bus(self, bus: Any, step: int) -> None:
+        """Move the pending chaos and recovery records of ``bus`` (posted
+        from threads and layers with no telemetry handle: the stream's
+        retry, the checkpoint fallback, the chaos hooks) into the event
+        stream, stamped with the step they surfaced at unless the poster
+        recorded its own."""
+        drain_bus(bus, self.registry, "step", step)
 
     def arm_profile_window(self, start_step: int, n_steps: int = 2) -> bool:
         """Point the profiler at ``[start_step, start_step + n_steps)`` —

@@ -1,2 +1,21 @@
 """Resilience: retry and position-preserving stream healing, the hung-step
-watchdog, the anomaly guard's ladder and the typed failures."""
+watchdog, the anomaly guard's ladder, the typed failures, the recovery bus
+and the chaos harness that drives every recovery path on purpose."""
+
+from dtc_tpu_torch.resilience.chaos import ChaosInjector
+from dtc_tpu_torch.resilience.errors import (
+    AnomalyAbort,
+    ChaosInjectedError,
+    DataStreamError,
+    ResilienceError,
+)
+from dtc_tpu_torch.resilience.events import RecoveryBus
+
+__all__ = [
+    "AnomalyAbort",
+    "ChaosInjectedError",
+    "ChaosInjector",
+    "DataStreamError",
+    "RecoveryBus",
+    "ResilienceError",
+]

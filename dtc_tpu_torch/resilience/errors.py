@@ -18,3 +18,11 @@ class AnomalyAbort(ResilienceError):
     """The anomaly guard's ladder is exhausted (``max_rollbacks`` spent and
     the loss still unhealthy): a clean abort, so a supervisor can restart
     from the last verified checkpoint."""
+
+
+class ChaosInjectedError(ConnectionError):
+    """A deterministic fault the chaos harness raises into the data plane.
+
+    It subclasses ``ConnectionError`` on purpose: the stream's retry
+    wrapper treats it exactly as a real transient network failure, so the
+    drill runs the production healing path."""

@@ -6,6 +6,7 @@ from dtc_tpu_torch.serve.request import (
     TERMINAL_STATES,
     AdapterStoreFullError,
     DeadlineExceededError,
+    EngineClosedError,
     QueueFullError,
     Request,
     RequestFailedError,
@@ -19,7 +20,8 @@ from dtc_tpu_torch.serve.request import (
 )
 
 __all__ = [
-    "TERMINAL_STATES", "AdapterStoreFullError", "DeadlineExceededError", "PageAllocator",
+    "TERMINAL_STATES", "AdapterStoreFullError", "DeadlineExceededError", "EngineClosedError",
+    "PageAllocator",
     "QueueFullError", "Request", "RequestFailedError", "RequestState",
     "RequestTooLargeError", "ServeError", "ServeResult", "ServingEngine",
     "ShedError", "TransientStepError", "UnknownAdapterError", "init_slot_cache", "kv_token_bytes",

@@ -49,22 +49,56 @@ verify window) runs the layer stack as one megakernel launch.
   prefixes are stored per adapter; a (re)loaded or evicted tenant's
   entries are dropped.
 
-Counters live in the plain dict ``counters`` under the JAX package's
-names (``serve_submitted``, ``serve_admissions``, ``serve_decode_steps``,
-``serve_spec_proposed``, ``adapter_loads``, ...). Not ported yet, and
-refused at construction with ``NotImplementedError``: chaos injection and
-online SLO objectives.
+- Telemetry (the JAX engine's): counters, histograms and events go
+  through ``reg``, a :class:`~dtc_tpu_torch.obs.registry.MetricsRegistry`
+  (``telemetry.registry`` when a
+  :meth:`~dtc_tpu_torch.obs.telemetry.Telemetry.for_serving` is given,
+  whose shard then holds the serving run), on the scheduler's clock
+  shifted to the wall clock. Counters keep the JAX package's names
+  (``serve_submitted``, ``serve_admissions``, ``serve_decode_steps``,
+  ``serve_spec_proposed``, ``adapter_loads``, ...), and ``counters`` is a
+  read-only view of them. Histograms: ``serve_ttft_s``,
+  ``serve_queue_wait_s``, ``serve_ms_per_token`` (and per tenant under
+  adapters), ``serve_batch_occupancy``, ``serve_accept_rate``,
+  ``serve_accepted_per_launch``. Events: ``serve_reject``,
+  ``serve_admit``, ``serve_evict``, ``serve_corruption``, one
+  ``serve_request`` a terminal request, ``hung_step``, ``adapter_load`` /
+  ``adapter_evict``, ``serve_shutdown``. Spans: each request's
+  ``req.queued`` → ``req.prefill`` → ``req.decode`` → terminal chain and
+  one ``decode_step`` an iteration. A flight recorder rings the last
+  events and dumps on a chaos or recovery record, a corruption, a failed
+  request, a hung iteration and the shutdown.
+- Online SLO objectives (``ServeConfig.slo``) evaluated every
+  ``check_every`` iterations; a breaching latency objective (or, under
+  speculation, the accepted-tokens/s floor) caps new admissions at
+  ``degrade_max_new_tokens``. An online goodput gauge bills each
+  iteration's seconds to productive decode, prefill, re-prefill after an
+  eviction, rejected draft work, and idle or degraded time.
+- Chaos (``ServeConfig.chaos``, a
+  :class:`~dtc_tpu_torch.resilience.chaos.ChaosInjector` on the engine's
+  own recovery bus) lands at iteration boundaries on the production paths:
+  a stall inside the timed iteration, a completed page overwritten on the
+  device (caught by the checksum verifier), the newest request preempted,
+  and a decode attempt whose logits read non-finite (retried from the
+  pre-step cache). The bus is drained every iteration, before the
+  watchdog's verdict.
+- :meth:`ServingEngine.shutdown` drains or evicts what is in flight,
+  refuses later submissions (``EngineClosedError``), drains the bus,
+  dumps the flight recorder once and flushes.
 
 Memory note: the K/V buffers are updated in place (see
 ``models/gpt.py``); a retried step re-writes the same positions with the
-same values, so retries stay bit-exact.
+same values, so retries stay bit-exact. Every write into the cache (a
+decode, an admission's copy, an injected corruption) resets the checksum
+memo.
 """
 
 from __future__ import annotations
 
 import time
-from collections import defaultdict, deque
-from typing import Any, Callable
+from collections import deque
+from collections.abc import Mapping
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -77,12 +111,20 @@ from dtc_tpu_torch.adapters import (
     validate_lora_tree,
 )
 from dtc_tpu_torch.generate import decode_step, init_cache
+from dtc_tpu_torch.obs.goodput import SPEC_REJECTED_DRAFT, OnlineGoodput
+from dtc_tpu_torch.obs.registry import MetricsRegistry
+from dtc_tpu_torch.obs.slo import SloMonitor
+from dtc_tpu_torch.obs.telemetry import drain_bus
+from dtc_tpu_torch.obs.trace import FlightRecorder, Tracer
+from dtc_tpu_torch.resilience.chaos import ChaosInjector
+from dtc_tpu_torch.resilience.events import RecoveryBus
 from dtc_tpu_torch.resilience.retry import retry_call
 from dtc_tpu_torch.resilience.watchdog import StepWatchdog
 from dtc_tpu_torch.serve.paged_cache import PageAllocator, kv_token_bytes, pages_for
 from dtc_tpu_torch.serve.request import (
     TERMINAL_STATES,
     DeadlineExceededError,
+    EngineClosedError,
     QueueFullError,
     Request,
     RequestFailedError,
@@ -124,15 +166,38 @@ class _Slot:
         self.page_fp: dict[int, float] = {}
 
 
+class _CounterView(Mapping):
+    """Read-only view of a registry's counters by name; a counter never
+    incremented reads 0."""
+
+    def __init__(self, reg: MetricsRegistry):
+        self._reg = reg
+
+    def __getitem__(self, name: str) -> int:
+        c = self._reg._counters.get(name)
+        return 0 if c is None else c.value
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(list(self._reg._counters))
+
+    def __len__(self) -> int:
+        return len(self._reg._counters)
+
+
 class ServingEngine:
     """Construct once per (model, config); ``submit()`` requests, then
-    drive ``step()`` (or ``run()``). Runs on the model's device."""
+    drive ``step()`` (or ``run()``), and ``shutdown()`` at the end. Runs on
+    the model's device. ``telemetry``: a
+    :meth:`~dtc_tpu_torch.obs.telemetry.Telemetry.for_serving` whose
+    registry, tracer, flight recorder and goodput gauge the engine uses
+    (without one it keeps its own, in memory)."""
 
     def __init__(
         self,
         model,
         cfg,
         *,
+        telemetry=None,
         clock: Callable[[], float] = time.monotonic,
         sleep: Callable[[float], None] = time.sleep,
     ):
@@ -149,17 +214,54 @@ class ServingEngine:
                 "verify would run adapted weights; serve an adapter-free "
                 "config"
             )
-        self._refuse_unported()
+        if getattr(self.mcfg, "debug_checks", False):
+            raise ValueError(
+                "ServingEngine does not support model debug_checks=True"
+            )
         if self.spec_on:
             check_spec_backend(self.mcfg)  # token identity needs one path
         self.clock = clock
         self.sleep = sleep
-        self.counters: dict[str, int] = defaultdict(int)
+        self.telemetry = telemetry
+        self.reg: MetricsRegistry = (
+            telemetry.registry if telemetry is not None else MetricsRegistry()
+        )
+        # One timebase for the serving record: event stamps, span starts
+        # and the results' SLO timings all read the scheduler clock,
+        # shifted by a constant onto the wall clock the trainer's shards
+        # use (durations are unaffected).
+        self._epoch0 = time.time() - self.clock()
+        emit_clock = lambda: self.clock() + self._epoch0  # noqa: E731
+        self.reg.set_clock(emit_clock)
+        if telemetry is not None:
+            self.tracer = telemetry.tracer
+            self.tracer.clock = emit_clock
+            self.recorder = telemetry.recorder
+        else:
+            # A bare engine: spans still reach the registry and the flight
+            # recorder still rings in memory.
+            self.tracer = Tracer(self.reg, clock=emit_clock, tid="sched")
+            self.recorder = self.reg.add_sink(FlightRecorder(256))
+        self.slo = SloMonitor.from_config(cfg.slo, self.reg, runtime="serve")
+        self._slo_check_every = cfg.slo.check_every
+        # The telemetry's goodput gauge (its registry is this one; None with
+        # obs off), or the engine's own; fed from the iteration's
+        # timestamps, never a sync.
+        self.goodput: OnlineGoodput | None = (
+            telemetry.goodput if telemetry is not None else OnlineGoodput(self.reg)
+        )
+        self._gp_work = 0.0  # seconds attributed in the current iteration
+        self.bus = RecoveryBus()
+        self.chaos = ChaosInjector(cfg.chaos, self.bus) if cfg.chaos.enabled else None
         self.hung_steps: deque[dict] = deque(maxlen=64)  # newest watchdog flags
         self.watchdog = (
             StepWatchdog(cfg.watchdog) if cfg.watchdog.enabled else None
         )
-        self._track_pages = cfg.verify_pages_every > 0
+        # Page checksums cost a reduction and a transfer: kept when the
+        # verifier reads them, or when injected corruption must be caught.
+        self._track_pages = cfg.verify_pages_every > 0 or (
+            cfg.chaos.enabled and cfg.chaos.serve_corrupt_page_at_step > 0
+        )
 
         if cfg.pool_hbm_bytes > 0:
             pool = max(
@@ -188,7 +290,14 @@ class ServingEngine:
             self.draft = self.draft_cache = None
         self.slots = [_Slot() for _ in range(cfg.slots)]
         self.last_tok = np.zeros((cfg.slots,), np.int32)
+        # The accepted-token rate the SLO floor reads under speculation:
+        # tokens emitted and rounds run since the last check.
+        self._spec_emitted_since = 0
+        self._spec_rounds_since = 0
+        self._spec_rate_t0 = self.clock()
 
+        self.closed = False  # after shutdown() submit() refuses, typed
+        self._in_shutdown = False  # one flight dump for the whole drain
         self.queue: list[Request] = []
         self.requests: dict[str, Request] = {}
         self.results: dict[str, ServeResult] = {}
@@ -200,21 +309,11 @@ class ServingEngine:
         self._worked = False
         self._fps_memo: np.ndarray | None = None
 
-    def _refuse_unported(self) -> None:
-        cfg, mcfg = self.cfg, self.mcfg
-        if getattr(mcfg, "debug_checks", False):
-            raise ValueError(
-                "ServingEngine does not support model debug_checks=True"
-            )
-        unported = []
-        if cfg.chaos.enabled:
-            unported.append("chaos injection (serve chaos)")
-        if cfg.slo.any_objective:
-            unported.append("online SLO objectives (serve slo)")
-        if unported:
-            raise NotImplementedError(
-                "not ported yet: " + ", ".join(unported)
-            )
+    @property
+    def counters(self) -> Mapping[str, int]:
+        """The registry's counters by name (read-only; 0 when never
+        incremented)."""
+        return _CounterView(self.reg)
 
     # ------------------------------------------------------------------
     # submission (admission control)
@@ -233,9 +332,15 @@ class ServingEngine:
     def submit(self, req: Request) -> str:
         """Enqueue one request. Typed backpressure: raises
         :class:`QueueFullError` past ``queue_depth`` and
-        :class:`RequestTooLargeError` for requests that could never run. A
-        ``rid`` may be reused only once its previous submission is
-        terminal."""
+        :class:`RequestTooLargeError` for requests that could never run,
+        and :class:`EngineClosedError` after :meth:`shutdown`; each with a
+        ``serve_reject`` event. A ``rid`` may be reused only once its
+        previous submission is terminal."""
+        if self.closed:
+            self._reject(req, "closed")
+            raise EngineClosedError(
+                f"request {req.rid}: engine is shut down / draining"
+            )
         if req.rid in self.requests:
             raise ValueError(
                 f"request {req.rid}: rid already in flight "
@@ -248,7 +353,7 @@ class ServingEngine:
         # spec_k - 1 positions past the final token.
         spec_pad = self.cfg.spec.spec_k - 1 if self.spec_on else 0
         if total + spec_pad > self.mcfg.max_seq_len:
-            self.counters["serve_rejected"] += 1
+            self._reject(req, "too_large")
             raise RequestTooLargeError(
                 f"request {req.rid}: prompt ({len(req.prompt)}) + "
                 f"max_new_tokens ({req.max_new_tokens})"
@@ -256,7 +361,7 @@ class ServingEngine:
                 + f" exceeds max_seq_len ({self.mcfg.max_seq_len})"
             )
         if self._pages_needed(total + spec_pad) > self.alloc.total_pages:
-            self.counters["serve_rejected"] += 1
+            self._reject(req, "too_large")
             raise RequestTooLargeError(
                 f"request {req.rid}: footprint "
                 f"{self._pages_needed(total + spec_pad)} pages"
@@ -266,14 +371,14 @@ class ServingEngine:
         if req.adapter is not None and (
             not self.lora_on or req.adapter not in self.adapter_store
         ):
-            self.counters["serve_rejected"] += 1
+            self._reject(req, "unknown_adapter", adapter=req.adapter)
             raise UnknownAdapterError(
                 f"request {req.rid}: adapter {req.adapter!r} is not resident"
                 + ("" if self.lora_on else
                    " (model has no adapter support: adapter.rank == 0)")
             )
         if len(self.queue) >= self.cfg.queue_depth:
-            self.counters["serve_rejected"] += 1
+            self._reject(req, "queue_full")
             raise QueueFullError(
                 f"request {req.rid}: queue at depth {self.cfg.queue_depth}"
             )
@@ -290,8 +395,12 @@ class ServingEngine:
         ttl = self.cfg.deadline_s if req.deadline_s is None else req.deadline_s
         self._deadline[req.rid] = now + ttl if ttl and ttl > 0 else float("inf")
         self.queue.append(req)
-        self.counters["serve_submitted"] += 1
+        self.reg.counter("serve_submitted").inc()
         return req.rid
+
+    def _reject(self, req: Request, reason: str, **fields: Any) -> None:
+        self.reg.counter("serve_rejected").inc()
+        self.reg.emit("serve_reject", rid=req.rid, reason=reason, **fields)
 
     def load_adapter(self, name: str, factors: dict) -> int:
         """Make tenant ``name``'s LoRA factors resident; returns its stack
@@ -312,14 +421,22 @@ class ServingEngine:
         validate_lora_tree(self.lora_stack, factors)
         slot, evicted = self.adapter_store.register(name)
         if evicted is not None:
-            self.counters["adapter_evictions"] += 1
+            self.reg.counter("adapter_evictions").inc()
+            self.reg.emit("adapter_evict", name=evicted, slot=slot, iteration=self._it,
+                          reason="store_lru")
+            # A retired tenant's prefix KV and per-tenant histograms go
+            # with it (a later load under the name may bring new factors).
             self._drop_adapter_prefixes(evicted)
+            self.reg.drop_histogram(f"serve_ttft_s.{evicted}")
+            self.reg.drop_histogram(f"serve_ms_per_token.{evicted}")
         # Prefix KV built under the old factors of this name is stale.
         self._drop_adapter_prefixes(name)
         with torch.no_grad():
             for key, buf in self.lora_stack.items():
                 buf[slot].copy_(factors[key])
-        self.counters["adapter_loads"] += 1
+        self.reg.counter("adapter_loads").inc()
+        self.reg.emit("adapter_load", name=name, slot=slot, iteration=self._it,
+                      params=int(sum(f.numel() for f in factors.values())))
         return slot
 
     def _drop_adapter_prefixes(self, name: str) -> None:
@@ -350,28 +467,83 @@ class ServingEngine:
     # the scheduler iteration
     # ------------------------------------------------------------------
     def step(self) -> bool:
-        """One iteration: expiry, shedding and admission at the boundary,
-        page verification on its cadence, then one decode step over the
-        in-flight batch. Returns True while any request is queued or in
+        """One iteration: a chaos stall, expiry, shedding and admission at
+        the boundary, chaos corruption, page verification on its cadence,
+        chaos preemption, then one decode step over the in-flight batch;
+        the bus is drained, goodput, the watchdog and the SLO monitor read
+        the iteration. Returns True while any request is queued or in
         flight."""
         self._it += 1
         self._worked = False
+        self._gp_work = 0.0
         t0 = self.clock()
+        if self.chaos is not None:
+            stall = self.chaos.serve_stall(self._it)
+            if stall > 0:
+                self.sleep(stall)  # inside the timed iteration, on purpose
         self._expire()
         self._shed()
         self._admit()
+        # Shots that need something to act on are asked for only when it
+        # exists (a completed page, an active request); otherwise the
+        # fire-once shot would be spent on an injection that never happened.
+        if (
+            self.chaos is not None
+            and self._corruption_candidates()
+            and self.chaos.serve_corrupt_page(self._it)
+        ):
+            self._inject_corruption()
         if (
             self.cfg.verify_pages_every > 0
             and self._it % self.cfg.verify_pages_every == 0
         ):
             self._verify_pages()
+        if (
+            self.chaos is not None
+            and any(s.rid is not None for s in self.slots)
+            and self.chaos.serve_preempt(self._it)
+        ):
+            self._preempt_newest()
         self._ensure_pages()
         self._decode()
+        # The bus before the watchdog's verdict: this iteration's chaos and
+        # recovery records (and their flight dumps) land first, so a
+        # stall's last dump carries the hung-step reason.
+        self._drain_bus()
+        now_it = self.clock()
+        if self.goodput is not None:
+            # The unattributed rest of the iteration (bookkeeping, a chaos
+            # stall, an idle spin) is idle, or degraded while a latency
+            # objective breaches.
+            idle = max((now_it - t0) - self._gp_work, 0.0)
+            self.goodput.note(
+                "degraded" if self.slo is not None and self.slo.degrade_active
+                else "shed_or_idle", idle)
+            if self._it % self._slo_check_every == 0:
+                pct = self.goodput.update(iteration=self._it)
+                if self.slo is not None:
+                    self.slo.observe("goodput_pct", pct)
+        # Only working iterations (a prefill or a decode ran) feed the
+        # watchdog: idle spins would collapse its trailing median.
         if self.watchdog is not None and self._worked:
-            flag = self.watchdog.observe(self._it, self.clock() - t0)
+            flag = self.watchdog.observe(self._it, now_it - t0)
             if flag is not None:
-                self.counters["serve_hung_steps"] += 1
+                self.reg.counter("serve_hung_steps").inc()
                 self.hung_steps.append(flag)
+                self.reg.emit("hung_step", runtime="serve", **flag)
+                self.dump_flight("hung_step", iteration=self._it)
+        if self.slo is not None and self._it % self._slo_check_every == 0:
+            if self.spec_on and self._spec_rounds_since > 0:
+                # The floor reads ACCEPTED tokens/s over the window since
+                # the last check (only when rounds ran: an idle engine's
+                # zero must not fake a breach).
+                rate = self._spec_emitted_since / max(now_it - self._spec_rate_t0, 1e-9)
+                self.reg.gauge("serve_accepted_tokens_per_s").set(rate)
+                self.slo.observe("serve_accepted_tokens_per_s", rate)
+                self._spec_emitted_since = 0
+                self._spec_rounds_since = 0
+                self._spec_rate_t0 = now_it
+            self.slo.evaluate(iteration=self._it)
         return bool(self.queue) or any(s.rid is not None for s in self.slots)
 
     def run(self, *, max_steps: int = 100_000) -> dict[str, ServeResult]:
@@ -380,6 +552,53 @@ class ServingEngine:
         for _ in range(max_steps):
             if not self.step():
                 break
+        return self.results
+
+    def shutdown(self, *, mode: str = "drain", max_steps: int = 512,
+                 reason: str = "shutdown") -> dict[str, ServeResult]:
+        """Graceful stop, the serving side of the trainer's SIGTERM: stop
+        admitting (``submit()`` raises :class:`EngineClosedError` from here
+        on), then
+
+        - ``mode="drain"``: step until every queued and in-flight request
+          is terminal or ``max_steps`` runs out; what is still unfinished
+          is evicted, typed (FAILED with ``EngineClosedError``, its partial
+          tokens kept on the result);
+        - ``mode="evict"``: evict so at once (a preemption notice too short
+          to drain).
+
+        Either way the recovery bus is drained, the flight recorder dumps
+        ONCE with the reason, and the sinks are flushed. Idempotent;
+        returns ``results``."""
+        if mode not in ("drain", "evict"):
+            raise ValueError(f"unknown shutdown mode {mode!r}")
+        if self.closed:
+            return self.results
+        self.closed = True
+        self._in_shutdown = True  # the failed requests' dumps collapse into one
+        try:
+            if mode == "drain":
+                for _ in range(max_steps):
+                    if not self.step():
+                        break
+            for req in list(self.queue):
+                self.queue.remove(req)
+                self._finish(req.rid, RequestState.FAILED, EngineClosedError(
+                    f"request {req.rid}: engine shut down while queued ({reason})"))
+            for slot in self.slots:
+                if slot.rid is None:
+                    continue
+                rid = slot.rid
+                self._release_slot(rid)
+                self._finish(rid, RequestState.FAILED, EngineClosedError(
+                    f"request {rid}: engine shut down mid-decode ({reason}; partial "
+                    "tokens preserved)"))
+        finally:
+            self._in_shutdown = False
+        self._drain_bus()
+        self.reg.emit("serve_shutdown", reason=reason, mode=mode, iteration=self._it)
+        self.dump_flight(f"shutdown: {reason}", iteration=self._it)
+        self.reg.flush()
         return self.results
 
     # ------------------------------------------------------------------
@@ -462,7 +681,7 @@ class ServingEngine:
             if key is None:
                 break
             self._prefix_store.pop(key, None)
-            self.counters["serve_prefix_evictions"] += 1
+            self.reg.counter("serve_prefix_evictions").inc()
         while not self.alloc.can_fit(need):
             victims = [
                 s.rid for s in self.slots
@@ -499,7 +718,7 @@ class ServingEngine:
         plen = len(key) - 1
         if key in self._prefix_store:
             self.alloc.touch_prefix(key)
-            self.counters["serve_prefix_hits"] += 1
+            self.reg.counter("serve_prefix_hits").inc()
             return self._copy_prefix(key)
         n_pages = pages_for(plen, self.cfg.page_size)
         fits = self.alloc.pin_prefix(key, n_pages)
@@ -526,7 +745,7 @@ class ServingEngine:
         # one the prefill advanced it by.
         cache["index"] = torch.tensor(plen, dtype=torch.int32, device=self.device)
         self._prefix_store[key] = (cache, plen)
-        self.counters["serve_prefix_builds"] += 1
+        self.reg.counter("serve_prefix_builds").inc()
         return self._copy_prefix(key)
 
     def _copy_prefix(self, key: tuple) -> tuple[dict, int]:
@@ -555,7 +774,7 @@ class ServingEngine:
             tok, fin = torch.stack([tok, fin.to(torch.int32)]).tolist()
             if not fin:
                 raise TransientStepError("prefill produced non-finite logits")
-            self.counters["serve_prefills"] += 1
+            self.reg.counter("serve_prefills").inc()
             return cache, tok
 
         r = self.cfg.retry
@@ -583,6 +802,7 @@ class ServingEngine:
 
     def _do_admit(self, req: Request, slot_i: int, seq: list[int]) -> None:
         self._worked = True
+        t_adm = self.clock()
         res = self.results[req.rid]
         res.state = RequestState.PREFILL
         if req.rid not in self._eff_max_new:
@@ -592,13 +812,16 @@ class ServingEngine:
                 and (len(self.queue) + 1) / self.cfg.queue_depth
                 > self.cfg.degrade_watermark
             )
+            # A breaching latency objective degrades admissions as the
+            # queue watermark does.
+            slo_hot = self.slo is not None and self.slo.degrade_active
             if self.cfg.degrade_max_new_tokens > 0 and (
-                over_queue or res.degraded
+                over_queue or slo_hot or res.degraded
             ):
                 eff = min(eff, self.cfg.degrade_max_new_tokens)
                 if eff < req.max_new_tokens:
                     res.degraded = True
-                    self.counters["serve_degraded"] += 1
+                    self.reg.counter("serve_degraded").inc()
             self._eff_max_new[req.rid] = eff
 
         try:
@@ -648,8 +871,35 @@ class ServingEngine:
         res.tokens.append(tok)
         if res.first_token_t is None:
             res.first_token_t = now
+            self.reg.histogram("serve_ttft_s").observe(res.ttft_s or 0.0)
+            self.reg.histogram("serve_queue_wait_s").observe(res.queue_wait_s or 0.0)
+            if self.lora_on:
+                # Per tenant ("base" for base requests), beside the total.
+                self.reg.histogram(f"serve_ttft_s.{req.adapter or 'base'}").observe(
+                    res.ttft_s or 0.0)
+            if self.slo is not None:
+                self.slo.observe("serve_ttft_s", res.ttft_s)
+                self.slo.observe("serve_queue_wait_s", res.queue_wait_s)
+        # The request's waterfall: queued (from submit, or the last
+        # eviction) to this admission, then the prefill, on its own track.
+        q0 = res.requeued_t
+        if q0 is None:
+            q0 = res.submitted_t if res.submitted_t is not None else t_adm
+        self.tracer.emit_span("req.queued", self._ts(q0), self._ts(t_adm), cat="serve",
+                              tid=req.rid, rid=req.rid, iteration=self._it)
+        res.requeued_t = None
+        self.tracer.emit_span("req.prefill", self._ts(t_adm), self._ts(now), cat="serve",
+                              tid=req.rid, rid=req.rid, resident=len(seq),
+                              prefix_len=base_len, slot=slot_i)
+        if self.goodput is not None:
+            # A re-prefill after an eviction is the incident's recompute.
+            self.goodput.note("failover_replay" if (res.n_evictions or res.n_hops)
+                              else "prefill", now - t_adm)
+            self._gp_work += now - t_adm
         self.last_tok[slot_i] = tok
-        self.counters["serve_admissions"] += 1
+        self.reg.counter("serve_admissions").inc()
+        self.reg.emit("serve_admit", rid=req.rid, slot=slot_i, resident=len(seq),
+                      prefix_len=base_len, iteration=self._it, adapter=req.adapter)
         self._maybe_complete(slot_i)
 
     def _ensure_pages(self) -> None:
@@ -666,7 +916,7 @@ class ServingEngine:
                 key = self.alloc.evict_prefix_lru()
                 if key is not None:
                     self._prefix_store.pop(key, None)
-                    self.counters["serve_prefix_evictions"] += 1
+                    self.reg.counter("serve_prefix_evictions").inc()
                     continue
                 active = [s.rid for s in self.slots if s.rid is not None]
                 victim = min(
@@ -689,6 +939,7 @@ class ServingEngine:
         if not active:
             return
         self._worked = True
+        t_dec = self.clock()
         prev_cache = self.cache  # a retry re-runs from here bit-exactly
         toks = torch.as_tensor(self.last_tok, device=self.device)[:, None]
         last_fin = np.ones((self.cfg.slots,), bool)
@@ -703,6 +954,8 @@ class ServingEngine:
             fin = torch.isfinite(last.float()).all(dim=-1).to(torch.int32)
             nxt, fin = torch.stack([nxt, fin]).cpu().numpy()
             last_fin = fin.astype(bool)
+            if self.chaos is not None and self.chaos.serve_poison_logits(self._it):
+                last_fin[:] = False  # as if the logits had read back NaN
             if not all(bool(last_fin[i]) for i, _ in active):
                 raise TransientStepError(
                     f"non-finite logits in decode step (iteration {self._it})"
@@ -735,9 +988,16 @@ class ServingEngine:
             return
         finally:
             self._retry_scope = []
+            # Every attempt wrote its K/V column in place.
+            self._fps_memo = None
         self.cache = cache
-        self._fps_memo = None
         now = self.clock()
+        # One scheduler span an iteration over the whole in-flight batch.
+        self.tracer.emit_span("decode_step", self._ts(t_dec), self._ts(now), cat="serve",
+                              tid="sched", iteration=self._it, batch=len(active))
+        if self.goodput is not None:
+            self.goodput.note("productive_decode", now - t_dec)
+            self._gp_work += now - t_dec
         completed_pages = []
         for i, rid in active:
             slot = self.slots[i]
@@ -753,7 +1013,8 @@ class ServingEngine:
                 self.slots[i].page_fp[p] = float(fps[i, p])
         for i, _rid in active:
             self._maybe_complete(i, now=now)
-        self.counters["serve_decode_steps"] += 1
+        self.reg.counter("serve_decode_steps").inc()
+        self.reg.histogram("serve_batch_occupancy").observe(len(active))
 
     def _decode_spec(self) -> None:
         """One speculative iteration over the in-flight batch: ONE round
@@ -767,6 +1028,7 @@ class ServingEngine:
         if not active:
             return
         self._worked = True
+        t_dec = self.clock()
         spec_k = self.cfg.spec.spec_k
         prev_cache, prev_draft = self.cache, self.draft_cache
         toks = torch.as_tensor(self.last_tok, device=self.device)[:, None]
@@ -784,6 +1046,8 @@ class ServingEngine:
             emit = emit.cpu().numpy()
             n_emit, fin = torch.stack([n_emit, fin.to(torch.int32)]).cpu().numpy()
             last_fin = fin.astype(bool)
+            if self.chaos is not None and self.chaos.serve_poison_logits(self._it):
+                last_fin[:] = False  # as if the logits had read back NaN
             if not all(bool(last_fin[i]) for i, _ in active):
                 raise TransientStepError(
                     f"non-finite logits in spec verify (iteration {self._it})"
@@ -813,17 +1077,34 @@ class ServingEngine:
             return
         finally:
             self._retry_scope = []
+            self._fps_memo = None  # the verify window wrote in place
         self.cache, self.draft_cache = tcache, dcache
-        self._fps_memo = None
         now = self.clock()
-        emitted = 0
+        n_active = len(active)
+        emitted = int(sum(int(n_emit[i]) for i, _ in active))
+        # The round's seconds split by the share of the verify window that
+        # emitted: the rest is draft work the target rejected, billed as
+        # its own badput class (a decode_step span and a spec_reject one).
+        dur = now - t_dec
+        frac = emitted / float(max(n_active * spec_k, 1))
+        t_split = t_dec + dur * frac
+        self.tracer.emit_span("decode_step", self._ts(t_dec), self._ts(t_split), cat="serve",
+                              tid="sched", iteration=self._it, batch=n_active,
+                              spec_k=spec_k, emitted=emitted)
+        if dur * (1.0 - frac) > 0.0:
+            self.tracer.emit_span("spec_reject", self._ts(t_split), self._ts(now),
+                                  cat="serve", tid="sched", iteration=self._it,
+                                  rejected=n_active * spec_k - emitted)
+        if self.goodput is not None:
+            self.goodput.note("productive_decode", dur * frac)
+            self.goodput.note(SPEC_REJECTED_DRAFT, dur * (1.0 - frac))
+            self._gp_work += dur
         completed_pages = []
         psize = self.cfg.page_size
         for i, rid in active:
             slot = self.slots[i]
             res = self.results[rid]
             ne = int(n_emit[i])
-            emitted += ne
             new_toks = [int(t) for t in emit[i, :ne]]
             res.n_spec_proposed += spec_k - 1
             res.n_spec_accepted += max(ne - 1, 0)
@@ -840,18 +1121,22 @@ class ServingEngine:
                 completed_pages.extend(
                     (i, p) for p in range(old_pages, slot.frontier // psize)
                 )
+            self.reg.histogram("serve_accepted_per_launch").observe(ne)
         if completed_pages:
             fps = self._page_fps()
             for i, p in completed_pages:
                 self.slots[i].page_fp[p] = float(fps[i, p])
         for i, _rid in active:
             self._maybe_complete(i, now=now)
-        n_active = len(active)
-        self.counters["serve_decode_steps"] += 1
-        self.counters["serve_spec_rounds"] += 1
-        self.counters["serve_spec_proposed"] += n_active * (spec_k - 1)
-        self.counters["serve_spec_accepted"] += emitted - n_active
-        self.counters["serve_spec_rejected"] += n_active * (spec_k - 1) - (emitted - n_active)
+        self._spec_emitted_since += emitted
+        self._spec_rounds_since += 1
+        self.reg.counter("serve_decode_steps").inc()
+        self.reg.counter("serve_spec_rounds").inc()
+        self.reg.counter("serve_spec_proposed").inc(n_active * (spec_k - 1))
+        self.reg.counter("serve_spec_accepted").inc(emitted - n_active)
+        self.reg.counter("serve_spec_rejected").inc(
+            n_active * (spec_k - 1) - (emitted - n_active))
+        self.reg.histogram("serve_batch_occupancy").observe(n_active)
 
     # ------------------------------------------------------------------
     # recovery paths
@@ -864,10 +1149,40 @@ class ServingEngine:
         res = self.results[rid]
         res.state = RequestState.EVICTED
         res.n_evictions += 1
-        res.requeued_t = self.clock()
+        res.requeued_t = self.clock()  # the next req.queued span starts here
         self.queue.insert(0, self.requests[rid])
-        self.counters["serve_evictions"] += 1
-        self.counters[f"serve_evictions.{reason}"] += 1
+        self.reg.counter("serve_evictions").inc()
+        self.reg.counter(f"serve_evictions.{reason}").inc()
+        self.reg.emit("serve_evict", rid=rid, reason=reason, iteration=self._it,
+                      generated=len(res.tokens))
+
+    def _preempt_newest(self) -> None:
+        """Chaos: evict the most recently admitted active request."""
+        active = [s.rid for s in self.slots if s.rid is not None]
+        if not active:
+            return
+        victim = max(active, key=lambda r: self.results[r].admitted_t or 0.0)
+        self.reg.counter("serve_preemptions").inc()
+        self._evict(victim, reason="preempted")
+
+    def _corruption_candidates(self) -> list:
+        """Slots with a completed (checksummed) page: what chaos corruption
+        and the verifier can act on."""
+        return [(i, s) for i, s in enumerate(self.slots) if s.rid is not None and s.page_fp]
+
+    @torch.no_grad()
+    def _inject_corruption(self) -> None:
+        """Chaos: overwrite the first completed page of the oldest active
+        request with 123.25 in the first KV leaf (``k``: every layer, every
+        feature), on the device and in place. The value is finite, so the
+        logits' check cannot see it: only the checksum verifier can."""
+        cands = self._corruption_candidates()
+        if not cands:
+            return
+        i, slot = min(cands, key=lambda t: self.results[t[1].rid].admitted_t or 0.0)
+        start = min(slot.page_fp) * self.cfg.page_size
+        self.cache["k"][:, i, start:start + self.cfg.page_size] = 123.25
+        self._fps_memo = None
 
     def _verify_pages(self) -> None:
         """Recompute completed-page checksums; a mismatch is cache-block
@@ -880,8 +1195,12 @@ class ServingEngine:
                 continue
             for p, fp in slot.page_fp.items():
                 if float(fps[i, p]) != fp:
-                    self.counters["serve_corruptions"] += 1
-                    self._evict(slot.rid, reason="corruption")
+                    self.reg.counter("serve_corruptions").inc()
+                    self.reg.emit("serve_corruption", rid=slot.rid, slot=i, page=p,
+                                  iteration=self._it)
+                    rid = slot.rid
+                    self._evict(rid, reason="corruption")
+                    self.dump_flight("serve_corruption", rid=rid, iteration=self._it)
                     break
 
     # ------------------------------------------------------------------
@@ -953,9 +1272,53 @@ class ServingEngine:
         req = self.requests.pop(rid, None)
         if self.lora_on and req is not None and req.adapter is not None:
             self.adapter_store.release(req.adapter)  # unpinned at terminal
-        self.counters[f"serve_{state.value}"] += 1
+        self.reg.counter(f"serve_{state.value}").inc()
+        if state is RequestState.DONE and res.ms_per_token is not None:
+            self.reg.histogram("serve_ms_per_token").observe(res.ms_per_token)
+            if self.lora_on:
+                self.reg.histogram(f"serve_ms_per_token.{res.adapter or 'base'}").observe(
+                    res.ms_per_token)
+            if self.slo is not None:
+                self.slo.observe("serve_ms_per_token", res.ms_per_token)
+        if res.accept_rate is not None:
+            # Every terminal outcome: a shed request's acceptance is still
+            # telemetry about the draft's fit.
+            self.reg.histogram("serve_accept_rate").observe(res.accept_rate)
+        if self.slo is not None:
+            self.slo.observe_outcome("serve_outcome_shed", state is RequestState.SHED)
+        # Close the request's span chain: its decode (first token to
+        # terminal, across any eviction gaps) and a terminal instant.
+        if res.first_token_t is not None:
+            self.tracer.emit_span("req.decode", self._ts(res.first_token_t),
+                                  self._ts(res.finished_t), cat="serve", tid=rid, rid=rid,
+                                  n_tokens=len(res.tokens))
+        self.tracer.instant(f"req.{state.value}", cat="serve", tid=rid,
+                            t=self._ts(res.finished_t), rid=rid,
+                            error=type(error).__name__ if error else None)
+        self.reg.emit("serve_request", iteration=self._it, **res.summary())
+        if state is RequestState.FAILED and not self._in_shutdown:
+            self.dump_flight(f"request_failed: {rid}", rid=rid)
 
     def _on_retry_event(self, etype: str, **fields: Any) -> None:
-        self.counters["serve_retries"] += 1
+        self.reg.counter("serve_retries").inc()
         for rid in self._retry_scope:
             self.results[rid].n_retries += 1
+        self.bus.post(etype, **fields)
+
+    def _ts(self, t: float) -> float:
+        """Scheduler-clock time on the emission (wall-clock) timebase."""
+        return t + self._epoch0
+
+    def dump_flight(self, reason: str, **meta: Any) -> str | None:
+        """Dump the flight-recorder ring (the telemetry owns the file; a
+        bare engine keeps the ring in memory)."""
+        if self.telemetry is not None:
+            return self.telemetry.dump_flight(reason, **meta)
+        return None
+
+    def _drain_bus(self) -> None:
+        """Move the bus's chaos and recovery records into the event stream;
+        every chaos record also dumps the flight recorder."""
+        drain_bus(self.bus, self.reg, "iteration", self._it,
+                  on_chaos=lambda f: self.dump_flight(f"chaos: {f.get('kind', '?')}",
+                                                      iteration=self._it))

@@ -109,6 +109,19 @@ the watchdog's ``profile_on_flag``) and device-profile captures
 (``obs.devprof_every``, an SLO breach, a hung step) run
 ``torch.profiler``. It adds no device sync.
 
+Recovery actions that fire where there is no telemetry handle (the
+FineWeb stream's retry on the prefetch thread, a checkpoint fallback)
+post to a :class:`~dtc_tpu_torch.resilience.events.RecoveryBus`, drained
+into the event stream at the rollback, the log boundaries, a SIGTERM, an
+abort and the run's end. ``resilience.chaos`` builds a
+:class:`~dtc_tpu_torch.resilience.chaos.ChaosInjector` on that bus and
+consults it on the production paths: its data faults inside the FineWeb
+stream's retry wrapper, the NaN poison of the trainable parameters and
+the loss after the update of ``nan_at_step``, a real SIGTERM at
+``sigterm_at_step``, and the damage of the checkpoint written at
+``corrupt_ckpt_at_step`` (by the lead, after its manifest). Under DP every
+rank holds an injector and poisons at the same step.
+
 What the port has not ported raises ``NotImplementedError`` naming the
 slice it waits for (:func:`refuse_unported`, :func:`refuse_sharded_state`).
 """
@@ -138,7 +151,9 @@ from dtc_tpu_torch.parallel.fsdp import FSDP
 from dtc_tpu_torch.parallel.mesh import AXIS_NAMES, Mesh, check_fsdp, resolve_mesh_shape
 from dtc_tpu_torch.parallel.pipeline import StageLayout, schedule_rows
 from dtc_tpu_torch.parallel.tensor import TensorParallel
+from dtc_tpu_torch.resilience.chaos import ChaosInjector
 from dtc_tpu_torch.resilience.errors import AnomalyAbort
+from dtc_tpu_torch.resilience.events import RecoveryBus
 from dtc_tpu_torch.resilience.guard import AnomalyGuard
 from dtc_tpu_torch.resilience.watchdog import StepWatchdog
 from dtc_tpu_torch.train.optimizer import NormGroups, create_optimizer
@@ -216,7 +231,6 @@ def refuse_unported(train_cfg: TrainConfig, model_cfg: ModelConfig,
         (train_cfg.parallel == "none", "parallel: none"),
         ((m.dcn_pipe, m.dcn_data, m.dcn_model) != (1, 1, 1),
          "dcn mesh factors (multi-host)"),
-        (train_cfg.resilience.chaos.enabled, "resilience.chaos (fault injection)"),
         (train_cfg.resilience.elastic.enabled,
          "resilience.elastic (elastic training)"),
         (train_cfg.multihost, "multihost (one host's torchrun processes only)"),
@@ -251,13 +265,16 @@ def refuse_sharded_state(train_cfg: TrainConfig, shape: tuple[int, int, int],
 def make_host_iterator(train_cfg: TrainConfig, model_cfg: ModelConfig,
                        skip_batches: int = 0, seed_offset: int = 0,
                        stream_position: dict | None = None, history: int = 64,
-                       cancel=None) -> Iterator[np.ndarray]:
+                       chaos=None, on_recovery=None, cancel=None) -> Iterator[np.ndarray]:
     """``(batch, seq_len+1)`` token batches of the global batch (the JAX
     package's process 0's stream; a rank takes its share). The synthetic
     stream from seed ``seed·1000 + seed_offset`` seeks by ``skip_batches``;
     FineWeb seeks by ``stream_position`` (a checkpointed position) and
-    drains ``skip_batches`` (for checkpoints without one). ``cancel`` ends
-    the stream's retry backoff when the trainer drops it."""
+    drains ``skip_batches`` (for checkpoints without one). FineWeb heals
+    transient faults per ``resilience.stream_retry``; ``chaos`` threads the
+    fault injector into its document source and ``on_recovery`` (a
+    recovery-bus post) receives the retry records. ``cancel`` ends the
+    stream's retry backoff when the trainer drops it."""
     seq = model_cfg.max_seq_len + 1
     if train_cfg.dataset == "synthetic":
         return synthetic_batch_iterator(train_cfg.batch, seq, model_cfg.vocab_size,
@@ -266,7 +283,8 @@ def make_host_iterator(train_cfg: TrainConfig, model_cfg: ModelConfig,
     from dtc_tpu_torch.data.fineweb import FinewebStream
 
     it = FinewebStream(train_cfg.batch, seq, position=stream_position, history=history,
-                       retry=train_cfg.resilience.stream_retry, cancel=cancel)
+                       retry=train_cfg.resilience.stream_retry, chaos=chaos,
+                       on_recovery=on_recovery, cancel=cancel)
     for _ in range(skip_batches):
         next(it)
     return it
@@ -297,8 +315,10 @@ class _Stream:
     trainer's ``build_data`` and ``stream_position_sidecar``): shared by
     the resume and the rollback, which is a resume without the restart."""
 
-    def __init__(self, train_cfg, model_cfg, ckpt, host_iterator, rank: int):
+    def __init__(self, train_cfg, model_cfg, ckpt, host_iterator, rank: int,
+                 chaos=None, on_recovery=None):
         self.cfg, self.model_cfg, self.ckpt = train_cfg, model_cfg, ckpt
+        self.chaos, self.on_recovery = chaos, on_recovery
         self.host_iterator = host_iterator
         self.rank = rank
         self.fineweb = train_cfg.dataset == "fineweb" and host_iterator is None
@@ -334,7 +354,9 @@ class _Stream:
         if sidecar is not None:
             self.obj = it = make_host_iterator(cfg, self.model_cfg,
                                                stream_position=sidecar["position"],
-                                               history=self.history, cancel=self.cancel)
+                                               history=self.history, chaos=self.chaos,
+                                               on_recovery=self.on_recovery,
+                                               cancel=self.cancel)
             self.base = sidecar["stream_index"]
             if self.holdout_n:
                 # The held-out batches were taken from the stream's head:
@@ -350,6 +372,7 @@ class _Stream:
                     _, self.eval_batches = divert_holdout(head, self.every, self.holdout_n)
             return it
         self.obj = it = make_host_iterator(cfg, self.model_cfg, history=self.history,
+                                           chaos=self.chaos, on_recovery=self.on_recovery,
                                            cancel=self.cancel)
         if self.holdout_n:
             self.drops = diverted_indices(self.every, self.holdout_n)
@@ -512,8 +535,15 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
             model=None if tp is None else tp.group, pipe=mesh.pipe_group)
     res_cfg = train_cfg.resilience
     guard_cfg = res_cfg.guard
-    trainable = model.parameters() if factors is None else factors.values()
-    opt = create_optimizer(trainable, opt_cfg, total_steps=train_cfg.steps,
+    # The bus first: recovery actions fire where there is no telemetry
+    # handle (the stream's retry on the prefetch thread, the checkpoint
+    # fallback inside the manager, the chaos hooks); the loop drains it
+    # into the event stream at its boundaries.
+    bus = RecoveryBus()
+    chaos = ChaosInjector(res_cfg.chaos, bus) if res_cfg.chaos.enabled else None
+    # What the optimizer updates, and what a chaos NaN poisons.
+    trainable_params = list(model.parameters() if factors is None else factors.values())
+    opt = create_optimizer(trainable_params, opt_cfg, total_steps=train_cfg.steps,
                            fsdp=fsdp, norm_groups=norm_groups,
                            skip_nonfinite=guard_cfg.skip_nonfinite_updates,
                            max_consecutive_skips=guard_cfg.max_consecutive_skips)
@@ -536,6 +566,14 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
             return train_step(model, opt, x, y, gen, fsdp, group, average, factors)
 
     say = print if lead else (lambda *a, **k: None)
+    if chaos is not None and (res_cfg.chaos.data_error_at_doc or res_cfg.chaos.data_stall_at_doc) \
+            and not (train_cfg.dataset == "fineweb" and host_iterator is None):
+        # The data hooks live in the FineWeb document source: elsewhere
+        # they would never fire, and a drill that injects nothing reads as
+        # a pass.
+        say("[dtc_tpu_torch] WARNING: chaos data faults (data_error_at_doc/"
+            "data_stall_at_doc) only fire on dataset: fineweb; this run will not "
+            "inject them")
 
     # ------ checkpoints and resume ------
     ckpt = None
@@ -569,7 +607,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
         ckpt_dir = train_cfg.checkpoint_dir or os.path.join(train_cfg.output_dir,
                                                              "checkpoints")
         ckpt = CheckpointManager(ckpt_dir, verify=res_cfg.verify_checkpoints,
-                                 keep_n=res_cfg.checkpoint_keep_n)
+                                 keep_n=res_cfg.checkpoint_keep_n, on_event=bus.post)
         if train_cfg.resume and ckpt.all_steps():
             # Labels are loop steps: the optimizer's count also holds the
             # warmup updates.
@@ -604,6 +642,10 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
         if position is not None:
             ckpt.save_stream(step, position, rank)
         dist_utils.barrier()
+        if chaos is not None and lead:
+            # Damage after the verified write: a later restore must detect
+            # the mismatch and fall back.
+            chaos.maybe_corrupt_checkpoint(step, ckpt.step_dir(step))
 
     log_path = os.path.join(train_cfg.output_dir, "log.csv")
     if (lead and train_cfg.output_dir and start_step == 0 and not train_cfg.overwrite
@@ -630,7 +672,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
         """This rank's share of each global batch."""
         return batches if rows is None else _shard(batches, rows, cols)
 
-    stream = _Stream(train_cfg, model_cfg, ckpt, host_iterator, rank)
+    stream = _Stream(train_cfg, model_cfg, ckpt, host_iterator, rank, chaos, bus.post)
 
     def feed(resume_from: int) -> PrefetchIterator:
         return PrefetchIterator(shard(stream.build(resume_from)), dev,
@@ -720,6 +762,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
         tele.on_recovery(cur_step, action="rollback", to_step=target, reason=reason,
                          tier="cold", rollbacks=guard.rollbacks_done,
                          t_detect=round(t_detect, 6), t_restored=round(time.time(), 6))
+        tele.drain_recovery_bus(bus, cur_step)  # the restore's fallbacks
         tele.record_aux_compile(cur_step, "rollback")
         tele.flush()
         say(f"[dtc_tpu_torch] ROLLBACK: {reason} — restored checkpoint step {target}, "
@@ -798,6 +841,8 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
                     x, y = next(data_it)
                 with tele.clock.phase("dispatch"):
                     loss = step_fn(x, y)
+                if chaos is not None:
+                    loss = chaos.maybe_poison(step, trainable_params, loss)
                 device_losses.append(loss)
                 if sync_every_step:
                     with tele.clock.phase("block"):
@@ -815,10 +860,23 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
                         if res_cfg.watchdog.profile_on_flag:
                             tele.arm_profile_window(step + 1)
                 window_steps += 1
+                if chaos is not None and chaos.should_preempt(step):
+                    if in_main_thread:
+                        # A real signal through the real handler (delivered
+                        # before os.kill returns).
+                        os.kill(os.getpid(), signal.SIGTERM)
+                    else:
+                        # Off the main thread no handler was installed and a
+                        # raw SIGTERM would kill the process: do what the
+                        # handler does.
+                        stop_requested[0] = True
                 stopping = stop_requested[0]
                 if stopping:
                     # The preemption's post-mortem, before the checkpoint
-                    # and flush work the preemptor may not leave time for.
+                    # and flush work the preemptor may not leave time for;
+                    # the bus first, so the records that led to the stop
+                    # are in the dumped timeline.
+                    tele.drain_recovery_bus(bus, step)
                     tele.dump_flight("sigterm", step=step)
                     say(f"[dtc_tpu_torch] stopping at step {step} (SIGTERM)")
                 if step % train_cfg.log_every == 0 or step == train_cfg.steps or stopping:
@@ -833,6 +891,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
                                 f"{decision.action}")
                         if decision.action == "abort":
                             tele.on_recovery(step, action="abort", reason=decision.reason)
+                            tele.drain_recovery_bus(bus, step)
                             raise AnomalyAbort(decision.reason)
                         if decision.action == "rollback":
                             target = rollback(step, decision.reason, losses, pending)
@@ -861,6 +920,9 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
                     u = mfu(model_cfg, train_cfg.batch, seq, avg, peak)
                     tele.on_window(step, avg_step_s=avg,
                                    tokens_per_sec=tokens_per_step / avg, mfu=u)
+                    # Recovery records posted from other threads (the
+                    # stream's retries, checkpoint fallbacks) surface here.
+                    tele.drain_recovery_bus(bus, step)
                     tele.flush()
                     msg = (f"Step: {step} | Avg loss: {sum(losses) / len(losses):.4f} | "
                            f"Average step time: {avg:.4f} | "
@@ -913,6 +975,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
             signal.signal(signal.SIGTERM, prev_handler)
     result.total_time_s = total = time.perf_counter() - start
     timed = len(result.elapsed_times)
+    tele.drain_recovery_bus(bus, step)  # tail records (a retry, a fallback)
     tele.on_run_end(
         total_time_s=round(total, 4),
         steps=timed,

@@ -33,7 +33,7 @@ import os
 import re
 import shutil
 import time
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -72,15 +72,20 @@ class CheckpointManager:
     """Verified checkpoints, stream sidecars and ``keep_n`` retention in
     ``directory``. ``verify=False`` writes and checks no manifest.
     ``hash_s`` and ``bytes_written`` are the last commit's sha256 seconds
-    and the bytes of its files."""
+    and the bytes of its files. ``on_event(etype, **fields)`` (a
+    :class:`~dtc_tpu_torch.resilience.events.RecoveryBus` post) receives
+    one ``recovery`` record, action ``ckpt_fallback``, whenever a step is
+    rejected, so a silent fallback still lands in the telemetry."""
 
-    def __init__(self, directory: str, *, verify: bool = True, keep_n: int = 3):
+    def __init__(self, directory: str, *, verify: bool = True, keep_n: int = 3,
+                 on_event: Callable[..., None] | None = None):
         if keep_n < 1:
             raise ValueError(f"keep_n must be >= 1, got {keep_n}")
         self._dir = os.path.abspath(directory)
         os.makedirs(self._dir, exist_ok=True)
         self.verify = verify
         self.keep_n = keep_n
+        self._on_event = on_event
         # Steps that failed verification are not hashed (or reported) again;
         # a re-save clears the entry. Passes are not cached: bit rot between
         # two reads must still be caught.
@@ -205,6 +210,9 @@ class CheckpointManager:
             self._rejected.add(step)
         print(f"[dtc_tpu_torch] WARNING: checkpoint step {step} {why}; "
               "falling back to an earlier step")
+        if self._on_event is not None:
+            self._on_event("recovery", action="ckpt_fallback", rejected_step=step,
+                           reason=why)
 
     def all_steps(self) -> list[int]:
         return sorted(int(n) for n in os.listdir(self._dir)

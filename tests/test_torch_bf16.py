@@ -42,19 +42,11 @@ from dtc_tpu_torch.parity import from_flax
 from dtc_tpu_torch.train.optimizer import create_optimizer
 from dtc_tpu_torch.train.train_step import resolve_precision, train_step
 from dtc_tpu_torch.train.trainer import train
-from tests.test_torch_train import _port
+from tests.test_torch_train import _one_thread, _port  # noqa: F401  (_one_thread: autouse)
 
 #: JAX's documented loss-parity tolerance (``tests/test_bf16.py``).
 PARITY_RTOL = 0.03
 STEPS = 8
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

@@ -43,16 +43,7 @@ from dtc_tpu_torch.resilience.guard import AnomalyGuard
 from dtc_tpu_torch.train import trainer as trainer_mod
 from dtc_tpu_torch.train.optimizer import create_optimizer
 from dtc_tpu_torch.utils.checkpoint import CheckpointManager
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """The port's runs here are tiny: one intra-op thread runs them as fast
-    and keeps the test workers from contending for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.test_torch_train import _one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 
 # ---------------------------------------------------------------------------
@@ -592,13 +583,14 @@ def _fineweb(monkeypatch, docs, seq, calls):
     from tests.test_data import _TailOnlySeq
 
     def fake(train_cfg, model_cfg, skip_batches=0, seed_offset=0, stream_position=None,
-             history=64, cancel=None):
+             history=64, chaos=None, on_recovery=None, cancel=None):
         calls.append(stream_position)
         source = docs
         if stream_position is not None:
             source = _TailOnlySeq(docs, stream_position["docs_consumed"])
         it = FinewebStream(train_cfg.batch, seq, documents=source, position=stream_position,
-                           history=history, cancel=cancel)
+                           history=history, chaos=chaos, on_recovery=on_recovery,
+                           cancel=cancel)
         for _ in range(skip_batches):
             next(it)
         return it

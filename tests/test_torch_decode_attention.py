@@ -23,6 +23,7 @@ from dtc_tpu_torch.config.schema import ModelConfig
 from dtc_tpu_torch.models.gpt import CausalSelfAttention
 from dtc_tpu_torch.ops import decode_attention as tda
 from dtc_tpu_torch.parity import attention_tolerance
+from tests.test_torch_train import _one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 H, D = 2, 8
 

@@ -36,6 +36,8 @@ from dtc_tpu_torch.models.gpt import GPT
 from dtc_tpu_torch.ops import decode_fused
 from dtc_tpu_torch.parity import from_flax
 from dtc_tpu_torch.serve import Request, RequestState, ServingEngine
+from tests.test_torch_train import _one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 
 VOCAB = 97
 BF16_ULPS = 8

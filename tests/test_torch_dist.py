@@ -149,7 +149,7 @@ def _worker(case: str, out_dir: str) -> None:
             (out / f"shards{tag}_r{rank}.json").write_text(json.dumps(report))
             _fsdp_gradients(out / f"grads{tag}_r{rank}.npz", spec, params, tag, rank, world)
     if case in ("dp", "ring"):
-        _dp_resume(out, spec, rank)
+        _dp_resume(out, spec, rank, chaos=case == "dp")
     if case == "dp":
         with open(out / f"lora_bf16_r{rank}.pkl", "wb") as f:
             pickle.dump(_lora_and_bf16_runs(spec, out / f"lora_bf16_r{rank}"), f)
@@ -222,11 +222,15 @@ def _step_as_two_ranks(model, opt, x, y, gen, fsdp=None, group=None, average=Tru
     return (losses[0] + losses[1]) / 2
 
 
-def _dp_resume(out: Path, spec: dict, rank: int) -> None:
+def _dp_resume(out: Path, spec: dict, rank: int, chaos: bool = False) -> None:
     """The spawn's run (DP, or DP with ring attention) at dropout 0.1 with
     checkpoints and eval every 2 steps: 4 steps
     uninterrupted, then 2 steps and a resume to 4 from the step-2
-    checkpoint (rank 0's model and optimizer, each rank's generator)."""
+    checkpoint (rank 0's model and optimizer, each rank's generator).
+    ``chaos``: also the 4 steps with a checkpoint every step, the step-2
+    checkpoint damaged by the lead's chaos injector after its save and NaN
+    after the update of step 3 on every rank (the rollback passes over
+    step 2 to step 1), with this rank's rollback and fallback events."""
     from dtc_tpu_torch.config import schema as ts
     from dtc_tpu_torch.config.loader import _build
     from dtc_tpu_torch.train.trainer import train
@@ -235,8 +239,9 @@ def _dp_resume(out: Path, spec: dict, rank: int) -> None:
     opt = _build(ts.OptimConfig, spec["optim"], "optim")
     base = _build(ts.TrainConfig, spec["train"], "train")
 
-    def run(name, steps):
-        cfg = dataclasses.replace(base, steps=steps, warmup_steps=1, checkpoint_every=2,
+    def run(name, steps, checkpoint_every=2):
+        cfg = dataclasses.replace(base, steps=steps, warmup_steps=1,
+                                  checkpoint_every=checkpoint_every,
                                   eval_every=2, eval_batches=1,
                                   output_dir=str(out / f"resume_{name}"),
                                   checkpoint_dir=str(out / f"resume_{name}_ckpt"))
@@ -244,6 +249,16 @@ def _dp_resume(out: Path, spec: dict, rank: int) -> None:
         return dict(losses=res.losses, evals=res.eval_losses)
 
     report = dict(full=run("full", 4), part=run("part", 2), resumed=run("part", 4))
+    if chaos:
+        from dtc_tpu_torch.obs import read_jsonl
+
+        base = dataclasses.replace(base, resilience=ts.ResilienceConfig(chaos=ts.ChaosConfig(
+            enabled=True, nan_at_step=3, corrupt_ckpt_at_step=2)))
+        report["chaos"] = run("chaos", 4, checkpoint_every=1)
+        events = read_jsonl(str(out / "resume_chaos" / "obs" / f"events.r{rank}.jsonl"))
+        report["chaos"]["recoveries"] = [
+            [e["action"], e.get("to_step", e.get("rejected_step"))]
+            for e in events if e["etype"] == "recovery"]
     (out / f"resume_r{rank}.json").write_text(json.dumps(report))
 
 
@@ -421,6 +436,7 @@ def _check_resume(out_dir: Path, world: int) -> None:
     """The resume of :func:`_dp_resume`: bit-equal to the uninterrupted
     run, on every rank, eval included."""
     reports = [json.loads((out_dir / f"resume_r{r}.json").read_text()) for r in range(world)]
+    reports = [{k: v for k, v in rep.items() if k != "chaos"} for rep in reports]
     assert all(rep == reports[0] for rep in reports)
     rep = reports[0]
     assert rep["resumed"]["losses"] == rep["full"]["losses"][2:]
@@ -467,6 +483,15 @@ def test_dp_training_over_two_gloo_processes_matches_jax(
                   opt_cfg).losses
     _check_losses(dp_spawn, 2, want)
     _check_resume(dp_spawn, 2)
+    # The chaos run: both ranks roll back to step 1 (the lead alone
+    # verified and rejected step 2) and end on the clean run's losses and
+    # eval losses, bit for bit.
+    reports = [json.loads((dp_spawn / f"resume_r{r}.json").read_text()) for r in range(2)]
+    for r, rep in enumerate(reports):
+        assert rep["chaos"]["losses"] == rep["full"]["losses"]
+        assert rep["chaos"]["evals"] == rep["full"]["evals"]
+        want_rec = [["rollback", 1]] + ([["ckpt_fallback", 2]] if r == 0 else [])
+        assert rep["chaos"]["recoveries"] == want_rec, r
 
 
 def test_dp_telemetry_writes_every_ranks_shard_and_the_leads_summary(dp_spawn):

@@ -46,19 +46,11 @@ from dtc_tpu_torch.models.gpt import adapter_param_count
 from dtc_tpu_torch.parity import from_flax, lora_from_flax
 from dtc_tpu_torch.train.trainer import train
 from tests.conftest import make_train_cfg
-from tests.test_torch_train import _port
+from tests.test_torch_train import _one_thread, _port  # noqa: F401  (_one_thread: autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 STEPS = 6
 JAX_OPT = js.OptimConfig(lr=1e-2, weight_decay=0.1, grad_clip=1.0)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _model(**adapter):

@@ -48,6 +48,8 @@ import torch
 from dtc_tpu.ops import flash_attention as jfa
 from dtc_tpu_torch.ops import flash_attention as tfa
 from dtc_tpu_torch.parity import FP32_ATOL, attention_tolerance, grad_tolerance
+from tests.test_torch_train import _one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 

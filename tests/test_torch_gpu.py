@@ -5,7 +5,7 @@ kernels on the model's decode and training paths (rematerialisation and
 the FSDP ring over virtual ranks included); two gloo ranks sharing the
 card for tensor parallelism and the FSDP ring's transport; a resume at the
 flagship's widths; a LoRA finetune step and bf16_mixed optimizer steps
-against the CPU's.
+against the CPU's; the serving engine's chaos faults on the card's KV cache.
 Needs an NVIDIA GPU with ``nvcc``; elsewhere every test skips with the
 reason.
 
@@ -1816,6 +1816,67 @@ def test_devprof_capture_attributes_every_flash_kernel(cuda, tmp_path):
     gates = structural_gates(att)
     assert gates["all_dot_fusions_attributed"] and gates["unattributed_share_ok"], gates
     assert abs(att.total_s - meta["profiler_device_s"]) <= 0.01 * meta["profiler_device_s"]
+
+
+
+@pytest.mark.parametrize("backend", ["fused", "fused_layers"])
+def test_chaos_serving_faults_on_the_card_cache(cuda, backend):
+    """The flagship (``serve_config.yaml`` + ``model_config.yaml``, bf16)
+    under ``backend``: the chaos corruption overwrites the first completed
+    page of the card's K cache in place (the same storage, every layer at
+    that page the value 123.25 rounds to), and the verifier evicts the
+    request in that iteration, before a token computed from the page is
+    emitted; a serve whose only fault is poisoned logits retries once from
+    the pre-step cache and gives the clean run's tokens."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from dtc_tpu_torch.config.loader import load_serve_config
+    from dtc_tpu_torch.config.schema import ChaosConfig
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.serve import Request, ServingEngine
+
+    root = Path(__file__).resolve().parents[1]
+    scfg, mcfg = load_serve_config(root / "configs" / "serve_config.yaml",
+                                   model_overrides={"decode_attention": backend})
+    model = GPT(mcfg, device=cuda, seed=0)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, mcfg.vocab_size, size=n).tolist() for n in (40, 21)]
+
+    def run(chaos, **over):
+        eng = ServingEngine(model, dataclasses.replace(scfg, chaos=chaos, **over))
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=f"r{i}", prompt=p, max_new_tokens=24))
+        return eng
+
+    clean = run(ChaosConfig())
+    clean.run()
+    poisoned = run(ChaosConfig(enabled=True, serve_poison_logits_at_step=3))
+    poisoned.run()
+    assert poisoned.counters["serve_retries"] == 1
+    assert ({rid: r.tokens for rid, r in poisoned.results.items()}
+            == {rid: r.tokens for rid, r in clean.results.items()})
+
+    eng = run(ChaosConfig(enabled=True, serve_corrupt_page_at_step=2), verify_pages_every=1)
+    eng.step()
+    ptr = eng.cache["k"].data_ptr()
+    tokens = {rid: list(r.tokens) for rid, r in eng.results.items()}
+    seen = {}
+    verify = eng._verify_pages
+
+    def spy():
+        slot = next(i for i, s in enumerate(eng.slots) if s.rid == "r0")
+        seen["page"] = eng.cache["k"][:, slot, 0:scfg.page_size].clone()
+        verify()
+    eng._verify_pages = spy
+    eng.step()
+    want = torch.tensor(123.25, dtype=eng.cache["k"].dtype, device=cuda)
+    assert torch.all(seen["page"] == want) and eng.cache["k"].data_ptr() == ptr
+    assert eng.counters["serve_corruptions"] == 1 and eng.results["r0"].n_evictions == 1
+    assert eng.results["r0"].tokens == tokens["r0"]
+    eng.run()
+    assert all(r.state.value == "done" for r in eng.results.values())
 
 
 if __name__ == "__main__":

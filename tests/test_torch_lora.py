@@ -57,6 +57,8 @@ from dtc_tpu_torch.generate import decode_step, generate, init_cache
 from dtc_tpu_torch.models.gpt import GPT, Dense, adapter_param_count, apply_lora
 from dtc_tpu_torch.parity import from_flax, lora_from_flax
 from dtc_tpu_torch.serve import AdapterStoreFullError
+from tests.test_torch_train import _one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 
 ROOT = Path(__file__).resolve().parent.parent
 VOCAB = 97

@@ -29,6 +29,8 @@ from dtc_tpu_torch.config.schema import ModelConfig as TCfg
 from dtc_tpu_torch.generate import decode_step, init_cache
 from dtc_tpu_torch.models.gpt import GPT, param_count
 from dtc_tpu_torch.parity import from_flax
+from tests.test_torch_train import _one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 
 TOL = {"float32": 1e-4, "bfloat16": 0.125}
 

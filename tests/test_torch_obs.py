@@ -55,18 +55,9 @@ from dtc_tpu_torch.obs.stepclock import CompileWatcher
 from dtc_tpu_torch.obs.telemetry import Telemetry
 from dtc_tpu_torch.train import trainer as trainer_mod
 from dtc_tpu_torch.utils import percentile as tpct
+from tests.test_torch_train import _one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ROOT = Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """The port's runs here are tiny: one intra-op thread runs them as fast
-    and keeps the test workers from contending for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,8 @@ from dtc_tpu_torch.config import schema as ts
 from dtc_tpu_torch.config.loader import _build
 from dtc_tpu_torch.ops import overlap_collectives as toc
 from dtc_tpu_torch.ops.ring_attention import InProcessRing
+from tests.test_torch_train import _one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 
 SHAPES = ((64, 128), (128, 64))
 

@@ -34,7 +34,10 @@ from dtc_tpu_torch.parity import from_flax
 from dtc_tpu_torch.train.trainer import train
 from dtc_tpu_torch.utils.metrics import train_memory_bytes
 from tests.conftest import make_train_cfg
-from tests.test_torch_train import _close, _flax_params, _port
+from tests.test_torch_train import (  # noqa: F401  (_one_thread: autouse)
+    _close, _flax_params, _one_thread, _port,
+)
+
 
 MODES = ["block", "block_save_flash", "mlp", True]
 

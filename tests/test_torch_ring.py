@@ -38,6 +38,8 @@ from dtc_tpu_torch.ops import flash_attention as tfa
 from dtc_tpu_torch.ops import ring_attention as tra
 from dtc_tpu_torch.ops.attention import dense_causal_attention
 from dtc_tpu_torch.parity import FP32_ATOL, attention_tolerance, grad_tolerance
+from tests.test_torch_train import _one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -18,12 +18,7 @@ from dtc_tpu.config.schema import ServeConfig as JServeConfig
 from dtc_tpu.models.gpt import GPT as JGPT
 from dtc_tpu.serve import Request as JRequest
 from dtc_tpu.serve import ServingEngine as JServingEngine
-from dtc_tpu_torch.config.schema import (
-    ChaosConfig,
-    ModelConfig,
-    ServeConfig,
-    SloConfig,
-)
+from dtc_tpu_torch.config.schema import ModelConfig, ServeConfig
 from dtc_tpu_torch.generate import generate
 from dtc_tpu_torch.models.gpt import GPT
 from dtc_tpu_torch.parity import from_flax
@@ -40,6 +35,8 @@ from dtc_tpu_torch.serve import (
     pages_for,
 )
 from dtc_tpu_torch.serve import engine as engine_mod
+from tests.test_torch_train import _one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 
 VOCAB = 97
 
@@ -311,18 +308,6 @@ def test_corrupted_page_is_caught_and_re_prefilled(models):
     assert eng.counters["serve_corruptions"] == 1
     assert res["x"].n_evictions == 1
     assert res["x"].state is RequestState.DONE and res["x"].tokens == ref
-
-
-@pytest.mark.parametrize("what", ["chaos", "slo"])
-def test_unported_features_raise(models, what):
-    """Each is a later slice: construction refuses it."""
-    _, _, tm = models
-    scfg = {
-        "chaos": ServeConfig(chaos=ChaosConfig(enabled=True, serve_stall_at_step=2)),
-        "slo": ServeConfig(slo=SloConfig(ttft_p99_s=2.0)),
-    }[what]
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tm, scfg)
 
 
 def test_grower_that_evicts_itself_returns_its_pages(models):

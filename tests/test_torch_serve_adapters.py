@@ -37,6 +37,8 @@ from dtc_tpu_torch.serve import (
     ServingEngine,
     UnknownAdapterError,
 )
+from tests.test_torch_train import _one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 
 VOCAB = 97
 TINY = dict(vocab_size=VOCAB, d_model=64, n_layers=4, n_heads=4, d_ff=128, max_seq_len=32,

@@ -40,6 +40,7 @@ from dtc_tpu_torch.spec import (
     spec_round,
 )
 from dtc_tpu_torch.spec.core import _accept_sampled
+from tests.test_torch_train import _one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 VOCAB = 97
 TINY = dict(vocab_size=VOCAB, d_model=64, n_layers=4, n_heads=4, d_ff=128,
