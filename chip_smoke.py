@@ -11,10 +11,11 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. Device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device.
 2. Build: every kernel library with ``nvcc`` (one process per source, all
    started together), with the compiler's register / shared-memory report.
-   The six decode-megakernel libraries take minutes: phases 3, 5, 6 and 8
-   (kernel cases timed on the device between CUDA events, and correctness)
-   run while they compile, and the host-timed phases 4 and 7 run after the
-   build has finished; the script logs each phase's wall seconds at the end;
+   The six decode-megakernel libraries take minutes: phases 3, 5, 6, 8, 15
+   and 18 (kernel cases timed on the device between CUDA events, and
+   correctness) run while they compile, and the host-timed phases 4 and 7
+   run after the build has finished; the script logs each phase's wall
+   seconds at the end;
    the FSDP ring library's tensor-core instances' dynamic shared memory,
    and its ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) SASS counts
    (``cuobjdump -sass``): a zero fails; the same for every tensor-core
@@ -210,8 +211,9 @@ Phases (each prints its own lines; any failure exits non-zero):
     float32 dropout-0 run of 4 steps on ``train_config_tp.yaml`` within
     1e-4 of one process (:func:`one_process_fp32`), then ``python -m
     dtc_tpu_torch.main --train_config_path configs/train_config_tp.yaml
-    --dataset synthetic --no-obs --steps 30 --backend gloo --device cuda:0``
-    (8 heads of 32 a rank at B 8, 5 warmup steps): finite, falling bf16
+    --dataset synthetic --no-obs --steps 15 --backend gloo --device cuda:0``
+    (8 heads of 32 a rank at B 8, 5 warmup steps; 15 timed steps keep the
+    script inside its time limit): finite, falling bf16
     losses, ``log.csv`` from rank 0, 12 forward and 24 backward flash
     launches a rank a step, all "tc", the replicated parameters bit-equal
     across the two ranks; step ms and peak memory a rank beside
@@ -328,6 +330,26 @@ Phases (each prints its own lines; any failure exits non-zero):
     with ``EngineClosedError``, the partial tokens phase 4's prefix; ms
     per token with the engine's telemetry on and off, alternated, beside
     phase 10's.
+28. The serving fleet (``dtc_tpu_torch.serve.router`` over
+    ``configs/router_config.yaml`` + ``model_config.yaml``: 3 replicas of 4
+    slots sharing one model, ``placement: affinity``), twelve seeded
+    prompts of 32 tokens (every third opening with a 16-token shared
+    prefix), 64 new tokens each, through ``dtc_tpu_torch.serve.fleet``:
+    (a) bf16 under ``fused`` with the config's documented chaos block (a
+    partition at router iteration 3, a stall at 6, a kill at 9, replica
+    0): every request done, none silently dropped, one death and at least
+    one failover, bf16 tokens equal to ``generate()`` up to each request's
+    first hop, n_layers decode-kernel launches per replica decode attempt;
+    the card memory of a router of one replica and of three, the shards
+    reduced (``obs.reduce_shards``), each hopped request's prefill and
+    re-prefill; a replica spawned after the run serves a request with the
+    run's tokens and no kernel library built or first loaded. (b) float32
+    under ``fused_layers`` with ``finetune_lora.yaml``'s adapter block, two
+    tenants and base requests, tenant t1's home (replica 0) killed at 9:
+    every request's tokens equal ``generate()`` with its tenant's factors,
+    a megakernel launch per decode attempt, t1 re-loaded on a survivor.
+    Fleet times are of replicas time-sliced on one card, not a
+    multi-replica throughput.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -3364,26 +3386,6 @@ def megakernel_compare(got, want, compute, kvdtype, depth_one: bool):
     return ratio, share, ok
 
 
-def tenant_factors(cfg, device, seed: int, n: int):
-    """``n`` tenants' LoRA factors for ``cfg`` on ``device``, random and
-    nonzero from ``seed``: A and B normal with variance 1 / fan-in (the
-    factors' last axis), so a delta is the size of the dense output it
-    joins and a misplaced rounding in it shows."""
-    import torch
-
-    from dtc_tpu_torch.adapters.lora import lora_shapes
-
-    g = torch.Generator(device=device).manual_seed(seed)
-    out = []
-    for _ in range(n):
-        fac = {}
-        for k, shape in lora_shapes(cfg).items():
-            fan = shape[-1]
-            fac[k] = torch.randn(shape, device=device, generator=g) / fan ** 0.5
-        out.append(fac)
-    return out
-
-
 def lora_stack(model, tenants):
     """A resident stack (``init_lora_stack``) with slot 0 the base and the
     tenants in slots 1, 2, ..."""
@@ -3583,10 +3585,11 @@ def serve_adapters(scfg, mcfg_ad, seed: int, max_new: int, tokens_fl, fl_rec, sm
 
     from dtc_tpu_torch.generate import generate
     from dtc_tpu_torch.serve import ServingEngine
+    from dtc_tpu_torch.serve.fleet import random_factors
 
     if tenants is None:
         tenants = dict(zip(("t1", "t2", "t3"),
-                           tenant_factors(mcfg_ad, torch.device(device), seed + 1200, 3)))
+                           random_factors(mcfg_ad, torch.device(device), seed + 1200, 3)))
     out = {}
     for backend in ("fused_layers", "fused"):
         mcfg_b = dataclasses.replace(mcfg_ad, decode_attention=backend)
@@ -3692,6 +3695,7 @@ def serve_trained_adapter(npz: Path, scfg, seed: int, max_new: int, tokens_fl, f
 
     from dtc_tpu_torch.adapters.lora import load_adapter_file
     from dtc_tpu_torch.config.loader import load_finetune_config
+    from dtc_tpu_torch.serve.fleet import random_factors
 
     tcfg, mcfg, _ = load_finetune_config(ROOT / "configs" / "finetune_lora.yaml")
     trained, meta = load_adapter_file(str(npz))
@@ -3699,7 +3703,7 @@ def serve_trained_adapter(npz: Path, scfg, seed: int, max_new: int, tokens_fl, f
           f"phase 25(c): the export's meta {meta}")
     dev = torch.device(device)
     tenants = {"ft": {k: v.to(dev) for k, v in trained.items()},
-               "t2": tenant_factors(mcfg, dev, seed + 1250, 1)[0]}
+               "t2": random_factors(mcfg, dev, seed + 1250, 1)[0]}
     if seed != tcfg.seed:
         # phase 10 served another base: the base requests' tokens anew
         mcfg_fl = dataclasses.replace(mcfg, decode_attention="fused_layers")
@@ -4217,6 +4221,212 @@ def chaos_serve_phase(scfg, seed: int, max_new: int, tokens_fused: dict, tokens_
     return rec
 
 
+def fleet_phase(smi: str, seed: int, device: str = "cuda") -> dict:
+    """28: the serving fleet (``configs/router_config.yaml`` +
+    ``model_config.yaml``: 3 replicas of 4 slots, ``placement: affinity``)
+    through ``dtc_tpu_torch.serve.fleet``'s traffic and checks, twelve
+    requests of 64 tokens. (a) As written (bf16, ``fused``) with the
+    config's documented chaos block (a partition at router iteration 3, a
+    stall at 6, a kill at 9, replica 0): zero silent drops, one death and
+    failovers, every request done, bf16 tokens equal to ``generate()`` up
+    to each request's first hop, ``n_layers`` decode-kernel launches per
+    replica decode attempt; the card memory of one replica's router
+    against three; the fleet's shards reduced; each hopped request's
+    re-prefill; a replica spawned after the run serves a request with no
+    kernel library built or first loaded (the build listener) and
+    tokens equal to the run's. (b) float32 under ``fused_layers`` with
+    ``finetune_lora.yaml``'s adapter block (rank 8), two tenants and base
+    requests, the kill of tenant t1's home (replica 0): every request's
+    tokens equal ``generate()`` with its tenant's factors, in full; one
+    megakernel launch per decode attempt; t1 re-loaded on a survivor."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from dtc_tpu_torch.config.loader import load_finetune_config, load_router_config
+    from dtc_tpu_torch.config.schema import ChaosConfig
+    from dtc_tpu_torch.models.gpt import GPT
+    from dtc_tpu_torch.obs import read_jsonl, reduce_shards, shard_path
+    from dtc_tpu_torch.ops import _build, decode_fused
+    from dtc_tpu_torch.ops import decode_attention as da
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.serve import FleetRouter
+    from dtc_tpu_torch.serve.fleet import (
+        EXAMPLE_CHAOS,
+        check_fleet,
+        fleet_requests,
+        random_factors,
+        reference_tokens,
+        serve_fleet,
+    )
+
+    cuda = device == "cuda"
+
+    def allocated() -> int:
+        if not cuda:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    rcfg, mcfg = load_router_config(ROOT / "configs" / "router_config.yaml")
+    _, mcfg_ad, _ = load_finetune_config(ROOT / "configs" / "finetune_lora.yaml")
+    parts = (
+        ("a", mcfg, dataclasses.replace(rcfg, chaos=ChaosConfig(**EXAMPLE_CHAOS))),
+        ("b", dataclasses.replace(mcfg_ad, compute_dtype="float32",
+                                  decode_attention="fused_layers"),
+         dataclasses.replace(rcfg, chaos=ChaosConfig(
+             enabled=True, fleet_kill_replica_at_step=9, fleet_target_replica=0))),
+    )
+    rec: dict = dict(card=smi, faults=EXAMPLE_CHAOS)
+    with tempfile.TemporaryDirectory(prefix="dtc_chip_smoke_fleet_") as tmp:
+        for part, mc, rc in parts:
+            what = f"phase 28({part}) {mc.compute_dtype} {mc.decode_attention}"
+            model = GPT(mc, device=device, seed=seed)
+            factors = ({} if mc.adapter.rank == 0 else dict(zip(
+                ("t1", "t2"), random_factors(mc, model.device, seed + 1, 2))))
+            max_new = min(rc.serve.max_new_tokens, mc.max_seq_len // 2)
+            reqs, _ = fleet_requests(mc, 12, seed, max_new, bool(factors))
+            refs = reference_tokens(model, reqs, factors)
+            r_rec: dict = {}
+            if part == "a":
+                # The card memory a router of one replica and of three takes
+                # beside the shared weights: each replica's cache and stacks.
+                mem = {}
+                for n in (1, 3):
+                    m0 = allocated()
+                    probe = FleetRouter(model, dataclasses.replace(rc, n_replicas=n,
+                                                                   chaos=ChaosConfig()))
+                    mem[n] = allocated() - m0
+                    del probe
+                r_rec["replica_bytes"] = mem
+                r_rec["weights_bytes"] = sum(p.numel() * p.element_size()
+                                             for p in model.parameters())
+            tables0 = len(decode_fused._tables)
+            obs_dir = str(Path(tmp) / part)
+            m0 = allocated()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            da.launches = decode_fused.launches = fa.fwd_launches = 0  # the main path starts here
+            t0 = time.perf_counter()
+            router, events = serve_fleet(rc, model, reqs, factors, obs_dir=obs_dir)
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = dict(decode_attention=da.launches,  # ...and ends here
+                            fused_layers=decode_fused.launches)
+            r_rec["peak_allocated_above_start"] = (
+                torch.cuda.max_memory_allocated() - m0 if cuda else 0)
+            router.close()
+            chk = check_fleet(router, reqs, refs, events, exact=mc.compute_dtype == "float32")
+            check(not chk["failures"] and chk["done"] == len(reqs),
+                  f"{what}: {chk['failures']}; {chk['done']}/{len(reqs)} done, states "
+                  f"{chk['states']}")
+            attempts = {rep.replica_id: rep.engine.counters["serve_decode_steps"]
+                        + rep.engine.counters["serve_retries"] for rep in router.replicas}
+            total = sum(attempts.values())
+            want = (dict(decode_attention=mc.n_layers * total, fused_layers=0)
+                    if mc.decode_attention == "fused"
+                    else dict(decode_attention=0, fused_layers=total))
+            check(launched == want and total > 0,
+                  f"{what}: launches {launched} for {total} replica decode attempts "
+                  f"{attempts} (want {want})")
+            if factors:
+                loads = [(e["adapter"], e["replica"]) for e in events
+                         if e["etype"] == "router_adapter_load"]
+                t1_homes = [r for a, r in loads if a == "t1"]
+                check(t1_homes[:1] == [0] and any(r != 0 for r in t1_homes[1:]),
+                      f"{what}: t1 loaded on replicas {t1_homes} (want its home 0, then a "
+                      "survivor after the kill)")
+                r_rec["adapter_loads"] = loads
+            # the fleet's shards: the port's reducer, and each hopped
+            # request's prefill on its first replica against its re-prefill
+            red = reduce_shards(obs_dir)
+            check(red is not None and red["serve"]["requests"] >= len(reqs)
+                  and red["serve"].get("failover_hops", 0) >= 1,
+                  f"{what}: reduced shards {red and red.get('serve')}")
+            prefills: dict = {}
+            for k in range(len(router.replicas)):
+                for e in read_jsonl(shard_path(obs_dir, k)):
+                    if e["etype"] == "span" and e["name"] == "req.prefill":
+                        prefills.setdefault(e["rid"], []).append(
+                            dict(replica=k, ms=e["dur_s"] * 1e3, resident=e["resident"]))
+            reprefill = {rid: prefills.get(rid) for rid in chk["hops_at"]}
+            res = router.results
+            ttft = [res[r.rid].ttft_s for r in reqs]
+            mspt = [res[r.rid].ms_per_token for r in reqs]
+            n_tok = sum(len(res[r.rid].tokens) for r in reqs)
+            # 12 requests in one admission wave bear no tail: their median and
+            # largest, with n (the fleet entry point's open-loop run reads tails)
+            r_rec.update(
+                wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall, n_timed=len(reqs),
+                ttft_median_s=percentile(ttft, 0.5), ttft_max_s=max(ttft),
+                ms_per_token_median=percentile(mspt, 0.5), ms_per_token_max=max(mspt),
+                launches=launched, decode_attempts=attempts,
+                flash_fwd_launches=fa.fwd_launches, routes=chk["routes"],
+                hops_at=chk["hops_at"], tokens_equal=chk["tokens_equal"],
+                all_equal=all(res[r.rid].tokens == refs[r.rid] for r in reqs),
+                prefills=reprefill, summary=chk["summary"], reduced=red["serve"],
+                megakernel_tables=len(decode_fused._tables) - tables0,
+                lora_tables=len(decode_fused._lora_tables),
+            )
+            check(r_rec["megakernel_tables"] <= 1
+                  and r_rec["lora_tables"] <= decode_fused._LORA_TABLES_KEPT,
+                  f"{what}: the megakernel's module tables grew by {r_rec['megakernel_tables']} "
+                  f"(LoRA tables {r_rec['lora_tables']})")
+            log(f"{what}: {chk['done']}/{len(reqs)} done, {len(chk['hops_at'])} failed over "
+                f"(tokens carried {chk['hops_at']}), routes {chk['routes']}, deaths "
+                f"{chk['summary']['replica_deaths']}, failovers {chk['summary']['failovers']}; "
+                f"tokens equal to generate() {chk['tokens_equal']}; launches {launched} for "
+                f"replica decode attempts {attempts}; flash forward launches "
+                f"{fa.fwd_launches} (the prefill attends densely) [{smi}]")
+            log(f"{what} (time-sliced on one card, not a multi-replica throughput): wall "
+                f"{wall:.3f} s, {n_tok} tokens, {r_rec['tokens_per_s']:.3f} tokens/s; over n "
+                f"{len(reqs)} requests TTFT median {r_rec['ttft_median_s']:.6f} / max "
+                f"{r_rec['ttft_max_s']:.6f} s, ms/token median "
+                f"{r_rec['ms_per_token_median']:.6f} / max {r_rec['ms_per_token_max']:.6f}; "
+                f"prefill and re-prefill of the hopped "
+                f"requests {reprefill}; peak {r_rec['peak_allocated_above_start']} B above the "
+                f"start [{smi}]")
+            if part == "a":
+                log(f"{what}: card memory of a router of 1 replica {mem[1]} B, of 3 {mem[3]} B, "
+                    f"beside the shared weights' {r_rec['weights_bytes']} B [{smi}]")
+                # A replica spawned after the run builds and loads nothing, and
+                # serves a request as the run's replica did.
+                heard: list = []
+
+                def hear(sec: float, count: int) -> None:
+                    heard.append((sec, count))
+
+                _build.add_listener(hear)
+                try:
+                    sp = FleetRouter(model, dataclasses.replace(rc, n_replicas=1,
+                                                                chaos=ChaosConfig()),
+                                     router_proc=8)
+                    t0 = time.perf_counter()
+                    spawned = sp.spawn_replica()
+                    spawn_s = time.perf_counter() - t0
+                    sp.kill_replica(0, reason="spawn check")
+                    sp.submit(reqs[1])
+                    sp.run()
+                finally:
+                    _build.remove_listener(hear)
+                got = sp.results[reqs[1].rid]
+                check(not heard and got.state.value == "done" and spawned.replica_id == 1
+                      and got.tokens == res[reqs[1].rid].tokens,
+                      f"{what} spawn: builds and first loads heard {heard}, {got.state.value}, "
+                      f"tokens equal to the run's {got.tokens == res[reqs[1].rid].tokens}")
+                r_rec["spawn_s"] = spawn_s
+                log(f"{what}: a replica spawned after the run in {spawn_s * 1e3:.3f} ms served "
+                    f"{reqs[1].rid} with the run's tokens; builds and first loads heard: none")
+                del sp, spawned
+            rec[part] = r_rec
+            del model, router, events
+            if cuda:
+                torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default="", help="write every measured number to this JSON file")
@@ -4268,9 +4478,10 @@ def main() -> int:
 
         mark("2")
         # 2. build: one nvcc per library, all started together. The six
-        # megakernel libraries take minutes: phases 3, 5, 6 and 8 (kernel
-        # cases timed on the device, and correctness) run while they
-        # compile; the host-timed phases 4 and 7 wait for the whole build.
+        # megakernel libraries take minutes: phases 3, 5, 6, 8, 15 and 18
+        # (kernel cases timed on the device, and correctness) run while
+        # they compile; the host-timed phases 4 and 7 wait for the whole
+        # build.
         from dtc_tpu_torch.ops import _build
 
         mk_names = list(_build._MEGAKERNELS)
@@ -4447,7 +4658,59 @@ def main() -> int:
                 f"{pa_launches}")
             check(gap <= 1e-4, f"flash and dense training disagree by {gap} at D {head_dim}")
 
-        # the megakernel libraries: their build ran beside phases 3, 5, 6 and 8
+        mark("15")
+        # 15. the ring's block kernels against their plain versions
+        block_specs = [
+            ("bf16_tc1024", 2, 1024, 16, 32, "bfloat16"),   # T 8192 over a ring of 4
+            ("fp32_tc1024", 2, 1024, 16, 32, "float32"),
+            ("bf16_tc512", 4, 512, 16, 32, "bfloat16"),     # T 4096 over a ring of 4
+            ("bf16_tc8", 2, 8, 16, 32, "bfloat16"),         # ragged chunks
+            ("bf16_tc40", 2, 40, 16, 32, "bfloat16"),
+            ("bf16_tc1000", 2, 1000, 16, 32, "bfloat16"),
+            ("fp32_tc1000", 2, 1000, 16, 32, "float32"),
+            ("bf16_d16", 2, 512, 32, 16, "bfloat16"),       # other head dims
+            ("bf16_d64", 2, 512, 8, 64, "bfloat16"),
+            ("bf16_d128", 2, 512, 4, 128, "bfloat16"),
+            ("fp32_d128", 2, 512, 4, 128, "float32"),
+        ]
+        blocks = [block_case(name, b, tc, h, d, dt, seed=args.seed + 150 + i, iters=20)
+                  for i, (name, b, tc, h, d, dt) in enumerate(block_specs)]
+        record["block_cases"] = blocks
+
+        mark("18")
+        # 18. the FSDP ring's kernels (rows 17-18) against their plain
+        # versions over 4 virtual ranks, at the flagship's dense sites
+        overlap_specs = [
+            ("bf16_qkv", 8, 512, 512, 512, 0, "bfloat16", 20),
+            ("bf16_fc1", 8, 512, 512, 2048, 0, "bfloat16", 20),
+            ("bf16_out_proj", 8, 512, 512, 512, 1, "bfloat16", 20),
+            ("bf16_fc2", 8, 512, 2048, 512, 1, "bfloat16", 20),
+            ("fp32_qkv", 8, 512, 512, 512, 0, "float32", 0),
+            ("fp32_fc1", 8, 512, 512, 2048, 0, "float32", 0),
+            ("fp32_out_proj", 8, 512, 512, 512, 1, "float32", 0),
+            ("fp32_fc2", 8, 512, 2048, 512, 1, "float32", 0),
+            # the DP×FSDP×TP sites of train_config_3d.yaml (a model rank's
+            # Megatron widths, 4 ranks of 2,048 rows)
+            ("bf16_3d_qkv", 16, 512, 512, 256, 0, "bfloat16", 20),
+            ("bf16_3d_fc1", 16, 512, 512, 1024, 0, "bfloat16", 20),
+            ("bf16_3d_out_proj", 16, 512, 256, 512, 1, "bfloat16", 20),
+            ("bf16_3d_fc2", 16, 512, 1024, 512, 1, "bfloat16", 20),
+            ("fp32_3d_qkv", 16, 512, 512, 256, 0, "float32", 0),
+            ("fp32_3d_fc1", 16, 512, 512, 1024, 0, "float32", 0),
+            ("fp32_3d_out_proj", 16, 512, 256, 512, 1, "float32", 0),
+            ("fp32_3d_fc2", 16, 512, 1024, 512, 1, "float32", 0),
+            ("bf16_ragged", 4, 100, 200, 300, 0, "bfloat16", 0),   # m 100, blocks 50 / 75
+            ("bf16_ragged_out", 4, 100, 200, 300, 1, "bfloat16", 0),
+            ("fp32_ragged", 4, 100, 200, 300, 0, "float32", 0),
+        ]
+        overlap = [overlap_case(name, b, t, k, n, sa, dt, seed=args.seed + 180 + i, iters=it,
+                                route="threads" if "ragged" in name and dt == "bfloat16"
+                                else "tma" if dt == "bfloat16" else "cuda_cores")
+                   for i, (name, b, t, k, n, sa, dt, it) in enumerate(overlap_specs)]
+        record["overlap_cases"] = overlap
+
+        # the megakernel libraries: their build ran beside phases 3, 5, 6, 8, 15
+        # and 18
         mark("2 (megakernel build, waited for)")
         mk_build.join()
         if mk_failed:
@@ -4640,6 +4903,7 @@ def main() -> int:
         # block of finetune_lora.yaml), slots [0, 1, 2, 1] of a stack whose slot
         # 0 is the base, scale 2 and 8/3 (not a bf16 value)
         from dtc_tpu_torch.config.loader import load_finetune_config
+        from dtc_tpu_torch.serve.fleet import random_factors
 
         _, mcfg_ad, _ = load_finetune_config(ROOT / "configs" / "finetune_lora.yaml")
         lora_ids = [0, 1, 2, 1]
@@ -4655,7 +4919,7 @@ def main() -> int:
                 cfg_l = dataclasses.replace(
                     mcfg_ad, adapter=dataclasses.replace(mcfg_ad.adapter, alpha=alpha))
                 model_l = megakernel_model(cfg_l, compute, args.seed + 900)
-                factors = tenant_factors(model_l.cfg, model_l.device, args.seed + 930, 2)
+                factors = random_factors(model_l.cfg, model_l.device, args.seed + 930, 2)
                 lora_models[compute, alpha] = (model_l, lora_stack(model_l, factors))
             model_l, stack = lora_models[compute, alpha]
             starts = [2, 37, mcfg.max_seq_len - t, mcfg.max_seq_len + 88]
@@ -4913,25 +5177,6 @@ def main() -> int:
                 log(f"  {len(sizes)} x {sizes[0]} B (sum {sum(sizes)} B) from {where}")
         torch.cuda.empty_cache()
 
-        mark("15")
-        # 15. the ring's block kernels against their plain versions
-        block_specs = [
-            ("bf16_tc1024", 2, 1024, 16, 32, "bfloat16"),   # T 8192 over a ring of 4
-            ("fp32_tc1024", 2, 1024, 16, 32, "float32"),
-            ("bf16_tc512", 4, 512, 16, 32, "bfloat16"),     # T 4096 over a ring of 4
-            ("bf16_tc8", 2, 8, 16, 32, "bfloat16"),         # ragged chunks
-            ("bf16_tc40", 2, 40, 16, 32, "bfloat16"),
-            ("bf16_tc1000", 2, 1000, 16, 32, "bfloat16"),
-            ("fp32_tc1000", 2, 1000, 16, 32, "float32"),
-            ("bf16_d16", 2, 512, 32, 16, "bfloat16"),       # other head dims
-            ("bf16_d64", 2, 512, 8, 64, "bfloat16"),
-            ("bf16_d128", 2, 512, 4, 128, "bfloat16"),
-            ("fp32_d128", 2, 512, 4, 128, "float32"),
-        ]
-        blocks = [block_case(name, b, tc, h, d, dt, seed=args.seed + 150 + i, iters=20)
-                  for i, (name, b, tc, h, d, dt) in enumerate(block_specs)]
-        record["block_cases"] = blocks
-
         mark("16")
         # 16. the zigzag ring on one card: R virtual ranks at (B 2, T 8192,
         # H 16, D 32), then one training step of the model on the ring
@@ -4982,38 +5227,6 @@ def main() -> int:
                 for row in pr["top"][:8] + pr["host"]:
                     log(f"  {row}")
             torch.cuda.empty_cache()
-
-        mark("18")
-        # 18. the FSDP ring's kernels (rows 17-18) against their plain
-        # versions over 4 virtual ranks, at the flagship's dense sites
-        overlap_specs = [
-            ("bf16_qkv", 8, 512, 512, 512, 0, "bfloat16", 20),
-            ("bf16_fc1", 8, 512, 512, 2048, 0, "bfloat16", 20),
-            ("bf16_out_proj", 8, 512, 512, 512, 1, "bfloat16", 20),
-            ("bf16_fc2", 8, 512, 2048, 512, 1, "bfloat16", 20),
-            ("fp32_qkv", 8, 512, 512, 512, 0, "float32", 0),
-            ("fp32_fc1", 8, 512, 512, 2048, 0, "float32", 0),
-            ("fp32_out_proj", 8, 512, 512, 512, 1, "float32", 0),
-            ("fp32_fc2", 8, 512, 2048, 512, 1, "float32", 0),
-            # the DP×FSDP×TP sites of train_config_3d.yaml (a model rank's
-            # Megatron widths, 4 ranks of 2,048 rows)
-            ("bf16_3d_qkv", 16, 512, 512, 256, 0, "bfloat16", 20),
-            ("bf16_3d_fc1", 16, 512, 512, 1024, 0, "bfloat16", 20),
-            ("bf16_3d_out_proj", 16, 512, 256, 512, 1, "bfloat16", 20),
-            ("bf16_3d_fc2", 16, 512, 1024, 512, 1, "bfloat16", 20),
-            ("fp32_3d_qkv", 16, 512, 512, 256, 0, "float32", 0),
-            ("fp32_3d_fc1", 16, 512, 512, 1024, 0, "float32", 0),
-            ("fp32_3d_out_proj", 16, 512, 256, 512, 1, "float32", 0),
-            ("fp32_3d_fc2", 16, 512, 1024, 512, 1, "float32", 0),
-            ("bf16_ragged", 4, 100, 200, 300, 0, "bfloat16", 0),   # m 100, blocks 50 / 75
-            ("bf16_ragged_out", 4, 100, 200, 300, 1, "bfloat16", 0),
-            ("fp32_ragged", 4, 100, 200, 300, 0, "float32", 0),
-        ]
-        overlap = [overlap_case(name, b, t, k, n, sa, dt, seed=args.seed + 180 + i, iters=it,
-                                route="threads" if "ragged" in name and dt == "bfloat16"
-                                else "tma" if dt == "bfloat16" else "cuda_cores")
-                   for i, (name, b, t, k, n, sa, dt, it) in enumerate(overlap_specs)]
-        record["overlap_cases"] = overlap
 
         mark("19")
         # 19. FSDP over 4 virtual ranks on one card, overlapped: the dense
@@ -5115,6 +5328,13 @@ def main() -> int:
             f"(b) {walls27[2] - walls27[1]:.1f}")
         chaos_serve = record["chaos_serve"]
 
+        mark("28")
+        # 28. the serving fleet: router_config.yaml's three replicas of the
+        # flagship with its documented chaos block, then float32 tenants
+        # under fused_layers with their home replica killed
+        record["fleet"] = fleet_phase(smi, args.seed)
+        fleet = record["fleet"]
+
         main = results[0]
         kernels = [dict(
             name="decode_attention", route="cuda",
@@ -5127,6 +5347,7 @@ def main() -> int:
             launches_trained_adapter=ft_rec["serve"]["fused"]["decode_attention_launches"],
             launches_chaos_serve={dt: chaos_serve[f"fused_{dt}"]["launches"]["decode_attention"]
                                   for dt in ("bfloat16", "float32")},
+            launches_fleet=fleet["a"]["launches"]["decode_attention"],
         )]
         # The flash rows: the plan's route of the timed bf16 kernels ("tc":
         # tensor cores) and the main path's launches by kind and route; the
@@ -5195,6 +5416,7 @@ def main() -> int:
             without_adapters_ms=mk_lora_t1["base_ms"],
             yardstick_per_layer_ms=mk_lora_t1["per_layer_ms"],
             launches_trained_adapter=ft_rec["serve"]["fused_layers"]["megakernel_launches"],
+            launches_fleet=fleet["b"]["launches"]["fused_layers"],
         ))
         kernels.append(dict(
             name="flash_attention_bwd_t8192", route="cuda",

@@ -3,6 +3,7 @@
 from dtc_tpu_torch.config.loader import (
     load_config,
     load_finetune_config,
+    load_router_config,
     load_serve_config,
     load_yaml_dataclass,
     parse_yaml,
@@ -13,6 +14,7 @@ from dtc_tpu_torch.config.schema import (
     ChaosConfig,
     ModelConfig,
     OptimConfig,
+    RouterConfig,
     ServeConfig,
     SloConfig,
     SpecConfig,
@@ -23,7 +25,8 @@ from dtc_tpu_torch.config.schema import (
 
 __all__ = [
     "DTYPE_BYTES", "AdapterConfig", "ChaosConfig", "ModelConfig",
-    "OptimConfig", "ServeConfig", "SloConfig", "SpecConfig",
+    "OptimConfig", "RouterConfig", "ServeConfig", "SloConfig", "SpecConfig",
     "StreamRetryConfig", "TrainConfig", "WatchdogConfig", "load_config",
-    "load_finetune_config", "load_serve_config", "load_yaml_dataclass", "parse_yaml",
+    "load_finetune_config", "load_router_config", "load_serve_config",
+    "load_yaml_dataclass", "parse_yaml",
 ]

@@ -226,6 +226,25 @@ def load_serve_config(
     return serve_cfg, model_cfg
 
 
+def load_router_config(
+    router_config_path: str | Path,
+    model_config_path: str | Path | None = None,
+):
+    """Load the (router, model) config pair of the serving fleet; the model
+    config defaults to the sibling ``model_config.yaml``, and each
+    replica's engine config nests under the router YAML's ``serve:``
+    block."""
+    from dtc_tpu_torch.config.schema import ModelConfig, RouterConfig
+
+    router_config_path = Path(router_config_path)
+    model_config_path = Path(
+        model_config_path or router_config_path.parent / "model_config.yaml"
+    )
+    router_cfg = load_yaml_dataclass(router_config_path, RouterConfig)
+    model_cfg = load_yaml_dataclass(model_config_path, ModelConfig)
+    return router_cfg, model_cfg
+
+
 def load_config(
     train_config_path: str | Path,
     model_config_path: str | Path | None = None,

@@ -2,9 +2,10 @@
 
 The port keeps its own copy of the dataclasses the serving and training
 paths read (``ModelConfig``, ``AdapterConfig``, ``ServeConfig``,
-``OptimConfig``, ``TrainConfig`` and their sub-configs): every field,
-default and validator is the same as in the JAX package, so one set of
-YAML files under ``configs/`` loads unchanged into either. Fields that only
+``RouterConfig``, ``OptimConfig``, ``TrainConfig`` and their
+sub-configs): every field, default and validator is the same as in the
+JAX package, so one set of YAML files under ``configs/`` loads unchanged
+into either. Fields that only
 the JAX package acts on (Pallas block sizes, collectives, PRNG impl) are
 kept so the YAMLs stay valid; the port ignores them, and refuses with
 ``NotImplementedError`` the ones that name a feature it has not ported.
@@ -463,6 +464,70 @@ class ServeConfig:
             raise ValueError(
                 "serving speculation supports acceptance='greedy' only"
             )
+
+
+@dataclass(frozen=True)
+class RouterConfig:
+    """The serving fleet (:mod:`dtc_tpu_torch.serve.router`): a front-end
+    router over ``n_replicas`` serving engines with cache-affinity
+    placement, fleet backpressure, health-state routing and failover. See
+    ``configs/router_config.yaml`` for the knobs."""
+
+    n_replicas: int = 2
+    # "affinity": a tenant's adapter residency first, then the shared
+    # prefix's, then least loaded; "least_loaded" skips the affinities;
+    # "round_robin" is the control.
+    placement: str = "affinity"
+    # Missed heartbeats before an unreachable replica is declared dead and
+    # its requests fail over; shorter partitions heal in place.
+    heartbeat_miss_limit: int = 3
+    # Iterations without a fresh bad-health signal (a hung-step flag, an
+    # SLO degrade) before a DEGRADED replica attracts new work again.
+    degraded_hold_iters: int = 16
+    # Failover hops a request may take before it ends typed
+    # (RequestFailedError).
+    failover_max_hops: int = 3
+    # Step budget of each replica's drain (router drain or SIGTERM).
+    drain_max_steps: int = 512
+    # Each replica's engine config.
+    serve: ServeConfig = field(default_factory=ServeConfig)
+    # Retries of a momentarily unreachable replica before the router
+    # routes around it.
+    retry: StreamRetryConfig = field(default_factory=lambda: StreamRetryConfig(
+        max_attempts=3, backoff_s=0.02, backoff_max_s=0.5, jitter=0.0,
+        max_elapsed_s=5.0,
+    ))
+    # The replica-level hung-step watchdog over whole replica steps (a
+    # stall outside the engine's timed iteration); less twitchy than the
+    # engine's own (factor 16, 8 samples), since its flag degrades the
+    # replica.
+    watchdog: WatchdogConfig = field(
+        default_factory=lambda: WatchdogConfig(
+            enabled=True, factor=16.0, min_samples=8,
+        )
+    )
+    # Fleet-level faults (fleet_kill_replica / fleet_stall_replica /
+    # fleet_partition); serve-level ones go on serve.chaos, once a replica.
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
+
+    def __post_init__(self) -> None:
+        if self.n_replicas < 1:
+            raise ValueError("n_replicas must be >= 1")
+        if self.placement not in ("affinity", "least_loaded", "round_robin"):
+            raise ValueError(
+                f"unknown placement {self.placement!r}; expected 'affinity', "
+                "'least_loaded' or 'round_robin'"
+            )
+        if self.heartbeat_miss_limit < 1:
+            raise ValueError("heartbeat_miss_limit must be >= 1")
+        if self.degraded_hold_iters < 1:
+            raise ValueError("degraded_hold_iters must be >= 1")
+        if self.failover_max_hops < 0:
+            raise ValueError("failover_max_hops must be >= 0")
+        if self.drain_max_steps < 1:
+            raise ValueError("drain_max_steps must be >= 1")
+        # fleet_target_replica is judged when the fault fires (the replica
+        # set changes under spawn and retire), not here.
 
 
 @dataclass(frozen=True)

@@ -6,6 +6,7 @@ from dtc_tpu_torch.resilience.chaos import ChaosInjector
 from dtc_tpu_torch.resilience.errors import (
     AnomalyAbort,
     ChaosInjectedError,
+    ChaosTargetError,
     DataStreamError,
     ResilienceError,
 )
@@ -15,6 +16,7 @@ __all__ = [
     "AnomalyAbort",
     "ChaosInjectedError",
     "ChaosInjector",
+    "ChaosTargetError",
     "DataStreamError",
     "RecoveryBus",
     "ResilienceError",

@@ -19,9 +19,13 @@ The serving engine (:mod:`dtc_tpu_torch.serve.engine`) consults the
 ``serve_*`` hooks at its iteration boundaries: preemption and KV page
 corruption drive the evict → re-prefill path, the stall the serving
 watchdog, poisoned logits the finite check's retry from the pre-step
-cache. The fleet, pool and elastic hooks are pure functions of the
-config, kept with the class for the router, the pool and elastic training
-that will consult them.
+cache. The fleet router (:mod:`dtc_tpu_torch.serve.router`) consults
+the ``fleet_*`` hooks at its own iteration boundaries: a replica kill
+drives failover onto the survivors, a replica stall the replica-level
+watchdog and degraded routing, a partition the retries, missed heartbeats
+and the death verdict. The pool and elastic hooks are pure functions of
+the config, kept with the class for the pool and elastic training that
+will consult them.
 """
 
 from __future__ import annotations

@@ -20,6 +20,15 @@ class AnomalyAbort(ResilienceError):
     from the last verified checkpoint."""
 
 
+class ChaosTargetError(ResilienceError):
+    """A chaos fault fired but its configured victim does not exist at fire
+    time (``fleet_target_replica`` names a replica that was never spawned
+    or is already dead). The replica set changes under spawn and retire,
+    so the target is judged when the fault fires, and a stale one raises
+    instead of skipping the injection: a drill that silently skips it
+    would pass vacuously."""
+
+
 class ChaosInjectedError(ConnectionError):
     """A deterministic fault the chaos harness raises into the data plane.
 

@@ -85,6 +85,10 @@ verify window) runs the layer stack as one megakernel launch.
 - :meth:`ServingEngine.shutdown` drains or evicts what is in flight,
   refuses later submissions (``EngineClosedError``), drains the bus,
   dumps the flight recorder once and flushes.
+- The fleet router's surface (:mod:`dtc_tpu_torch.serve.router`):
+  ``submit(req, resume=...)`` takes over a request generated in part on
+  another replica; ``queue_room``, ``load``, ``over_shed_watermark`` and
+  ``has_prefix`` are its placement inputs.
 
 Memory note: the K/V buffers are updated in place (see
 ``models/gpt.py``); a retried step re-writes the same positions with the
@@ -329,17 +333,33 @@ class ServingEngine:
             pages += (pages * dl + nl - 1) // nl
         return pages
 
-    def submit(self, req: Request) -> str:
+    def submit(self, req: Request, *, resume: ServeResult | None = None) -> str:
         """Enqueue one request. Typed backpressure: raises
         :class:`QueueFullError` past ``queue_depth`` and
         :class:`RequestTooLargeError` for requests that could never run,
         and :class:`EngineClosedError` after :meth:`shutdown`; each with a
         ``serve_reject`` event. A ``rid`` may be reused only once its
-        previous submission is terminal."""
+        previous submission is terminal.
+
+        ``resume`` is the fleet's failover path: a partial
+        :class:`ServeResult` generated on another replica. The new record
+        starts from its tokens, so admission re-prefills prompt +
+        generated and greedy decode continues where it stopped.
+        ``submitted_t`` and ``first_token_t`` carry over (TTFT and the
+        deadline stay anchored at the original submit), ``requeued_t``
+        restarts the ``req.queued`` span at this hop, and ``n_hops``
+        increments. A resume that already holds ``max_new_tokens`` tokens
+        raises ``ValueError``."""
         if self.closed:
             self._reject(req, "closed")
             raise EngineClosedError(
                 f"request {req.rid}: engine is shut down / draining"
+            )
+        if resume is not None and len(resume.tokens) >= req.max_new_tokens:
+            raise ValueError(
+                f"request {req.rid}: resume carries {len(resume.tokens)} "
+                f"tokens >= max_new_tokens {req.max_new_tokens}: the prior "
+                "hop should have completed it"
             )
         if req.rid in self.requests:
             raise ValueError(
@@ -391,12 +411,50 @@ class ServingEngine:
             rid=req.rid, state=RequestState.QUEUED, tokens=[], submitted_t=now,
             adapter=req.adapter,
         )
+        if resume is not None:
+            res.tokens = list(resume.tokens)
+            if resume.submitted_t is not None:
+                res.submitted_t = resume.submitted_t
+            res.first_token_t = resume.first_token_t
+            res.n_evictions = resume.n_evictions
+            res.n_retries = resume.n_retries
+            res.n_hops = resume.n_hops + 1
+            res.degraded = resume.degraded
+            res.n_spec_proposed = resume.n_spec_proposed
+            res.n_spec_accepted = resume.n_spec_accepted
+            res.requeued_t = now  # this hop's req.queued span starts here
         self.results[req.rid] = res
         ttl = self.cfg.deadline_s if req.deadline_s is None else req.deadline_s
-        self._deadline[req.rid] = now + ttl if ttl and ttl > 0 else float("inf")
+        # A failover hop keeps the original submit's deadline.
+        self._deadline[req.rid] = (
+            res.submitted_t + ttl if ttl and ttl > 0 else float("inf")
+        )
         self.queue.append(req)
         self.reg.counter("serve_submitted").inc()
         return req.rid
+
+    # -- load and occupancy: the fleet router's placement inputs ---------
+    @property
+    def queue_room(self) -> int:
+        """Submissions this engine still takes before ``QueueFullError``."""
+        return max(0, self.cfg.queue_depth - len(self.queue))
+
+    @property
+    def active_count(self) -> int:
+        """Slots decoding now."""
+        return sum(1 for s in self.slots if s.rid is not None)
+
+    @property
+    def load(self) -> int:
+        """Queued + in-flight requests (the least-loaded placement key)."""
+        return len(self.queue) + self.active_count
+
+    @property
+    def over_shed_watermark(self) -> bool:
+        """The queue is past the shed watermark: this engine is about to
+        shed, so the router prefers peers with headroom."""
+        wm = self.cfg.shed_watermark
+        return wm > 0 and len(self.queue) > int(wm * self.cfg.queue_depth)
 
     def _reject(self, req: Request, reason: str, **fields: Any) -> None:
         self.reg.counter("serve_rejected").inc()
@@ -707,6 +765,12 @@ class ServingEngine:
         if plen <= 0:
             return None
         return (req.adapter,) + tuple(int(t) for t in req.prompt[:plen])
+
+    def has_prefix(self, req: Request) -> bool:
+        """Whether the prefix store holds this request's shared prefix (the
+        router's prefix-affinity signal)."""
+        key = self.prefix_key(req)
+        return key is not None and key in self._prefix_store
 
     def _prefix_base(self, req: Request) -> tuple[dict, int]:
         """(base cache, base length) for this request's prefill: a copy of
