@@ -350,6 +350,30 @@ Phases (each prints its own lines; any failure exits non-zero):
     a megakernel launch per decode attempt, t1 re-loaded on a survivor.
     Fleet times are of replicas time-sliced on one card, not a
     multi-replica throughput.
+29. Elastic training and the resource pool. (a) The elastic drill on the
+    flagship (``model_config.yaml``, bf16, dropout 0.1) through
+    ``train()``: ``parallel: fsdp`` in one process over 8 virtual devices
+    in 2 hosts, snapshots every step, 12 steps; host 0 killed at step 6:
+    one ``host_lost``, one ``elastic_resize`` from memory through the ring
+    mirror onto 4 devices, one ``elastic_spill``; a shrunk restart from the
+    spill (``dead_hosts: [0]``, resume) replays the post-resize losses bit
+    for bit (``tests/test_torch_gpu.py`` holds a killed run against a clean
+    one); 12 forward
+    and 24 backward flash launches a step run, all "tc"; reported: the
+    snapshots skipped, the steps replayed, the restore's seconds, each
+    commit's seconds. (b) ``configs/pool_config.yaml`` as written through
+    ``dtc_tpu_torch.pool``'s day and checks (both transitions steady, zero
+    silent drops, the losses an uninterrupted run's and each grow's first
+    step a fresh restart's bit for bit, no kernel library built by a
+    resize or a spawn, every resize a typed goodput incident, at most 5%
+    of the train shard unattributed, bf16 tokens equal to ``generate()``
+    up to each hop), then with its documented chaos block (a spike
+    mid-grow, host 1 killed mid-shrink) on a 40-step budget (the config's
+    12 end before the chaos burst is served); n_layers decode-kernel
+    launches per replica decode attempt, 12 / 24 flash launches a train
+    step; reported: each transition stage's host seconds, the snapshot
+    stores' host memory, the train and serve shares of the train shard's
+    wall.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -4427,6 +4451,183 @@ def fleet_phase(smi: str, seed: int, device: str = "cuda") -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 29: elastic training and the resource pool
+# ---------------------------------------------------------------------------
+
+def elastic_phase(smi: str, device: str = "cuda", steps: int = 12, kill_at: int = 6) -> dict:
+    """29(a): the elastic drill on the flagship (see the module docstring):
+    the run with host 0 killed at ``kill_at`` and a shrunk restart from its
+    spill, each ``steps`` steps through ``train()``.
+    ``device``: ``cpu`` rehearses the phase (no launch gate is a card's
+    there)."""
+    import dataclasses
+    import io
+    import tempfile
+
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.config.schema import ChaosConfig, ElasticConfig, ResilienceConfig
+    from dtc_tpu_torch.obs import read_jsonl, shard_path
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.train.trainer import train
+
+    tcfg, mcfg, ocfg = load_config(ROOT / "configs" / "train_config_dp.yaml")
+    cuda = device.startswith("cuda")
+    rec: dict = dict(card=smi)
+    with tempfile.TemporaryDirectory(prefix="dtc_chip_smoke_elastic_") as tmp:
+        def cfg(name, chaos=None, dead=(), resume=False, ckpt="kill"):
+            el = ElasticConfig(enabled=True, snapshot_every=1, keep=4, n_virtual_hosts=2,
+                               dead_hosts=dead)
+            return dataclasses.replace(
+                tcfg, parallel="fsdp", steps=steps, warmup_steps=2, log_every=4,
+                output_dir=f"{tmp}/{name}", checkpoint_every=100,
+                checkpoint_dir=f"{tmp}/{ckpt}_ckpt", resume=resume, overwrite=True,
+                dataset="synthetic",
+                resilience=ResilienceConfig(elastic=el, chaos=chaos or ChaosConfig()))
+
+        def run(c):
+            with contextlib.redirect_stdout(io.StringIO()):
+                return train(c, mcfg, ocfg, device=None if cuda else device)
+
+        zero_flash_counts()                            # the main path starts here
+        t0 = time.perf_counter()
+        kill = run(cfg("kill", ChaosConfig(enabled=True, kill_host_at_step=kill_at,
+                                           elastic_target_host=0)))
+        wall = time.perf_counter() - t0
+        launches = (fa.fwd_launches, fa.bwd_launches)  # ...and ends here
+        routes = check_flash_routes("phase 29(a)", mcfg.compute_dtype)
+        events = read_jsonl(shard_path(f"{tmp}/kill/obs", 0))
+        kinds = [e["etype"] for e in events]
+        rz = [e for e in events if e["etype"] == "elastic_resize"]
+        lost = [e for e in events if e["etype"] == "host_lost"]
+        check(len(lost) == 1 and lost[0]["host"] == 0 and len(rz) == 1
+              and (rz[0]["tier"], rz[0]["used_mirror"], rz[0]["devices"]) == ("memory", True, 4)
+              and kinds.count("elastic_spill") == 1,
+              f"phase 29(a): host_lost {lost}, elastic_resize {rz}, spills "
+              f"{kinds.count('elastic_spill')}")
+        check(len(kill.losses) == steps and all(map(math.isfinite, kill.losses)),
+              f"phase 29(a): the killed run's losses {kill.losses}")
+        rz = rz[0]
+        replay = run(cfg("replay", dead=(0,), resume=True))
+        check(replay.losses == kill.losses[rz["to_step"]:],
+              f"phase 29(a): the restart from the spill {replay.losses} against the "
+              f"post-resize losses {kill.losses[rz['to_step']:]}")
+        step_events = [e for e in events if e["etype"] == "step"]
+        n_run = 2 + len(step_events)
+        check(not cuda or launches == (mcfg.n_layers * n_run,
+                                       mcfg.n_layers * n_run * fa.BWD_KERNELS),
+              f"phase 29(a): flash launches {launches} for {n_run} steps run")
+        snaps = [e for e in events if e["etype"] == "snapshot"]
+        rec.update(
+            wall_s=wall, losses=kill.losses, to_step=rz["to_step"], detected_at=rz["step"],
+            replayed_steps=rz["step"] - rz["to_step"],
+            restore_s=rz["t_restored"] - rz["t_detect"],
+            snapshots=len(snaps), snapshots_incomplete=sum(not e["complete"] for e in snaps),
+            snapshots_skipped=max((e["skipped"] for e in snaps), default=0),
+            commit_s=[e["commit_s"] for e in snaps], snapshot_bytes=max(
+                (e["bytes"] for e in snaps), default=0),
+            steps_run=n_run, flash_launches=launches, flash_routes=routes,
+            replay_losses=replay.losses,
+            step_ms_median=1e3 * percentile([e["step_time_s"] for e in step_events], 0.5))
+    log(f"phase 29(a) elastic drill on the flagship (fsdp over 8 virtual devices in 2 hosts, "
+        f"bf16, dropout {mcfg.dropout}): host 0 killed at step {kill_at}, lost at "
+        f"{rz['step']}, restored memory step {rz['to_step']} through the mirror onto 4 "
+        f"devices in {rec['restore_s']:.6f} s; {rec['replayed_steps']} steps replayed; the "
+        f"restart from the spill replays the losses after it bit for bit; "
+        f"{rec['snapshots']} snapshots committed ({rec['snapshots_incomplete']} incomplete, "
+        f"{rec['snapshot_bytes']} B a commit), {rec['snapshots_skipped']} cadence ticks "
+        f"skipped of {n_run - 2}; commit seconds {[round(c, 4) for c in rec['commit_s']]}; "
+        f"step median {rec['step_ms_median']:.3f} ms (snapshots every step; phase 7's "
+        f"without them beside it); the killed run {wall:.3f} s; flash launches fwd {launches[0]} / bwd {launches[1]} "
+        f"for {n_run} steps run, by route {routes} [{smi}]")
+    return rec
+
+
+def pool_phase(smi: str, device: str = "cuda", chaos_steps: int = 40) -> dict:
+    """29(b): ``configs/pool_config.yaml`` through ``dtc_tpu_torch.pool``'s
+    day and checks, as written and then with its documented chaos block on
+    a ``chaos_steps`` budget (see the module docstring). ``device``:
+    ``cpu`` rehearses the phase."""
+    import dataclasses
+    import io
+
+    from dtc_tpu_torch.config.loader import load_pool_config
+    from dtc_tpu_torch.ops import _build, decode_fused
+    from dtc_tpu_torch.ops import decode_attention as da
+    from dtc_tpu_torch.ops import flash_attention as fa
+    from dtc_tpu_torch.pool.__main__ import run_pool
+
+    cuda = device.startswith("cuda")
+    pcfg, mcfg = load_pool_config(ROOT / "configs" / "pool_config.yaml")
+    rec: dict = dict(card=smi)
+    for leg, chaos, cfg in (("plain", False, pcfg),
+                            ("chaos", True, dataclasses.replace(pcfg, train_steps=chaos_steps))):
+        what = f"phase 29(b) {leg}"
+        heard: list = []
+        counts: dict = {}
+
+        @contextlib.contextmanager
+        def around_day():
+            def hear(sec: float, n: int) -> None:
+                heard.append((sec, n))
+
+            da.launches = decode_fused.launches = 0    # the main path starts here
+            zero_flash_counts()
+            _build.add_listener(hear)
+            try:
+                yield
+            finally:
+                _build.remove_listener(hear)
+            counts.update(decode_attention=da.launches,  # ...and ends here
+                          fused_layers=decode_fused.launches,
+                          flash=(fa.fwd_launches, fa.bwd_launches),
+                          routes=check_flash_routes(what, mcfg.compute_dtype))
+
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            r = run_pool(cfg, mcfg, device=device, chaos=chaos, around_day=around_day())
+        wall = time.perf_counter() - t0
+        pm = r.pop("pool")
+        check(not r["failures"], f"{what}: {r['failures']}")
+        routes = counts.pop("routes")
+        attempts = r["day"]["decode_attempts"]  # replica decode attempts in the day
+        total = sum(attempts.values())
+        n = r["steps_run"]
+        check(not cuda or (counts["decode_attention"] == mcfg.n_layers * total
+                           and counts["fused_layers"] == 0 and total > 0
+                           and counts["flash"] == (mcfg.n_layers * n,
+                                                   mcfg.n_layers * n * fa.BWD_KERNELS)),
+              f"{what}: launches {counts} for {total} replica decode attempts {attempts} and "
+              f"{n} train steps")
+        check(not heard, f"{what}: kernel libraries built or first loaded in the day: {heard}")
+        r.update(launches=counts, flash_routes=routes, leg_wall_s=wall)
+        rec[leg] = r
+        ts = r["timeshare"]
+        log(f"{what} on the flagship (bf16, {cfg.train_steps} train steps): "
+            f"{r['day']['ticks']} ticks in {r['day']['wall_s']:.3f} s; transitions "
+            + "; ".join(f"{t['kind']} {t['hosts']} {t['state']} (to step {t['to_step']}, "
+                        f"restore {t['restore_s'] if t['restore_s'] is None else round(t['restore_s'], 4)} s, "
+                        f"stages {({k: round(v, 4) for k, v in t['stage_s'].items()})} s, "
+                        f"dead {t['dead_hosts']})" for t in r["transitions"])
+            + f"; {r['requests']} requests, states {sorted(set(r['states'].values()))}, "
+            f"tokens equal to generate() {r['tokens_equal']} (hops {r['hops_at']}); losses "
+            f"equal the uninterrupted run's; grow oracles {r['day']['grow_oracles']}; "
+            f"{r['replayed_steps']} steps replayed; snapshot stores {r['snapshot_host_bytes']} B "
+            f"of host memory, {len(r['snapshot_commit_s'])} commits ({r['snapshots_skipped']} "
+            f"ticks skipped), commit s {[round(c, 4) for c in r['snapshot_commit_s']]}; train "
+            f"shard: train {ts['train_s']:.3f} s ({ts['train_share']:.3f}), serve "
+            f"{ts['serve_s']:.3f} s ({ts['serve_share']:.3f}), snapshot dispatch "
+            f"{ts['snapshot_dispatch_s']:.3f} s, resizes {ts['resize_s']:.3f} s; unattributed "
+            f"{r['unattributed_pct']}%; launches {counts} for decode attempts {attempts} "
+            f"and {n} train steps; leg wall {wall:.3f} s [{smi}]")
+        del pm
+        if cuda:
+            import torch
+
+            torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default="", help="write every measured number to this JSON file")
@@ -5335,6 +5536,21 @@ def main() -> int:
         record["fleet"] = fleet_phase(smi, args.seed)
         fleet = record["fleet"]
 
+        mark("29")
+        # 29. elastic training and the resource pool: the elastic drill on
+        # the flagship, then pool_config.yaml's day, plain and with chaos
+        walls29 = [time.perf_counter()]
+        record["elastic"] = elastic_phase(smi)
+        torch.cuda.empty_cache()
+        walls29.append(time.perf_counter())
+        record["pool"] = pool_phase(smi)
+        walls29.append(time.perf_counter())
+        record["phase29_wall_s"] = dict(total=walls29[-1] - walls29[0],
+                                        a=walls29[1] - walls29[0], b=walls29[2] - walls29[1])
+        log(f"phase 29 wall {walls29[-1] - walls29[0]:.1f} s: (a) {walls29[1] - walls29[0]:.1f}, "
+            f"(b) {walls29[2] - walls29[1]:.1f}")
+        pool = record["pool"]
+
         main = results[0]
         kernels = [dict(
             name="decode_attention", route="cuda",
@@ -5348,6 +5564,8 @@ def main() -> int:
             launches_chaos_serve={dt: chaos_serve[f"fused_{dt}"]["launches"]["decode_attention"]
                                   for dt in ("bfloat16", "float32")},
             launches_fleet=fleet["a"]["launches"]["decode_attention"],
+            launches_pool={leg: pool[leg]["launches"]["decode_attention"]
+                           for leg in ("plain", "chaos")},
         )]
         # The flash rows: the plan's route of the timed bf16 kernels ("tc":
         # tensor cores) and the main path's launches by kind and route; the
@@ -5386,6 +5604,12 @@ def main() -> int:
                 capture_kernels_telemetry=record["telemetry"]["capture"]["flash_kernels"][part],
                 launches_chaos_train=record["chaos_train"]["flash_launches"][part == "bwd"],
                 route_launches_chaos_train=record["chaos_train"]["flash_routes"],
+                launches_elastic=record["elastic"]["flash_launches"][part == "bwd"],
+                route_launches_elastic=record["elastic"]["flash_routes"],
+                launches_pool={leg: pool[leg]["launches"]["flash"][part == "bwd"]
+                               for leg in ("plain", "chaos")},
+                route_launches_pool={leg: pool[leg]["flash_routes"]
+                                     for leg in ("plain", "chaos")},
                 **({"dq_ms": fl["dq_ms"], "dkv_ms": fl["dkv_ms"],
                     "dq_bound_ms": fl["dq_bound_ms"], "dq_route_launches": routes7["dq"]}
                    if part == "bwd" else {}),

@@ -3,6 +3,7 @@
 from dtc_tpu_torch.config.loader import (
     load_config,
     load_finetune_config,
+    load_pool_config,
     load_router_config,
     load_serve_config,
     load_yaml_dataclass,
@@ -14,6 +15,7 @@ from dtc_tpu_torch.config.schema import (
     ChaosConfig,
     ModelConfig,
     OptimConfig,
+    PoolConfig,
     RouterConfig,
     ServeConfig,
     SloConfig,
@@ -25,8 +27,8 @@ from dtc_tpu_torch.config.schema import (
 
 __all__ = [
     "DTYPE_BYTES", "AdapterConfig", "ChaosConfig", "ModelConfig",
-    "OptimConfig", "RouterConfig", "ServeConfig", "SloConfig", "SpecConfig",
+    "OptimConfig", "PoolConfig", "RouterConfig", "ServeConfig", "SloConfig", "SpecConfig",
     "StreamRetryConfig", "TrainConfig", "WatchdogConfig", "load_config",
-    "load_finetune_config", "load_router_config", "load_serve_config",
+    "load_finetune_config", "load_pool_config", "load_router_config", "load_serve_config",
     "load_yaml_dataclass", "parse_yaml",
 ]

@@ -245,6 +245,27 @@ def load_router_config(
     return router_cfg, model_cfg
 
 
+def load_pool_config(
+    pool_config_path: str | Path,
+    model_config_path: str | Path | None = None,
+    pool_overrides: dict[str, Any] | None = None,
+):
+    """Load the (pool, model) config pair of the resource pool; the model
+    config defaults to the sibling ``model_config.yaml``, the fleet nests
+    under the pool YAML's ``router:`` block and each replica's engine
+    config under ``router.serve:``; ``pool_overrides`` replace top-level
+    pool keys (the entry point's ``--train_steps``)."""
+    from dtc_tpu_torch.config.schema import ModelConfig, PoolConfig
+
+    pool_config_path = Path(pool_config_path)
+    model_config_path = Path(
+        model_config_path or pool_config_path.parent / "model_config.yaml"
+    )
+    pool_cfg = load_yaml_dataclass(pool_config_path, PoolConfig, overrides=pool_overrides)
+    model_cfg = load_yaml_dataclass(model_config_path, ModelConfig)
+    return pool_cfg, model_cfg
+
+
 def load_config(
     train_config_path: str | Path,
     model_config_path: str | Path | None = None,

@@ -531,6 +531,86 @@ class RouterConfig:
 
 
 @dataclass(frozen=True)
+class PoolConfig:
+    """The resource pool (:mod:`dtc_tpu_torch.pool`): one fixed set of
+    virtual hosts arbitrated between the serving fleet and the elastic
+    trainer, each host leased to one tenant at a time (a serving host runs
+    one replica, a training host adds its devices to the train mesh). A
+    GROW moves hosts serve -> train, a SHRINK train -> serve. See
+    ``configs/pool_config.yaml`` for the knobs."""
+
+    # Virtual hosts the pool's devices split into (8 virtual devices / 4
+    # hosts = 2 a host).
+    n_hosts: int = 4
+    # Hosts first leased to the trainer (the high ids); every other host
+    # runs one serving replica.
+    train_hosts: int = 2
+    # Floors on each tenant's lease.
+    min_serve_hosts: int = 1
+    min_train_hosts: int = 1
+    # The train mesh's model axis; every legal lease must divide by it.
+    model_axis: int = 1
+    # The global train batch, kept across every resize.
+    global_batch: int = 8
+    # The training budget the pool completes.
+    train_steps: int = 12
+    # The train tenant's hot-tier snapshot cadence and retention.
+    snapshot_every: int = 1
+    snapshot_keep: int = 4
+    # Missed heartbeats before the train tenant's monitor declares a host lost.
+    heartbeat_miss_limit: int = 2
+    # Ticks with an empty fleet queue before the pool asks a GROW of idle
+    # serving hosts.
+    grow_after_idle_ticks: int = 2
+    # Pending requests per accepting replica above which the pool takes
+    # capacity back for serving (a SHRINK, then a replica on the freed host).
+    spike_queue_depth: int = 3
+    # The fleet front-end; n_replicas is set from the leases.
+    router: RouterConfig = field(default_factory=RouterConfig)
+    # Pool-level faults (pool_spike_mid_grow / pool_kill_mid_shrink /
+    # pool_kill_draining_replica).
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
+
+    def __post_init__(self) -> None:
+        if self.n_hosts < 2:
+            raise ValueError("pool.n_hosts must be >= 2")
+        # min_serve_hosts 0 is legal: a full grow leases every host to the
+        # trainer and arriving requests park in the pool.
+        if self.min_serve_hosts < 0 or self.min_train_hosts < 1:
+            raise ValueError(
+                "pool.min_serve_hosts must be >= 0 and pool.min_train_hosts >= 1"
+            )
+        if not (self.min_train_hosts <= self.train_hosts
+                <= self.n_hosts - self.min_serve_hosts):
+            raise ValueError(
+                f"pool.train_hosts {self.train_hosts} violates the lease "
+                f"floors (min_train_hosts={self.min_train_hosts}, "
+                f"min_serve_hosts={self.min_serve_hosts}, "
+                f"n_hosts={self.n_hosts})"
+            )
+        if self.model_axis < 1:
+            raise ValueError("pool.model_axis must be >= 1")
+        if self.global_batch < 1 or self.train_steps < 1:
+            raise ValueError("pool.global_batch/train_steps must be >= 1")
+        if self.snapshot_every < 1:
+            raise ValueError("pool.snapshot_every must be >= 1")
+        if self.snapshot_keep < 2:
+            raise ValueError("pool.snapshot_keep must be >= 2")
+        if self.heartbeat_miss_limit < 1:
+            raise ValueError("pool.heartbeat_miss_limit must be >= 1")
+        if self.grow_after_idle_ticks < 1:
+            raise ValueError("pool.grow_after_idle_ticks must be >= 1")
+        if self.spike_queue_depth < 1:
+            raise ValueError("pool.spike_queue_depth must be >= 1")
+        if (self.chaos.enabled and self.chaos.pool_kill_mid_shrink_at > 0
+                and self.chaos.elastic_target_host >= self.n_hosts):
+            raise ValueError(
+                f"chaos.elastic_target_host {self.chaos.elastic_target_host} "
+                f"outside the pool (n_hosts={self.n_hosts})"
+            )
+
+
+@dataclass(frozen=True)
 class OptimConfig:
     """Optimizer: global-norm clip, then AdamW, with a constant or
     linear-warmup + cosine-decay learning rate. ``precision`` is ``fp32``
@@ -638,8 +718,10 @@ class GuardConfig:
 
 @dataclass(frozen=True)
 class ElasticConfig:
-    """Elastic training (in-memory snapshots, host-loss detection,
-    shrink-and-continue). Not ported: the trainer refuses ``enabled``."""
+    """Elastic training (:mod:`dtc_tpu_torch.resilience.elastic`): in-memory
+    snapshots with peer redundancy, heartbeat host-loss detection and
+    shrink-and-continue over virtual hosts in one process (synthetic data,
+    pipe 1, no LoRA)."""
 
     enabled: bool = False
     snapshot_every: int = 1

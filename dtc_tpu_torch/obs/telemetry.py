@@ -38,6 +38,9 @@ its readers — ``find_shards``, the goodput ledger,
                      the recovery bus (:meth:`Telemetry.drain_recovery_bus`);
 - ``hung_step``    — watchdog flag: a step exceeded the configured multiple
                      of the trailing median step time;
+- ``host_lost`` / ``host_slow`` / ``elastic_resize`` / ``elastic_spill`` —
+                     elastic training (:meth:`Telemetry.on_elastic`); the
+                     hot tier's ``snapshot`` commits arrive on the bus;
 - ``aux_compile``  — a kernel library built and loaded at its first use
                      after the startup (an eval, a boundary);
 - ``devprof``      — a device-profile capture landed (its directory);
@@ -426,13 +429,31 @@ class Telemetry:
     def on_recovery(self, step: int, *, action: str, **fields: Any) -> None:
         self.registry.counter("recoveries").inc()
         self.registry.emit("recovery", step=step, action=action, **fields)
+        self._note_restore_badput(
+            "rollback_replay" if action == "rollback" else "degraded", fields, step)
+
+    def on_elastic(self, step: int, kind: str, **fields: Any) -> None:
+        """Elastic training's events (``host_lost``, ``host_slow``,
+        ``elastic_resize``, ``elastic_spill``) into the stream, each with
+        its counter; a resize's detect-to-restored gap is noted as
+        ``elastic_resize`` badput, and a host loss dumps the flight
+        recorder."""
+        name = kind if kind.startswith("elastic_") else f"elastic_{kind}"
+        self.registry.counter(name).inc()
+        self.registry.emit(kind, step=step, **fields)
+        if kind == "elastic_resize":
+            self._note_restore_badput("elastic_resize", fields, step)
+        if kind == "host_lost":
+            self.dump_flight("host_lost", step=step)
+
+    def _note_restore_badput(self, klass: str, fields: dict[str, Any], step: int) -> None:
+        """Feed the online gauge the detect-to-restored gap when the event
+        carries the timestamps (the offline ledger also bills the steps
+        discarded)."""
         if self.goodput is None:
             return
-        # The detect->restored gap when the event carries the timestamps
-        # (the offline ledger additionally bills the discarded steps).
         td, tr = fields.get("t_detect"), fields.get("t_restored")
         if isinstance(td, (int, float)) and isinstance(tr, (int, float)):
-            klass = "rollback_replay" if action == "rollback" else "degraded"
             self.goodput.note(klass, max(float(tr) - float(td), 0.0))
             pct = self.goodput.update(step=step)
             if self.slo is not None:

@@ -23,9 +23,11 @@ cache. The fleet router (:mod:`dtc_tpu_torch.serve.router`) consults
 the ``fleet_*`` hooks at its own iteration boundaries: a replica kill
 drives failover onto the survivors, a replica stall the replica-level
 watchdog and degraded routing, a partition the retries, missed heartbeats
-and the death verdict. The pool and elastic hooks are pure functions of
-the config, kept with the class for the pool and elastic training that
-will consult them.
+and the death verdict. The elastic trainer (``train/trainer.py``) consults
+the ``kill_host`` / ``slow_host`` / ``lose_snapshot`` hooks before each
+step's heartbeat tick and ``maybe_tear_cold_spill`` after a cold-tier
+write; the resource pool (:mod:`dtc_tpu_torch.pool.manager`) the
+``pool_*`` hooks while a transition is in flight.
 """
 
 from __future__ import annotations

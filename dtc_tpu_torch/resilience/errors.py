@@ -20,6 +20,20 @@ class AnomalyAbort(ResilienceError):
     from the last verified checkpoint."""
 
 
+class SnapshotIncompleteError(ResilienceError):
+    """An in-memory snapshot cannot be put together from the surviving
+    hosts' stores: a needed shard's primary owner and its ring mirror are
+    both gone, or every surviving copy fails its hash. The trainer falls
+    back to the cold (disk) tier."""
+
+
+class ElasticAbort(ResilienceError):
+    """Elastic recovery is impossible: no valid smaller mesh exists for the
+    survivors (a model group broken, a pipeline), or the batch does not
+    split over the shrunk data axis. A supervisor must restart the job on
+    a reprovisioned slice from the last cold-tier checkpoint."""
+
+
 class ChaosTargetError(ResilienceError):
     """A chaos fault fired but its configured victim does not exist at fire
     time (``fleet_target_replica`` names a replica that was never spawned

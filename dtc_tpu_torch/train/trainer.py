@@ -122,6 +122,21 @@ the loss after the update of ``nan_at_step``, a real SIGTERM at
 ``corrupt_ckpt_at_step`` (by the lead, after its manifest). Under DP every
 rank holds an injector and poisons at the same step.
 
+``resilience.elastic`` (one process, synthetic data, pipe 1, no LoRA;
+:func:`elastic_layout`) splits virtual devices into virtual hosts
+(:mod:`dtc_tpu_torch.resilience.elastic`): every live host beats each step
+(chaos may kill one, slow one, or drop its snapshot memory first), the
+hot tier snapshots the parameters, the optimizer state and the dropout
+generator on ``snapshot_every``'s cadence without a host sync
+(:mod:`dtc_tpu_torch.resilience.snapshot`), and a host declared lost
+shrinks the virtual mesh: the newest complete snapshot is restored through
+the ring mirror (the cold tier when none survives), the row stream
+re-seeked, the window's healthy prefix committed, the restored state
+spilled to disk, and the loop replays. This process computes the whole
+global batch on any mesh, so the replay's losses are the uninterrupted
+run's bit for bit. The guard's rollback takes the hot tier below the last
+healthy boundary first; ``elastic.cold_every`` slows the disk cadence.
+
 What the port has not ported raises ``NotImplementedError`` naming the
 slice it waits for (:func:`refuse_unported`, :func:`refuse_sharded_state`).
 """
@@ -142,7 +157,7 @@ import torch
 from dtc_tpu_torch.config.schema import ModelConfig, OptimConfig, TrainConfig
 from dtc_tpu_torch.data.holdout import divert_holdout, diverted_indices, stream_index_for
 from dtc_tpu_torch.data.prefetch import PrefetchIterator, split_to_device
-from dtc_tpu_torch.data.synthetic import synthetic_batch_iterator
+from dtc_tpu_torch.data.synthetic import synthetic_batch_iterator, synthetic_row_batches
 from dtc_tpu_torch.models.gpt import GPT, resolve_device
 from dtc_tpu_torch.obs.telemetry import Telemetry
 from dtc_tpu_torch.ops.ring_attention import DistRing, use_ring
@@ -152,9 +167,13 @@ from dtc_tpu_torch.parallel.mesh import AXIS_NAMES, Mesh, check_fsdp, resolve_me
 from dtc_tpu_torch.parallel.pipeline import StageLayout, schedule_rows
 from dtc_tpu_torch.parallel.tensor import TensorParallel
 from dtc_tpu_torch.resilience.chaos import ChaosInjector
-from dtc_tpu_torch.resilience.errors import AnomalyAbort
+from dtc_tpu_torch.resilience.elastic import (
+    DEFAULT_VIRTUAL_DEVICES, HostMonitor, VirtualHosts, VirtualMesh, resize_mesh,
+)
+from dtc_tpu_torch.resilience.errors import AnomalyAbort, ElasticAbort, SnapshotIncompleteError
 from dtc_tpu_torch.resilience.events import RecoveryBus
 from dtc_tpu_torch.resilience.guard import AnomalyGuard
+from dtc_tpu_torch.resilience.snapshot import SnapshotStore, load_train_state, train_state
 from dtc_tpu_torch.resilience.watchdog import StepWatchdog
 from dtc_tpu_torch.train.optimizer import NormGroups, create_optimizer
 from dtc_tpu_torch.train.train_step import (
@@ -173,6 +192,7 @@ class TrainResult:
     gathered; under tensor or pipeline parallelism this rank's slice,
     which ``parity.gather_tp`` / ``gather_stages`` put together);
     ``optimizer``: its optimizer (under FSDP over this rank's shards);
+    ``mesh``: under elastic training the virtual mesh the run ended on;
     ``losses`` from the step after the resumed one (the first step on a
     fresh run); ``eval_losses``: ``(step, held-out loss)``. A LoRA
     finetune: ``adapter`` the trained factors (the optimizer's
@@ -186,6 +206,7 @@ class TrainResult:
     eval_losses: list[tuple[int, float]] = field(default_factory=list)
     total_time_s: float = 0.0
     adapter: dict[str, torch.Tensor] | None = None
+    mesh: VirtualMesh | None = None
 
     @property
     def base_params(self) -> dict[str, torch.Tensor] | None:
@@ -231,8 +252,6 @@ def refuse_unported(train_cfg: TrainConfig, model_cfg: ModelConfig,
         (train_cfg.parallel == "none", "parallel: none"),
         ((m.dcn_pipe, m.dcn_data, m.dcn_model) != (1, 1, 1),
          "dcn mesh factors (multi-host)"),
-        (train_cfg.resilience.elastic.enabled,
-         "resilience.elastic (elastic training)"),
         (train_cfg.multihost, "multihost (one host's torchrun processes only)"),
         (train_cfg.debug_nans, "debug_nans"),
     ]
@@ -262,13 +281,61 @@ def refuse_sharded_state(train_cfg: TrainConfig, shape: tuple[int, int, int],
                     "one-process layout gathered from the ranks' slices)")
 
 
+def elastic_layout(train_cfg: TrainConfig, model_cfg: ModelConfig, world: int,
+                   host_iterator=None) -> tuple[VirtualHosts, VirtualMesh]:
+    """The virtual hosts and mesh of an elastic run, raising the JAX
+    trainer's ``ValueError`` for what it does not support. The virtual
+    devices are the config mesh's pipe × data × model when it fixes the
+    data axis, else :data:`DEFAULT_VIRTUAL_DEVICES`; the mesh over them is
+    the one the JAX trainer builds over that many devices, shrunk at once
+    over ``elastic.dead_hosts`` (a restart on the survivors)."""
+    el_cfg = train_cfg.resilience.elastic
+    if world > 1:
+        raise ValueError(
+            "resilience.elastic emulates hosts in-process; real multi-process runs "
+            "(torchrun) are not supported yet (the virtual-host seam is where a "
+            "cross-host transport would slot in)")
+    if train_cfg.dataset != "synthetic" or host_iterator is not None:
+        raise ValueError(
+            "resilience.elastic requires dataset: synthetic (the batch-shape-independent "
+            "row stream is the re-seek contract); fineweb and caller-provided iterators "
+            "cannot be re-positioned across a mesh resize")
+    m = train_cfg.mesh
+    n_dev = (max(m.pipe, 1) * m.data * max(m.model, 1) if m.data > 0
+             else DEFAULT_VIRTUAL_DEVICES)
+    shape = resolve_mesh_shape(train_cfg.parallel, n_dev, m, n_layers=model_cfg.n_layers)
+    if shape[0] > 1:
+        raise ValueError(
+            "resilience.elastic does not support pipeline parallelism (stage-chunked "
+            "params cannot re-shard onto fewer stages); use a mesh with pipe == 1")
+    if model_cfg.adapter.rank > 0:
+        raise ValueError(
+            "resilience.elastic does not support LoRA finetunes: the frozen base params "
+            "are outside the snapshotted training state")
+    hosts = VirtualHosts(el_cfg.n_virtual_hosts, n_dev)
+    mesh = VirtualMesh(shape, hosts.devices)
+    for h in el_cfg.dead_hosts:
+        hosts.kill(h)
+    if el_cfg.dead_hosts:
+        mesh = resize_mesh(mesh, hosts)
+    if train_cfg.batch % mesh.sizes[1] != 0:
+        raise ValueError(
+            f"global batch {train_cfg.batch} must shard over the data axis "
+            f"{mesh.sizes[1]} (elastic preserves the global batch and rescales the "
+            "per-device batch)")
+    return hosts, mesh
+
+
 def make_host_iterator(train_cfg: TrainConfig, model_cfg: ModelConfig,
                        skip_batches: int = 0, seed_offset: int = 0,
                        stream_position: dict | None = None, history: int = 64,
-                       chaos=None, on_recovery=None, cancel=None) -> Iterator[np.ndarray]:
+                       chaos=None, on_recovery=None, cancel=None,
+                       row_stream: bool = False) -> Iterator[np.ndarray]:
     """``(batch, seq_len+1)`` token batches of the global batch (the JAX
     package's process 0's stream; a rank takes its share). The synthetic
-    stream from seed ``seed·1000 + seed_offset`` seeks by ``skip_batches``;
+    stream from seed ``seed·1000 + seed_offset`` seeks by ``skip_batches``
+    (with ``row_stream``, elastic training's, the flat row stream from row
+    ``skip_batches·batch``);
     FineWeb seeks by ``stream_position`` (a checkpointed position) and
     drains ``skip_batches`` (for checkpoints without one). FineWeb heals
     transient faults per ``resilience.stream_retry``; ``chaos`` threads the
@@ -277,6 +344,10 @@ def make_host_iterator(train_cfg: TrainConfig, model_cfg: ModelConfig,
     stream's retry backoff when the trainer drops it."""
     seq = model_cfg.max_seq_len + 1
     if train_cfg.dataset == "synthetic":
+        if row_stream:
+            return synthetic_row_batches(train_cfg.batch, seq, model_cfg.vocab_size,
+                                         seed=train_cfg.seed * 1000 + seed_offset,
+                                         start_row=skip_batches * train_cfg.batch)
         return synthetic_batch_iterator(train_cfg.batch, seq, model_cfg.vocab_size,
                                         seed=train_cfg.seed * 1000 + seed_offset,
                                         start=skip_batches)
@@ -316,8 +387,9 @@ class _Stream:
     the resume and the rollback, which is a resume without the restart."""
 
     def __init__(self, train_cfg, model_cfg, ckpt, host_iterator, rank: int,
-                 chaos=None, on_recovery=None):
+                 chaos=None, on_recovery=None, row_stream: bool = False):
         self.cfg, self.model_cfg, self.ckpt = train_cfg, model_cfg, ckpt
+        self.row_stream = row_stream
         self.chaos, self.on_recovery = chaos, on_recovery
         self.host_iterator = host_iterator
         self.rank = rank
@@ -349,7 +421,8 @@ class _Stream:
                 next(self.host_iterator)
             return self.host_iterator
         if not self.fineweb:
-            return make_host_iterator(cfg, self.model_cfg, skip_batches=skip)
+            return make_host_iterator(cfg, self.model_cfg, skip_batches=skip,
+                                      row_stream=self.row_stream)
         sidecar = ckpt.load_stream(resume_from, self.rank) if ckpt and resume_from > 0 else None
         if sidecar is not None:
             self.obj = it = make_host_iterator(cfg, self.model_cfg,
@@ -478,6 +551,13 @@ def _adapter_state(factors: dict[str, torch.Tensor], saved: dict) -> None:
 def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> TrainResult:
     cuda = dev.type == "cuda"
     world, rank = dist_utils.world_size(), dist_utils.rank()
+    el_cfg = train_cfg.resilience.elastic
+    hosts = vmesh = None
+    if el_cfg.enabled:
+        # Elastic training: virtual hosts over virtual devices in this one
+        # process (dtc_tpu_torch/resilience/elastic.py); a host named dead
+        # at startup shrinks the mesh before anything runs.
+        hosts, vmesh = elastic_layout(train_cfg, model_cfg, world, host_iterator)
     shape = resolve_mesh_shape(train_cfg.parallel, world, train_cfg.mesh,
                                n_layers=model_cfg.n_layers)
     if train_cfg.parallel == "fsdp":
@@ -603,6 +683,12 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
         gen.set_state(found["rng"].cpu())
         return step
 
+    # With elastic on, the disk checkpoint is the cold tier: the in-memory
+    # snapshots are the hot one, and elastic.cold_every (when set) slows the
+    # disk cadence.
+    checkpoint_every = train_cfg.checkpoint_every
+    if hosts is not None and el_cfg.cold_every > 0 and checkpoint_every > 0:
+        checkpoint_every = el_cfg.cold_every
     if train_cfg.checkpoint_every > 0:
         ckpt_dir = train_cfg.checkpoint_dir or os.path.join(train_cfg.output_dir,
                                                              "checkpoints")
@@ -626,7 +712,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
         """Rank 0 writes the model (a finetune: the adapter's factors) and
         the optimizer, every rank its own generator state and stream
         position; the step is committed when every rank's files have
-        landed."""
+        landed. The chaos damage of a checkpoint is the caller's."""
         if lead:
             ckpt.begin(step)
         dist_utils.barrier()
@@ -642,10 +728,6 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
         if position is not None:
             ckpt.save_stream(step, position, rank)
         dist_utils.barrier()
-        if chaos is not None and lead:
-            # Damage after the verified write: a later restore must detect
-            # the mismatch and fall back.
-            chaos.maybe_corrupt_checkpoint(step, ckpt.step_dir(step))
 
     log_path = os.path.join(train_cfg.output_dir, "log.csv")
     if (lead and train_cfg.output_dir and start_step == 0 and not train_cfg.overwrite
@@ -672,7 +754,8 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
         """This rank's share of each global batch."""
         return batches if rows is None else _shard(batches, rows, cols)
 
-    stream = _Stream(train_cfg, model_cfg, ckpt, host_iterator, rank, chaos, bus.post)
+    stream = _Stream(train_cfg, model_cfg, ckpt, host_iterator, rank, chaos, bus.post,
+                     row_stream=hosts is not None)
 
     def feed(resume_from: int) -> PrefetchIterator:
         return PrefetchIterator(shard(stream.build(resume_from)), dev,
@@ -721,7 +804,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
     peak = peak_flops(dev)
     peak = peak * world if peak is not None else None
     tokens_per_step = train_cfg.batch * seq
-    result = TrainResult(model=model, optimizer=opt, adapter=factors)
+    result = TrainResult(model=model, optimizer=opt, adapter=factors, mesh=vmesh)
     # The step the result's lists start after; a rollback below the resume
     # point moves it down.
     result_base = start_step
@@ -745,13 +828,37 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
         result.eval_losses[:] = [e for e in result.eval_losses if e[0] <= target]
         result_base = min(result_base, target)
 
+    def restore_from_tiers(cur_step: int, max_step: int | None) -> tuple[int | None, str, bool]:
+        """Load the newest complete in-memory snapshot at or below
+        ``max_step`` (elastic training's hot tier) into the model, the
+        optimizer and the generator, else the newest verified checkpoint;
+        shared by the rollback and the elastic resize. Returns ``(step,
+        tier, used_mirror)``, the step None when no source exists."""
+        if snaps is not None:
+            snaps.drain()
+            snap = snaps.latest(max_step=max_step)
+            if snap is not None:
+                try:
+                    restored, used_mirror = snaps.restore(snap, hosts.alive)
+                    load_train_state(model, opt, gen, restored)
+                    return snap.step, "memory", used_mirror
+                except SnapshotIncompleteError as e:
+                    tele.on_recovery(cur_step, action="snapshot_incomplete", reason=str(e))
+        if ckpt is None:
+            return None, "cold", False
+        return restore_latest(), "cold", False
+
     def rollback(cur_step: int, reason: str, window_losses, window_rows) -> int | None:
-        """The guard's rollback: restore the newest verified checkpoint,
-        re-seek the stream there and return its step (None when no step is
-        intact: the guard then only burns a rung)."""
+        """The guard's rollback: restore the newest complete snapshot below
+        the window's last healthy boundary, else the newest verified
+        checkpoint, re-seek the stream there and return its step (None when
+        nothing is intact: the guard then only burns a rung). A step's loss
+        is computed on the parameters going into it, so the healthy losses
+        through the boundary vouch for snapshots through boundary-1 only."""
         nonlocal data_it
         t_detect = time.time()
-        target = restore_latest()
+        boundary = cur_step - len(window_losses)
+        target, tier, _ = restore_from_tiers(cur_step, boundary - 1)
         if target is None:
             return None
         stream.cancel.set()  # ends a retry backoff of the dropped stream
@@ -760,13 +867,65 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
         guard.note_rollback()
         commit_and_truncate(target, window_rows, window_losses)
         tele.on_recovery(cur_step, action="rollback", to_step=target, reason=reason,
-                         tier="cold", rollbacks=guard.rollbacks_done,
+                         tier=tier, rollbacks=guard.rollbacks_done,
                          t_detect=round(t_detect, 6), t_restored=round(time.time(), 6))
         tele.drain_recovery_bus(bus, cur_step)  # the restore's fallbacks
         tele.record_aux_compile(cur_step, "rollback")
         tele.flush()
-        say(f"[dtc_tpu_torch] ROLLBACK: {reason} — restored checkpoint step {target}, "
+        restored = "checkpoint" if tier == "cold" else "memory snapshot"
+        say(f"[dtc_tpu_torch] ROLLBACK: {reason} — restored {restored} step {target}, "
             f"stream re-seeked ({guard.rollbacks_done}/{guard_cfg.max_rollbacks})")
+        return target
+
+    def elastic_resize(cur_step: int, lost: list[int], window_losses, window_rows) -> int:
+        """Shrink-and-continue: the mesh over the surviving hosts, the newest
+        complete snapshot restored (the cold tier when the survivors cannot
+        put it together), the row stream re-seeked, the restored state
+        spilled to the cold tier; returns the restored step, from which the
+        loop replays. The global batch is kept; this process computes it
+        whole on any mesh, so the replay's numbers are the uninterrupted
+        run's. Runs off the hot path (a host just died)."""
+        nonlocal data_it, vmesh
+        t_detect = time.time()
+        new_mesh = resize_mesh(vmesh, hosts)
+        new_data = new_mesh.sizes[1]
+        if train_cfg.batch % new_data != 0:
+            raise ElasticAbort(
+                f"global batch {train_cfg.batch} does not shard over the shrunk data axis "
+                f"{new_data}; no valid elastic continuation exists")
+        target, tier, used_mirror = restore_from_tiers(cur_step, None)
+        if target is None:
+            raise ElasticAbort(
+                f"no complete in-memory snapshot survives hosts {sorted(lost)} being lost "
+                "and no intact cold-tier checkpoint; elastic recovery is impossible — "
+                "restart from a reprovisioned slice")
+        fetched = torch.stack(window_losses).tolist() if window_losses else []
+        commit_and_truncate(target, window_rows, fetched)
+        vmesh = result.mesh = new_mesh
+        stream.cancel.set()
+        data_it.close()
+        data_it = feed(target)
+        tele.on_elastic(cur_step, "elastic_resize", to_step=target, tier=tier,
+                        used_mirror=used_mirror, hosts_lost=sorted(lost),
+                        devices=len(hosts.survivor_devices()), mesh=new_mesh.shape,
+                        per_device_batch=train_cfg.batch // new_data,
+                        t_detect=round(t_detect, 6), t_restored=round(time.time(), 6))
+        tele.drain_recovery_bus(bus, cur_step)
+        if ckpt is not None and el_cfg.spill_on_resize:
+            # The restored state goes to the cold tier at once: a second
+            # failure before the next save would be unrecoverable, and a
+            # shrunk restart (elastic.dead_hosts) resumes from this step.
+            with tele.span("elastic_spill", step=target):
+                save_checkpoint(target)
+            if chaos is not None and lead:
+                # A torn spill (a preemption mid-write): a restore must reject it.
+                chaos.maybe_tear_cold_spill(target, ckpt.step_dir(target))
+            tele.on_elastic(target, "elastic_spill", detected_at=cur_step)
+        tele.record_aux_compile(cur_step, "elastic_resize")
+        tele.flush()
+        say(f"[dtc_tpu_torch] ELASTIC RESIZE: hosts {sorted(lost)} lost — restored {tier} "
+            f"step {target}{' (ring mirror)' if used_mirror else ''}, mesh -> "
+            f"{new_mesh.shape}, per-device batch {train_cfg.batch // new_data}, continuing")
         return target
 
     def run_eval(step: int) -> float:
@@ -796,6 +955,14 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
             "no usable FSDP ring in scope (the active rules don't shard 'embed_p', its "
             "mesh axis is size 1, or sequence-parallel rules own the activations); every "
             "matmul keeps its plain product")
+    monitor = snaps = None
+    if hosts is not None:
+        # The roster is frozen here, after the startup's dead hosts.
+        monitor = HostMonitor(hosts, miss_limit=el_cfg.heartbeat_miss_limit)
+        # Commits land on a thread: their records ride the bus.
+        snaps = SnapshotStore(hosts, keep=el_cfg.keep, on_event=bus.post)
+        if cuda:
+            snaps.reserve(train_state(model, opt, gen, rules)[0])
 
     # SIGTERM (a preemption) asks for a graceful stop: the loop finishes the
     # step, checkpoints it, flushes the CSV and returns.
@@ -827,6 +994,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
             say("Start measuring")
             device_losses: list[torch.Tensor] = []
             pending: list[tuple[int, float]] = []
+            snap_cold = True  # the first snapshot's library loads, if any
             start = window_start = time.perf_counter()
             window_steps = 0
             # while, not for: a rollback moves the step back to the
@@ -852,14 +1020,55 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
                 pending.append((step, now - start))
                 breakdown = tele.on_step_end(step, elapsed_s=now - start,
                                              synced=bool(sync_every_step))
+                stalled = False
                 if wd is not None:
                     flag = wd.observe(step, breakdown["step_time_s"])
                     if flag is not None:
                         say(f"[dtc_tpu_torch] hung step: {flag}")
                         tele.on_hung_step(**flag)
+                        # A hung step is the collective-stall signal: the
+                        # heartbeat poll below escalates.
+                        stalled = True
                         if res_cfg.watchdog.profile_on_flag:
                             tele.arm_profile_window(step + 1)
                 window_steps += 1
+                if hosts is not None:
+                    # The emulation's chaos lands before the heartbeat tick
+                    # and the snapshot: a host killed at step k beats and
+                    # stores nothing from k on.
+                    if chaos is not None:
+                        victim = chaos.kill_host(step)
+                        if victim is not None:
+                            hosts.kill(victim)
+                        slow = chaos.slow_host(step)
+                        if slow is not None:
+                            monitor.mark_slow(slow[0], step + slow[1] - 1)
+                        gone = chaos.lose_snapshot(step)
+                        if gone is not None:
+                            snaps.drop_primary(gone)
+                    monitor.tick(step)
+                    if step % el_cfg.snapshot_every == 0:
+                        # Clones and a copy stream dispatched; hashing and
+                        # filing on the commit thread. No host sync here.
+                        state, specs = train_state(model, opt, gen, rules)
+                        if snaps.begin(step, state, vmesh, specs) and snap_cold:
+                            snap_cold = False
+                            tele.record_aux_compile(step, "snapshot_dispatch")
+                    lost_now = []
+                    for ev in monitor.poll(step, stalled=stalled):
+                        kind = ev.pop("kind")
+                        tele.on_elastic(step, kind, **ev)
+                        if kind == "host_lost":
+                            lost_now.append(ev["host"])
+                    if lost_now:
+                        # Replay from the restored step on the survivors' mesh;
+                        # the detection window's suffix was dropped.
+                        step = elastic_resize(step, lost_now, device_losses, pending)
+                        device_losses, pending = [], []
+                        window_start, window_steps = time.perf_counter(), 0
+                        if wd is not None:
+                            wd.disarm()
+                        continue
                 if chaos is not None and chaos.should_preempt(step):
                     if in_main_thread:
                         # A real signal through the real handler (delivered
@@ -938,7 +1147,7 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
                     start += run_eval(step)
                     tele.record_aux_compile(step, "eval")
                     window_start, window_steps = time.perf_counter(), 0
-                if ckpt is not None and (step % train_cfg.checkpoint_every == 0 or stopping):
+                if ckpt is not None and (step % checkpoint_every == 0 or stopping):
                     # The state may already be poisoned before the next log
                     # boundary sees it; a bit-intact NaN checkpoint would become
                     # the rollback target. One scalar fetch a save.
@@ -951,6 +1160,11 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
                         tele.registry.counter("checkpoints").inc()
                         with tele.span("checkpoint", step=step):
                             save_checkpoint(step)
+                        if chaos is not None and lead:
+                            # Damage after the verified write: a later restore
+                            # must detect it and fall back.
+                            chaos.maybe_corrupt_checkpoint(step, ckpt.step_dir(step))
+                            chaos.maybe_tear_cold_spill(step, ckpt.step_dir(step))
                     tele.record_aux_compile(step, "checkpoint")
                 if stopping:
                     break
@@ -969,6 +1183,8 @@ def _train(train_cfg, model_cfg, opt_cfg, dev, params, host_iterator, lora) -> T
     finally:
         if wd is not None:
             wd.stop()
+        if snaps is not None:
+            snaps.close()
         stream.cancel.set()
         data_it.close()
         if in_main_thread:

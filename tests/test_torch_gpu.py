@@ -5,7 +5,8 @@ kernels on the model's decode and training paths (rematerialisation and
 the FSDP ring over virtual ranks included); two gloo ranks sharing the
 card for tensor parallelism and the FSDP ring's transport; a resume at the
 flagship's widths; a LoRA finetune step and bf16_mixed optimizer steps
-against the CPU's; the serving engine's chaos faults on the card's KV cache.
+against the CPU's; the serving engine's chaos faults on the card's KV cache;
+elastic training's snapshots on the card (pinned copies, a restore).
 Needs an NVIDIA GPU with ``nvcc``; elsewhere every test skips with the
 reason.
 
@@ -1883,3 +1884,65 @@ if __name__ == "__main__":
     import sys
 
     _tp_worker(sys.argv[1])
+
+
+def test_snapshot_pinned_copies_leave_the_losses_bit_equal(cuda, tmp_path):
+    """Elastic training's snapshots on the card (device clones, the copy
+    stream into pinned buffers behind a CUDA event, the commit thread) move
+    no loss bit: at the flagship's widths with 2 layers (bf16, dropout
+    0.1), snapshots every step give the losses of a run whose cadence never
+    fires, and a host killed at step 4 replays them bit for bit."""
+    from pathlib import Path
+
+    from dtc_tpu_torch.config.loader import load_config
+    from dtc_tpu_torch.config.schema import ChaosConfig, ElasticConfig, ResilienceConfig
+    from dtc_tpu_torch.train.trainer import train
+
+    root = Path(__file__).resolve().parent.parent
+    tcfg, mcfg, ocfg = load_config(root / "configs" / "train_config_dp.yaml")
+    mcfg = dataclasses.replace(mcfg, n_layers=2)
+
+    def run(name, every, chaos=ChaosConfig()):
+        el = ElasticConfig(enabled=True, snapshot_every=every, keep=4, n_virtual_hosts=2)
+        cfg = dataclasses.replace(
+            tcfg, parallel="fsdp", dataset="synthetic", steps=8, warmup_steps=1, log_every=2,
+            checkpoint_every=100, output_dir=str(tmp_path / name),
+            checkpoint_dir=str(tmp_path / f"{name}_ckpt"),
+            resilience=ResilienceConfig(elastic=el, chaos=chaos))
+        return train(cfg, mcfg, ocfg)
+
+    quiet = run("quiet", 1000)
+    assert run("every", 1).losses == quiet.losses
+    kill = run("kill", 1, ChaosConfig(enabled=True, kill_host_at_step=4, elastic_target_host=0))
+    assert kill.losses == quiet.losses and kill.mesh.shape["data"] == 4
+
+
+def test_snapshot_restore_onto_the_card_equals_the_snapshot(cuda):
+    """A snapshot of card tensors (bf16 and float32, a device count, a CUDA
+    generator's state) is the state at ``begin``: updated in place after
+    it, the restore onto the card gives the values and dtypes of the
+    moment it was taken, on the card, through the ring mirror too."""
+    from dtc_tpu_torch.resilience import SnapshotStore, VirtualHosts, VirtualMesh
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    state = {"w": torch.randn(64, 32, device=cuda, generator=gen).to(torch.bfloat16),
+             "m": torch.randn(64, 32, device=cuda, generator=gen),
+             "count": torch.tensor(7, device=cuda), "rng": gen.get_state()}
+    want = {k: v.clone() for k, v in state.items()}
+    hosts = VirtualHosts(2)
+    store = SnapshotStore(hosts, keep=2)
+    try:
+        store.reserve(state)
+        assert store.begin(3, state, VirtualMesh((1, 8, 1), range(8)),
+                           {"w": (None, "data"), "m": ("data", None)})
+        state["w"].add_(1)
+        state["m"].mul_(2)
+        store.drain()
+        for alive in ({0, 1}, {1}):
+            got, used_mirror = store.restore(store.latest(), alive, device=cuda)
+            assert used_mirror == (alive == {1})
+            for k, v in want.items():
+                assert got[k].dtype == v.dtype and got[k].device.type == "cuda"
+                assert torch.equal(got[k].cpu(), v.cpu())
+    finally:
+        store.close()

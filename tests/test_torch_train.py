@@ -293,7 +293,7 @@ def test_trainer_without_a_card_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("over", [
     dict(parallel="fsdp", mesh=ts.MeshConfig(pipe=2)),
-    dict(resilience=ts.ResilienceConfig(elastic=ts.ElasticConfig(enabled=True))),
+    dict(mesh=ts.MeshConfig(dcn_data=2)),
     dict(multihost=True), dict(debug_nans=True),
 ])
 def test_unported_training_features_raise(tmp_path, over):
